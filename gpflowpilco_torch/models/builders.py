@@ -1,0 +1,96 @@
+"""Model construction from data (counterpart of gpflowpilco_tpu/models/builders.py).
+
+The JAX masks become ``requires_grad`` flags: ``dynamics_mask`` and
+``policy_mask`` set them on the model and return its trainable parameters.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from ..utils import bijectors as bij
+from .gp import SVGP
+from .initializers import inducing_points_kmeans, lengthscales_median, replace_duplicates
+from .kernels import RBF
+
+
+def build_svgp(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    num_inducing: int,
+    generator: Optional[torch.Generator] = None,
+    coregionalize: Optional[bool] = None,
+    num_latent: Optional[int] = None,
+    max_corr: float = 1.0,
+    q_mu: Optional[torch.Tensor] = None,
+    noise_variance: float = 1.0,
+    whiten: bool = True,
+    shared_kernel: bool = False,
+    ls_low: float = 0.01,
+    ls_high: float = 100.0,
+) -> SVGP:
+    """An SVGP on the device and dtype of ``x``: RBF kernels with
+    median-heuristic lengthscales, k-means inducing points, one latent per
+    output. Coregionalization and the shared kernel are not ported yet."""
+    num_data, num_out = y.shape
+    if num_latent is None:
+        num_latent = num_out
+    if coregionalize is None:
+        coregionalize = num_out != num_latent
+    if coregionalize or shared_kernel:
+        raise NotImplementedError(
+            "build_svgp: coregionalized and shared-kernel SVGPs are not ported yet"
+        )
+    dtype, device = x.dtype, x.device
+
+    ls = lengthscales_median(x, lower=ls_low, upper=ls_high)  # (D,)
+    kernel = RBF.create(
+        torch.ones((num_latent,), dtype=dtype, device=device),
+        ls[None].repeat(num_latent, 1),
+        ls_low=ls_low,
+        ls_high=ls_high,
+    )
+    m = min(num_inducing, num_data)
+    z0 = inducing_points_kmeans(x, m, generator=generator)
+    if max_corr < 1.0:
+        z0 = torch.as_tensor(
+            replace_duplicates(z0.cpu().numpy(), 1.0, ls.cpu().numpy(), tol=max_corr),
+            dtype=dtype,
+            device=device,
+        )
+    z = z0[None].repeat(num_latent, 1, 1)
+    if q_mu is None:
+        q_mu = torch.zeros((m, num_latent), dtype=dtype, device=device)
+    q_sqrt = torch.eye(m, dtype=dtype, device=device)[None].repeat(num_latent, 1, 1)
+    return SVGP(
+        kernel=kernel,
+        z=z,
+        q_mu=q_mu,
+        q_sqrt=q_sqrt,
+        mean_const=torch.zeros((num_out,), dtype=dtype, device=device),
+        raw_noise=bij.positive_inv(torch.tensor(noise_variance, dtype=dtype, device=device)),
+        w=None,
+        whiten=whiten,
+    )
+
+
+def _set_trainable(model: SVGP, frozen) -> List[torch.nn.Parameter]:
+    trainable = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(not frozen(name))
+        if p.requires_grad:
+            trainable.append(p)
+    return trainable
+
+
+def dynamics_mask(model: SVGP, freeze_inducing: bool) -> List[torch.nn.Parameter]:
+    """Everything trainable, except the inducing inputs when M >= N."""
+    return _set_trainable(model, lambda name: freeze_inducing and name == "z")
+
+
+def policy_mask(model: SVGP) -> List[torch.nn.Parameter]:
+    """Deterministic kernel-regressor policy: freeze q_sqrt, the kernel
+    variance, the noise, the mean and the mixing matrix."""
+    frozen = ("q_sqrt", "raw_noise", "mean_const", "w", "raw_variance")
+    return _set_trainable(model, lambda name: name.split(".")[-1] in frozen)

@@ -1,0 +1,89 @@
+"""Squared-exponential kernel with latent-stacked parameters
+(counterpart of gpflowpilco_tpu/models/kernels.py).
+
+A multioutput kernel is one ``RBF`` whose parameters carry a leading latent
+axis L: variance (L,), lengthscales (L, D). ``SharedRBF`` (one hyperparameter
+set tied across latents) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..utils import bijectors as bij
+
+
+class RBF(nn.Module):
+    """k(a, b) = variance * exp(-0.5 * sum_d ((a_d - b_d) / lengthscales_d)^2).
+
+    ``raw_*`` are the unconstrained ``nn.Parameter``s: ``variance`` is a
+    shifted softplus and ``lengthscales`` a sigmoid onto (ls_low, ls_high),
+    or a shifted softplus when ``ls_low`` is None.
+    """
+
+    def __init__(
+        self,
+        raw_variance: torch.Tensor,
+        raw_lengthscales: torch.Tensor,
+        ls_low: Optional[float] = 0.01,
+        ls_high: Optional[float] = 100.0,
+    ):
+        super().__init__()
+        self.raw_variance = nn.Parameter(raw_variance)
+        self.raw_lengthscales = nn.Parameter(raw_lengthscales)
+        self.ls_low = ls_low
+        self.ls_high = ls_high
+
+    @property
+    def variance(self) -> torch.Tensor:
+        return bij.positive(self.raw_variance)
+
+    @property
+    def lengthscales(self) -> torch.Tensor:
+        if self.ls_low is None:
+            return bij.positive(self.raw_lengthscales)
+        return bij.sigmoid_interval(self.raw_lengthscales, self.ls_low, self.ls_high)
+
+    @classmethod
+    def create(
+        cls,
+        variance: torch.Tensor,
+        lengthscales: torch.Tensor,
+        ls_low: Optional[float] = 0.01,
+        ls_high: Optional[float] = 100.0,
+    ) -> "RBF":
+        raw_v = bij.positive_inv(variance)
+        if ls_low is None:
+            raw_l = bij.positive_inv(lengthscales)
+        else:
+            raw_l = bij.sigmoid_interval_inv(lengthscales, ls_low, ls_high)
+        return cls(raw_v, raw_l, ls_low=ls_low, ls_high=ls_high)
+
+    def gram(self, a: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Dense Gram matrix: a (..., N, D), b (..., M, D) -> (..., N, M).
+
+        Uses the direct (a-b)^2 form, not the inner-product expansion, so the
+        factorizations of grams whose smallest eigenvalues sit at the jitter
+        floor see no cancellation error.
+        """
+        if b is None:
+            b = a
+        ls = self.lengthscales
+        if ls.dim() == 0:
+            ls = ls[None]
+        sa = a / ls[..., None, :]
+        sb = b / ls[..., None, :]
+        diff = sa[..., :, None, :] - sb[..., None, :, :]
+        d2 = torch.sum(diff * diff, dim=-1)
+        return self.variance[..., None, None] * torch.exp(-0.5 * d2)
+
+
+def square_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """||a_i - b_j||^2 by the inner-product expansion, clamped at 0."""
+    aa = torch.sum(a * a, dim=-1)
+    bb = torch.sum(b * b, dim=-1)
+    ab = torch.einsum("...nd,...md->...nm", a, b)
+    d2 = aa[..., :, None] + bb[..., None, :] - 2.0 * ab
+    return torch.clamp(d2, min=0.0)

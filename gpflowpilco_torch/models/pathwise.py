@@ -1,0 +1,130 @@
+"""Pathwise (decoupled) GP sampling: RFF prior + canonical inducing update
+(counterpart of gpflowpilco_tpu/models/pathwise.py).
+
+  prior   f_s(x) ~= sqrt(2 sigma^2 / B) * sum_b w_sb cos(omega_b . x + phi_b),
+            omega_b ~ N(0, diag(1/lengthscales^2)), phi_b ~ U[0, 2pi), w_sb ~ N(0,1)
+  update  f_s(x) += k(x, Z) v_s,   v_s = Kuu^{-1} (u_s - f_s(Z)),  u_s ~ q(u)
+
+Sampling is split in two so that tests can feed the JAX package's draws:
+``draw_path_noise`` draws the standard normals, the phases, ``w`` and
+``eps`` from a ``torch.Generator``; ``paths_from_noise`` turns given noise
+into a ``PathState``.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..ops.linalg import bcho_solve
+from ..ops.path_eval_cuda import eval_fused_operands, fused_operands
+from .gp import SVGP, chol_kuu
+from .kernels import RBF
+
+
+class PathState(NamedTuple):
+    """A batch of S sampled posterior functions (for one latent-stacked model)."""
+
+    omega: torch.Tensor  # (L, B, D) RFF frequencies
+    phase: torch.Tensor  # (L, B)
+    w: torch.Tensor  # (S, L, B) prior basis weights
+    v: torch.Tensor  # (S, L, M) canonical update weights
+
+
+class PathNoise(NamedTuple):
+    """The random draws behind a PathState."""
+
+    omega_normal: torch.Tensor  # (L, B, D) standard normals
+    phase: torch.Tensor  # (L, B) uniform on [0, 2 pi)
+    w: torch.Tensor  # (S, L, B) standard normals
+    eps: torch.Tensor  # (S, L, M) standard normals for u ~ q(u)
+
+
+def _prior_at(kernel: RBF, omega, phase, w, x):
+    """Prior sample values at per-sample inputs x (S, D) -> (S, L)."""
+    proj = torch.einsum("sd,lbd->slb", x, omega) + phase
+    scale = torch.sqrt(2.0 * kernel.variance / omega.shape[-2])
+    return torch.einsum("slb,slb->sl", scale[:, None] * torch.cos(proj), w)
+
+
+def _prior_at_shared(kernel: RBF, omega, phase, w, z):
+    """Prior sample values at shared inputs z (L, M, D) -> (S, L, M)."""
+    proj = torch.einsum("lmd,lbd->lmb", z, omega) + phase[:, None, :]
+    scale = torch.sqrt(2.0 * kernel.variance / omega.shape[-2])
+    feats = scale[:, None, None] * torch.cos(proj)  # (L, M, B)
+    return torch.einsum("lmb,slb->slm", feats, w)
+
+
+def draw_path_noise(
+    model: SVGP, num_samples: int, num_bases: int, generator: Optional[torch.Generator] = None
+) -> PathNoise:
+    """The draws for ``num_samples`` paths of ``model``, on its device and dtype."""
+    num_latent, m, d = model.z.shape
+    kw = dict(dtype=model.z.dtype, device=model.z.device, generator=generator)
+    return PathNoise(
+        omega_normal=torch.randn((num_latent, num_bases, d), **kw),
+        phase=2.0 * math.pi * torch.rand((num_latent, num_bases), **kw),
+        w=torch.randn((num_samples, num_latent, num_bases), **kw),
+        eps=torch.randn((num_samples, num_latent, m), **kw),
+    )
+
+
+def paths_from_noise(model: SVGP, noise: PathNoise) -> PathState:
+    """Decoupled posterior sample functions of ``model`` from given draws."""
+    kern = model.kernel
+    omega = noise.omega_normal / kern.lengthscales[:, None, :]
+    q_sqrt = torch.tril(model.q_sqrt)  # (L, M, M)
+    v_sample = model.q_mu.T + torch.einsum("lmn,sln->slm", q_sqrt, noise.eps)
+    luu = chol_kuu(model)
+    u_sample = torch.einsum("lmn,sln->slm", luu, v_sample) if model.whiten else v_sample
+    resid = u_sample - _prior_at_shared(kern, omega, noise.phase, noise.w, model.z)
+    # one batched solve per latent with S right-hand sides
+    v = torch.movedim(bcho_solve(luu, torch.movedim(resid, 0, -1)), -1, 0)
+    return PathState(omega=omega, phase=noise.phase, w=noise.w, v=v)
+
+
+def generate_paths_svgp(
+    model: SVGP, generator: Optional[torch.Generator], num_samples: int, num_bases: int
+) -> PathState:
+    """Draw S decoupled posterior sample functions."""
+    return paths_from_noise(model, draw_path_noise(model, num_samples, num_bases, generator))
+
+
+def eval_paths_svgp(model: SVGP, paths: PathState, x: torch.Tensor) -> torch.Tensor:
+    """Evaluate sample s at its own input x[s]: x (S, D) -> (S, P). Plain
+    torch, differentiable in everything."""
+    kern = model.kernel
+    f_lat = _prior_at(kern, paths.omega, paths.phase, paths.w, x)  # (S, L)
+    ls = kern.lengthscales  # (L, D)
+    xs = x[:, None, :] / ls[None, :, :]  # (S, L, D)
+    zs = model.z / ls[:, None, :]  # (L, M, D)
+    x2 = torch.sum(xs * xs, dim=-1)
+    z2 = torch.sum(zs * zs, dim=-1)
+    xz = torch.einsum("sld,lmd->slm", xs, zs)
+    d2 = torch.clamp(x2[..., None] + z2[None] - 2.0 * xz, min=0.0)
+    kxz = kern.variance[None, :, None] * torch.exp(-0.5 * d2)
+    f_lat = f_lat + torch.einsum("slm,slm->sl", kxz, paths.v)
+    out = f_lat @ model.w.T if model.w is not None else f_lat
+    return out + model.mean_const
+
+
+class PathwiseSVGPTransform:
+    """Drift callable carrying explicit path state.
+
+    ``fused=True`` routes through the kernel op (ops/path_eval_cuda.py), with
+    its operands prepared once here rather than on every call. Use it where
+    the drift is frozen with respect to the loss (policy optimization): the
+    op has no gradient for the drift's hyperparameters.
+    """
+
+    def __init__(self, model: SVGP, paths: PathState, fused: bool = False):
+        self.model = model
+        self.paths = paths
+        self.fused = fused
+        self._operands = fused_operands(model, paths) if fused else None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return eval_fused_operands(self.model, self._operands, x)
+        return eval_paths_svgp(self.model, self.paths, x)
