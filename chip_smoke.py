@@ -6,27 +6,46 @@
 1. Refuses to run without CUDA; prints the card's name and power limit.
 2. Builds every CUDA kernel from the sources in this checkout (one nvcc per
    source, all started together) and prints the build time.
-3. Kernels: at the main path's shapes (S=1024 particles, L=4 latents,
-   B=1024 Fourier bases, M=240 inducing points, D=6 inputs, float32, inputs
-   made from --seed with numpy) runs each kernel on the card, holds it
-   against its plain torch version on the same inputs, and times both.
-4. Slice: pathwise PILCO on cartpole at full width (1024 particles x 1024
-   bases, horizon 30, up to 240 inducing points): 8 random episodes through
-   outer_loop, then one iteration (L-BFGS drift fit, Adam policy update, one
-   RK4 episode). The kernels' launch counts are zeroed just before that
+3. Kernels, on inputs made from --seed with numpy, each held against its
+   plain torch version on the same inputs and timed beside it:
+   - K1 (path eval) at the pathwise path's shapes: S=1024 particles, L=4
+     latents, B=1024 Fourier bases, M=240 inducing points, D=6, float32;
+   - K2 (eKuffu pair contraction: forward, full and frozen backward) in
+     float32 and float64 at the MM path's two shapes: the drift's N=1,
+     P=10 latent pairs, D2=14, M=240 and the policy's N=1, P=1, D2=12, M=30.
+4. Pathwise slice: pathwise PILCO on cartpole at full width (1024 particles x
+   1024 bases, horizon 30, up to 240 inducing points): 8 random episodes
+   through outer_loop, then one iteration (L-BFGS drift fit, Adam policy
+   update, one RK4 episode). The launch counts are zeroed just before that
    iteration and read just after; each kernel the path runs must have run.
-5. Prints the kernels' JSON line, then {"ok": true, "device": {...}} as the
+5. MM slice: moment-matching PILCO on cartpole at full width (drift M=240,
+   policy M=30, horizon 30) with the pair-grid kernel (use_fused_mm), the
+   float64 loss with the policy chain as a float32 island: 8 random
+   episodes, an L-BFGS drift fit, then one Adam policy update and one RK4
+   episode. The counts are zeroed just before the policy update and read
+   just after: per Adam step, 30 float64 forward and 30 frozen backward
+   launches (the drift match) and 30 float32 forward and 30 full backward
+   launches (the policy match). At the trained policy the 30-step float64
+   MM loss through the kernel and through the unfused eKuffu must agree to
+   1e-9 relative, or to 10x the loss's own rounding noise where that is
+   larger (mm_loss_noise).
+6. Prints the kernels' JSON line, then {"ok": true, "device": {...}} as the
    last line. Any failed check raises, so the exit code is non-zero.
 
-Tolerance of the kernel checks: rtol = atol = 1e-4. The kernel and its plain
-version both sum ~1024 float32 terms of size ~0.05 per output, in different
-orders and with differently rounded cos/sin/exp arguments; the expected gap
-is ~1e-6, so 1e-4 leaves room without hiding a wrong index or term.
+Tolerances of the kernel checks, rtol = atol:
+- K1, 1e-4: the kernel and its plain version both sum ~1024 float32 terms
+  of size ~0.05 per output, in different orders and with differently
+  rounded cos/sin/exp arguments; the expected gap is ~1e-6, so 1e-4 leaves
+  room without hiding a wrong index or term.
+- K2, 1e-4 in float32 and 1e-10 in float64: each output is a sum of at most
+  240 terms (times a 14-term exponent) taken in another order than the
+  plain version's, so the gap is a few ulps of the sum's size.
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import math
 import statistics
@@ -41,6 +60,14 @@ import torch
 RTOL = ATOL = 1e-4
 S, L, B, M, D = 1024, 4, 1024, 240, 6
 HORIZON_STEPS = 30
+# K2's shapes on the MM path, (N, P, D2, M): the drift match (P = L(L+1)/2
+# latent pairs, D2 = 2*(5 features + 1 action) + 2) and the policy match
+PAIR_SHAPES = {"drift": (1, L * (L + 1) // 2, 2 * D + 2, M), "policy": (1, 1, 2 * 5 + 2, 30)}
+PAIR_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+# the MM path runs the drift match in float64 and the policy match in float32
+PAIR_MAIN = {torch.float64: "drift", torch.float32: "policy"}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}  # H100 SXM, outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
 
 
 def card_line() -> str:
@@ -132,9 +159,9 @@ def kernel_inputs(seed, device):
     )
 
 
-def check(name, got, want):
+def check(name, got, want, tol=RTOL):
     err = float((got - want).abs().max())
-    ok = torch.allclose(got, want, rtol=RTOL, atol=ATOL)
+    ok = torch.allclose(got, want, rtol=tol, atol=tol)
     print(f"  {name}: max|kernel - plain| = {err:.3e}  ({'ok' if ok else 'FAILED'})")
     if not ok or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel disagrees with its plain version (max err {err})")
@@ -196,9 +223,103 @@ def kernels_phase(pe, seed, device):
     return errs, timings
 
 
+def pair_bound_ms(kind, n, p, d2, m, dtype, r=1):
+    """Least time one K2 launch could take on an H100 SXM at 700 W: each
+    input read once and each output written once over 3.35 TB/s, or its
+    operations over the peak vector rate of its type (FP32 67, FP64 34
+    TFLOP/s), whichever is larger. An exp counts as one operation. Returns
+    (ms, 'bytes' | 'operations')."""
+    size = torch.finfo(dtype).bits // 8
+    grid = n * p * m * m  # (i, j) entries of E, recomputed by every pass
+    inputs = 2 * n * p * d2 * m + p * r * m + p * m * m
+    if kind == "fwd":
+        outputs = n * p * r * m + n * p * m
+        # exponent dot, exp, the alu and qm products
+        ops = grid * (2 * d2 + 1 + 2 * r + 2)
+    else:
+        inputs += n * p * r * m + n * p * m  # devc, dqcol
+        outputs = 2 * n * p * d2 * m
+        # E again, dE = alu devc + qm dqcol, g = -E dE, dsu and dsw
+        ops = grid * (2 * d2 + 1 + 2 * r + 2 + 1 + 4 * d2)
+        if kind == "bwd":
+            outputs += p * r * m + p * m * m  # dalu, dqm
+            ops += grid * (2 * r + 1)
+    t_bytes = (inputs + outputs) * size / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def pair_inputs(rng, n, p, d2, m, dtype, device):
+    """su, sw >= 0 with exponents su^T sw of order 1 (E spans ~e^0..e^-5, as
+    in the pair grid), alu, qm and the backward's cotangents."""
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device).contiguous()  # noqa: E731
+    scale = 1.5 / math.sqrt(d2)
+    return dict(
+        su=f(np.abs(rng.normal(size=(n, p, d2, m))) * scale),
+        sw=f(np.abs(rng.normal(size=(n, p, d2, m))) * scale),
+        alu=f(rng.normal(size=(p, 1, m))),
+        qm=f(rng.normal(size=(p, m, m))),
+        devc=f(rng.normal(size=(n, p, 1, m))),
+        dqcol=f(rng.normal(size=(n, p, m))),
+    )
+
+
+def pair_kernels_phase(kc, seed, device):
+    """Hold K2's six entries against the plain version at both MM shapes and
+    time each at the shape the main path gives it (float64 at the drift's,
+    float32 at the policy's)."""
+    rng = np.random.default_rng(seed + 1000)
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=device)
+    errs = {name: 0.0 for name in kc.launches}
+    timings = {}
+    for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
+        tol = PAIR_TOL[dtype]
+        for where, (n, p, d2, m) in PAIR_SHAPES.items():
+            t = pair_inputs(rng, n, p, d2, m, dtype, device)
+            ops = (t["su"], t["sw"], t["alu"], t["qm"])
+            cot = (t["devc"], t["dqcol"])
+            want_fwd = kc.pair_contract_reference(*ops)
+            want_bwd = kc.pair_contract_reference_bwd(*ops, *cot, True)
+            got = {
+                "fwd": kc._fwd(*ops),
+                "bwd": kc._bwd(*ops, *cot, True),
+                "bwd_frozen": kc._bwd(*ops, *cot, False),
+            }
+            sync()
+            print(f"pair contract {where} N={n} P={p} D2={d2} M={m} {sfx}, rtol=atol={tol}:")
+            outs = {
+                "fwd": zip(("evc", "qcol"), got["fwd"], want_fwd),
+                "bwd": zip(("dsu", "dsw", "dalu", "dqm"), got["bwd"], want_bwd),
+                "bwd_frozen": zip(("dsu", "dsw"), got["bwd_frozen"][:2], want_bwd[:2]),
+            }
+            for kind, triples in outs.items():
+                name = f"pair_contract_{kind}_{sfx}"
+                for out, g, w in triples:
+                    errs[name] = max(errs[name], check(f"{name} {out}", g, w, tol))
+            if PAIR_MAIN[dtype] != where:
+                continue
+            calls = {
+                "fwd": (lambda: kc._fwd(*ops), lambda: kc.pair_contract_reference(*ops)),
+                "bwd": (lambda: kc._bwd(*ops, *cot, True),
+                        lambda: kc.pair_contract_reference_bwd(*ops, *cot, True)),
+                "bwd_frozen": (lambda: kc._bwd(*ops, *cot, False),
+                               lambda: kc.pair_contract_reference_bwd(*ops, *cot, False)),
+            }
+            for kind, (kern, plain) in calls.items():
+                name = f"pair_contract_{kind}_{sfx}"
+                ms = median_ms(kern, flush=flush)
+                warm_ms = median_ms(kern)
+                plain_ms = median_ms(plain, reps=10, flush=flush)
+                bound, bound_by = pair_bound_ms(kind, n, p, d2, m, dtype)
+                timings[name] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, bound_ms=bound,
+                                     bound_by=bound_by)
+                print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), "
+                      f"plain torch {plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
+    return errs, timings
+
+
 def slice_phase(pe, seed, device, step_limit, lbfgs_iters):
     """8 random episodes, then one full-width pathwise PILCO iteration."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples" / "cartpole_swingup"))
     from run_torch import build_loop
 
     from gpflowpilco_torch.loops.driver import outer_loop
@@ -313,8 +434,138 @@ def slice_phase(pe, seed, device, step_limit, lbfgs_iters):
                                 episode_ms=1e3 * t_ep)
 
 
-def _profile(name, fn, out_dir, reps=3):
-    """Wall time, device busy share and top kernels of ``fn`` (torch.profiler)."""
+def mm_losses(loop, paths=(("kernel", True), ("unfused", False))):
+    """The MM loss of the loop's policy, all in float64 (the policy chain
+    too), through the pair-grid kernel and through the unfused eKuffu."""
+    spec = loop.policy_spec
+    loop.policy_spec = dataclasses.replace(spec, loss_policy_f32=False)
+    losses = {}
+    try:
+        with torch.no_grad():
+            for name, fused in paths:
+                loop.use_fused_mm = fused
+                losses[name] = float(loop.policy_loss_fn(loop.policy_model, None))
+    finally:
+        loop.use_fused_mm, loop.policy_spec = True, spec
+    return losses
+
+
+def mm_loss_noise(loop, base):
+    """The rounding noise of the float64 MM loss at this checkpoint: the
+    largest relative move of the unfused loss when the initial mean moves by
+    1e-14 to 1e-12, far too little for the loss's derivative to show. At a
+    fitted M=240 drift the expected-covariance term var - sum(Q * eKuffu)
+    cancels digits (Q = Kuu^-1 - ... has large entries of both signs), so
+    two correct evaluations in another order differ well above 1e-16."""
+    spec = loop.episode_spec
+    moves = []
+    try:
+        for delta in (1e-14, 1e-13, 1e-12):
+            loop.episode_spec = spec._replace(state_mean=np.asarray(spec.state_mean) + delta)
+            moved = mm_losses(loop, paths=(("unfused", False),))["unfused"]
+            moves.append(abs(moved - base) / abs(base))
+    finally:
+        loop.episode_spec = spec
+    return max(moves)
+
+
+def mm_slice_phase(kc, seed, device, step_limit, lbfgs_iters):
+    """8 random episodes, then one full-width MM PILCO iteration through the
+    pair-grid kernel, with the float64 loss and a float32 policy island."""
+    from run_torch import build_loop
+
+    from gpflowpilco_torch.loops.driver import outer_loop
+    from gpflowpilco_torch.loops.pilco import DriftSpec, MomentMatchingPILCO, PolicySpec
+
+    loop = build_loop(
+        seed, device, torch.float32,
+        drift_spec=DriftSpec(num_centers=M, max_iters=lbfgs_iters),
+        policy_spec=PolicySpec(loss_dtype=torch.float64, num_restarts=1, step_limit=step_limit),
+        loop_cls=MomentMatchingPILCO,
+    )
+    loop.use_fused_mm = True
+    assert loop.episode_spec.num_steps == HORIZON_STEPS
+    t0 = time.perf_counter()
+    outer_loop(loop, num_episodes=8, num_episodes_init=8, log_summaries=False)
+    sync()
+    print(f"mm slice: 8 random episodes in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    info_d = loop.update_dynamics()
+    sync()
+    t_dyn = time.perf_counter() - t0
+    m_drift = loop.drift_model.num_inducing
+    print(f"mm slice: drift fit {1e3 * t_dyn:.1f} ms, loss {info_d['loss']:.4f}, "
+          f"{info_d['iters']} iterations, M={m_drift}; Adam step_limit={step_limit}, "
+          f"horizon={HORIZON_STEPS}, loss float64, policy island float32")
+    assert math.isfinite(info_d["loss"]), "drift fit loss is not finite"
+    assert m_drift == M, f"drift has M={m_drift}, expected {M}"
+
+    # ---- the main path: counts zeroed just before, read just after
+    loop.policy_model = loop.build_policy()
+    assert loop.policy_model.num_inducing == 30
+    before = {n: p.detach().clone() for n, p in loop.policy_model.named_parameters()}
+    kc.reset_launches()
+    t0 = time.perf_counter()
+    info_p = loop.update_policy()
+    sync()
+    t_pol = time.perf_counter() - t0
+    delta = dict(kc.launches)
+    print(f"mm slice: policy update {1e3 * t_pol:.1f} ms = {1e3 * t_pol / step_limit:.2f} ms "
+          f"per MM policy step; loss {info_p['loss']:.6f}, skipped {info_p['skipped_steps']}; "
+          f"launches {delta}")
+    assert math.isfinite(info_p["loss"]), "MM policy loss is not finite"
+    want = dict.fromkeys(kc.launches, 0)
+    for name in ("pair_contract_fwd_f64", "pair_contract_bwd_frozen_f64",
+                 "pair_contract_fwd_f32", "pair_contract_bwd_f32"):
+        want[name] = HORIZON_STEPS * step_limit
+    assert delta == want, f"K2 launches {delta}, expected {want}"
+    moved = max(
+        float((p.detach() - before[n]).abs().max())
+        for n, p in loop.policy_model.named_parameters() if p.requires_grad
+    )
+    assert moved > 0, "policy parameters did not change"
+
+    t0 = time.perf_counter()
+    ep = loop.step()
+    sync()
+    t_ep = time.perf_counter() - t0
+    launches = dict(kc.launches)
+    # the episode's eReward metric evaluates the MM loss once, forward only
+    want = {k: v + (HORIZON_STEPS if k in ("pair_contract_fwd_f64", "pair_contract_fwd_f32") else 0)
+            for k, v in delta.items()}
+    assert launches == want, f"K2 launches after the episode {launches}, expected {want}"
+    print(f"mm slice: RK4 episode {1e3 * t_ep:.1f} ms, reward {ep.metrics['rewards']:.4f}, "
+          f"model-predicted {ep.metrics.get('eReward', float('nan')):.4f}")
+    assert ep.states.shape == (HORIZON_STEPS + 1, 4) and np.isfinite(ep.states).all()
+
+    # ---- output check: the 30-step MM loss at the trained policy in float64
+    # (policy chain too), through the kernel and through the unfused eKuffu
+    # to 1e-9 relative, or to 10x the loss's own rounding noise where that is
+    # larger (see mm_loss_noise)
+    losses = mm_losses(loop)
+    rel = abs(losses["kernel"] - losses["unfused"]) / abs(losses["unfused"])
+    noise = mm_loss_noise(loop, losses["unfused"])
+    bar = max(1e-9, 10.0 * noise)
+    qmax = float(loop.policy_loss_drift().cache.qmat.abs().max())
+    print(f"mm slice: 30-step float64 MM loss via the kernel {losses['kernel']:.15f}, "
+          f"unfused {losses['unfused']:.15f}, relative gap {rel:.3e}; the unfused loss's "
+          f"rounding noise {noise:.3e} (max |Q| of the drift {qmax:.3e}), bar {bar:.3e}")
+    assert math.isfinite(losses["kernel"]) and rel <= bar, "fused and unfused MM losses disagree"
+    return loop, launches, dict(dynamics_ms=1e3 * t_dyn, policy_step_ms=1e3 * t_pol / step_limit,
+                                episode_ms=1e3 * t_ep)
+
+
+# kernel-name fragments whose rows a profile prints on their own: this
+# repository's kernels and the eigenvalue solver behind psd_project's eigvalsh
+_WATCHED = ("fwd_kernel", "bwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel", "syev", "eig")
+# host runtime calls that wait for the device or copy through it
+_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
+
+
+def _profile(name, fn, out_dir, reps=3, export=True):
+    """Wall time, device busy share, top kernels, the watched kernels and the
+    host's synchronizing runtime calls, of ``fn`` (torch.profiler); with
+    ``export``, its Chrome trace into ``out_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
@@ -325,8 +576,9 @@ def _profile(name, fn, out_dir, reps=3):
             fn()
         sync()
         wall = time.perf_counter() - t0
-    Path(out_dir).mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(Path(out_dir) / f"{name}_trace.json"))
+    if export:
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(Path(out_dir) / f"{name}_trace.json"))
     # device-side events only: operator rows repeat their kernels' time
     kernels = [
         e for e in prof.key_averages()
@@ -340,11 +592,17 @@ def _profile(name, fn, out_dir, reps=3):
           f"{events // reps} device events per call")
     for e in sorted(kernels, key=dev, reverse=True)[:8]:
         print(f"  {dev(e) / 1e3 / reps:8.3f} ms  {e.count // reps:6d} calls  {e.key[:90]}")
+    for e in sorted(kernels, key=dev, reverse=True):
+        if any(w in e.key for w in _WATCHED):
+            print(f"  watched {dev(e) / 1e3 / reps:8.3f} ms  {e.count // reps:6d} calls  {e.key[:90]}")
+    host = [e for e in prof.key_averages() if any(e.key.startswith(w) for w in _SYNCS)]
+    print("  host syncs and copies per call: " + (", ".join(
+        f"{e.key} x{e.count // reps}" for e in host) or "none"))
 
 
-def profile_phase(loop, out_dir):
-    """Profiles of one policy loss+grad evaluation and one drift ELBO+grad
-    evaluation, at the slice's shapes."""
+def profile_phase(loop, mm_loop, out_dir):
+    """Profiles of one pathwise and one MM policy loss+grad evaluation and
+    one drift ELBO+grad evaluation, at the slices' shapes."""
     from gpflowpilco_torch.models.builders import dynamics_mask
     from gpflowpilco_torch.models.gp import svgp_elbo
     from gpflowpilco_torch.models.priors import pilco_snr_penalty
@@ -352,6 +610,13 @@ def profile_phase(loop, out_dir):
     model, drift = loop.policy_model, loop.policy_loss_drift()
     gen = loop.iteration_generator(99)
     _profile("policy_step", lambda: loop.policy_loss_fn(model, gen, drift=drift).backward(), out_dir)
+    mm_model, mm_drift = mm_loop.policy_model, mm_loop.policy_loss_drift()
+    # ~33k device events per call: too large a trace to keep
+    _profile(
+        "mm_policy_step",
+        lambda: mm_loop.policy_loss_fn(mm_model, None, drift=mm_drift).backward(),
+        out_dir, export=False,
+    )
 
     x, y = loop.get_data_dynamics()
     dynamics_mask(drift, freeze_inducing=drift.num_inducing >= x.shape[0])
@@ -373,8 +638,10 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU", file=sys.stderr)
         sys.exit(2)
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    root = Path(__file__).resolve().parent
+    sys.path[:0] = [str(root), str(root / "examples" / "cartpole_swingup")]
     from gpflowpilco_torch.ops import _build
+    from gpflowpilco_torch.ops import kexp_cuda as kc
     from gpflowpilco_torch.ops import path_eval_cuda as pe
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -391,23 +658,34 @@ def main():
           f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items()) or 'cached'})")
 
     errs, timings = kernels_phase(pe, args.seed, device)
+    pair_errs, pair_timings = pair_kernels_phase(kc, args.seed, device)
     loop, launches, slice_ms = slice_phase(pe, args.seed, device, args.step_limit, args.lbfgs_iters)
+    mm_loop, pair_launches, mm_ms = mm_slice_phase(
+        kc, args.seed, device, args.step_limit, args.lbfgs_iters
+    )
     if args.profile:
-        profile_phase(loop, args.profile)
+        profile_phase(loop, mm_loop, args.profile)
 
     for name, n in launches.items():
         if name != "path_eval_bwd_full" and n == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+            raise AssertionError(f"{name} was not launched on the pathwise path")
+    errs.update(pair_errs)
+    timings.update(pair_timings)
+    launches.update(pair_launches)
+    sources = dict.fromkeys(pe.launches, "gpflowpilco_torch/csrc/path_eval.cu")
+    sources.update(dict.fromkeys(kc.launches, "gpflowpilco_torch/csrc/kexp_pair.cu"))
     replaces = {
         "path_eval_fwd": "gpflowpilco_tpu/ops/path_eval_pallas.py:58",
         "path_eval_bwd_dx": "gpflowpilco_tpu/ops/path_eval_pallas.py:102",
         "path_eval_bwd_full": "gpflowpilco_tpu/ops/path_eval_pallas.py:90",
     }
+    for name in kc.launches:
+        replaces[name] = "gpflowpilco_tpu/ops/kexp_pallas.py:" + ("47" if "_fwd_" in name else "62")
     kernels = [
         dict(
             name=name,
             route="cuda",
-            source="gpflowpilco_torch/csrc/path_eval.cu",
+            source=sources[name],
             replaces=replaces[name],
             launches=launches[name],
             max_abs_err=errs[name],
@@ -417,9 +695,10 @@ def main():
             bound_by=timings[name]["bound_by"],
             library_ms=None,
         )
-        for name in ("path_eval_fwd", "path_eval_bwd_dx", "path_eval_bwd_full")
+        for name in (*pe.launches, *kc.launches)
     ]
-    print(f"slice ms: {json.dumps(slice_ms)}")
+    print(f"pathwise slice ms: {json.dumps(slice_ms)}")
+    print(f"mm slice ms: {json.dumps(mm_ms)}")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -27,6 +27,11 @@ class EpisodeSpec(NamedTuple):
         )
         return mean + torch.einsum("ij,...j->...i", tril, rvs)
 
+    def covariance(self) -> np.ndarray:
+        """Initial-state covariance tril @ tril^T (the MM rollout's cov0)."""
+        tril = np.asarray(self.state_scale_tril)
+        return tril @ tril.T
+
 
 class EpisodeData(NamedTuple):
     states: np.ndarray  # (T+1, D)

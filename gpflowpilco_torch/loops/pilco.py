@@ -1,10 +1,12 @@
-"""Pathwise PILCO (counterpart of gpflowpilco_tpu/loops/pilco.py).
+"""Pathwise and moment-matching PILCO (counterpart of gpflowpilco_tpu/loops/pilco.py).
 
 Ported: the data plumbing, the SVGP drift fit by L-BFGS (with zero-weight
 padding rows and the refit from the incumbent), the single-start Adam policy
 update, the real-environment step with its random first episodes and the
-retain-best acting gate, and ``PathwisePILCO``'s SVGP particle loss. Its
-drift evaluation goes through the CUDA kernel op (ops/path_eval_cuda.py).
+retain-best acting gate, ``PathwisePILCO``'s SVGP particle loss (its drift
+evaluation goes through the CUDA kernel op ops/path_eval_cuda.py), and
+``MomentMatchingPILCO``'s SVGP moment-matched loss (its eKuffu pair grid
+goes through the CUDA kernel op ops/kexp_cuda.py under ``use_fused_mm``).
 
 Models are ``nn.Module``s trained in place. Randomness comes from
 ``torch.Generator``s seeded from (seed, number of episodes, purpose), the
@@ -12,7 +14,8 @@ counterpart of the JAX package's per-iteration key folds.
 
 Not ported yet, and raising ``NotImplementedError``: multistart policy
 optimization (``num_restarts > 1``), GPR/HMC drifts and the other drift
-optimizers, ``loss_dtype``, checkpointing, and the optimism noise floor.
+optimizers, ``loss_dtype`` for the pathwise loss, the whole-match kernel
+(``use_fused_match``), checkpointing, and the optimism noise floor.
 """
 from __future__ import annotations
 
@@ -26,8 +29,8 @@ import torch
 
 from ..components import Encoder, GaussianObjective
 from ..config import default_device
-from ..dynamics.forward import forward_concrete
-from ..dynamics.solvers import euler_rollout
+from ..dynamics.forward import forward_concrete, forward_moments
+from ..dynamics.solvers import euler_rollout, moment_matching_euler_rollout
 from ..envs.base import env_step
 from ..envs.base import rollout as env_rollout
 from ..models.builders import build_svgp, dynamics_mask, policy_mask
@@ -36,12 +39,28 @@ from ..models.pathwise import PathwiseSVGPTransform, generate_paths_svgp
 from ..models.priors import pilco_snr_penalty
 from ..moment_matching.gp import SVGPTransform
 from ..moment_matching.rules import SquashedProbit
-from ..moments import Chain
+from ..moments import Chain, DtypeIsland, GaussianMoments
 from ..utils.optimizers import adam_minimize, lbfgs_minimize, make_policy_schedule
 from .core import EpisodeData, EpisodeSpec, stack_episodes
 
 # generator purposes (the JAX package's fold_in salts play this role)
 _DYNAMICS, _POLICY_INIT, _POLICY_OPT, _STEP, _EXPECTED_REWARD = 0, 1, 2, 7, 23
+
+
+def _cast_module(module: torch.nn.Module, dtype: Optional[torch.dtype]) -> torch.nn.Module:
+    """A view of ``module`` whose floating parameters are cast to ``dtype``,
+    the casts in the autograd graph, so gradients reach the original
+    parameters (the counterpart of the JAX package's _cast_floats on a model
+    pytree). The module itself when ``dtype`` is None or already its own."""
+    if dtype is None or all(p.dtype == dtype for p in module.parameters()):
+        return module
+    view = copy.copy(module)  # a new __dict__ holding the same entries
+    view._parameters = {
+        name: None if p is None else (p.to(dtype) if p.is_floating_point() else p)
+        for name, p in module._parameters.items()
+    }
+    view._modules = {name: _cast_module(m, dtype) for name, m in module._modules.items()}
+    return view
 
 
 def _same_structure(a: torch.nn.Module, b: torch.nn.Module) -> bool:
@@ -94,8 +113,23 @@ class PolicySpec:
     # act with the best-measured snapshot unless the trained policy's own
     # model-predicted reward beats the snapshot's measured score
     retain_best_policy: bool = True
-    # a loss dtype other than the loop's (not ported yet)
+    # mixed-precision MM loss: the trained parameters and the drift fit stay
+    # in the loop dtype, while the moment-matched rollout loss (and so its
+    # gradient) computes in this dtype. At a fitted drift the float32 MM
+    # gradient decorrelates from the float64 truth (the 30-step recursion is
+    # chaotic), so the H100's native float64 runs the loss. MM only: the
+    # pathwise loss raises on it.
     loss_dtype: Optional[torch.dtype] = None
+    # keep the policy chain (policy match and probit/BVN squash) as a
+    # loop-dtype island inside the loss_dtype loss: a float64 carry and
+    # drift match alone restore the truth gradient
+    loss_policy_f32: bool = True
+    # the JAX package's double-float MM loss; here it is the float64 loss
+    # (loss_dtype=torch.float64), which it emulates
+    loss_compensated: bool = False
+    # scan unroll of the JAX MM rollout; accepted and ignored, since eager
+    # PyTorch has no scan to unroll
+    mm_unroll: int = 30
 
 
 class PILCOBase:
@@ -134,6 +168,11 @@ class PILCOBase:
         self.best_policy_model: Optional[SVGP] = None
         self.best_policy_score: float = float("-inf")
         self.acting_model: Optional[SVGP] = None
+        # route the MM eKuffu pair grid through the CUDA contraction kernel
+        # (ops/kexp_cuda.py)
+        self.use_fused_mm: bool = False
+        # the whole-match kernel of the JAX package (not ported yet: raises)
+        self.use_fused_match: bool = False
 
     # ------------------------------------------------------------------ randomness
     def iteration_generator(self, purpose: int) -> torch.Generator:
@@ -201,7 +240,9 @@ class PILCOBase:
     def policy_chain(self, policy_model: SVGP) -> Chain:
         """Squashed deterministic policy: u = 2*scale*(Phi(g) - 0.5)."""
         scale = self.policy_spec.action_scale
-        policy_t = SVGPTransform(model=policy_model, deterministic=True).with_cache()
+        policy_t = SVGPTransform(
+            model=policy_model, deterministic=True, fused=self.use_fused_mm
+        ).with_cache()
         return Chain(SquashedProbit(scale=2.0 * scale - 1e-5), policy_t)
 
     # ------------------------------------------------------------------ training
@@ -278,8 +319,6 @@ class PILCOBase:
             raise NotImplementedError(
                 "multistart policy optimization is not ported yet; use num_restarts=1"
             )
-        if spec.loss_dtype is not None:
-            raise NotImplementedError("PolicySpec.loss_dtype is not ported yet")
         if self.policy_model is None or spec.reinitialize:
             self.policy_model = self.build_policy()
         model = self.policy_model
@@ -394,6 +433,78 @@ class PILCOBase:
         raise NotImplementedError("checkpointing is not ported yet")
 
 
+class MomentMatchingPILCO(PILCOBase):
+    """Classic PILCO: deterministic propagation of Gaussian state moments.
+    SVGP drifts only; GPR and ensemble drifts raise."""
+
+    @property
+    def _loss_override(self) -> Optional[torch.dtype]:
+        """The dtype the loss runs in when it is not the loop's:
+        ``PolicySpec.loss_dtype``, or float64 under ``loss_compensated``,
+        whose double-float arithmetic emulates float64 on a chip without it."""
+        spec = self.policy_spec
+        return torch.float64 if spec.loss_compensated else spec.loss_dtype
+
+    @property
+    def _fused_mm_on(self) -> bool:
+        """The pair-grid kernel runs whenever ``use_fused_mm`` is set. The JAX
+        package also required the loss to run in the loop dtype, because its
+        Pallas kernels are 32-bit on the TPU; the CUDA kernel takes float32
+        and float64, so the float64 drift match and the float32 policy
+        island both launch it."""
+        return self.use_fused_mm
+
+    def _drift_transform(self, drift_model):
+        if not isinstance(drift_model, SVGP):
+            raise NotImplementedError("only SVGP drifts are ported for the MM loss yet")
+        if self.use_fused_match:
+            raise NotImplementedError("the whole-match kernel (use_fused_match) is not ported yet")
+        return SVGPTransform(
+            model=_cast_module(drift_model, self._loss_override), fused=self._fused_mm_on
+        ).with_cache()
+
+    def policy_loss_drift(self) -> SVGPTransform:
+        """The frozen drift as a cached transform at the loss dtype, built once
+        per policy update: its Cholesky, representer and pair factors do not
+        change across optimizer steps."""
+        return self._drift_transform(super().policy_loss_drift())
+
+    def _mm_rollout_loss(self, policy_model: SVGP, drift: SVGPTransform) -> torch.Tensor:
+        """Expected cumulative cost of one moment-matched rollout under a
+        cached drift transform. The per-step cost is computed after the
+        rollout from the stacked moments, in one batched evaluation."""
+        ld = self._loss_override
+        dtype = self.dtype if ld is None else ld
+        if ld is not None and self.policy_spec.loss_policy_f32:
+            # the policy chain as a loop-dtype island inside the loss dtype
+            pol = DtypeIsland(inner=self.policy_chain(policy_model), dtype=self.dtype, outer=ld)
+        else:
+            pol = self.policy_chain(_cast_module(policy_model, ld))
+        spec = self.episode_spec
+        x0 = GaussianMoments(
+            mean=torch.as_tensor(spec.state_mean, dtype=dtype, device=self.device)[None],
+            cov=torch.as_tensor(spec.covariance(), dtype=dtype, device=self.device)[None],
+        )
+        _, means, covs = moment_matching_euler_rollout(
+            lambda t, xm: forward_moments(xm, drift, policy=pol, encoder=self.encoder),
+            x0,
+            dt=1.0,  # the drift predicts per-control-step deltas
+            num_steps=spec.num_steps,
+        )
+        states = GaussianMoments(mean=means, cov=covs)  # (T, 1, D) stacks
+        feats = states if self.encoder is None else self.encoder.moment_match(states).y
+        return self.objective(feats).sum()
+
+    def policy_loss_fn(self, policy_model: SVGP, generator, drift=None, x0=None):
+        """The MM loss; it is deterministic, so ``generator`` and ``x0`` are
+        unused. ``drift`` is a cached transform or a drift model."""
+        if drift is None:
+            drift = self.policy_loss_drift()
+        elif not isinstance(drift, SVGPTransform):
+            drift = self._drift_transform(drift)
+        return self._mm_rollout_loss(policy_model, drift)
+
+
 class PathwisePILCO(PILCOBase):
     """Pathwise-conditioned Monte-Carlo particle rollouts: each particle rides
     its own fixed posterior sample of the drift."""
@@ -422,6 +533,8 @@ class PathwisePILCO(PILCOBase):
         """Particle loss on fresh sample paths of the drift (and fresh initial
         states unless ``x0`` is given)."""
         spec = self.policy_spec
+        if spec.loss_dtype is not None:
+            raise NotImplementedError("PolicySpec.loss_dtype applies to the MM loss only")
         drift_model = self.drift_model if drift is None else drift
         if not isinstance(drift_model, SVGP):
             raise NotImplementedError("only SVGP drifts are ported yet")

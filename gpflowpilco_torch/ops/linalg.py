@@ -24,6 +24,16 @@ def bcho_solve(chol_lower, b):
     return bsolve_triangular(chol_lower, y, lower=True, trans=1)
 
 
+def cholesky_nan(a):
+    """``chol(a)`` with NaN factors where the factorization fails, as JAX
+    returns them. ``cholesky_ex`` without its error check neither raises nor
+    waits for the device, so the per-step D x D factorizations of the moment
+    match keep the host free; a NaN loss then makes the guarded Adam skip the
+    step, as in the JAX package."""
+    chol, info = torch.linalg.cholesky_ex(a)
+    return chol.masked_fill((info != 0)[..., None, None], float("nan"))
+
+
 def safe_cholesky(a, extra_jitter, max_escalations: int = 2, factor: float = 100.0):
     """``chol(a + extra_jitter * I)`` with escalating-jitter retries.
 

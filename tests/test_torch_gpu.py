@@ -41,3 +41,51 @@ def test_torch_path_eval_kernels_match_reference_on_gpu(d):
         pe._fwd(*(o.double() for o in ops))
     with pytest.raises(ValueError):
         pe._fwd(ops[0], *ops[1:4], ops[4][:, :1], *ops[5:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, p, d2, m", [(1, 10, 14, 240), (3, 3, 14, 17), (1, 1, 12, 30), (2, 2, 20, 45)])
+def test_torch_pair_contract_kernels_match_reference_on_gpu(dtype, n, p, d2, m):
+    """K2 forward, full and frozen backward against the plain version, at the
+    drift's and the policy's shapes and at ragged ones (M not a multiple of
+    the kernel's 32-wide tiles, a batch N > 1, D2 > 16). Each output is a sum
+    of at most M terms taken in another order: rtol = atol = 1e-4 in float32,
+    1e-10 in float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from gpflowpilco_torch.ops import kexp_cuda as kc
+
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    rng = np.random.default_rng(m)
+    dev = torch.device("cuda")
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev).contiguous()  # noqa: E731
+    # exponents su^T sw >= 0, as in the pair grid: E = exp(-su^T sw) <= 1
+    su = f(np.abs(rng.normal(size=(n, p, d2, m))) / d2)
+    sw = f(np.abs(rng.normal(size=(n, p, d2, m))) / d2)
+    alu, qm = f(rng.normal(size=(p, 1, m))), f(rng.normal(size=(p, m, m)))
+    devc, dqcol = f(rng.normal(size=(n, p, 1, m))), f(rng.normal(size=(n, p, m)))
+    before = dict(kc.launches)
+    for got, want in zip(kc._fwd(su, sw, alu, qm), kc.pair_contract_reference(su, sw, alu, qm)):
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    for model in (False, True):
+        got = kc._bwd(su, sw, alu, qm, devc, dqcol, model)
+        want = kc.pair_contract_reference_bwd(su, sw, alu, qm, devc, dqcol, model)
+        for g, w in zip(got, want):
+            if w is None:
+                assert g is None
+            else:
+                torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    for kind in ("fwd", "bwd", "bwd_frozen"):
+        name = f"pair_contract_{kind}_{sfx}"
+        assert kc.launches[name] == before[name] + 1, name
+    with pytest.raises(TypeError):  # a CPU operand among CUDA ones
+        kc._fwd(su, sw, alu.cpu(), qm)
+    with pytest.raises(TypeError):  # mixed dtypes
+        kc._fwd(su, sw, alu, qm.to(torch.float32 if dtype == torch.float64 else torch.float64))
+    # repeated runs are bit-identical: no atomics
+    a = kc._bwd(su, sw, alu, qm, devc, dqcol, True)
+    b = kc._bwd(su, sw, alu, qm, devc, dqcol, True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -1,6 +1,6 @@
 """The PyTorch port's optimizers and loop: Adam and L-BFGS against the JAX
-package's drivers (float64), the not-yet-ported options, and one tiny
-pathwise PILCO iteration on the CPU."""
+package's drivers (float64), the not-yet-ported options of the pathwise and
+moment-matching loops, and one tiny pathwise PILCO iteration on the CPU."""
 import math
 import pathlib
 import sys
@@ -15,7 +15,7 @@ from gpflowpilco_tpu.models.priors import pilco_snr_penalty as jax_snr
 from gpflowpilco_tpu.utils import optimizers as jopt
 from gpflowpilco_torch.convert import svgp_from_numpy
 from gpflowpilco_torch.loops.driver import outer_loop
-from gpflowpilco_torch.loops.pilco import DriftSpec, PolicySpec
+from gpflowpilco_torch.loops.pilco import DriftSpec, MomentMatchingPILCO, PathwisePILCO, PolicySpec
 from gpflowpilco_torch.models.gp import svgp_elbo
 from gpflowpilco_torch.models.priors import pilco_snr_penalty
 from gpflowpilco_torch.utils import optimizers as topt
@@ -28,7 +28,7 @@ import run_torch  # noqa: E402
 torch.set_num_threads(1)
 
 
-def _tiny_loop(seed=5, **policy):
+def _tiny_loop(seed=5, loop_cls=PathwisePILCO, **policy):
     return run_torch.build_loop(
         seed, CPU, torch.float64,
         drift_spec=DriftSpec(num_centers=6, max_iters=10, pad_data_multiple=0),
@@ -36,6 +36,7 @@ def _tiny_loop(seed=5, **policy):
             **{**dict(num_centers=5, step_limit=10, batch_size=8, num_bases=16, num_restarts=1), **policy}
         ),
         horizon=0.8,  # 8 steps
+        loop_cls=loop_cls,
     )
 
 
@@ -59,20 +60,29 @@ def test_torch_pathwise_iteration_runs():
     assert len(loop.episodes) == 3 and "fallback" in loop.episodes[-1].metrics
 
 
-@pytest.mark.parametrize("what", ["restarts", "loss_dtype", "optimism", "gpr", "save"])
+@pytest.mark.parametrize(
+    "what", ["restarts", "loss_dtype", "optimism", "gpr", "save", "mm_fused_match", "mm_gpr"]
+)
 def test_torch_unported_options_raise(what):
-    loop = _tiny_loop(**({"num_restarts": 4} if what == "restarts" else {}))
+    """``loss_dtype`` raises in the pathwise loop only; the MM loop takes it.
+    The MM cases: the whole-match kernel and a GPR drift."""
+    loop = _tiny_loop(
+        loop_cls=MomentMatchingPILCO if what.startswith("mm_") else PathwisePILCO,
+        **({"num_restarts": 4} if what == "restarts" else {}),
+    )
     if what == "loss_dtype":
         loop.policy_spec = PolicySpec(loss_dtype=torch.float64, num_restarts=1)
     if what == "optimism":
         loop.drift_spec = DriftSpec(optimism_tolerance=1.0)
-    if what == "gpr":
+    if what in ("gpr", "mm_gpr"):
         loop.drift_spec = DriftSpec(model_type="gpr")
+    if what == "mm_fused_match":
+        loop.use_fused_match = True
     loop.step()
     with pytest.raises(NotImplementedError):
         if what == "save":
             loop.save()
-        elif what in ("optimism", "gpr"):
+        elif what in ("optimism", "gpr", "mm_gpr"):
             loop.update_dynamics()
         else:
             loop.update_dynamics()
