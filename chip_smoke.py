@@ -29,7 +29,29 @@
    MM loss through the kernel and through the unfused eKuffu must agree to
    1e-9 relative, or to 10x the loss's own rounding noise where that is
    larger (mm_loss_noise).
-6. Prints the kernels' JSON line, then {"ok": true, "device": {...}} as the
+6. Whole-match kernels: K3 (the whole SVGP match: forward, frozen and full
+   backward) at the drift's (N=1, L=4, D=6, M=240, with model uncertainty)
+   and the policy's (N=1, L=1, D=5, M=30) shapes, K4 (the encoder match) at
+   N=1 and N=30, K5a (the PSD boost) at D=6 and K5b (the Euler update) at
+   D=4, each in float32 and float64 against its plain version, timed beside
+   it, its bound and, for K5a and K5b, torch.linalg.eigvalsh. Float32 K3 is
+   held twice: at a random model's grid against float64, and at a
+   well-conditioned grid of the same shape against plain float32 at a fixed
+   bar.
+7. Whole-match slice: moment-matching PILCO on cartpole at full width with
+   use_fused_match, float32 loop and loss: 8 random episodes, a drift fit,
+   then one Adam policy update (counts zeroed just before, read just after;
+   per Adam step 60 K3 forwards, 30 frozen and 30 full K3 backwards, 31 K4
+   forwards and 30 backwards, 30 K5a and 30 K5b, no K1 or K2) and one RK4
+   episode. Then the 30-step float64 loss with every whole-match kernel
+   against the unfused one (bar max(1e-9, 10x the loss's rounding noise,
+   10x the Jacobi-vs-eigvalsh lambda_min gap)), from the episode's x0 and
+   from x0 with an indefinite covariance, where the first steps' policy
+   joints are indefinite and the PSD boost must act at one step at least;
+   one float32 step fused
+   against unfused (both against float64), and, printed only, the float32
+   losses and gradient cosines against float64.
+8. Prints the kernels' JSON line, then {"ok": true, "device": {...}} as the
    last line. Any failed check raises, so the exit code is non-zero.
 
 Tolerances of the kernel checks, rtol = atol:
@@ -40,6 +62,8 @@ Tolerances of the kernel checks, rtol = atol:
 - K2, 1e-4 in float32 and 1e-10 in float64: each output is a sum of at most
   240 terms (times a 14-term exponent) taken in another order than the
   plain version's, so the gap is a few ulps of the sum's size.
+- K3, K4, K5a, K5b: see match_kernels_phase (relative to each output's
+  scale; float32 K3 against a float64 truth).
 """
 from __future__ import annotations
 
@@ -118,11 +142,38 @@ def median_ms(fn, reps=30, flush=None, hold_s=0.2):
     return statistics.median(start.elapsed_time(end) for start, end in events)
 
 
-def bound_ms(kind):
-    """Least time one launch could take on an H100 SXM at 700 W: the bytes it
-    must move (each input read once, each output written once) over 3.35 TB/s,
-    or its float32 operations over 67 TFLOP/s, whichever is larger. Returns
+def plain_ms_of(fn, flush, reps=5, hold_s=3.0):
+    """(ms, how) of a plain-torch or library call: its device time by
+    median_ms, or, when the call waits for the device itself (a host
+    synchronization inside, so enqueueing cannot run ahead of the device),
+    the median host wall time of one call between two synchronizations."""
+    try:
+        return median_ms(fn, reps=reps, flush=flush, hold_s=hold_s), "device"
+    except AssertionError:
+        walls = []
+        for _ in range(reps):
+            flush.zero_()
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(walls), "wall"
+
+
+def _bound(bytes_moved, ops, dtype):
+    """Least time on an H100 SXM at 700 W for work that moves ``bytes_moved``
+    over 3.35 TB/s and does ``ops`` operations at the peak vector rate of
+    ``dtype`` (FP32 67, FP64 34 TFLOP/s), whichever is larger. Returns
     (ms, 'bytes' | 'operations')."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bound_ms(kind):
+    """Least time of one K1 launch: the bytes it must move (each input read
+    once, each output written once) and its float32 operations (_bound)."""
     inputs = S * D + S * L * (B + M) + L * (B * D + B + M * D + M + D)
     outputs = S * L
     # per (s, l, b): the D-term dot and the sum; per (s, l, m): the dot, the
@@ -134,9 +185,7 @@ def bound_ms(kind):
         flops = S * L * (B * (4 * D + 4) + M * (4 * D + 8))
     if kind == "full":
         outputs += S * L * (B + M)
-    t_bytes = (inputs + outputs) * 4 / 3.35e12
-    t_ops = flops / 67e12
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return _bound((inputs + outputs) * 4, flops, torch.float32)
 
 
 def kernel_inputs(seed, device):
@@ -215,7 +264,8 @@ def kernels_phase(pe, seed, device):
         warm_ms = median_ms(kern)
         plain_ms = median_ms(plain, reps=10, flush=flush)
         bound, bound_by = bound_ms(kind)
-        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, plain_how="device", bound_ms=bound,
+                             bound_by=bound_by)
         print(
             f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), "
             f"plain torch {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})"
@@ -224,11 +274,8 @@ def kernels_phase(pe, seed, device):
 
 
 def pair_bound_ms(kind, n, p, d2, m, dtype, r=1):
-    """Least time one K2 launch could take on an H100 SXM at 700 W: each
-    input read once and each output written once over 3.35 TB/s, or its
-    operations over the peak vector rate of its type (FP32 67, FP64 34
-    TFLOP/s), whichever is larger. An exp counts as one operation. Returns
-    (ms, 'bytes' | 'operations')."""
+    """Least time of one K2 launch: each input read once and each output
+    written once, and its operations (an exp counts as one) (_bound)."""
     size = torch.finfo(dtype).bits // 8
     grid = n * p * m * m  # (i, j) entries of E, recomputed by every pass
     inputs = 2 * n * p * d2 * m + p * r * m + p * m * m
@@ -244,9 +291,7 @@ def pair_bound_ms(kind, n, p, d2, m, dtype, r=1):
         if kind == "bwd":
             outputs += p * r * m + p * m * m  # dalu, dqm
             ops += grid * (2 * r + 1)
-    t_bytes = (inputs + outputs) * size / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return _bound((inputs + outputs) * size, ops, dtype)
 
 
 def pair_inputs(rng, n, p, d2, m, dtype, device):
@@ -311,8 +356,8 @@ def pair_kernels_phase(kc, seed, device):
                 warm_ms = median_ms(kern)
                 plain_ms = median_ms(plain, reps=10, flush=flush)
                 bound, bound_by = pair_bound_ms(kind, n, p, d2, m, dtype)
-                timings[name] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, bound_ms=bound,
-                                     bound_by=bound_by)
+                timings[name] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, plain_how="device",
+                                     bound_ms=bound, bound_by=bound_by)
                 print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), "
                       f"plain torch {plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
     return errs, timings
@@ -555,9 +600,552 @@ def mm_slice_phase(kc, seed, device, step_limit, lbfgs_iters):
                                 episode_ms=1e3 * t_ep)
 
 
+# ---------------------------------------------------------------- whole match
+# The whole-match path's shapes: K3 at the drift's (N=1, L=4 latents over the
+# 5 features and the action, M=240, with model uncertainty) and the policy's
+# (N=1, L=1, D=5, M=30, deterministic); K4 at N=1 in the rollout and N=30 on
+# the post-rollout cost; K5a on the policy joint (D=6), K5b on the state (D=4)
+MATCH_SHAPES = {"drift": (1, L, D, M, True), "policy": (1, 1, 5, 30, False)}
+MATCH_F64_TOL = 1e-9  # K3 float64, of each output's scale: sums of M^2 terms, 6 x 6 adjoints
+# K3 float32 against plain float32 on the well-conditioned grid, of each
+# output's scale: there the plain float32 version itself misses float64 by a
+# few 1e-6 (sums of 57600 terms of both signs), so two float32 orders differ
+# by about as much
+MATCH_WC_TOL = 2e-5
+WC_STATE_SHIFT = 4.0  # the well-conditioned grid's state covariance, ~4 I
+SMALL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # K4, K5: a few dozen terms per output
+ENC_ACTIVE, ENC_D, GLUE_JOINT_D = (1,), 4, 6
+
+
+def match_grid(num_latent, d, m, unc, dtype, device, seed):
+    """The whole-match grid of a random SVGP at the path's widths: inducing
+    points by k-means on random data, q_mu and a perturbed q_sqrt from the
+    seed (so Q is not zero); built in float64 and cast."""
+    from gpflowpilco_torch.models.builders import build_svgp
+    from gpflowpilco_torch.moment_matching.gp import svgp_match_cache
+    from gpflowpilco_torch.ops import mm_match_cuda as mc
+
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)  # noqa: E731
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = build_svgp(f(1.5 * rng.normal(size=(2 * m, d))), f(rng.normal(size=(2 * m, num_latent))),
+                       num_inducing=m, generator=gen, noise_variance=0.1)
+    with torch.no_grad():
+        model.q_mu.copy_(f(0.5 * rng.normal(size=tuple(model.q_mu.shape))))
+        model.q_sqrt.copy_(f(0.3 * np.eye(m) + np.tril(0.05 * rng.normal(size=(num_latent, m, m)))))
+        grid = svgp_match_cache(model, fused_match=True, uncertainty=unc).match_grid
+    return mc.FusedMatchGrid(
+        **{k: v.to(dtype).contiguous() for k, v in zip(mc.GRID_FIELDS, grid.tensors())}, meta=grid.meta
+    )
+
+
+def well_conditioned(g, rng):
+    """The grid ``g`` with O(1) representer weights (alpha and its pair
+    copies) and a symmetric Q of entries ~1/M in place of the model's. A
+    random M=240 model's Kuu^-1 makes alpha and Q large with both signs, so
+    f1, f2 - f1 f1^T and sum(Q o E) cancel digits in float32 in any order;
+    with these, and state covariances near the lengthscales' squares, they
+    do not."""
+    from gpflowpilco_torch.ops import mm_match_cuda as mc
+
+    t = dict(zip(mc.GRID_FIELDS, g.tensors()))
+    like = lambda a: torch.as_tensor(a, dtype=g.alpha.dtype, device=g.alpha.device)  # noqa: E731
+    alpha = like(rng.normal(size=tuple(g.alpha.shape)))
+    q = like(rng.normal(size=tuple(g.qmat.shape))) / g.meta.num_m
+    i_idx, j_idx = ([p[k] for p in g.meta.pairs] for k in (0, 1))
+    t.update(alpha=alpha, qmat=(0.5 * (q + q.mT)).contiguous(),
+             alpha_u=alpha[i_idx].contiguous(), alpha_w=alpha[j_idx].contiguous())
+    return mc.FusedMatchGrid(**t, meta=g.meta)
+
+
+def k3_outputs(mc, g, mx, sxx, cots, kernel):
+    """Every K3 entry's outputs at one input, through the kernels or through
+    the plain version: fwd (f1, sff, cross), bwd_frozen (dmx, dsxx) and bwd
+    (dmx, dsxx, then the grid cotangents in GRID_FIELDS order)."""
+    if kernel:
+        fwd = mc._fwd(g.meta, g, mx, sxx)
+        frozen = mc._bwd(g.meta, g, mx, sxx, fwd[0], *cots, True)[:2]
+        full = mc._bwd(g.meta, g, mx, sxx, fwd[0], *cots, False)
+    else:
+        fwd = mc.match_reference(g.meta, g, mx, sxx)
+        frozen = mc.match_reference_bwd(g.meta, g, mx, sxx, *cots, True)[:2]
+        full = mc.match_reference_bwd(g.meta, g, mx, sxx, *cots, False)
+    return {"fwd": fwd, "bwd_frozen": frozen, "bwd": (*full[:2], *full[2].tensors())}
+
+
+def state_moments(rng, n, d, dtype, device, shift=0.0):
+    a = rng.normal(size=(n, d, d))
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=device).contiguous()  # noqa: E731
+    return f(0.5 * rng.normal(size=(n, d))), f(0.05 * a @ a.transpose(0, 2, 1) + (0.1 + shift) * np.eye(d))
+
+
+def match_bound_ms(kind, meta, n, dtype):
+    """Least time of one K3 launch: each input read once and each output
+    written once, and its operations (an exp counts as one) (_bound). qmat
+    is read only with model uncertainty. Each cell (i, j) of a pair's E grid
+    counts once: E itself (two D-term dots, the exponent, the exp: 4D + 5),
+    in the forward its two contractions, in the backward the row and column
+    sums of E * dE (4D + 6) and, for the full one, the grid cotangents'
+    (4D + 6). The kernel evaluates E twice per backward (a row and a column
+    pass); the function does not need that, so the bound does not count it."""
+    num_l, num_p, d, m = meta.num_latent, meta.num_pairs, meta.num_dim, meta.num_m
+    size = torch.finfo(dtype).bits // 8
+    grid = (num_l + num_p) * d + num_l * (d * m + m + 2) + num_p * (4 * d * m + 4 * m + 1)
+    if meta.uncertainty:
+        grid += num_l * m * m
+    inputs = n * (d + d * d) + grid
+    latent = n * num_l * m * (2 * d * d + 6 * d + 4)
+    stage = n * num_p * m * (2 * d * d + 8 * d)
+    cells = n * num_p * m * m
+    if kind == "fwd":
+        outputs = n * (num_l + num_l * num_l + d * num_l)
+        ops = latent + stage + cells * (4 * d + 5 + 3)
+    else:
+        inputs += n * (2 * num_l + num_l * num_l + d * num_l)  # f1 and the cotangents
+        outputs = n * (d + d * d)
+        # the latent and staging work and their adjoints, E once, its sums
+        ops = 2 * latent + 2 * stage + cells * (4 * d + 5 + 4 * d + 6)
+        if kind == "bwd":
+            outputs += grid
+            ops += cells * (4 * d + 6)
+    return _bound((inputs + outputs) * size, ops, dtype)
+
+
+def enc_bound_ms(kind, n, d, na, dtype):
+    """K4: bytes of the moments, outputs (and cotangents), and the scalar
+    graph's operations per batch entry (trig pairs, the stitch)."""
+    de = 2 * na + (d - na)
+    size = torch.finfo(dtype).bits // 8
+    io = n * (d + d * d + de + de * de + d * de)
+    ops = n * (30 * na * na + 2 * de * de + 2 * d * de + 10 * na)
+    if kind == "bwd":
+        io += n * (d + d * d)
+        ops = 2 * ops + n * (4 * de * de + 4 * d * de)
+    return _bound(io * size, ops, dtype)
+
+
+def glue_bound_ms(kind, n, d, dtype):
+    """K5a/K5b: bytes of the matrices and vectors; five Jacobi sweeps of
+    D(D-1)/2 rotations of ~20 + 8(D-2) operations each, plus the update."""
+    size = torch.finfo(dtype).bits // 8
+    jacobi = 5 * d * (d - 1) // 2 * (20 + 8 * (d - 2))
+    if kind == "psd":
+        return _bound(n * 2 * d * d * size, n * (jacobi + 2 * d * d), dtype)
+    return _bound(n * (3 * d + 4 * d * d) * size, n * (jacobi + 2 * d + 6 * d * d), dtype)
+
+
+def scaled_err(got, want):
+    """max |got - want| / (1 + max |want|)."""
+    return float((got.double() - want.double()).abs().max()) / (1.0 + float(want.abs().max()))
+
+
+def match_kernels_phase(mc, ec, gc, seed, device):
+    """Hold every K3, K4, K5a and K5b entry against its plain version in
+    float32 and float64 at the path's shapes, and time each beside its plain
+    version, its bound and (K5) torch.linalg.eigvalsh on the same batch.
+
+    Bars: float64, 1e-9 (K3) and 1e-12 (K4, K5) of each output's scale.
+    float32 K4 and K5, 1e-5 of the scale (the same scalar graph, the same
+    Jacobi sweeps). float32 K3 is held, with its plain version, against the
+    float64 plain version of the same inputs: the kernel may miss that truth
+    by 3x what the plain float32 version does plus 1e-4 of the scale. At
+    M=240 the Q o E contraction cancels digits (Q's entries reach 1e3-1e5),
+    so a fixed float32 bar there would test the conditioning, not the
+    kernel. So float32 K3 is also held against the plain float32 version at
+    a fixed bar, MATCH_WC_TOL of the scale, on a well-conditioned grid of the
+    same shape (well_conditioned), where a fault of the float instantiation
+    alone (a fast exp, a sum in the wrong type) shows."""
+    rng = np.random.default_rng(seed + 2000)
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=device)
+    from gpflowpilco_torch.moments import GaussianMoments, psd_project
+
+    errs = {name: 0.0 for name in (*mc.launches, *ec.launches, *gc.launches)}
+    timings, calls, jacobi_gap = {}, {}, {}
+    up = lambda ts: [x.double() for x in ts]  # noqa: E731
+
+    def record(name, got, want, what):
+        """Keep the max abs error for the JSON line; return the scaled one."""
+        err = float((got.double() - want.double()).abs().max())
+        errs[name] = max(errs[name], err)
+        scaled = scaled_err(got, want)
+        print(f"  {name} {what}: max |kernel - plain| = {err:.3e}, scaled {scaled:.3e}")
+        return scaled
+
+    for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
+        for where, (n, num_l, d, m, unc) in MATCH_SHAPES.items():
+            g = match_grid(num_l, d, m, unc, dtype, device, seed + m)
+            g64 = mc.FusedMatchGrid(**{k: v.double() for k, v in zip(mc.GRID_FIELDS, g.tensors())},
+                                    meta=g.meta)
+            mx, sxx = state_moments(rng, n, d, dtype, device)
+            f = lambda *sh: torch.as_tensor(rng.normal(size=sh), dtype=dtype, device=device)  # noqa: E731
+            cots = (f(n, num_l), f(n, num_l, num_l), f(n, d, num_l))
+            print(f"svgp match {where} N={n} L={num_l} D={d} M={m} uncertainty={unc} {sfx}:")
+            got = k3_outputs(mc, g, mx, sxx, cots, kernel=True)
+            f1 = got["fwd"][0]
+            plain = k3_outputs(mc, g, mx, sxx, cots, kernel=False)
+            truth = k3_outputs(mc, g64, mx.double(), sxx.double(), up(cots), kernel=False)
+            sync()
+            names = {"fwd": ("f1", "sff", "cross"), "bwd_frozen": ("dmx", "dsxx"),
+                     "bwd": ("dmx", "dsxx", *mc.GRID_FIELDS)}
+            for kind, outs in names.items():
+                name = f"svgp_match_{kind}_{sfx}"
+                for what, a, b, c in zip(outs, got[kind], plain[kind], truth[kind]):
+                    err = record(name, a, b, what)
+                    ok = torch.isfinite(a).all()
+                    if dtype == torch.float64:
+                        ok = ok and err <= MATCH_F64_TOL
+                    else:
+                        err_k, err_p = scaled_err(a, c), scaled_err(b, c)
+                        print(f"    vs float64: kernel {err_k:.3e}, plain float32 {err_p:.3e}")
+                        ok = ok and err_k <= 3.0 * err_p + 1e-4
+                    if not ok:
+                        raise AssertionError(f"{name} {what}: kernel disagrees with its plain version")
+            if dtype == torch.float32:
+                # the float32 kernel against the plain float32 version at a
+                # fixed bar, on a well-conditioned grid of the same shape
+                wc = well_conditioned(g, rng)
+                mxw, sxxw = state_moments(rng, n, d, dtype, device, shift=WC_STATE_SHIFT)
+                got_w = k3_outputs(mc, wc, mxw, sxxw, cots, kernel=True)
+                plain_w = k3_outputs(mc, wc, mxw, sxxw, cots, kernel=False)
+                sync()
+                print(f"  well-conditioned grid, bar {MATCH_WC_TOL:g} of the scale:")
+                for kind, outs in names.items():
+                    name = f"svgp_match_{kind}_{sfx}"
+                    for what, a, b in zip(outs, got_w[kind], plain_w[kind]):
+                        err = record(name, a, b, what)
+                        if not (torch.isfinite(a).all() and err <= MATCH_WC_TOL):
+                            raise AssertionError(f"{name} {what}: kernel disagrees with its plain "
+                                                 f"version on the well-conditioned grid")
+            # the main path runs K3 in float32: forwards and the frozen backward
+            # at the drift's shape, the full backward at the policy's; the
+            # float64 entries are timed at the drift's shape
+            args = (g.meta, g, mx, sxx)
+            if where == "drift":
+                calls[f"svgp_match_fwd_{sfx}"] = (
+                    lambda a=args: mc._fwd(*a), lambda a=args: mc.match_reference(*a),
+                    match_bound_ms("fwd", g.meta, n, dtype), None)
+                calls[f"svgp_match_bwd_frozen_{sfx}"] = (
+                    lambda a=args, c=cots, f=f1: mc._bwd(*a, f, *c, True),
+                    lambda a=args, c=cots: mc.match_reference_bwd(*a, *c, True),
+                    match_bound_ms("bwd_frozen", g.meta, n, dtype), None)
+            if where == ("policy" if dtype == torch.float32 else "drift"):
+                calls[f"svgp_match_bwd_{sfx}"] = (
+                    lambda a=args, c=cots, f=f1: mc._bwd(*a, f, *c, False),
+                    lambda a=args, c=cots: mc.match_reference_bwd(*a, *c, False),
+                    match_bound_ms("bwd", g.meta, n, dtype), None)
+            if where == "policy" and dtype == torch.float32:
+                calls["svgp_match_fwd_f32 (policy)"] = (
+                    lambda a=args: mc._fwd(*a), lambda a=args: mc.match_reference(*a),
+                    match_bound_ms("fwd", g.meta, n, dtype), None)
+
+        tol = SMALL_TOL[dtype]
+        meta = ec.make_enc_meta(ENC_ACTIVE, ENC_D)
+        de = meta.num_out
+        for n in (1, HORIZON_STEPS):
+            mx, sxx = state_moments(rng, n, ENC_D, dtype, device)
+            f = lambda *sh: torch.as_tensor(rng.normal(size=sh), dtype=dtype, device=device)  # noqa: E731
+            cots = (f(n, de), f(n, de, de), f(n, ENC_D, de))
+            print(f"encoder match N={n} D={ENC_D} active={ENC_ACTIVE} {sfx}, bar {tol:g}:")
+            pairs = [("fwd", ("ym", "yc", "cr"), ec._fwd(meta, mx, sxx), ec.enc_match_reference(meta, mx, sxx)),
+                     ("bwd", ("dmx", "dsxx"), ec._bwd(meta, mx, sxx, *cots),
+                      ec.enc_match_reference_bwd(meta, mx, sxx, *cots))]
+            sync()
+            for kind, outs, got, want in pairs:
+                for what, a, b in zip(outs, got, want):
+                    err = record(f"enc_match_{kind}_{sfx}", a, b, what)
+                    if not (torch.isfinite(a).all() and err <= tol):
+                        raise AssertionError(f"enc_match_{kind}_{sfx} {what}: kernel disagrees")
+            if n == 1:
+                calls[f"enc_match_fwd_{sfx}"] = (
+                    lambda a=(meta, mx, sxx): ec._fwd(*a),
+                    lambda a=(meta, mx, sxx): ec.enc_match_reference(*a),
+                    enc_bound_ms("fwd", n, ENC_D, len(ENC_ACTIVE), dtype), None)
+                calls[f"enc_match_bwd_{sfx}"] = (
+                    lambda a=(meta, mx, sxx), c=cots: ec._bwd(*a, *c),
+                    lambda a=(meta, mx, sxx), c=cots: ec.enc_match_reference_bwd(*a, *c),
+                    enc_bound_ms("bwd", n, ENC_D, len(ENC_ACTIVE), dtype), None)
+
+        # K5a on indefinite policy joints, K5b on the state with and without the boost
+        _, s6 = state_moments(rng, 1, GLUE_JOINT_D, dtype, device, shift=-0.3)
+        m4, s4 = state_moments(rng, 1, D - 2, dtype, device, shift=-0.3)
+        f14, sff4 = state_moments(rng, 1, D - 2, dtype, device)
+        sxf4 = torch.as_tensor(0.1 * rng.normal(size=(1, 4, 4)), dtype=dtype, device=device)
+        jitter = 1e-6 if dtype == torch.float32 else 0.0  # the solver's cov_jitter
+        print(f"glue: psd boost N=1 D={GLUE_JOINT_D}, euler update N=1 D=4 {sfx}, bar {tol:g}:")
+        checks = [("psd_boost", "out", gc._psd(s6, 0.0), gc.psd_boost_reference(s6, 0.0))]
+        for jit in (0.0, 1e-6):
+            got = gc._euler(m4, s4, f14, sff4, sxf4, 1.0, jit)
+            want = gc.euler_update_reference(m4, s4, f14, sff4, sxf4, 1.0, jit)
+            checks += [("euler_update", f"mean (jitter {jit:g})", got[0], want[0]),
+                       ("euler_update", f"cov (jitter {jit:g})", got[1], want[1])]
+        sync()
+        for kind, what, a, b in checks:
+            err = record(f"{kind}_{sfx}", a, b, what)
+            if not (torch.isfinite(a).all() and err <= tol):
+                raise AssertionError(f"{kind}_{sfx} {what}: kernel disagrees with its plain version")
+        # Jacobi's lambda_min against eigvalsh's where the boost is active:
+        # K5a against psd_project on the same indefinite joints
+        boosted = gc._psd(s6, 0.0)
+        ref = psd_project(GaussianMoments(mean=s6[..., 0], cov=s6)).cov
+        jacobi_gap[sfx] = scaled_err(boosted, ref)
+        print(f"  psd_boost_{sfx} vs psd_project (eigvalsh) on indefinite joints: scaled gap "
+              f"{jacobi_gap[sfx]:.3e}")
+        calls[f"psd_boost_{sfx}"] = (
+            lambda s=s6: gc._psd(s, 0.0), lambda s=s6: gc.psd_boost_reference(s, 0.0),
+            glue_bound_ms("psd", 1, GLUE_JOINT_D, dtype), lambda s=s6: torch.linalg.eigvalsh(s))
+        eargs = (m4, s4, f14, sff4, sxf4, 1.0, jitter)
+        calls[f"euler_update_{sfx}"] = (
+            lambda a=eargs: gc._euler(*a), lambda a=eargs: gc.euler_update_reference(*a),
+            glue_bound_ms("euler", 1, 4, dtype), lambda s=s4: torch.linalg.eigvalsh(s))
+
+    for name, (kern, plain, (bound, bound_by), library) in calls.items():
+        ms = median_ms(kern, flush=flush)
+        warm_ms = median_ms(kern)
+        plain_ms, plain_how = plain_ms_of(plain, flush)
+        lib_ms, lib_how = (None, None) if library is None else plain_ms_of(library, flush, reps=30)
+        timings[name] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, plain_how=plain_how,
+                             bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+        print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), plain torch "
+              f"{plain_ms:.4f} ms ({plain_how}), bound {bound:.6f} ms ({bound_by})"
+              + ("" if lib_ms is None else f", eigvalsh {lib_ms:.4f} ms ({lib_how})"))
+    return errs, timings, jacobi_gap["f64"]
+
+
+# A perturbed x0 whose covariance is indefinite: the cart's position and
+# velocity get a covariance of 0.05 against their variances of 0.01, so the
+# covariance's eigenvalues run from -0.04 to 0.06 while every variance stays
+# positive. From it the first rollout steps' policy joints are indefinite,
+# so the PSD boost (K5a in the whole-match path) acts.
+INDEFINITE_X0_COV = np.zeros((4, 4))
+INDEFINITE_X0_COV[0, 2] = INDEFINITE_X0_COV[2, 0] = 0.05
+
+
+def initial_moments(loop, dtype, x0_shift=0.0, cov_extra=0.0):
+    """The rollout's initial state moments: the episode spec's mean moved by
+    ``x0_shift``, its covariance plus ``cov_extra``."""
+    from gpflowpilco_torch.moments import GaussianMoments
+
+    spec = loop.episode_spec
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=loop.device)[None]  # noqa: E731
+    return GaussianMoments(mean=as_t(np.asarray(spec.state_mean) + x0_shift),
+                           cov=as_t(spec.covariance() + cov_extra))
+
+
+def policy_match_chain(loop, dtype, fused):
+    """The loss's policy chain (squash after the deterministic SVGP policy
+    match) in ``dtype``, through K3 when ``fused``."""
+    from gpflowpilco_torch.loops.pilco import _cast_module
+    from gpflowpilco_torch.moment_matching.gp import SVGPTransform
+    from gpflowpilco_torch.moment_matching.rules import SquashedProbit
+    from gpflowpilco_torch.moments import Chain
+
+    return Chain(SquashedProbit(scale=2.0 * loop.policy_spec.action_scale - 1e-5), SVGPTransform(
+        _cast_module(loop.policy_model, dtype), deterministic=True, fused_match=fused).with_cache())
+
+
+def policy_joints(loop, x0, states, dtype):
+    """The symmetrized policy joint (encoded state, action) of each rollout
+    step before the PSD guard, taken at the step's input: x0, then the state
+    after each earlier step. Stacked (T, D, D)."""
+    from gpflowpilco_torch.moments import GaussianMoments
+
+    pol = policy_match_chain(loop, dtype, fused=False)
+    inputs = [x0] + [GaussianMoments(mean=states.mean[t], cov=states.cov[t])
+                     for t in range(states.mean.shape[0] - 1)]
+    joints = [pol.moment_match(loop.encoder.moment_match(xm).y).joint().cov for xm in inputs]
+    return torch.cat([0.5 * (j + j.mT) for j in joints])
+
+
+def whole_match_loss(loop, fused, dtype, x0_shift=0.0, cov_extra=0.0):
+    """The 30-step MM loss of the loop's policy under its drift, everything
+    (loss, drift, policy chain) in ``dtype``, from initial_moments. ``fused``
+    takes every whole-match kernel op from the module-level options (frozen
+    drift match, policy match, fused encoder, PSD guard, Euler update), not
+    through the loop's gate; otherwise the unfused path. Returns (loss, the
+    rollout's states)."""
+    from gpflowpilco_torch.dynamics.forward import forward_moments
+    from gpflowpilco_torch.dynamics.solvers import moment_matching_euler_rollout
+    from gpflowpilco_torch.loops.pilco import _cast_module
+    from gpflowpilco_torch.moment_matching.gp import SVGPTransform
+    from gpflowpilco_torch.moments import GaussianMoments
+
+    drift = SVGPTransform(_cast_module(loop.drift_model, dtype), fused_match=fused,
+                          frozen=fused).with_cache()
+    pol = policy_match_chain(loop, dtype, fused)
+    enc = loop.encoder.with_fused(fused)
+    _, means, covs = moment_matching_euler_rollout(
+        lambda t, xm: forward_moments(xm, drift, policy=pol, encoder=enc, fused_glue=fused),
+        initial_moments(loop, dtype, x0_shift, cov_extra), dt=1.0,
+        num_steps=loop.episode_spec.num_steps, fused_update=fused,
+    )
+    states = GaussianMoments(mean=means, cov=covs)
+    return loop.objective(enc.moment_match(states).y).sum(), states
+
+
+def _flat_grads(model):
+    return torch.cat([p.grad.reshape(-1).double() for p in model.parameters()
+                      if p.requires_grad and p.grad is not None])
+
+
+def match_slice_phase(counters, seed, device, step_limit, lbfgs_iters, jacobi_gap):
+    """8 random episodes, then one full-width MM PILCO iteration on the
+    whole-match path (use_fused_match, float32 loop and loss)."""
+    from run_torch import build_loop
+
+    from gpflowpilco_torch.dynamics.forward import forward_moments
+    from gpflowpilco_torch.loops.driver import outer_loop
+    from gpflowpilco_torch.loops.pilco import DriftSpec, MomentMatchingPILCO, PolicySpec, _cast_module
+    from gpflowpilco_torch.moment_matching.gp import SVGPTransform
+    from gpflowpilco_torch.moments import GaussianMoments
+    from gpflowpilco_torch.ops import mm_glue_cuda as gc
+
+    loop = build_loop(
+        seed, device, torch.float32,
+        drift_spec=DriftSpec(num_centers=M, max_iters=lbfgs_iters),
+        policy_spec=PolicySpec(num_restarts=1, step_limit=step_limit),
+        loop_cls=MomentMatchingPILCO,
+    )
+    loop.use_fused_match = True
+    assert loop._fused_match_on and loop.episode_spec.num_steps == HORIZON_STEPS
+    t0 = time.perf_counter()
+    outer_loop(loop, num_episodes=8, num_episodes_init=8, log_summaries=False)
+    sync()
+    print(f"match slice: 8 random episodes in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    info_d = loop.update_dynamics()
+    sync()
+    t_dyn = time.perf_counter() - t0
+    print(f"match slice: drift fit {1e3 * t_dyn:.1f} ms, loss {info_d['loss']:.4f}, "
+          f"{info_d['iters']} iterations, M={loop.drift_model.num_inducing}; Adam "
+          f"step_limit={step_limit}, horizon={HORIZON_STEPS}, float32 loop and loss")
+    assert math.isfinite(info_d["loss"]) and loop.drift_model.num_inducing == M
+
+    # ---- the main path: counts zeroed just before, read just after
+    loop.policy_model = loop.build_policy()
+    assert loop.policy_model.num_inducing == 30
+    before = {n: p.detach().clone() for n, p in loop.policy_model.named_parameters()}
+    for c in counters:
+        c.reset_launches()
+    t0 = time.perf_counter()
+    info_p = loop.update_policy()
+    sync()
+    t_pol = time.perf_counter() - t0
+    delta = {k: v for c in counters for k, v in c.launches.items()}
+    print(f"match slice: policy update {1e3 * t_pol:.1f} ms = {1e3 * t_pol / step_limit:.2f} ms "
+          f"per whole-match policy step; loss {info_p['loss']:.6f}, skipped "
+          f"{info_p['skipped_steps']}; launches {delta}")
+    assert math.isfinite(info_p["loss"]), "whole-match policy loss is not finite"
+    # per Adam step: K3 forward for the drift and the policy at each of the
+    # 30 rollout steps, their frozen and full backwards; K4 forward at each
+    # step and once (N=30) on the post-rollout cost, and backward at steps
+    # 2-30 and on the cost (the first step's match reads the constant x0, so
+    # autograd records no backward for it); K5a and K5b at each step
+    per_step = {"svgp_match_fwd_f32": 2 * HORIZON_STEPS, "svgp_match_bwd_frozen_f32": HORIZON_STEPS,
+                "svgp_match_bwd_f32": HORIZON_STEPS, "enc_match_fwd_f32": HORIZON_STEPS + 1,
+                "enc_match_bwd_f32": HORIZON_STEPS, "psd_boost_f32": HORIZON_STEPS,
+                "euler_update_f32": HORIZON_STEPS}
+    want = {k: per_step.get(k, 0) * step_limit for k in delta}
+    assert delta == want, f"launches {delta}, expected {want}"
+    moved = max(float((p.detach() - before[n]).abs().max())
+                for n, p in loop.policy_model.named_parameters() if p.requires_grad)
+    assert moved > 0, "policy parameters did not change"
+
+    t0 = time.perf_counter()
+    ep = loop.step()
+    sync()
+    t_ep = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.launches.items()}
+    # the episode's eReward metric evaluates the loss once, forward only
+    fwd_only = ("svgp_match_fwd_f32", "enc_match_fwd_f32", "psd_boost_f32", "euler_update_f32")
+    want = {k: v + (per_step[k] if k in fwd_only else 0) for k, v in delta.items()}
+    assert launches == want, f"launches after the episode {launches}, expected {want}"
+    print(f"match slice: RK4 episode {1e3 * t_ep:.1f} ms, reward {ep.metrics['rewards']:.4f}, "
+          f"model-predicted {ep.metrics.get('eReward', float('nan')):.4f}")
+    assert ep.states.shape == (HORIZON_STEPS + 1, 4) and np.isfinite(ep.states).all()
+
+    # ---- output check, float64: the 30-step loss at the trained policy with
+    # every whole-match kernel against the unfused path, from the episode's
+    # x0 and from x0 with an indefinite covariance (INDEFINITE_X0_COV). The
+    # episode's x0 gives PSD policy joints; the other makes the first steps'
+    # joints indefinite, so K5a's boost acts inside the composition, by
+    # Jacobi's lambda_min where the unfused guard takes eigvalsh's; it must
+    # act at one step at least. Each run's bar: max(1e-9, 10x the unfused
+    # loss's rounding noise from that x0, 10x the Jacobi-vs-eigvalsh
+    # lambda_min gap relative to the joint's scale, at both runs' policy
+    # joints before the guard and at the kernel phase's indefinite ones)
+    f64 = torch.float64
+    runs, joints = {}, []
+    with torch.no_grad():
+        for label, extra in (("episode x0", 0.0), ("x0 with an indefinite covariance", INDEFINITE_X0_COV)):
+            l_fused, states = whole_match_loss(loop, True, f64, cov_extra=extra)
+            l_unfused = float(whole_match_loss(loop, False, f64, cov_extra=extra)[0])
+            noise = max(abs(float(whole_match_loss(loop, False, f64, dx, extra)[0]) - l_unfused)
+                        / abs(l_unfused) for dx in (1e-14, 1e-13, 1e-12))
+            sym = policy_joints(loop, initial_moments(loop, f64, cov_extra=extra), states, f64)
+            active = int((torch.linalg.eigvalsh(sym).amin(-1) < 0).sum())
+            joints.append(sym)
+            runs[label] = (float(l_fused), l_unfused, noise, active)
+            if label == "episode x0":
+                nominal = states  # the float32 step check below starts from its states
+        sym = torch.cat(joints)
+        lam_j, lam_e = gc.jacobi_min_eig(sym), torch.linalg.eigvalsh(sym).amin(-1)
+        gap = max(jacobi_gap, float(((lam_j - lam_e).abs() / (1.0 + sym.abs().amax(dim=(-2, -1)))).max()))
+    print(f"match slice: 30-step float64 loss, whole-match kernels vs unfused; Jacobi vs eigvalsh "
+          f"lambda_min gap {gap:.3e} (scaled; {sym.shape[0]} policy joints before the guard and the "
+          f"kernel phase's indefinite ones)")
+    for label, (l_fused, l_unfused, noise, active) in runs.items():
+        rel = abs(l_fused - l_unfused) / abs(l_unfused)
+        bar = max(1e-9, 10.0 * noise, 10.0 * gap)
+        print(f"  {label}: whole-match kernels {l_fused:.15f}, unfused {l_unfused:.15f}, relative gap "
+              f"{rel:.3e}; unfused rounding noise {noise:.3e}, bar {bar:.3e}; the boost active at "
+              f"{active} of {HORIZON_STEPS} steps")
+        assert math.isfinite(l_fused) and rel <= bar, "whole-match and unfused float64 losses disagree"
+    assert runs["x0 with an indefinite covariance"][3] > 0, "K5a's boost never acted in the float64 check"
+
+    # ---- output check, float32: one forward_moments step at a state of that
+    # rollout, through every whole-match op and unfused, both held against
+    # the float64 unfused step; bar: the fused step may miss it by 3x what
+    # the unfused float32 step does plus 1e-4 of each output's scale
+    k = HORIZON_STEPS // 3
+    outs = {}
+    for name, fused, dtype in (("fused", True, torch.float32), ("unfused", False, torch.float32),
+                               ("truth", False, f64)):
+        drift = SVGPTransform(_cast_module(loop.drift_model, dtype), fused_match=fused,
+                              frozen=fused).with_cache()
+        pol = policy_match_chain(loop, dtype, fused)
+        xm = GaussianMoments(mean=nominal.mean[k].to(dtype), cov=nominal.cov[k].to(dtype))
+        with torch.no_grad():
+            mt = forward_moments(xm, drift, policy=pol, encoder=loop.encoder.with_fused(fused),
+                                 fused_glue=fused)
+        outs[name] = (mt.y.mean, mt.y.cov, mt.cross_covariance(preinv=False))
+    for what, a, b, c in zip(("mean", "cov", "cross"), outs["fused"], outs["unfused"], outs["truth"]):
+        err_f, err_u = scaled_err(a, c), scaled_err(b, c)
+        print(f"match slice: float32 step {k} {what}: fused {err_f:.3e}, unfused {err_u:.3e} "
+              f"(scaled, vs float64)")
+        assert torch.isfinite(a).all() and err_f <= 3.0 * err_u + 1e-4, f"float32 step {what} disagrees"
+
+    # ---- printed, not asserted: the 30-step float32 losses and the cosine
+    # of the float32 whole-match policy gradient against the float64 truth
+    # (a 30-step float32 rollout at a fitted drift is chaotic)
+    grads, losses = {}, {}
+    for name, fused, dtype in (("whole-match f32", True, torch.float32),
+                               ("unfused f32", False, torch.float32), ("unfused f64", False, f64)):
+        loop.policy_model.zero_grad(set_to_none=True)
+        loss = whole_match_loss(loop, fused, dtype)[0]
+        loss.backward()
+        losses[name], grads[name] = float(loss.detach()), _flat_grads(loop.policy_model)
+    truth = grads["unfused f64"]
+    cos = {n: float(g @ truth / (g.norm() * truth.norm())) for n, g in grads.items() if n != "unfused f64"}
+    print(f"match slice: 30-step losses {json.dumps(losses)}; gradient cosine vs float64 "
+          f"{json.dumps(cos)}")
+    return loop, launches, dict(dynamics_ms=1e3 * t_dyn, policy_step_ms=1e3 * t_pol / step_limit,
+                                episode_ms=1e3 * t_ep)
+
+
 # kernel-name fragments whose rows a profile prints on their own: this
 # repository's kernels and the eigenvalue solver behind psd_project's eigvalsh
-_WATCHED = ("fwd_kernel", "bwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel", "syev", "eig")
+_WATCHED = ("fwd_kernel", "bwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel", "fwd_groups",
+            "bwd_groups", "combine", "enc_fwd", "enc_bwd", "psd_kernel", "euler_kernel", "syev", "eig")
 # host runtime calls that wait for the device or copy through it
 _SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
 
@@ -600,9 +1188,10 @@ def _profile(name, fn, out_dir, reps=3, export=True):
         f"{e.key} x{e.count // reps}" for e in host) or "none"))
 
 
-def profile_phase(loop, mm_loop, out_dir):
-    """Profiles of one pathwise and one MM policy loss+grad evaluation and
-    one drift ELBO+grad evaluation, at the slices' shapes."""
+def profile_phase(loop, mm_loop, match_loop, out_dir):
+    """Profiles of one pathwise, one MM and one whole-match MM policy
+    loss+grad evaluation and one drift ELBO+grad evaluation, at the slices'
+    shapes."""
     from gpflowpilco_torch.models.builders import dynamics_mask
     from gpflowpilco_torch.models.gp import svgp_elbo
     from gpflowpilco_torch.models.priors import pilco_snr_penalty
@@ -615,6 +1204,12 @@ def profile_phase(loop, mm_loop, out_dir):
     _profile(
         "mm_policy_step",
         lambda: mm_loop.policy_loss_fn(mm_model, None, drift=mm_drift).backward(),
+        out_dir, export=False,
+    )
+    match_model, match_drift = match_loop.policy_model, match_loop.policy_loss_drift()
+    _profile(
+        "match_policy_step",
+        lambda: match_loop.policy_loss_fn(match_model, None, drift=match_drift).backward(),
         out_dir, export=False,
     )
 
@@ -641,7 +1236,10 @@ def main():
     root = Path(__file__).resolve().parent
     sys.path[:0] = [str(root), str(root / "examples" / "cartpole_swingup")]
     from gpflowpilco_torch.ops import _build
+    from gpflowpilco_torch.ops import enc_match_cuda as ec
     from gpflowpilco_torch.ops import kexp_cuda as kc
+    from gpflowpilco_torch.ops import mm_glue_cuda as gc
+    from gpflowpilco_torch.ops import mm_match_cuda as mc
     from gpflowpilco_torch.ops import path_eval_cuda as pe
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -659,21 +1257,35 @@ def main():
 
     errs, timings = kernels_phase(pe, args.seed, device)
     pair_errs, pair_timings = pair_kernels_phase(kc, args.seed, device)
+    match_errs, match_timings, jacobi_gap = match_kernels_phase(mc, ec, gc, args.seed, device)
     loop, launches, slice_ms = slice_phase(pe, args.seed, device, args.step_limit, args.lbfgs_iters)
     mm_loop, pair_launches, mm_ms = mm_slice_phase(
         kc, args.seed, device, args.step_limit, args.lbfgs_iters
     )
+    counters = (pe, kc, mc, ec, gc)
+    match_loop, match_launches, match_ms = match_slice_phase(
+        counters, args.seed, device, args.step_limit, args.lbfgs_iters, jacobi_gap
+    )
     if args.profile:
-        profile_phase(loop, mm_loop, args.profile)
+        profile_phase(loop, mm_loop, match_loop, args.profile)
 
     for name, n in launches.items():
         if name != "path_eval_bwd_full" and n == 0:
             raise AssertionError(f"{name} was not launched on the pathwise path")
+    for name, n in match_launches.items():
+        if name in pe.launches or name in kc.launches:
+            continue
+        launches[name] = n
     errs.update(pair_errs)
+    errs.update(match_errs)
     timings.update(pair_timings)
+    timings.update(match_timings)
     launches.update(pair_launches)
     sources = dict.fromkeys(pe.launches, "gpflowpilco_torch/csrc/path_eval.cu")
     sources.update(dict.fromkeys(kc.launches, "gpflowpilco_torch/csrc/kexp_pair.cu"))
+    sources.update(dict.fromkeys(mc.launches, "gpflowpilco_torch/csrc/mm_match.cu"))
+    sources.update(dict.fromkeys(ec.launches, "gpflowpilco_torch/csrc/enc_match.cu"))
+    sources.update(dict.fromkeys(gc.launches, "gpflowpilco_torch/csrc/mm_glue.cu"))
     replaces = {
         "path_eval_fwd": "gpflowpilco_tpu/ops/path_eval_pallas.py:58",
         "path_eval_bwd_dx": "gpflowpilco_tpu/ops/path_eval_pallas.py:102",
@@ -681,6 +1293,18 @@ def main():
     }
     for name in kc.launches:
         replaces[name] = "gpflowpilco_tpu/ops/kexp_pallas.py:" + ("47" if "_fwd_" in name else "62")
+    for name in mc.launches:
+        replaces[name] = "gpflowpilco_tpu/ops/mm_match_pallas.py:" + (
+            "624" if "_fwd_" in name else "637" if "frozen" in name else "657")
+    for name in ec.launches:
+        replaces[name] = "gpflowpilco_tpu/ops/enc_match_pallas.py:" + ("252" if "_fwd_" in name else "262")
+    for name in gc.launches:
+        replaces[name] = "gpflowpilco_tpu/ops/mm_glue_pallas.py:" + ("87" if "psd" in name else "130")
+    names = (*pe.launches, *kc.launches, *mc.launches, *ec.launches, *gc.launches)
+    for name in names:
+        if name.startswith(("svgp_match", "enc_match", "psd_boost", "euler_update")):
+            continue
+        timings[name].setdefault("library_ms", None)
     kernels = [
         dict(
             name=name,
@@ -691,14 +1315,18 @@ def main():
             max_abs_err=errs[name],
             ms=timings[name]["ms"],
             plain_ms=timings[name]["plain_ms"],
+            # "device": CUDA-event time with the device held busy; "wall": host
+            # wall time of one call, for plain versions that wait for the device
+            plain_how=timings[name]["plain_how"],
             bound_ms=timings[name]["bound_ms"],
             bound_by=timings[name]["bound_by"],
-            library_ms=None,
+            library_ms=timings[name]["library_ms"],
         )
-        for name in (*pe.launches, *kc.launches)
+        for name in names
     ]
     print(f"pathwise slice ms: {json.dumps(slice_ms)}")
     print(f"mm slice ms: {json.dumps(mm_ms)}")
+    print(f"whole-match slice ms: {json.dumps(match_ms)}")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

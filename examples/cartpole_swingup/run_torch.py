@@ -6,16 +6,21 @@ points) fit by L-BFGS, 30-step horizon, float32 models and fits.
 ``--variant pathwise`` (the default) optimizes 1024 particles x 1024 Fourier
 bases per policy step through the CUDA path-eval kernel; ``--variant mm``
 propagates Gaussian moments, with ``--fused`` routing the eKuffu pair grid
-through the CUDA pair-contraction kernel and ``--mm-loss-f64`` (or
-``--mm-loss-dd``) running the MM loss in float64. Validation rollouts,
-multistart and checkpoints are not ported yet.
+through the CUDA pair-contraction kernel, ``--fused-match`` running the
+whole-match path (the whole SVGP match, encoder match, PSD guard and Euler
+update as CUDA kernels; the twin of ``run_tpu_full.py --fused-match``), and
+``--mm-loss-f64`` (or ``--mm-loss-dd``) running the MM loss in float64.
+Validation rollouts, multistart and checkpoints are not ported yet.
 
     python examples/cartpole_swingup/run_torch.py --episodes 10
     python examples/cartpole_swingup/run_torch.py --variant mm --fused --mm-loss-f64
+    python examples/cartpole_swingup/run_torch.py --variant mm --fused-match
     python examples/cartpole_swingup/run_torch.py --device cpu --episodes 3 \\
         --step-limit 20 --batch-size 16 --num-bases 32 --num-centers 16   # tiny CPU run
     python examples/cartpole_swingup/run_torch.py --device cpu --variant mm --fused \\
         --mm-loss-f64 --episodes 3 --step-limit 5 --num-centers 16 --lbfgs-iters 30
+    python examples/cartpole_swingup/run_torch.py --device cpu --variant mm --fused-match \\
+        --episodes 3 --step-limit 5 --num-centers 16 --lbfgs-iters 30
 """
 from __future__ import annotations
 
@@ -98,6 +103,10 @@ def main():
     p.add_argument("--fused", action="store_true",
                    help="mm: route the eKuffu pair grid through the CUDA pair-contraction "
                         "kernel (use_fused_mm); the pathwise variant always uses its kernel")
+    p.add_argument("--fused-match", action="store_true",
+                   help="mm: the whole-match path (use_fused_match): whole SVGP match, encoder "
+                        "match, PSD guard and Euler update as CUDA kernels; its drift, encoder "
+                        "and glue kernels run when the loss is in the loop dtype")
     p.add_argument("--mm-loss-f64", action="store_true",
                    help="mm: float64 loss with the policy chain as a float32 island "
                         "(PolicySpec.loss_dtype, loss_policy_f32)")
@@ -138,6 +147,7 @@ def main():
         loop_cls=MomentMatchingPILCO if args.variant == "mm" else PathwisePILCO,
     )
     loop.use_fused_mm = args.fused
+    loop.use_fused_match = args.fused_match
     outer_loop(loop, num_episodes=args.episodes, num_episodes_init=args.episodes_init)
 
 

@@ -1,8 +1,9 @@
 """Task components: feature encoder and Gaussian cost
 (counterpart of gpflowpilco_tpu/components.py).
 
-Both evaluate concretely and on GaussianMoments. The encoder's fused match
-(the TPU kernel K4, ``Encoder(fused=True)``) is not ported yet.
+Both evaluate concretely and on GaussianMoments. ``Encoder(fused=True)``
+runs the SinCos encoder's whole match as one CUDA kernel op
+(ops/enc_match_cuda.py).
 """
 from __future__ import annotations
 
@@ -12,16 +13,24 @@ import torch
 
 from .moment_matching.rules import SinCos
 from .moments import GaussianMatch, GaussianMoments
+from .ops.enc_match_cuda import fused_encoder_match, make_enc_meta
 from .ops.linalg import bcho_solve, cholesky_nan
 
 
 class Encoder:
-    """Apply ``transform`` to the active dims and append the untouched dims."""
+    """Apply ``transform`` to the active dims and append the untouched dims.
+    ``fused=True`` (SinCos only) runs the match, trig moments and stitch, as
+    one kernel op with a hand adjoint."""
 
-    def __init__(self, transform, active_dims: Tuple[int, ...] = ()):
+    def __init__(self, transform, active_dims: Tuple[int, ...] = (), fused: bool = False):
         self.transform = transform
         self.active_dims = tuple(active_dims)
+        self.fused = fused
         self._indices = {}  # (ndims, device) -> (active, inactive) index tensors
+
+    def with_fused(self, fused: bool = True) -> "Encoder":
+        """A copy of this encoder with ``fused`` set."""
+        return Encoder(self.transform, self.active_dims, fused=fused)
 
     def partition(self, ndims: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
         active = self.active_dims
@@ -51,6 +60,13 @@ class Encoder:
         """Partition x into (active a, inactive b), match the transform on a,
         and stitch the joint covariance back together. Cov(x, T(a)) =
         Cov(x, a) Saa^{-1} Cov(a, T(a)) is exact by Stein's lemma."""
+        if self.fused:
+            if not isinstance(self.transform, SinCos):
+                raise ValueError("fused encoder match supports SinCos only")
+            meta = make_enc_meta(self.active_dims, x.ndim)
+            y_mean, y_cov, cross = fused_encoder_match(meta, x.mean, x.cov)
+            return GaussianMatch(x=x, y=GaussianMoments(mean=y_mean, cov=y_cov), cross=cross,
+                                 preinv=False)
         a_idx, b_idx = self._index(x.ndim, x.mean.device)
         mean_a = torch.index_select(x.mean, -1, a_idx)
         sxa = torch.index_select(x.cov, -1, a_idx)  # (..., D, Da)

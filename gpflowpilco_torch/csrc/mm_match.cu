@@ -1,0 +1,787 @@
+// Whole SVGP moment match for Hopper (sm_90a), float32 and float64.
+//
+// Replaces the TPU kernels of gpflowpilco_tpu/ops/mm_match_pallas.py:
+//   svgp_match_fwd_{f32,f64}        <- _fwd_kernel (:624), launched by _fwd_call (:736)
+//   svgp_match_bwd_frozen_{f32,f64} <- _bwd_kernel_frozen (:637), launched at :762
+//   svgp_match_bwd_{f32,f64}        <- _bwd_kernel_full (:657), launched at :794
+//
+// Per batch entry n, with K = L + P groups (L latents, P = L(L+1)/2 latent
+// pairs) and A_k = S + diag(kdiag_k) = ch_k ch_k^T:
+//   latent l: y = ch^{-1}(z_m - mx), e_m = var_l exp(hll_l - hls_l - |y|^2/2),
+//             iv = ch^{-T} y; f1_l = sum_m alpha_m e_m, cross[:, l] = sum_m iv alpha_m e_m
+//   pair p:   up = ch^{-1}(u_m) - ch^{-1}mx/2, wp likewise, a_u = g11 + |up|^2, ...,
+//             E(i,j) = exp(cexp_p - M_p(i,j)), M_p = -g1_i.g2_j + up_i.wp_j + a_u/2 + a_w/2,
+//             f2_p = alpha_u^T E alpha_w, ecov_l = sum Q_l o E (diagonal pairs)
+//   sff = f2 - f1 f1^T + diag(var - ecov)
+// The backward is the hand adjoint of mm_match_pallas._bwd_core (:386-566):
+// the adjoint of each recurrence is the recurrence reversed, the Cholesky's
+// by chol_rev (:207). The frozen variant gives (dmx, dsxx); the full one
+// also every grid tensor's cotangent, summed over the batch.
+//
+// Bound on an H100: at the MM drift's shape (N=1, L=4, P=10, D=6, M=240) a
+// forward must read the grid, dominated by qmat (4 x 240^2 x 4 B = 0.9 MB in
+// float32), and does ~10 x 240^2 x (4D + 4) ~ 16 MFLOP plus 576 k exp: about
+// 0.3 us of memory and operations each, far below a launch. The kernel is
+// latency-bound: only K = 14 blocks run.
+//
+// Design: one block of 256 threads per group (forward: per group and batch
+// entry; backward: per group, looping over the batch so that the grid
+// cotangents sum in a fixed order). Thread 0 factors the block's D x D
+// matrix into shared memory; each thread then owns columns m of the M
+// inducing points (latent groups) or rows or columns of the M x M exp grid
+// (pair groups), with its D-vectors in registers (loops over a capacity
+// DM in {8, 16}, guarded by the runtime D, unrolled at DM = 8). A pair block stages
+// up, wp, g1, g2, a_u, a_w, alpha_u, alpha_w ((4D + 4) x M values) in
+// dynamic shared memory and sweeps E by columns (forward; coalesced Q reads)
+// and, in the backward, once by rows and once by columns, recomputing E: the
+// row sums (da_u, dup, dg1t, dalpha_u) and column sums (da_w, dwp, dg2t,
+// dalpha_w) each belong to one thread. Block sums go through warp shuffles
+// and one fixed-order pass over the warps. The cross-group combine
+// (sff; dsxx = sym(sum_k da_k) and dmx) is a second, one-thread-per-entry
+// launch. No atomics: repeated runs are bit-identical. Full-precision exp
+// and log (no fast math).
+//
+// Each entry returns cudaGetLastError() as an int; the caller raises on
+// nonzero. Entries launch on the given stream and do not synchronise.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxD = 16;
+constexpr int kMaxNV = kMaxD * (kMaxD + 1) / 2 + kMaxD + 2;  // most values one block sums
+
+// A loop of DM or fewer trips over a register capacity DM: fully unrolled at
+// DM = 8, the path's capacity, so every index is a constant; a runtime loop
+// at DM = 16 (D in 9..16, on no path), whose arrays live in local memory
+// either way and whose full unrolling made most of the build time. The trip
+// counts are constant (triangular loops carry a guard instead), so that
+// "unroll (DM)" is a full unroll whatever order the compiler unrolls in.
+#define UNROLL_DM _Pragma("unroll (DM <= 8 ? DM : 1)")
+
+__device__ __forceinline__ float ex(float x) { return expf(x); }
+__device__ __forceinline__ double ex(double x) { return exp(x); }
+__device__ __forceinline__ float lg(float x) { return logf(x); }
+__device__ __forceinline__ double lg(double x) { return log(x); }
+__device__ __forceinline__ float sq(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sq(double x) { return sqrt(x); }
+
+__host__ __device__ constexpr int tri(int a, int b) { return a * (a + 1) / 2 + b; }
+
+// Grid tensors, unpadded, in GRID_FIELDS order (ops/mm_match_cuda.py).
+template <typename T>
+struct Grid {
+  const T *kdiag, *zt, *alpha, *varr, *hll, *qmat, *ut, *wt, *g1t, *g2t, *g11, *g22, *cp,
+      *alpha_u, *alpha_w;
+};
+
+template <typename T>
+struct GridGrad {
+  T *kdiag, *zt, *alpha, *varr, *hll, *qmat, *ut, *wt, *g1t, *g2t, *g11, *g22, *cp, *alpha_u,
+      *alpha_w;
+};
+
+struct Dims {
+  int N, L, P, K, D, M;
+  bool unc;
+};
+
+// Pair p -> latents (i, j), i <= j, in grid order; the index of pair (i, j).
+__device__ __forceinline__ void pair_of(int p, int L, int& pi, int& pj) {
+  int k = 0;
+  for (int i = 0; i < L; ++i)
+    for (int j = i; j < L; ++j, ++k)
+      if (k == p) {
+        pi = i;
+        pj = j;
+      }
+}
+__device__ __forceinline__ int pair_index(int i, int j, int L) {
+  if (i > j) {
+    const int t = i;
+    i = j;
+    j = t;
+  }
+  return i * L - i * (i - 1) / 2 + (j - i);
+}
+
+// Accumulate into an output that the batch loop owns: write at n = 0.
+template <typename T>
+__device__ __forceinline__ void acc(T* dst, T v, int n) {
+  *dst = n == 0 ? v : *dst + v;
+}
+
+// Sum NV per-thread values over the block into out[NV] (shared). Fixed
+// order: shuffles within each warp, then warps in order.
+template <typename T, int NV>
+__device__ __forceinline__ void block_sum(const T (&v)[NV], T* red, T* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    T x = v[k];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+    if (lane == 0) red[warp * NV + k] = x;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < NV; k += kThreads) {
+    T s = T(0);
+    for (int w = 0; w < kWarps; ++w) s += red[w * NV + k];
+    out[k] = s;
+  }
+  __syncthreads();
+}
+
+// Thread 0: ch (DM x DM, row-major, zero above the diagonal and beyond d) =
+// chol(S + diag(kd)); returns sum log ch_ii. The recurrence of _chol_unrolled.
+template <typename T, int DM>
+__device__ T chol(const T* S, const T* kd, T* ch, int d) {
+  for (int i = 0; i < DM * DM; ++i) ch[i] = T(0);
+  for (int j = 0; j < d; ++j) {
+    T s = S[j * d + j] + kd[j];
+    for (int k = 0; k < j; ++k) s -= ch[j * DM + k] * ch[j * DM + k];
+    ch[j * DM + j] = sq(s);
+    const T inv = T(1) / ch[j * DM + j];
+    for (int i = j + 1; i < d; ++i) {
+      T t = S[i * d + j];
+      for (int k = 0; k < j; ++k) t -= ch[i * DM + k] * ch[j * DM + k];
+      ch[i * DM + j] = t * inv;
+    }
+  }
+  T hls = T(0);
+  for (int i = 0; i < d; ++i) hls += lg(ch[i * DM + i]);
+  return hls;
+}
+
+// b <- ch^{-1} b
+template <typename T, int DM>
+__device__ __forceinline__ void lsolve(const T* ch, T (&b)[DM], int d) {
+UNROLL_DM
+  for (int i = 0; i < DM; ++i) {
+    if (i < d) {
+      T a = b[i];
+UNROLL_DM
+      for (int j = 0; j < DM; ++j)
+        if (j < i) a -= ch[i * DM + j] * b[j];
+      b[i] = a / ch[i * DM + i];
+    }
+  }
+}
+
+// b <- ch^{-T} b
+template <typename T, int DM>
+__device__ __forceinline__ void utsolve(const T* ch, T (&b)[DM], int d) {
+UNROLL_DM
+  for (int i = DM - 1; i >= 0; --i) {
+    if (i < d) {
+      T a = b[i];
+UNROLL_DM
+      for (int j = 0; j < DM; ++j)
+        if (j > i && j < d) a -= ch[j * DM + i] * b[j];
+      b[i] = a / ch[i * DM + i];
+    }
+  }
+}
+
+// Thread 0: the lower-triangle cotangent da of the factored matrix from the
+// factor's cotangent dl (destroyed); mm_match_pallas._chol_rev.
+template <typename T, int DM>
+__device__ void chol_rev(const T* ch, T* dl, T* da, int d) {
+  for (int i = 0; i < DM * DM; ++i) da[i] = T(0);
+  for (int j = d - 1; j >= 0; --j) {
+    const T inv = T(1) / ch[j * DM + j];
+    for (int i = d - 1; i > j; --i) {
+      const T gi = dl[i * DM + j] * inv;
+      da[i * DM + j] += gi;
+      dl[j * DM + j] -= gi * ch[i * DM + j];
+      for (int k = 0; k < j; ++k) {
+        dl[i * DM + k] -= gi * ch[j * DM + k];
+        dl[j * DM + k] -= gi * ch[i * DM + k];
+      }
+    }
+    const T s = T(0.5) * dl[j * DM + j] * inv;
+    da[j * DM + j] += s;
+    for (int k = 0; k < j; ++k) dl[j * DM + k] -= T(2) * s * ch[j * DM + k];
+  }
+}
+
+template <typename T, int DM>
+struct Shared {
+  T ch[DM * DM];
+  T dl[DM * DM];
+  T da[DM * DM];
+  T ilm[DM];
+  T red[kWarps * kMaxNV];
+  T out[kMaxNV];
+  T hls, cexp;
+};
+
+// Pair block: thread 0 factors and solves for ilm; then every thread stages
+// its columns of up, wp, g1, g2, a_u, a_w, alpha_u, alpha_w.
+template <typename T, int DM>
+__device__ void pair_setup(const Grid<T>& g, const Dims& z, int p, const T* mx, const T* S,
+                           Shared<T, DM>& sh, T* dyn) {
+  const int d = z.D, M = z.M, k = z.L + p;
+  if (threadIdx.x == 0) {
+    sh.hls = chol<T, DM>(S, g.kdiag + (size_t)k * d, sh.ch, d);
+    T b[DM];
+    for (int i = 0; i < DM; ++i) b[i] = i < d ? mx[i] : T(0);
+    lsolve<T, DM>(sh.ch, b, d);
+    for (int i = 0; i < DM; ++i) sh.ilm[i] = b[i];
+    sh.cexp = g.cp[p] - sh.hls;
+  }
+  __syncthreads();
+  T* up = dyn;
+  T* wp = up + d * M;
+  T* g1 = wp + d * M;
+  T* g2 = g1 + d * M;
+  T* au = g2 + d * M;
+  T* aw = au + M;
+  T* alu = aw + M;
+  T* alw = alu + M;
+  const size_t pdm = (size_t)p * d * M;
+  for (int m = threadIdx.x; m < M; m += kThreads) {
+    T u[DM], w[DM];
+UNROLL_DM
+    for (int i = 0; i < DM; ++i) {
+      u[i] = i < d ? g.ut[pdm + i * M + m] : T(0);
+      w[i] = i < d ? g.wt[pdm + i * M + m] : T(0);
+    }
+    lsolve<T, DM>(sh.ch, u, d);
+    lsolve<T, DM>(sh.ch, w, d);
+    T a = g.g11[(size_t)p * M + m], b = g.g22[(size_t)p * M + m];
+UNROLL_DM
+    for (int i = 0; i < DM; ++i) {
+      if (i < d) {
+        const T ui = u[i] - T(0.5) * sh.ilm[i], wi = w[i] - T(0.5) * sh.ilm[i];
+        a += ui * ui;
+        b += wi * wi;
+        up[i * M + m] = ui;
+        wp[i * M + m] = wi;
+        g1[i * M + m] = g.g1t[pdm + i * M + m];
+        g2[i * M + m] = g.g2t[pdm + i * M + m];
+      }
+    }
+    au[m] = a;
+    aw[m] = b;
+    alu[m] = g.alpha_u[(size_t)p * M + m];
+    alw[m] = g.alpha_w[(size_t)p * M + m];
+  }
+  __syncthreads();
+}
+
+// E(i, j) of the staged pair, with row i's factors in registers.
+template <typename T, int DM>
+__device__ __forceinline__ T pair_e(const T (&g1i)[DM], const T (&upi)[DM], T aui, const T* g2,
+                                    const T* wp, const T* aw, int j, int d, int M, T cexp) {
+  T dot = T(0), uw = T(0);
+UNROLL_DM
+  for (int k = 0; k < DM; ++k)
+    if (k < d) {
+      dot += g1i[k] * g2[k * M + j];
+      uw += upi[k] * wp[k * M + j];
+    }
+  const T mp = -dot + uw + T(0.5) * aui + T(0.5) * aw[j];
+  return ex(cexp - mp);
+}
+
+// ---------------------------------------------------------------- forward
+template <typename T, int DM>
+__global__ void __launch_bounds__(kThreads) fwd_groups(Grid<T> g, Dims z, const T* __restrict__ mx_,
+                                                        const T* __restrict__ sxx, T* __restrict__ f1,
+                                                        T* __restrict__ cross, T* __restrict__ scratch) {
+  __shared__ Shared<T, DM> sh;
+  extern __shared__ __align__(16) unsigned char dyn_raw[];
+  T* dyn = reinterpret_cast<T*>(dyn_raw);
+  const int k = blockIdx.x, n = blockIdx.y, d = z.D, M = z.M;
+  const T* mx = mx_ + (size_t)n * d;
+  const T* S = sxx + (size_t)n * d * d;
+
+  if (k < z.L) {  // latent l: eKfu and the premultiplied cross
+    const int l = k;
+    if (threadIdx.x == 0) sh.hls = chol<T, DM>(S, g.kdiag + (size_t)l * d, sh.ch, d);
+    __syncthreads();
+    const T lead = g.hll[l] - sh.hls, var = g.varr[l];
+    T v[DM + 1];
+#pragma unroll
+    for (int i = 0; i <= DM; ++i) v[i] = T(0);
+    for (int m = threadIdx.x; m < M; m += kThreads) {
+      T y[DM];
+UNROLL_DM
+      for (int i = 0; i < DM; ++i) y[i] = i < d ? g.zt[((size_t)l * d + i) * M + m] - mx[i] : T(0);
+      lsolve<T, DM>(sh.ch, y, d);
+      T quad = y[0] * y[0];
+UNROLL_DM
+      for (int i = 1; i < DM; ++i)
+        if (i < d) quad += y[i] * y[i];
+      const T e = var * ex(lead - T(0.5) * quad);
+      utsolve<T, DM>(sh.ch, y, d);  // y is now iv
+      const T ae = g.alpha[(size_t)l * M + m] * e;
+      v[0] += ae;
+UNROLL_DM
+      for (int i = 0; i < DM; ++i) v[1 + i] += y[i] * ae;
+    }
+    block_sum<T, DM + 1>(v, sh.red, sh.out);
+    if (threadIdx.x == 0) {
+      f1[(size_t)n * z.L + l] = sh.out[0];
+      for (int i = 0; i < d; ++i) cross[((size_t)n * d + i) * z.L + l] = sh.out[1 + i];
+    }
+    return;
+  }
+
+  const int p = k - z.L;
+  int pi = 0, pj = 0;
+  pair_of(p, z.L, pi, pj);
+  pair_setup<T, DM>(g, z, p, mx, S, sh, dyn);
+  const T* up = dyn;
+  const T* wp = up + d * M;
+  const T* g1 = wp + d * M;
+  const T* g2 = g1 + d * M;
+  const T* au = g2 + d * M;
+  const T* aw = au + M;
+  const T* alu = aw + M;
+  const T* alw = alu + M;
+  const bool qd = z.unc && pi == pj;
+  const T* q = g.qmat + (size_t)pi * M * M;
+  const T cexp = sh.cexp;
+  T v[2] = {T(0), T(0)};
+  for (int j = threadIdx.x; j < M; j += kThreads) {
+    T t = T(0), qs = T(0);
+    for (int i = 0; i < M; ++i) {
+      T g1i[DM], upi[DM];
+UNROLL_DM
+      for (int c = 0; c < DM; ++c) {
+        g1i[c] = c < d ? g1[c * M + i] : T(0);
+        upi[c] = c < d ? up[c * M + i] : T(0);
+      }
+      const T e = pair_e<T, DM>(g1i, upi, au[i], g2, wp, aw, j, d, M, cexp);
+      t += alu[i] * e;
+      if (qd) qs += q[(size_t)i * M + j] * e;
+    }
+    v[0] += t * alw[j];
+    v[1] += qs;
+  }
+  block_sum<T, 2>(v, sh.red, sh.out);
+  if (threadIdx.x == 0) {
+    scratch[((size_t)n * z.P + p) * 2] = sh.out[0];
+    scratch[((size_t)n * z.P + p) * 2 + 1] = sh.out[1];
+  }
+}
+
+template <typename T>
+__global__ void fwd_combine(const T* __restrict__ varr, const T* __restrict__ f1,
+                            const T* __restrict__ scratch, T* __restrict__ sff, Dims z) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= z.N) return;
+  const int L = z.L;
+  const T* f = f1 + (size_t)n * L;
+  const T* sc = scratch + (size_t)n * z.P * 2;
+  for (int a = 0; a < L; ++a)
+    for (int b = 0; b < L; ++b) {
+      T s = sc[2 * pair_index(a, b, L)] - f[a] * f[b];
+      if (z.unc && a == b) s += varr[a] - sc[2 * pair_index(a, a, L) + 1];
+      sff[((size_t)n * L + a) * L + b] = s;
+    }
+}
+
+// ---------------------------------------------------------------- backward
+// Thread 0, after a group's block sums: finish dch (diagonal term), run the
+// Cholesky adjoint and write the group's da (lower) to gda.
+template <typename T, int DM>
+__device__ void finish_group(Shared<T, DM>& sh, const T* pc_sum, T dhls, T* gda_nk, int d) {
+  for (int i = 0; i < DM * DM; ++i) sh.dl[i] = T(0);
+  for (int a = 0; a < d; ++a)
+    for (int b = 0; b <= a; ++b) sh.dl[a * DM + b] = pc_sum[tri(a, b)];
+  for (int i = 0; i < d; ++i) sh.dl[i * DM + i] += dhls / sh.ch[i * DM + i];
+  chol_rev<T, DM>(sh.ch, sh.dl, sh.da, d);
+  for (int a = 0; a < d; ++a)
+    for (int b = 0; b < d; ++b) gda_nk[a * d + b] = b <= a ? sh.da[a * DM + b] : T(0);
+}
+
+template <typename T, int DM, bool FULL>
+__global__ void __launch_bounds__(kThreads) bwd_groups(
+    Grid<T> g, GridGrad<T> dg, Dims z, const T* __restrict__ mx_, const T* __restrict__ sxx,
+    const T* __restrict__ f1_, const T* __restrict__ df1_, const T* __restrict__ dsff_,
+    const T* __restrict__ dcross_, T* __restrict__ gda, T* __restrict__ gdmx) {
+  __shared__ Shared<T, DM> sh;
+  extern __shared__ __align__(16) unsigned char dyn_raw[];
+  T* dyn = reinterpret_cast<T*>(dyn_raw);
+  constexpr int NT = DM * (DM + 1) / 2;
+  constexpr int NV = NT + DM + 2;
+  const int k = blockIdx.x, d = z.D, M = z.M, L = z.L;
+
+  for (int n = 0; n < z.N; ++n) {
+    const T* mx = mx_ + (size_t)n * d;
+    const T* S = sxx + (size_t)n * d * d;
+    const T* dsff = dsff_ + (size_t)n * L * L;
+    T v[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) v[i] = T(0);
+    T* gda_nk = gda + ((size_t)n * z.K + k) * d * d;
+    T* gdmx_nk = gdmx + ((size_t)n * z.K + k) * d;
+
+    if (k < L) {  // latent l
+      const int l = k;
+      if (threadIdx.x == 0) sh.hls = chol<T, DM>(S, g.kdiag + (size_t)l * d, sh.ch, d);
+      __syncthreads();
+      const T lead = g.hll[l] - sh.hls, var = g.varr[l];
+      const T* f1 = f1_ + (size_t)n * L;
+      T df1 = df1_[(size_t)n * L + l];
+      T corr = T(0);
+      for (int j = 0; j < L; ++j) corr += (dsff[l * L + j] + dsff[j * L + l]) * f1[j];
+      df1 -= corr;
+      T dcr[DM];
+UNROLL_DM
+      for (int i = 0; i < DM; ++i) dcr[i] = i < d ? dcross_[((size_t)n * d + i) * L + l] : T(0);
+      // v: [0, NT) dch partials, [NT, NT + DM) dmx, NT + DM: sum ede, NT + DM + 1: dvarr_lat
+      for (int m = threadIdx.x; m < M; m += kThreads) {
+        T y[DM], iv[DM];
+UNROLL_DM
+        for (int i = 0; i < DM; ++i) y[i] = i < d ? g.zt[((size_t)l * d + i) * M + m] - mx[i] : T(0);
+        lsolve<T, DM>(sh.ch, y, d);
+        T quad = y[0] * y[0];
+UNROLL_DM
+        for (int i = 1; i < DM; ++i)
+          if (i < d) quad += y[i] * y[i];
+        const T e = var * ex(lead - T(0.5) * quad);
+UNROLL_DM
+        for (int i = 0; i < DM; ++i) iv[i] = y[i];
+        utsolve<T, DM>(sh.ch, iv, d);
+        const T al = g.alpha[(size_t)l * M + m];
+        const T ae = al * e;
+        T dae = df1;
+UNROLL_DM
+        for (int i = 0; i < DM; ++i) dae += dcr[i] * iv[i];
+        const T de = al * dae;
+        const T ede = e * de;
+        const T dquad = T(-0.5) * ede;
+        v[NT + DM] += ede;
+        if (FULL) {
+          v[NT + DM + 1] += de * (e / var);
+          acc(dg.alpha + (size_t)l * M + m, dae * e, n);
+        }
+        T t[DM];
+UNROLL_DM
+        for (int i = 0; i < DM; ++i) t[i] = dcr[i] * ae;
+        lsolve<T, DM>(sh.ch, t, d);
+        T dz[DM];
+UNROLL_DM
+        for (int i = 0; i < DM; ++i) dz[i] = T(2) * y[i] * dquad + t[i];
+UNROLL_DM
+        for (int a = 0; a < DM; ++a)
+UNROLL_DM
+          for (int b = 0; b < DM; ++b)
+            if (b <= a) v[tri(a, b)] -= t[b] * iv[a];
+        utsolve<T, DM>(sh.ch, dz, d);
+UNROLL_DM
+        for (int a = 0; a < DM; ++a) {
+UNROLL_DM
+          for (int b = 0; b < DM; ++b)
+            if (b <= a) v[tri(a, b)] -= dz[a] * y[b];
+          v[NT + a] -= dz[a];
+          if (FULL && a < d) acc(dg.zt + ((size_t)l * d + a) * M + m, dz[a], n);
+        }
+      }
+      block_sum<T, NV>(v, sh.red, sh.out);
+      if (threadIdx.x == 0) {
+        const T s_ede = sh.out[NT + DM];
+        finish_group<T, DM>(sh, sh.out, -s_ede, gda_nk, d);
+        for (int i = 0; i < d; ++i) gdmx_nk[i] = sh.out[NT + i];
+        if (FULL) {
+          for (int a = 0; a < d; ++a) acc(dg.kdiag + (size_t)k * d + a, sh.da[a * DM + a], n);
+          acc(dg.hll + l, s_ede, n);
+          acc(dg.varr + l, sh.out[NT + DM + 1] + (z.unc ? dsff[l * L + l] : T(0)), n);
+        }
+      }
+      __syncthreads();
+      continue;
+    }
+
+    // pair p
+    const int p = k - L;
+    int pi = 0, pj = 0;
+    pair_of(p, L, pi, pj);
+    pair_setup<T, DM>(g, z, p, mx, S, sh, dyn);
+    const T* up = dyn;
+    const T* wp = up + d * M;
+    const T* g1 = wp + d * M;
+    const T* g2 = g1 + d * M;
+    const T* au = g2 + d * M;
+    const T* aw = au + M;
+    const T* alu = aw + M;
+    const T* alw = alu + M;
+    const bool diag = pi == pj;
+    const bool qd = z.unc && diag;
+    const T* q = g.qmat + (size_t)pi * M * M;
+    const T df2 = dsff[pi * L + pj] + (diag ? T(0) : dsff[pj * L + pi]);
+    const T decov = qd ? -dsff[pi * L + pi] : T(0);
+    const T cexp = sh.cexp;
+    const size_t pdm = (size_t)p * d * M;
+    // v: [0, NT) dch partials, [NT, NT + DM) dup + dwp sums, NT + DM: sum ede
+
+    // row pass: thread i owns da_u[i], dup[:, i], dg1t[:, i], dalpha_u[i]
+    for (int i = threadIdx.x; i < M; i += kThreads) {
+      T g1i[DM], upi[DM], ilu[DM];
+UNROLL_DM
+      for (int c = 0; c < DM; ++c) {
+        g1i[c] = c < d ? g1[c * M + i] : T(0);
+        upi[c] = c < d ? up[c * M + i] : T(0);
+        ilu[c] = c < d ? g.ut[pdm + c * M + i] : T(0);
+      }
+      const T aui = au[i], alui = alu[i];
+      T rs = T(0), ea = T(0), accw[DM], accg[DM];
+UNROLL_DM
+      for (int c = 0; c < DM; ++c) accw[c] = accg[c] = T(0);
+      for (int j = 0; j < M; ++j) {
+        const T e = pair_e<T, DM>(g1i, upi, aui, g2, wp, aw, j, d, M, cexp);
+        T de = df2 * (alui * alw[j]);
+        if (qd) de += decov * q[(size_t)i * M + j];
+        const T ede = e * de;
+        rs += ede;
+UNROLL_DM
+        for (int c = 0; c < DM; ++c)
+          if (c < d) {
+            accw[c] += ede * wp[c * M + j];
+            if (FULL) accg[c] += ede * g2[c * M + j];
+          }
+        if (FULL) ea += e * alw[j];
+      }
+      const T da_u = T(-0.5) * rs;
+      T dup[DM];
+UNROLL_DM
+      for (int c = 0; c < DM; ++c) dup[c] = c < d ? -accw[c] + T(2) * upi[c] * da_u : T(0);
+      v[NT + DM] += rs;
+UNROLL_DM
+      for (int c = 0; c < DM; ++c) v[NT + c] += dup[c];
+      utsolve<T, DM>(sh.ch, dup, d);  // tmp_u
+      lsolve<T, DM>(sh.ch, ilu, d);
+UNROLL_DM
+      for (int a = 0; a < DM; ++a)
+UNROLL_DM
+        for (int b = 0; b < DM; ++b)
+          if (b <= a) v[tri(a, b)] -= dup[a] * ilu[b];
+      if (FULL) {
+        for (int c = 0; c < d; ++c) {
+          acc(dg.ut + pdm + c * M + i, dup[c], n);
+          acc(dg.g1t + pdm + c * M + i, accg[c], n);
+        }
+        acc(dg.g11 + (size_t)p * M + i, da_u, n);
+        acc(dg.alpha_u + (size_t)p * M + i, df2 * ea, n);
+      }
+    }
+
+    // column pass: thread j owns da_w[j], dwp[:, j], dg2t[:, j], dalpha_w[j]
+    // and column j of dqmat
+    for (int j = threadIdx.x; j < M; j += kThreads) {
+      T wpj[DM], ilw[DM];
+UNROLL_DM
+      for (int c = 0; c < DM; ++c) {
+        wpj[c] = c < d ? wp[c * M + j] : T(0);
+        ilw[c] = c < d ? g.wt[pdm + c * M + j] : T(0);
+      }
+      const T alwj = alw[j];
+      T cs = T(0), ea = T(0), accu[DM], accg[DM];
+UNROLL_DM
+      for (int c = 0; c < DM; ++c) accu[c] = accg[c] = T(0);
+      for (int i = 0; i < M; ++i) {
+        T g1i[DM], upi[DM];
+UNROLL_DM
+        for (int c = 0; c < DM; ++c) {
+          g1i[c] = c < d ? g1[c * M + i] : T(0);
+          upi[c] = c < d ? up[c * M + i] : T(0);
+        }
+        const T e = pair_e<T, DM>(g1i, upi, au[i], g2, wp, aw, j, d, M, cexp);
+        T de = df2 * (alu[i] * alwj);
+        if (qd) de += decov * q[(size_t)i * M + j];
+        const T ede = e * de;
+        cs += ede;
+UNROLL_DM
+        for (int c = 0; c < DM; ++c) {
+          accu[c] += ede * upi[c];
+          if (FULL) accg[c] += ede * g1i[c];
+        }
+        if (FULL) {
+          ea += alu[i] * e;
+          if (diag) acc(dg.qmat + ((size_t)pi * M + i) * M + j, decov * e, n);
+        }
+      }
+      const T da_w = T(-0.5) * cs;
+      T dwp[DM];
+UNROLL_DM
+      for (int c = 0; c < DM; ++c) dwp[c] = c < d ? -accu[c] + T(2) * wpj[c] * da_w : T(0);
+UNROLL_DM
+      for (int c = 0; c < DM; ++c) v[NT + c] += dwp[c];
+      utsolve<T, DM>(sh.ch, dwp, d);  // tmp_w
+      lsolve<T, DM>(sh.ch, ilw, d);
+UNROLL_DM
+      for (int a = 0; a < DM; ++a)
+UNROLL_DM
+        for (int b = 0; b < DM; ++b)
+          if (b <= a) v[tri(a, b)] -= dwp[a] * ilw[b];
+      if (FULL) {
+        for (int c = 0; c < d; ++c) {
+          acc(dg.wt + pdm + c * M + j, dwp[c], n);
+          acc(dg.g2t + pdm + c * M + j, accg[c], n);
+        }
+        acc(dg.g22 + (size_t)p * M + j, da_w, n);
+        acc(dg.alpha_w + (size_t)p * M + j, df2 * ea, n);
+      }
+    }
+
+    block_sum<T, NV>(v, sh.red, sh.out);
+    if (threadIdx.x == 0) {
+      T tm[DM];
+      for (int i = 0; i < DM; ++i) tm[i] = i < d ? T(-0.5) * sh.out[NT + i] : T(0);
+      utsolve<T, DM>(sh.ch, tm, d);  // tmp_m
+      for (int a = 0; a < d; ++a)
+        for (int b = 0; b <= a; ++b) sh.out[tri(a, b)] -= tm[a] * sh.ilm[b];
+      const T s = sh.out[NT + DM];
+      finish_group<T, DM>(sh, sh.out, -s, gda_nk, d);
+      for (int i = 0; i < d; ++i) gdmx_nk[i] = tm[i];
+      if (FULL) {
+        for (int a = 0; a < d; ++a) acc(dg.kdiag + (size_t)k * d + a, sh.da[a * DM + a], n);
+        acc(dg.cp + p, s, n);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+__global__ void bwd_combine(const T* __restrict__ gda, const T* __restrict__ gdmx,
+                            T* __restrict__ dmx, T* __restrict__ dsxx, Dims z) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= z.N) return;
+  const int d = z.D;
+  for (int i = 0; i < d; ++i) {
+    T s = T(0);
+    for (int k = 0; k < z.K; ++k) s += gdmx[((size_t)n * z.K + k) * d + i];
+    dmx[(size_t)n * d + i] = s;
+  }
+  for (int a = 0; a < d; ++a)
+    for (int b = 0; b <= a; ++b) {
+      T s = T(0);
+      for (int k = 0; k < z.K; ++k) s += gda[(((size_t)n * z.K + k) * d + a) * d + b];
+      T* out = dsxx + (size_t)n * d * d;
+      if (a == b) {
+        out[a * d + a] = s;
+      } else {
+        out[a * d + b] = T(0.5) * s;
+        out[b * d + a] = T(0.5) * s;
+      }
+    }
+}
+
+// ---------------------------------------------------------------- launchers
+inline bool make_dims(int N, int L, int D, int M, int unc, Dims& z) {
+  z.N = N;
+  z.L = L;
+  z.P = L * (L + 1) / 2;
+  z.K = z.L + z.P;
+  z.D = D;
+  z.M = M;
+  z.unc = unc != 0;
+  return N > 0 && L > 0 && D > 0 && D <= kMaxD && M > 0;
+}
+
+template <typename K>
+inline cudaError_t allow_shared(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T>
+size_t dyn_bytes(const Dims& z) {
+  return (size_t)(4 * z.D + 4) * z.M * sizeof(T);
+}
+
+template <typename T, int DM>
+int fwd_dm(const Grid<T>& g, const Dims& z, const T* mx, const T* sxx, T* f1, T* sff, T* cross,
+           T* scratch, cudaStream_t st) {
+  const size_t bytes = dyn_bytes<T>(z);
+  cudaError_t err = allow_shared(fwd_groups<T, DM>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  fwd_groups<T, DM><<<dim3(z.K, z.N), kThreads, bytes, st>>>(g, z, mx, sxx, f1, cross, scratch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fwd_combine<T><<<(z.N + 127) / 128, 128, 0, st>>>(g.varr, f1, scratch, sff, z);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DM, bool FULL>
+int bwd_dm(const Grid<T>& g, const GridGrad<T>& dg, const Dims& z, const T* mx, const T* sxx,
+           const T* f1, const T* df1, const T* dsff, const T* dcross, T* dmx, T* dsxx, T* gda,
+           T* gdmx, cudaStream_t st) {
+  const size_t bytes = dyn_bytes<T>(z);
+  cudaError_t err = allow_shared(bwd_groups<T, DM, FULL>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  bwd_groups<T, DM, FULL><<<z.K, kThreads, bytes, st>>>(g, dg, z, mx, sxx, f1, df1, dsff, dcross,
+                                                        gda, gdmx);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_combine<T><<<(z.N + 127) / 128, 128, 0, st>>>(gda, gdmx, dmx, dsxx, z);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fwd(const Grid<T>& g, const T* mx, const T* sxx, T* f1, T* sff, T* cross, T* scratch,
+               int N, int L, int D, int M, int unc, void* stream) {
+  Dims z;
+  if (!make_dims(N, L, D, M, unc, z)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 8) return fwd_dm<T, 8>(g, z, mx, sxx, f1, sff, cross, scratch, st);
+  return fwd_dm<T, 16>(g, z, mx, sxx, f1, sff, cross, scratch, st);
+}
+
+template <typename T, bool FULL>
+int launch_bwd(const Grid<T>& g, const GridGrad<T>& dg, const T* mx, const T* sxx, const T* f1,
+               const T* df1, const T* dsff, const T* dcross, T* dmx, T* dsxx, T* gda, T* gdmx,
+               int N, int L, int D, int M, int unc, void* stream) {
+  Dims z;
+  if (!make_dims(N, L, D, M, unc, z)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 8)
+    return bwd_dm<T, 8, FULL>(g, dg, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, st);
+  return bwd_dm<T, 16, FULL>(g, dg, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, st);
+}
+
+}  // namespace
+
+#define GRID_ARGS(T)                                                                         \
+  const T *kdiag, const T *zt, const T *alpha, const T *varr, const T *hll, const T *qmat, \
+      const T *ut, const T *wt, const T *g1t, const T *g2t, const T *g11, const T *g22,    \
+      const T *cp, const T *alpha_u, const T *alpha_w
+#define GRID_INIT {kdiag, zt, alpha, varr, hll, qmat, ut, wt, g1t, g2t, g11, g22, cp, alpha_u, alpha_w}
+
+#define MM_MATCH_ENTRIES(T, SFX)                                                                 \
+  extern "C" int svgp_match_fwd_##SFX(const T* mx, const T* sxx, GRID_ARGS(T), T* f1, T* sff,   \
+                                      T* cross, T* scratch, int N, int L, int D, int M, int unc, \
+                                      void* stream) {                                            \
+    const Grid<T> g = GRID_INIT;                                                                 \
+    return launch_fwd<T>(g, mx, sxx, f1, sff, cross, scratch, N, L, D, M, unc, stream);         \
+  }                                                                                              \
+  extern "C" int svgp_match_bwd_frozen_##SFX(                                                    \
+      const T* mx, const T* sxx, GRID_ARGS(T), const T* f1, const T* df1, const T* dsff,         \
+      const T* dcross, T* dmx, T* dsxx, T* gda, T* gdmx, int N, int L, int D, int M, int unc,    \
+      void* stream) {                                                                            \
+    const Grid<T> g = GRID_INIT;                                                                 \
+    const GridGrad<T> dg = {};                                                                   \
+    return launch_bwd<T, false>(g, dg, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, N, \
+                                L, D, M, unc, stream);                                           \
+  }                                                                                              \
+  extern "C" int svgp_match_bwd_##SFX(                                                           \
+      const T* mx, const T* sxx, GRID_ARGS(T), const T* f1, const T* df1, const T* dsff,         \
+      const T* dcross, T* dmx, T* dsxx, T* gda, T* gdmx, T* d_kdiag, T* d_zt, T* d_alpha,        \
+      T* d_varr, T* d_hll, T* d_qmat, T* d_ut, T* d_wt, T* d_g1t, T* d_g2t, T* d_g11,            \
+      T* d_g22, T* d_cp, T* d_alpha_u, T* d_alpha_w, int N, int L, int D, int M, int unc,        \
+      void* stream) {                                                                            \
+    const Grid<T> g = GRID_INIT;                                                                 \
+    const GridGrad<T> dg = {d_kdiag, d_zt, d_alpha, d_varr, d_hll, d_qmat, d_ut, d_wt, d_g1t,    \
+                            d_g2t, d_g11, d_g22, d_cp, d_alpha_u, d_alpha_w};                    \
+    return launch_bwd<T, true>(g, dg, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, N,  \
+                               L, D, M, unc, stream);                                            \
+  }
+
+MM_MATCH_ENTRIES(float, f32)
+MM_MATCH_ENTRIES(double, f64)

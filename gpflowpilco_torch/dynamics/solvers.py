@@ -11,6 +11,7 @@ from typing import Callable, Optional
 import torch
 
 from ..moments import GaussianMoments
+from ..ops.mm_glue_cuda import fused_euler_update
 
 
 def euler_rollout(
@@ -43,6 +44,7 @@ def moment_matching_euler_rollout(
     num_steps: int,
     noise: Optional[Callable] = None,
     cov_jitter: Optional[float] = None,
+    fused_update: bool = False,
 ):
     """Propagate (mean, cov) through ``num_steps`` moment-matched Euler steps:
 
@@ -54,8 +56,9 @@ def moment_matching_euler_rollout(
     is nonzero (default 1e-6 in float32, 0 otherwise), boosted by a
     stop-gradient eigenvalue shift that keeps it positive definite: the
     linearized cross term can leave it indefinite, which in float32
-    cascades into failed factorizations. The fused update (the TPU kernel
-    K5b) is not ported yet.
+    cascades into failed factorizations. ``fused_update`` (without a noise
+    match) runs the update, symmetrization and boost as one kernel op
+    (ops/mm_glue_cuda.py), its lambda_min by Jacobi sweeps.
     Returns (final GaussianMoments, per-step means, per-step covs).
     """
     mean, cov = x0.mean, x0.cov
@@ -67,6 +70,13 @@ def moment_matching_euler_rollout(
         x = GaussianMoments(mean=mean, cov=cov)
         match = forward(t, x)
         sxf = match.cross_covariance(preinv=False)
+        if fused_update and noise is None:
+            mean, cov = fused_euler_update(
+                mean, cov, match.y.mean, match.y.cov, sxf, dt, cov_jitter or 0.0
+            )
+            means.append(mean)
+            covs.append(cov)
+            continue
         new_mean = mean + dt * match.y.mean
         new_cov = cov + dt * (sxf + sxf.mT) + (dt**2) * match.y.cov
         if noise is not None:

@@ -6,7 +6,10 @@ update, the real-environment step with its random first episodes and the
 retain-best acting gate, ``PathwisePILCO``'s SVGP particle loss (its drift
 evaluation goes through the CUDA kernel op ops/path_eval_cuda.py), and
 ``MomentMatchingPILCO``'s SVGP moment-matched loss (its eKuffu pair grid
-goes through the CUDA kernel op ops/kexp_cuda.py under ``use_fused_mm``).
+goes through the CUDA kernel op ops/kexp_cuda.py under ``use_fused_mm``;
+under ``use_fused_match`` the whole drift and policy matches, the encoder
+match, the PSD guard and the Euler update go through the kernel ops of
+ops/mm_match_cuda.py, ops/enc_match_cuda.py and ops/mm_glue_cuda.py).
 
 Models are ``nn.Module``s trained in place. Randomness comes from
 ``torch.Generator``s seeded from (seed, number of episodes, purpose), the
@@ -14,8 +17,8 @@ counterpart of the JAX package's per-iteration key folds.
 
 Not ported yet, and raising ``NotImplementedError``: multistart policy
 optimization (``num_restarts > 1``), GPR/HMC drifts and the other drift
-optimizers, ``loss_dtype`` for the pathwise loss, the whole-match kernel
-(``use_fused_match``), checkpointing, and the optimism noise floor.
+optimizers, ``loss_dtype`` for the pathwise loss, checkpointing, and the
+optimism noise floor.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from ..models.gp import SVGP, svgp_elbo
 from ..models.pathwise import PathwiseSVGPTransform, generate_paths_svgp
 from ..models.priors import pilco_snr_penalty
 from ..moment_matching.gp import SVGPTransform
-from ..moment_matching.rules import SquashedProbit
+from ..moment_matching.rules import SinCos, SquashedProbit
 from ..moments import Chain, DtypeIsland, GaussianMoments
 from ..utils.optimizers import adam_minimize, lbfgs_minimize, make_policy_schedule
 from .core import EpisodeData, EpisodeSpec, stack_episodes
@@ -171,7 +174,9 @@ class PILCOBase:
         # route the MM eKuffu pair grid through the CUDA contraction kernel
         # (ops/kexp_cuda.py)
         self.use_fused_mm: bool = False
-        # the whole-match kernel of the JAX package (not ported yet: raises)
+        # the whole-match kernel (ops/mm_match_cuda.py) for the policy match,
+        # and, in the MM loss, for the frozen drift with the fused encoder,
+        # PSD guard and Euler update
         self.use_fused_match: bool = False
 
     # ------------------------------------------------------------------ randomness
@@ -240,9 +245,15 @@ class PILCOBase:
     def policy_chain(self, policy_model: SVGP) -> Chain:
         """Squashed deterministic policy: u = 2*scale*(Phi(g) - 0.5)."""
         scale = self.policy_spec.action_scale
-        policy_t = SVGPTransform(
-            model=policy_model, deterministic=True, fused=self.use_fused_mm
-        ).with_cache()
+        if self.use_fused_match:
+            # the whole-match kernel with the full adjoint: the policy trains
+            policy_t = SVGPTransform(
+                model=policy_model, deterministic=True, fused_match=True
+            ).with_cache()
+        else:
+            policy_t = SVGPTransform(
+                model=policy_model, deterministic=True, fused=self.use_fused_mm
+            ).with_cache()
         return Chain(SquashedProbit(scale=2.0 * scale - 1e-5), policy_t)
 
     # ------------------------------------------------------------------ training
@@ -454,11 +465,21 @@ class MomentMatchingPILCO(PILCOBase):
         island both launch it."""
         return self.use_fused_mm
 
+    @property
+    def _fused_match_on(self) -> bool:
+        """The whole-match path of the MM loss (frozen drift match, fused
+        encoder, PSD guard and Euler update) runs when ``use_fused_match`` is
+        set and the loss runs in the loop dtype, as in the JAX package; the
+        policy chain takes the whole-match kernel whenever
+        ``use_fused_match`` is set (``policy_chain``)."""
+        spec = self.policy_spec
+        return self.use_fused_match and spec.loss_dtype is None and not spec.loss_compensated
+
     def _drift_transform(self, drift_model):
         if not isinstance(drift_model, SVGP):
             raise NotImplementedError("only SVGP drifts are ported for the MM loss yet")
-        if self.use_fused_match:
-            raise NotImplementedError("the whole-match kernel (use_fused_match) is not ported yet")
+        if self._fused_match_on:
+            return SVGPTransform(model=drift_model, fused_match=True, frozen=True).with_cache()
         return SVGPTransform(
             model=_cast_module(drift_model, self._loss_override), fused=self._fused_mm_on
         ).with_cache()
@@ -485,14 +506,21 @@ class MomentMatchingPILCO(PILCOBase):
             mean=torch.as_tensor(spec.state_mean, dtype=dtype, device=self.device)[None],
             cov=torch.as_tensor(spec.covariance(), dtype=dtype, device=self.device)[None],
         )
+        fused = self._fused_match_on
+        enc = self.encoder
+        if fused and isinstance(getattr(enc, "transform", None), SinCos):
+            # as in the JAX package, the fused encoder serves the rollout's
+            # matches and the post-rollout cost's batched match alike
+            enc = enc.with_fused()
         _, means, covs = moment_matching_euler_rollout(
-            lambda t, xm: forward_moments(xm, drift, policy=pol, encoder=self.encoder),
+            lambda t, xm: forward_moments(xm, drift, policy=pol, encoder=enc, fused_glue=fused),
             x0,
             dt=1.0,  # the drift predicts per-control-step deltas
             num_steps=spec.num_steps,
+            fused_update=fused,
         )
         states = GaussianMoments(mean=means, cov=covs)  # (T, 1, D) stacks
-        feats = states if self.encoder is None else self.encoder.moment_match(states).y
+        feats = states if enc is None else enc.moment_match(states).y
         return self.objective(feats).sum()
 
     def policy_loss_fn(self, policy_model: SVGP, generator, drift=None, x0=None):

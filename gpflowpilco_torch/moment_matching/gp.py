@@ -12,10 +12,10 @@ using the kernel expectations of ops/kexp.py:
 
 The cross-covariance comes pre-multiplied by Cov(x,x)^{-1} (preinv=True).
 
-Not ported yet: the whole-match kernel (the TPU kernel K3, which the MM
-loop's ``use_fused_match`` selects and which raises there), the
-diagonal-only path (``full_output_cov=False`` without a mixing matrix, which
-raises here) and GPR drifts.
+``fused_match`` runs the whole match as one CUDA kernel op
+(ops/mm_match_cuda.py). Not ported yet: the diagonal-only path
+(``full_output_cov=False`` without a mixing matrix, which raises on the
+unfused path) and GPR drifts.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from ..moments import GaussianMatch, GaussianMoments
 from ..ops import kexp
 from ..ops.kexp_cuda import FusedPairGrid, build_fused_pair_grid, ekuffu_contract_fused
 from ..ops.linalg import bcho_solve
+from ..ops.mm_match_cuda import FusedMatchGrid, build_fused_match_grid, fused_svgp_match
 from ..ops.linalg import bsolve_triangular as solve_triangular
 
 
@@ -44,9 +45,12 @@ class SVGPMatchCache(NamedTuple):
     qmat: torch.Tensor  # (L, M, M) Kuu^{-1} - Luu^{-T} cct Luu^{-1}
     pairs: Optional[tuple]  # kexp.ekuffu_pair_cache terms (x-free eKuffu factors), unfused only
     fused_grid: Optional[FusedPairGrid] = None  # the pair-grid kernel's tensors (K2)
+    match_grid: Optional[FusedMatchGrid] = None  # the whole-match kernel's tensors (K3)
 
 
-def svgp_match_cache(model: SVGP, fused: bool = False) -> SVGPMatchCache:
+def svgp_match_cache(
+    model: SVGP, fused: bool = False, fused_match: bool = False, uncertainty: bool = True
+) -> SVGPMatchCache:
     luu = chol_kuu(model)
     q_mu = model.q_mu.T[..., None]  # (L, M, 1)
     if model.whiten:
@@ -61,13 +65,17 @@ def svgp_match_cache(model: SVGP, fused: bool = False) -> SVGPMatchCache:
     h = solve_triangular(luu, c, lower=True, trans=1)  # Luu^{-T} c
     qmat = kuu_inv - h @ h.mT
     fused_grid = build_fused_pair_grid(model.kernel, model.z, alpha, qmat) if fused else None
+    match_grid = (
+        build_fused_match_grid(model, alpha, qmat, uncertainty=uncertainty) if fused_match else None
+    )
     return SVGPMatchCache(
         luu=luu,
         alpha=alpha,
         cct=cct,
         qmat=qmat,
-        pairs=None if fused else kexp.ekuffu_pair_cache(model.kernel, model.z),
+        pairs=None if fused or fused_match else kexp.ekuffu_pair_cache(model.kernel, model.z),
         fused_grid=fused_grid,
+        match_grid=match_grid,
     )
 
 
@@ -76,7 +84,10 @@ class SVGPTransform:
     kernel-regressor policy: no model uncertainty, the prediction is the
     posterior mean. ``fused=True`` routes the eKuffu pair grid through the
     CUDA contraction kernel (ops/kexp_cuda.py; its plain version on the
-    CPU)."""
+    CPU). ``fused_match=True`` runs the whole match as one CUDA kernel op
+    (ops/mm_match_cuda.py; supersedes ``fused``). ``frozen=True`` restricts
+    its gradients to the state moments: the drift inside a policy update
+    (never set it on a transform whose model trains)."""
 
     def __init__(
         self,
@@ -85,17 +96,25 @@ class SVGPTransform:
         jitter: float = 0.0,
         fused: bool = False,
         cache: Optional[SVGPMatchCache] = None,
+        fused_match: bool = False,
+        frozen: bool = False,
     ):
         self.model = model
         self.deterministic = deterministic
         self.jitter = jitter
         self.fused = fused
         self.cache = cache
+        self.fused_match = fused_match
+        self.frozen = frozen
 
     def with_cache(self) -> "SVGPTransform":
+        cache = svgp_match_cache(
+            self.model, fused=self.fused, fused_match=self.fused_match,
+            uncertainty=not self.deterministic,
+        )
         return SVGPTransform(
-            self.model, self.deterministic, self.jitter, self.fused,
-            svgp_match_cache(self.model, fused=self.fused),
+            self.model, self.deterministic, self.jitter, self.fused, cache,
+            fused_match=self.fused_match, frozen=self.frozen,
         )
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -111,7 +130,7 @@ class SVGPTransform:
     def moment_match(self, x: GaussianMoments) -> GaussianMatch:
         return match_svgp(
             self.model, x, model_uncertainty=not self.deterministic,
-            jitter=self.jitter, cache=self.cache,
+            jitter=self.jitter, cache=self.cache, frozen=self.frozen,
         )
 
 
@@ -128,10 +147,19 @@ def match_svgp(
     jitter: float = 0.0,
     full_output_cov: bool = True,
     cache: Optional[SVGPMatchCache] = None,
+    frozen: bool = False,
 ) -> GaussianMatch:
     """``full_output_cov=False`` diagonalizes the output covariance after
-    mixing; without a mixing matrix it would take the diagonal-only path,
-    which is not ported yet."""
+    mixing; without a mixing matrix the unfused path would take the
+    diagonal-only path, which is not ported yet. A cache with a
+    ``match_grid`` runs the whole-match kernel op (``frozen`` as in
+    ``fused_svgp_match``)."""
+    if cache is not None and cache.match_grid is not None:
+        grid = cache.match_grid
+        if grid.meta.uncertainty != model_uncertainty:
+            raise ValueError("fused match grid was built with a different model_uncertainty")
+        f1, sff, cross = fused_svgp_match(grid, x.mean, x.cov, frozen=frozen)
+        return _mix_and_finish(model, x, f1, sff, cross, jitter, full_output_cov)
     if not full_output_cov and model.w is None:
         raise NotImplementedError("the diagonal-only eKuffu path is not ported yet")
     mx, sxx = x.mean, x.cov
@@ -161,7 +189,12 @@ def match_svgp(
         sff_lat = sff_lat + torch.diag_embed(kern.variance - ecov_corr)
 
     cross_lat = torch.einsum("lm,...ml,...ldm->...dl", alpha, ekfu, iv_dx)  # (..., D, L)
+    return _mix_and_finish(model, x, f1_lat, sff_lat, cross_lat, jitter, full_output_cov)
 
+
+def _mix_and_finish(model, x, f1_lat, sff_lat, cross_lat, jitter, full_output_cov):
+    """Mix the latent moments by ``model.w``, add the mean constant and the
+    jitter, and diagonalize when ``full_output_cov`` is off."""
     if model.w is not None:
         w = model.w
         f1 = f1_lat @ w.T

@@ -43,25 +43,12 @@ launches = {
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-_NPTR = {"fwd": 6, "bwd": 10, "bwd_frozen": 8}
 _MAX_D2, _MAX_R = 32, 4  # kMaxD2, kMaxR in csrc/kexp_pair.cu
-_entries = {}
 
 
 def reset_launches():
     for k in launches:
         launches[k] = 0
-
-
-def _entry(name: str):
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(_build.load("kexp_pair"), name)
-        kind = name[len("pair_contract_"):-len("_f32")]
-        fn.argtypes = [ctypes.c_void_p] * _NPTR[kind] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
 
 
 def operand_shape(su, sw, alu, qm, devc=None, dqcol=None):
@@ -91,20 +78,8 @@ def operand_shape(su, sw, alu, qm, devc=None, dqcol=None):
 def _launch(kind: str, inputs, outputs, shape):
     """Check the operands and launch ``pair_contract_<kind>_<dtype>`` on the
     current stream."""
-    device, dtype = inputs[0].device, inputs[0].dtype
-    name = f"pair_contract_{kind}_{_SUFFIX[dtype]}"
-    for t in (*inputs, *outputs):
-        if t.device != device or not t.is_contiguous():
-            raise TypeError(
-                f"{name}: the CUDA kernel takes contiguous tensors on one device, got "
-                f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
-            )
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = _entry(name)(
-        *(t.data_ptr() for t in (*inputs, *outputs)), *shape, ctypes.c_void_p(stream)
-    )
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    name = f"pair_contract_{kind}_{_SUFFIX[inputs[0].dtype]}"
+    _build.launch("kexp_pair", name, (*inputs, *outputs), *(ctypes.c_int(v) for v in shape))
     launches[name] += 1
 
 

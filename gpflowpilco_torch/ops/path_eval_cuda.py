@@ -30,15 +30,7 @@ from . import _build
 # kernel launches per entry; reset with reset_launches()
 launches = {"path_eval_fwd": 0, "path_eval_bwd_dx": 0, "path_eval_bwd_full": 0}
 
-_ARGTYPES = {
-    "path_eval_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "path_eval_bwd_dx": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "path_eval_bwd_full": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-}
-
-
 _MAX_D = 16  # kMaxD in csrc/path_eval.cu: x rows are held in registers
-_entries = {}
 
 
 def reset_launches():
@@ -46,32 +38,13 @@ def reset_launches():
         launches[k] = 0
 
 
-def _entry(name: str):
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(_build.load("path_eval"), name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
-
-
 def _launch(name: str, inputs, outputs):
     """Check the operands and launch ``name`` on the current stream."""
     shape = operand_shape(*inputs)
-    device = inputs[0].device
     for t in (*inputs, *outputs):
-        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise TypeError(
-                f"{name}: the CUDA kernel takes contiguous float32 tensors on one "
-                f"device, got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
-            )
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = _entry(name)(
-        *(t.data_ptr() for t in (*inputs, *outputs)), *shape, ctypes.c_void_p(stream)
-    )
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes float32 tensors, got {t.dtype}")
+    _build.launch("path_eval", name, (*inputs, *outputs), *(ctypes.c_int(v) for v in shape))
     launches[name] += 1
 
 

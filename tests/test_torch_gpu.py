@@ -89,3 +89,211 @@ def test_torch_pair_contract_kernels_match_reference_on_gpu(dtype, n, p, d2, m):
     a = kc._bwd(su, sw, alu, qm, devc, dqcol, True)
     b = kc._bwd(su, sw, alu, qm, devc, dqcol, True)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _gpu_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _close(got, want, tol, what=""):
+    """max |got - want| <= tol * (1 + max |want|): a bar relative to the
+    output's scale, since the outputs range over orders of magnitude."""
+    err = float((got - want).abs().max())
+    scale = 1.0 + float(want.abs().max())
+    assert torch.isfinite(got).all() and err <= tol * scale, (what, err, scale)
+
+
+def _match_grid(num_latent, d, m, dtype, dev, seed, uncertainty=True):
+    """The whole-match grid of a random SVGP (inducing points by k-means on
+    random data, a perturbed q_sqrt so that Q is not zero), built in float64
+    and cast."""
+    from gpflowpilco_torch.models.builders import build_svgp
+    from gpflowpilco_torch.moment_matching.gp import svgp_match_cache
+    from gpflowpilco_torch.ops import mm_match_cuda as mc
+
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = build_svgp(f(rng.normal(size=(2 * m, d))), f(rng.normal(size=(2 * m, num_latent))),
+                       num_inducing=m, generator=gen, noise_variance=0.1)
+    with torch.no_grad():
+        model.q_mu.copy_(f(0.5 * rng.normal(size=tuple(model.q_mu.shape))))
+        model.q_sqrt.copy_(f(0.3 * np.eye(m) + np.tril(0.05 * rng.normal(size=(num_latent, m, m)))))
+        grid = svgp_match_cache(model, fused_match=True, uncertainty=uncertainty).match_grid
+        return mc.FusedMatchGrid(**{k: v.to(dtype).contiguous() for k, v in zip(
+            mc.GRID_FIELDS, grid.tensors())}, meta=grid.meta)
+
+
+def _moments(rng, n, d, dtype, dev):
+    a = rng.normal(size=(n, d, d))
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev).contiguous()  # noqa: E731
+    return f(0.5 * rng.normal(size=(n, d))), f(0.05 * a @ a.transpose(0, 2, 1) + 0.1 * np.eye(d))
+
+
+def _close_vs_truth(got, plain, truth, what=""):
+    """float32 against the float64 evaluation of the same inputs: the kernel
+    may be off the truth by 3x what the plain float32 version is, plus 1e-4
+    of the output's scale. At an M=240 grid the Q o E contraction cancels
+    digits (entries of Q reach 1e3-1e5), so both float32 results lose them;
+    a fixed bar would test the conditioning, not the kernel."""
+    err_k = float((got.double() - truth).abs().max())
+    err_p = float((plain.double() - truth).abs().max())
+    scale = 1.0 + float(truth.abs().max())
+    assert torch.isfinite(got).all() and err_k <= 3.0 * err_p + 1e-4 * scale, (what, err_k, err_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, num_latent, d, m", [(1, 4, 6, 240), (1, 1, 5, 30), (3, 2, 4, 37),
+                                                 (2, 3, 10, 45)])
+def test_torch_svgp_match_kernels_match_reference_on_gpu(dtype, n, num_latent, d, m):
+    """K3 forward, frozen and full backward against the plain version at the
+    drift's and the policy's shapes and at ragged ones (M not a multiple of
+    the block, a batch N = 3, D = 10 above the 8-register capacity): in
+    float64 to 1e-9 of each output's scale; in float32 both are held against
+    the float64 plain version of the same inputs (_close_vs_truth). Repeated
+    backward runs are bit-identical (no atomics)."""
+    from gpflowpilco_torch.ops import mm_match_cuda as mc
+
+    dev = _gpu_or_skip()
+    g = _match_grid(num_latent, d, m, dtype, dev, seed=m)
+    rng = np.random.default_rng(m + 1)
+    mx, sxx = _moments(rng, n, d, dtype, dev)
+    f = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=dtype, device=dev)  # noqa: E731
+    cots = (f(n, num_latent), f(n, num_latent, num_latent), f(n, d, num_latent))
+    g64 = mc.FusedMatchGrid(**{k: v.double() for k, v in zip(mc.GRID_FIELDS, g.tensors())},
+                            meta=g.meta)
+    up = lambda ts: [x.double() for x in ts]  # noqa: E731
+
+    def check(name, got, plain, truth):
+        if dtype == torch.float64:
+            _close(got, plain, 1e-9, name)
+        else:
+            _close_vs_truth(got, plain, truth, name)
+
+    before = dict(mc.launches)
+    got = mc._fwd(g.meta, g, mx, sxx)
+    plain = mc.match_reference(g.meta, g, mx, sxx)
+    truth = mc.match_reference(g.meta, g64, mx.double(), sxx.double())
+    for name, a, b, c in zip(("f1", "sff", "cross"), got, plain, truth):
+        check(name, a, b, c)
+    f1 = got[0]
+    for frozen in (True, False):
+        res = mc._bwd(g.meta, g, mx, sxx, f1, *cots, frozen)
+        plain = mc.match_reference_bwd(g.meta, g, mx, sxx, *cots, frozen)
+        truth = mc.match_reference_bwd(g.meta, g64, mx.double(), sxx.double(), *up(cots), frozen)
+        check("dmx", res[0], plain[0], truth[0])
+        check("dsxx", res[1], plain[1], truth[1])
+        if frozen:
+            assert res[2] is None
+        else:
+            for name, a, b, c in zip(mc.GRID_FIELDS, res[2].tensors(), plain[2].tensors(),
+                                     truth[2].tensors()):
+                check(name, a, b, c)
+    torch.cuda.synchronize()
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    for kind in ("fwd", "bwd_frozen", "bwd"):
+        name = f"svgp_match_{kind}_{sfx}"
+        assert mc.launches[name] == before[name] + 1, name
+    a = mc._bwd(g.meta, g, mx, sxx, f1, *cots, False)
+    b = mc._bwd(g.meta, g, mx, sxx, f1, *cots, False)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert all(torch.equal(x, y) for x, y in zip(a[2].tensors(), b[2].tensors()))
+
+
+@pytest.mark.gpu
+def test_torch_svgp_match_wrapper_raises_on_gpu():
+    """D > 16, a wrong dtype and a non-contiguous operand raise before any
+    launch."""
+    from gpflowpilco_torch.ops import mm_match_cuda as mc
+
+    dev = _gpu_or_skip()
+    g = _match_grid(2, 4, 20, torch.float64, dev, seed=5)
+    mx, sxx = _moments(np.random.default_rng(6), 2, 4, torch.float64, dev)
+    with pytest.raises(TypeError):
+        mc._fwd(g.meta, g, mx.float(), sxx.float())
+    with pytest.raises(TypeError):
+        mc._fwd(g.meta, g, mx, sxx.transpose(1, 2))
+    wide = _match_grid(1, 17, 20, torch.float64, dev, seed=7)
+    mx17, sxx17 = _moments(np.random.default_rng(8), 1, 17, torch.float64, dev)
+    with pytest.raises(ValueError, match="D <= 16"):
+        mc._fwd(wide.meta, wide, mx17, sxx17)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, d, active", [(1, 4, (1,)), (30, 4, (1,)), (3, 6, (4, 0)), (3, 10, (9, 2, 5))])
+def test_torch_enc_match_kernels_match_reference_on_gpu(dtype, n, d, active):
+    """K4 forward and backward against the plain version, at the rollout's
+    N = 1 and the post-rollout cost's N = 30, and at D = 6 and 10 with active
+    dims out of order; bars 1e-5 in float32, 1e-12 in float64 (a few dozen
+    terms per output). Raises on D > 16, a wrong dtype and a non-contiguous
+    operand."""
+    from gpflowpilco_torch.ops import enc_match_cuda as ec
+
+    dev = _gpu_or_skip()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    meta = ec.make_enc_meta(active, d)
+    rng = np.random.default_rng(n + d)
+    a = rng.normal(size=(n, d, d))
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev).contiguous()  # noqa: E731
+    mx, sxx = f(rng.normal(size=(n, d))), f(0.3 * a @ a.transpose(0, 2, 1) + 0.1 * np.eye(d))
+    de = meta.num_out
+    cots = (f(rng.normal(size=(n, de))), f(rng.normal(size=(n, de, de))), f(rng.normal(size=(n, d, de))))
+    before = dict(ec.launches)
+    for name, x, y in zip(("ym", "yc", "cr"), ec._fwd(meta, mx, sxx), ec.enc_match_reference(meta, mx, sxx)):
+        _close(x, y, tol, name)
+    for name, x, y in zip(("dmx", "dsxx"), ec._bwd(meta, mx, sxx, *cots),
+                          ec.enc_match_reference_bwd(meta, mx, sxx, *cots)):
+        _close(x, y, tol, name)
+    torch.cuda.synchronize()
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    assert ec.launches[f"enc_match_fwd_{sfx}"] == before[f"enc_match_fwd_{sfx}"] + 1
+    assert ec.launches[f"enc_match_bwd_{sfx}"] == before[f"enc_match_bwd_{sfx}"] + 1
+    with pytest.raises(TypeError):
+        ec._fwd(meta, mx, sxx.transpose(1, 2))
+    with pytest.raises(TypeError):
+        ec._fwd(meta, mx, sxx.to(torch.float16))
+    wide = ec.make_enc_meta((1,), 17)
+    with pytest.raises(ValueError, match="D <= 16"):
+        ec._fwd(wide, f(np.zeros((1, 17))), f(np.eye(17)[None]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, d", [(1, 6), (1, 4), (3, 10), (200, 4)])
+def test_torch_mm_glue_kernels_match_reference_on_gpu(dtype, n, d):
+    """K5a and K5b (with and without the boost) against the plain version
+    on indefinite matrices, at the path's shapes, a batch beyond one block
+    and D = 10; bars 1e-5 in float32, 1e-12 in float64 (the same Jacobi
+    sweeps in the same order). Raises on D > 16, a wrong dtype and a
+    non-contiguous operand."""
+    from gpflowpilco_torch.ops import mm_glue_cuda as gc
+
+    dev = _gpu_or_skip()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    rng = np.random.default_rng(n * d)
+    a = rng.normal(size=(n, d, d))
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev).contiguous()  # noqa: E731
+    s = f(0.2 * a @ a.transpose(0, 2, 1) - 0.3 * np.eye(d))
+    m, f1 = f(rng.normal(size=(n, d))), f(rng.normal(size=(n, d)))
+    sff, sxf = f(0.1 * np.abs(rng.normal(size=(n, d, d)))), f(0.1 * rng.normal(size=(n, d, d)))
+    before = dict(gc.launches)
+    _close(gc._psd(s, 0.0), gc.psd_boost_reference(s, 0.0), tol, "psd")
+    for jitter in (0.0, 1e-6):
+        got = gc._euler(m, s, f1, sff, sxf, 1.0, jitter)
+        want = gc.euler_update_reference(m, s, f1, sff, sxf, 1.0, jitter)
+        _close(got[0], want[0], tol, "mean")
+        _close(got[1], want[1], tol, "cov")
+    torch.cuda.synchronize()
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    assert gc.launches[f"psd_boost_{sfx}"] == before[f"psd_boost_{sfx}"] + 1
+    assert gc.launches[f"euler_update_{sfx}"] == before[f"euler_update_{sfx}"] + 2
+    with pytest.raises(TypeError):
+        gc._psd(s.transpose(1, 2), 0.0)
+    with pytest.raises(TypeError):
+        gc._euler(m, s, f1.to(torch.float16), sff, sxf, 1.0, 0.0)
+    with pytest.raises(ValueError, match="D <= 16"):
+        gc._psd(torch.zeros((1, 17, 17), dtype=dtype, device=dev), 0.0)

@@ -61,11 +61,11 @@ def test_torch_pathwise_iteration_runs():
 
 
 @pytest.mark.parametrize(
-    "what", ["restarts", "loss_dtype", "optimism", "gpr", "save", "mm_fused_match", "mm_gpr"]
+    "what", ["restarts", "loss_dtype", "optimism", "gpr", "save", "mm_gpr"]
 )
 def test_torch_unported_options_raise(what):
     """``loss_dtype`` raises in the pathwise loop only; the MM loop takes it.
-    The MM cases: the whole-match kernel and a GPR drift."""
+    The MM case: a GPR drift."""
     loop = _tiny_loop(
         loop_cls=MomentMatchingPILCO if what.startswith("mm_") else PathwisePILCO,
         **({"num_restarts": 4} if what == "restarts" else {}),
@@ -76,8 +76,6 @@ def test_torch_unported_options_raise(what):
         loop.drift_spec = DriftSpec(optimism_tolerance=1.0)
     if what in ("gpr", "mm_gpr"):
         loop.drift_spec = DriftSpec(model_type="gpr")
-    if what == "mm_fused_match":
-        loop.use_fused_match = True
     loop.step()
     with pytest.raises(NotImplementedError):
         if what == "save":

@@ -1,0 +1,127 @@
+"""The PyTorch port's PSD guard and Euler moment update (ops/mm_glue_cuda.py,
+the counterparts of the Pallas kernels in ops/mm_glue_pallas.py) held
+against the JAX package in float64: the kernels in TPU interpret mode and
+the eigvalsh-based psd_project and solver step they replace, values and
+gradients. On the CPU the ops run their plain versions."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from gpflowpilco_tpu.moments import GaussianMoments as JaxMoments
+from gpflowpilco_tpu.moments import psd_project as jax_psd_project
+from gpflowpilco_tpu.ops import mm_glue_pallas as jglue
+from gpflowpilco_torch.moments import GaussianMoments, psd_project
+from gpflowpilco_torch.ops import mm_glue_cuda as gc
+
+from ._torch_export import t
+
+torch.set_num_threads(1)
+
+
+def _mats(seed, d, n=4):
+    """n symmetric positive-definite and n indefinite (some negative
+    eigenvalues) d x d matrices."""
+    a = np.random.default_rng(seed).normal(size=(n, d, d))
+    spd = 0.2 * a @ np.swapaxes(a, -1, -2) + 0.1 * np.eye(d)
+    return spd, spd - 0.5 * np.eye(d)
+
+
+@pytest.mark.parametrize("d", [4, 6, 10])
+def test_torch_jacobi_min_eig_matches_eigvalsh(d):
+    """Five cyclic Jacobi sweeps give lambda_min to rtol 1e-9 at D <= 10, the
+    accuracy the boost's value rests on."""
+    _, indef = _mats(d, d)
+    got = gc.jacobi_min_eig(t(indef))
+    want = np.linalg.eigvalsh(indef).min(-1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9)
+
+
+def test_torch_fused_psd_boost_matches_jax():
+    """fused_psd_boost against the Pallas kernel (interpret mode) to rtol
+    1e-12 and against psd_project of both packages to rtol 1e-8, on healthy
+    and indefinite matrices; its gradient (the symmetrization passthrough)
+    against the JAX kernel's and psd_project's."""
+    d = 6
+    for mats in _mats(11, d):
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(jglue.fused_psd_boost(jnp.asarray(mats)))
+        got = gc.fused_psd_boost(t(mats)).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
+        ref = psd_project(GaussianMoments(t(np.zeros((4, d))), t(mats))).cov.numpy()
+        jref = np.asarray(jax_psd_project(JaxMoments(mean=jnp.zeros((4, d)), cov=jnp.asarray(mats))).cov)
+        np.testing.assert_allclose(got, ref, rtol=1e-8, atol=1e-12)
+        np.testing.assert_allclose(got, jref, rtol=1e-8, atol=1e-12)
+
+    _, indef = _mats(12, d)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(lambda s: jnp.sum(jnp.cos(jglue.fused_psd_boost(s))))(jnp.asarray(indef))
+    s = t(indef).requires_grad_(True)
+    torch.sum(torch.cos(gc.fused_psd_boost(s))).backward()
+    np.testing.assert_allclose(s.grad.numpy(), np.asarray(want), rtol=1e-8, atol=1e-12)
+    s2 = t(indef).requires_grad_(True)
+    torch.sum(torch.cos(psd_project(GaussianMoments(t(np.zeros((4, d))), s2)).cov)).backward()
+    np.testing.assert_allclose(s.grad.numpy(), s2.grad.numpy(), rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.parametrize("jitter", [0.0, 1e-6])
+def test_torch_fused_euler_update_matches_jax(jitter):
+    """fused_euler_update against the Pallas kernel (interpret mode) and the
+    solver step it replaces (update, symmetrize and, when jitter != 0, the
+    stop-gradient eigvalsh boost): values and gradients in all five inputs,
+    rtol 1e-8. ``jitter == 0`` symmetrizes only."""
+    d = 4
+    rng = np.random.default_rng(int(jitter * 1e6) + 13)
+    spd, indef = _mats(14, d)
+    args = (rng.normal(size=(4, d)), indef, rng.normal(size=(4, d)), 0.3 * spd,
+            0.1 * rng.normal(size=(4, d, d)))
+    dt = 0.7
+
+    def ref_step(m, s, f, sf, sx):
+        nm = m + dt * f
+        nc = s + dt * (sx + sx.mT) + dt**2 * sf
+        nc = 0.5 * (nc + nc.mT)
+        if jitter:
+            lam = torch.linalg.eigvalsh(nc.detach()).amin(-1)
+            nc = nc + (torch.clamp(-lam, min=0.0) + jitter)[:, None, None] * torch.eye(d, dtype=nc.dtype)
+        return nm, nc
+
+    def loss(lib, nm, nc):
+        return lib.sum(lib.sin(nm)) + lib.sum(lib.cos(nc))
+
+    with pltpu.force_tpu_interpret_mode():
+        (jnm, jnc), jvjp = jax.vjp(
+            lambda *a: jglue.fused_euler_update(*a, dt, jitter), *(jnp.asarray(a) for a in args)
+        )
+        jgrads = jvjp((jnp.cos(jnm), -jnp.sin(jnc)))
+    results = []
+    for step in (lambda *a: gc.fused_euler_update(*a, dt, jitter), ref_step):
+        ins = [t(a).requires_grad_(True) for a in args]
+        nm, nc = step(*ins)
+        loss(torch, nm, nc).backward()
+        results.append(([nm.detach(), nc.detach()], [x.grad for x in ins]))
+    (got_vals, got_grads), (ref_vals, ref_grads) = results
+    for g, w, r in zip(got_vals, (jnm, jnc), ref_vals):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12, atol=1e-14)
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-8, atol=1e-12)
+    for g, w, r in zip(got_grads, jgrads, ref_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-8, atol=1e-12)
+    if not jitter:
+        assert torch.equal(got_vals[1], got_vals[1].mT)
+
+
+def test_torch_mm_glue_checks_operands():
+    """A D beyond the kernels' registers, mixed dtypes and mismatched shapes
+    raise, on the CPU too."""
+    wide = torch.zeros((1, 17, 17), dtype=torch.float64)
+    with pytest.raises(ValueError, match="D <= 16"):
+        gc.fused_psd_boost(wide)
+    s = t(_mats(21, 4)[0])
+    m = torch.zeros((4, 4), dtype=torch.float64)
+    with pytest.raises(TypeError):
+        gc.fused_euler_update(m, s, m.float(), s, s, 1.0, 1e-6)
+    with pytest.raises(ValueError):
+        gc._euler(m, s, m[:, :3], s, s, 1.0, 1e-6)

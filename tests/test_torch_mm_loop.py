@@ -1,8 +1,8 @@
 """Moment-matching PILCO in the PyTorch port: the MM policy loss and its
 gradient against the JAX package's ``MomentMatchingPILCO.policy_loss_fn``
-in float64, with and without the pair-grid op (the JAX side runs its Pallas
-kernel in interpret mode), one tiny MM loop iteration on the CPU, and the
-compensated loss mapped to float64."""
+in float64, with and without the pair-grid op and on the whole-match path
+(the JAX side runs its Pallas kernels in interpret mode), tiny MM loop
+iterations on the CPU, and the compensated loss mapped to float64."""
 import dataclasses
 import pathlib
 import sys
@@ -75,6 +75,47 @@ def test_torch_mm_policy_loss_and_grad_match_jax(fused):
         loop_cls=MomentMatchingPILCO,
     )
     tloop.use_fused_mm = fused
+    tdrift = svgp_from_numpy(svgp_to_numpy(jdrift), CPU, torch.float64).requires_grad_(False)
+    tpol = svgp_from_numpy(svgp_to_numpy(jpol), CPU, torch.float64)
+    policy_mask(tpol)
+    loss = tloop.policy_loss_fn(tpol, None, drift=tdrift)
+    loss.backward()
+
+    assert abs(float(loss.detach()) - float(want_loss)) <= 1e-8 * abs(float(want_loss))
+    got = _flat(tpol.kernel.raw_lengthscales.grad, tpol.z.grad, tpol.q_mu.grad)
+    want = _flat(want_grad.kernel.raw_lengthscales, want_grad.z, want_grad.q_mu)
+    cos = got @ want / (np.linalg.norm(got) * np.linalg.norm(want))
+    ratio = np.linalg.norm(got) / np.linalg.norm(want)
+    assert np.linalg.norm(want) > 0
+    assert cos >= 0.9999 and abs(ratio - 1.0) <= 1e-4, (cos, ratio)
+
+
+def test_torch_mm_fused_match_loss_and_grad_match_jax():
+    """``use_fused_match`` (whole-match drift and policy kernels, fused
+    encoder, PSD guard and Euler update) against the JAX package's, both
+    loops in float64 so that the whole-match path is on (the JAX kernels run
+    in interpret mode): the 10-step loss to rel 1e-8, its policy gradient to
+    cos >= 0.9999 with norm ratio within 1e-4."""
+    horizon = 1.0
+    env, encoder, objective, spec = jax_experiment.build_task(jnp.float64, horizon=horizon)
+    jloop = JaxMomentMatchingPILCO(
+        env, spec, objective, encoder, dtype=jnp.float64,
+        policy_spec=JaxPolicySpec(num_restarts=1, mm_unroll=1),
+    )
+    jloop.use_fused_match = True
+    assert jloop._fused_match_on
+    jdrift, jpol = _jax_models(2)
+    key = jax.random.PRNGKey(0)
+    fn = jax.jit(jax.value_and_grad(lambda pm: jloop.policy_loss_fn(pm, key, drift=jdrift)))
+    with pltpu.force_tpu_interpret_mode():
+        want_loss, want_grad = fn(jpol)
+
+    tloop = run_torch.build_loop(
+        0, CPU, torch.float64, policy_spec=PolicySpec(num_restarts=1), horizon=horizon,
+        loop_cls=MomentMatchingPILCO,
+    )
+    tloop.use_fused_match = True
+    assert tloop._fused_match_on
     tdrift = svgp_from_numpy(svgp_to_numpy(jdrift), CPU, torch.float64).requires_grad_(False)
     tpol = svgp_from_numpy(svgp_to_numpy(jpol), CPU, torch.float64)
     policy_mask(tpol)
@@ -190,6 +231,24 @@ def test_torch_mm_iteration_runs():
     ep = loop.step()
     assert len(loop.episodes) == 2 and np.isfinite(ep.metrics["rewards"])
     assert np.isfinite(loop.expected_reward())
+
+
+def test_torch_mm_fused_match_iteration_runs():
+    """A float32 loop with ``use_fused_match`` at tiny size on the CPU (the
+    kernel ops' plain versions): random episode, drift fit, policy update
+    through the whole-match path, RK4 episode."""
+    loop = _tiny_mm_loop()
+    loop.use_fused_mm, loop.use_fused_match = False, True
+    assert loop._fused_match_on
+    loop.step()
+    assert np.isfinite(loop.update_dynamics()["loss"])
+    loop.policy_model = loop.build_policy()
+    q0 = loop.policy_model.q_mu.detach().clone()
+    info_p = loop.update_policy()
+    assert np.isfinite(info_p["loss"]) and info_p["skipped_steps"] == 0
+    assert float((loop.policy_model.q_mu.detach() - q0).abs().max()) > 0
+    ep = loop.step()
+    assert len(loop.episodes) == 2 and np.isfinite(ep.metrics["rewards"])
 
 
 @pytest.mark.parametrize("policy_f32", [False, True])
