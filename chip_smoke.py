@@ -51,7 +51,28 @@
    one float32 step fused
    against unfused (both against float64), and, printed only, the float32
    losses and gradient cosines against float64.
-8. Prints the kernels' JSON line, then {"ok": true, "device": {...}} as the
+8. Slice-B kernels: K3g (the whole GPR match: forward and frozen backward)
+   and K2's GPR route (forward and frozen backward with R=4 rows and the 8
+   members on the pair axis) at K=8 members, N=240, D=6, R=4, in float32
+   and float64 against their plain versions (K2's float64 GPR route also at
+   the members' noise, GPR_NOISE), timed beside them and their bounds.
+9. HMC-ensemble slice (slice B): cartpole at full width with an exact GPR
+   drift: 8 random episodes (N=240), an L-BFGS MAP fit, HMC with 8 chains
+   (warmup, samples and leapfrog cut to HMC_CUT) thinned to an 8-member
+   GPREnsemble; prints the HMC time, its acceptance and the host syncs and
+   jitter-escalation levels of one leapfrog step's evaluation at the
+   members' states. Then (a) a whole-match ensemble MM policy update in
+   float32: per Adam step 30 K3g forwards and 30 frozen backwards, each one
+   launch for all 8 members, beside the policy's K3, K4 and K5 launches of
+   the whole-match slice, no K1 or K2; (b) one float64 loss+grad with
+   use_fused_mm: 30 float64 K2 forwards and frozen backwards (the drift's
+   GPR grid, R=4) and 30 float32 forwards and full backwards (the policy
+   island), the loss held against the same loss through K2's plain version
+   and against the unfused float64 loss, each with 5's bar; (c) one
+   pathwise ensemble loss+grad (1024 particles over 8 members, 1024 bases)
+   and a PW_STEPS policy update, in plain torch as in the JAX package (no
+   kernel launches).
+10. Prints the kernels' JSON line, then {"ok": true, "device": {...}} as the
    last line. Any failed check raises, so the exit code is non-zero.
 
 Tolerances of the kernel checks, rtol = atol:
@@ -495,17 +516,18 @@ def mm_losses(loop, paths=(("kernel", True), ("unfused", False))):
     return losses
 
 
-def mm_loss_noise(loop, base):
+def mm_loss_noise(loop, base, deltas=(1e-14, 1e-13, 1e-12)):
     """The rounding noise of the float64 MM loss at this checkpoint: the
     largest relative move of the unfused loss when the initial mean moves by
-    1e-14 to 1e-12, far too little for the loss's derivative to show. At a
+    each of ``deltas`` (1e-14 to 1e-12), far too little for the loss's
+    derivative to show. At a
     fitted M=240 drift the expected-covariance term var - sum(Q * eKuffu)
     cancels digits (Q = Kuu^-1 - ... has large entries of both signs), so
     two correct evaluations in another order differ well above 1e-16."""
     spec = loop.episode_spec
     moves = []
     try:
-        for delta in (1e-14, 1e-13, 1e-12):
+        for delta in deltas:
             loop.episode_spec = spec._replace(state_mean=np.asarray(spec.state_mean) + delta)
             moved = mm_losses(loop, paths=(("unfused", False),))["unfused"]
             moves.append(abs(moved - base) / abs(base))
@@ -1142,10 +1164,422 @@ def match_slice_phase(counters, seed, device, step_limit, lbfgs_iters, jacobi_ga
                                 episode_ms=1e3 * t_ep)
 
 
+# ---------------------------------------------------------------- slice B
+# The HMC-ensemble path's shapes: K=8 members of a GPR drift on N=240
+# transitions (8 random episodes), D=6 inputs (5 features and the action),
+# R=4 outputs; K3g on one moment set per member, K2's GPR route with the
+# members on its pair axis and R=4 rows of alpha^T
+GPR_K, GPR_N, GPR_R = 8, M, 4
+HMC_CUT = dict(hmc_chains=8, hmc_warmup=50, hmc_samples=50, hmc_leapfrog=16, hmc_ensemble=GPR_K)
+PW_STEPS = 20  # Adam steps of the pathwise ensemble policy update (c)
+# the random model's noise, that of the HMC ensemble's members on this
+# deterministic simulator (2e-5 to 3e-5 in the ensemble slice): Kyy^-1 is
+# then large, and var - sum(Kyy^-1 o E) cancels digits in float32
+GPR_NOISE = 2e-5
+
+
+def gpr_model(k, n, d, r, device, seed, noise=GPR_NOISE):
+    """A float64 GPR stacked over k members on random data, with numpy-drawn
+    hyperparameters (lengthscales 1-2, noise around ``noise``)."""
+    from gpflowpilco_torch.models.gp import GPR
+    from gpflowpilco_torch.models.kernels import RBF
+    from gpflowpilco_torch.utils import bijectors as bij
+
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)  # noqa: E731
+    x = 1.5 * rng.normal(size=(n, d))
+    y = np.sin(x[:, :r] + x[:, -1:]) + 0.1 * rng.normal(size=(n, r))
+    return GPR(RBF.create(f(rng.uniform(0.5, 1.5, size=k)), f(rng.uniform(1.0, 2.0, size=(k, d)))),
+               f(x), f(y), f(0.1 * rng.normal(size=(k, r))),
+               bij.positive_inv(f(noise * rng.uniform(0.5, 2.0, size=k)))).requires_grad_(False)
+
+
+def gpr_match_grids(model, dtype):
+    """The K3g grid of ``model`` in ``dtype`` and in float64."""
+    from gpflowpilco_torch.moment_matching.gp import gpr_match_cache
+    from gpflowpilco_torch.ops import gpr_match_cuda as gm
+
+    with torch.no_grad():
+        c = gpr_match_cache(model)
+        g64 = gm.build_fused_gpr_match_grid(model, c.alpha, c.kyy_inv)
+    cast = {f: v.to(dtype).contiguous() for f, v in zip(gm.GPR_GRID_FIELDS, g64.tensors())}
+    return gm.FusedGPRMatchGrid(**cast, meta=g64.meta), g64
+
+
+def gpr_well_conditioned(g, rng):
+    """The grid ``g`` with O(1) representer weights and a symmetric Kyy^-1 of
+    entries ~1/N (cf. well_conditioned for K3)."""
+    from gpflowpilco_torch.ops import gpr_match_cuda as gm
+
+    t = dict(zip(gm.GPR_GRID_FIELDS, g.tensors()))
+    like = lambda a: torch.as_tensor(a, dtype=g.alpha.dtype, device=g.alpha.device)  # noqa: E731
+    q = like(rng.normal(size=tuple(g.kyy_inv.shape))) / g.meta.num_n
+    t.update(alpha=like(rng.normal(size=tuple(g.alpha.shape))), kyy_inv=(0.5 * (q + q.mT)).contiguous())
+    return gm.FusedGPRMatchGrid(**t, meta=g.meta)
+
+
+def gpr_match_bound_ms(kind, meta, b, dtype):
+    """Least time of one K3g call: each input read once and each output
+    written once, and its operations (an exp counts as one) (_bound). Each
+    cell (i, j) of a member's E grid counts once: the exponent's two D-term
+    dots, the exp and, in the forward, the R alpha products and the Kyy^-1
+    product (4D + 2R + 5); in the backward, E, the two R-term dots, the
+    Kyy^-1 term and the D-term sum of E s up_j (6D + 4R + 8). Each point's
+    D-vector solves count once, though every block repeats them."""
+    k, n, d, r = meta.num_members, meta.num_n, meta.num_dim, meta.num_out
+    size = torch.finfo(dtype).bits // 8
+    grid = d * n + k * (2 * d + n * r + 3 + n * n + 2 * d * n + n)
+    io = b * k * (d + d * d)
+    cells = b * k * n * n
+    solves = b * k * n * (4 * d * d + 10 * d)  # eKfu's and the pair's per-point solves
+    if kind == "fwd":
+        outputs = b * k * (r + r * r + d * r)
+        return _bound((grid + io + outputs) * size, solves + cells * (4 * d + 2 * r + 5), dtype)
+    cots = b * k * (2 * r + r * r + d * r)
+    return _bound((grid + 2 * io + cots) * size, 2 * solves + cells * (6 * d + 4 * r + 8), dtype)
+
+
+def gpr_kernels_phase(gm, kc, seed, device):
+    """Hold K3g (forward, frozen backward) and K2's GPR route (forward and
+    frozen backward, R=4 rows, the 8 members on the pair axis) against their
+    plain versions in float32 and float64 at N=240, D=6, R=4, K=8, and time
+    each beside its plain version and its bound.
+
+    Bars: K3g float64, MATCH_F64_TOL of each output's scale; float32, with
+    its plain version against float64 at a random model's grid (3x the
+    plain version's error plus 1e-4 of the scale: at GPR_NOISE, Kyy^-1 is
+    large and var - sum(Kyy^-1 o E) cancels digits), and against
+    plain float32 at MATCH_WC_TOL of the scale on a well-conditioned grid of
+    the same shape. K2's GPR route: PAIR_TOL (rtol = atol) on the operands
+    of a model at noise 0.5, whose Kyy^-1 has O(1) entries like the random
+    qm of K2's other checks, and in float64 also MATCH_F64_TOL of each
+    output's scale at GPR_NOISE, where Kyy^-1 is large as on the main path."""
+    from gpflowpilco_torch.moment_matching.gp import gpr_match_cache
+    from gpflowpilco_torch.ops.kexp_cuda import build_fused_gpr_grid, gpr_pair_operands
+
+    rng = np.random.default_rng(seed + 3000)
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=device)
+    errs = {name: 0.0 for name in (*gm.launches, *(f"{n}/gpr" for n in kc.launches))}
+    timings, calls = {}, {}
+
+    def record(name, got, want, what):
+        err = float((got.double() - want.double()).abs().max())
+        errs[name] = max(errs[name], err)
+        scaled = scaled_err(got, want)
+        print(f"  {name} {what}: max |kernel - plain| = {err:.3e}, scaled {scaled:.3e}")
+        return scaled
+
+    def k3g_outputs(g, mx, sxx, cots, kernel):
+        if kernel:
+            fwd = gm._fwd(g.meta, g, mx, sxx)
+            return {"fwd": fwd, "bwd_frozen": gm._bwd(g.meta, g, mx, sxx, fwd[0], *cots)}
+        return {"fwd": gm.gpr_match_reference(g.meta, g, mx, sxx),
+                "bwd_frozen": gm.gpr_match_reference_bwd(g.meta, g, mx, sxx, *cots)}
+
+    model = gpr_model(GPR_K, GPR_N, D, GPR_R, device, seed + 3001)
+    names = {"fwd": ("f1", "sff", "cross"), "bwd_frozen": ("dmx", "dsxx")}
+    for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
+        g, g64 = gpr_match_grids(model, dtype)
+        mx, sxx = state_moments(rng, GPR_K, D, dtype, device)
+        mx, sxx = mx[None].contiguous(), sxx[None].contiguous()
+        f = lambda *sh: torch.as_tensor(rng.normal(size=sh), dtype=dtype, device=device)  # noqa: E731
+        cots = (f(1, GPR_K, GPR_R), f(1, GPR_K, GPR_R, GPR_R), f(1, GPR_K, D, GPR_R))
+        print(f"gpr match B=1 K={GPR_K} N={GPR_N} D={D} R={GPR_R} noise~{GPR_NOISE} {sfx}:")
+        got = k3g_outputs(g, mx, sxx, cots, True)
+        plain = k3g_outputs(g, mx, sxx, cots, False)
+        truth = k3g_outputs(g64, mx.double(), sxx.double(), [c.double() for c in cots], False)
+        sync()
+        for kind, outs in names.items():
+            name = f"gpr_match_{kind}_{sfx}"
+            for what, a, b, c in zip(outs, got[kind], plain[kind], truth[kind]):
+                err = record(name, a, b, what)
+                ok = bool(torch.isfinite(a).all())
+                if dtype == torch.float64:
+                    ok = ok and err <= MATCH_F64_TOL
+                else:
+                    err_k, err_p = scaled_err(a, c), scaled_err(b, c)
+                    print(f"    vs float64: kernel {err_k:.3e}, plain float32 {err_p:.3e}")
+                    ok = ok and err_k <= 3.0 * err_p + 1e-4
+                if not ok:
+                    raise AssertionError(f"{name} {what}: kernel disagrees with its plain version")
+        if dtype == torch.float32:
+            wc = gpr_well_conditioned(g, rng)
+            mxw, sxxw = state_moments(rng, GPR_K, D, dtype, device, shift=WC_STATE_SHIFT)
+            mxw, sxxw = mxw[None].contiguous(), sxxw[None].contiguous()
+            got_w = k3g_outputs(wc, mxw, sxxw, cots, True)
+            plain_w = k3g_outputs(wc, mxw, sxxw, cots, False)
+            sync()
+            print(f"  well-conditioned grid, bar {MATCH_WC_TOL:g} of the scale:")
+            for kind, outs in names.items():
+                for what, a, b in zip(outs, got_w[kind], plain_w[kind]):
+                    if not (torch.isfinite(a).all()
+                            and record(f"gpr_match_{kind}_{sfx}", a, b, what) <= MATCH_WC_TOL):
+                        raise AssertionError(f"gpr_match_{kind}_{sfx} {what}: kernel disagrees on "
+                                             f"the well-conditioned grid")
+        args = (g.meta, g, mx, sxx)
+        calls[f"gpr_match_fwd_{sfx}"] = (
+            lambda a=args: gm._fwd(*a), lambda a=args: gm.gpr_match_reference(*a),
+            gpr_match_bound_ms("fwd", g.meta, 1, dtype))
+        calls[f"gpr_match_bwd_frozen_{sfx}"] = (
+            lambda a=args, c=cots, f1=got["fwd"][0]: gm._bwd(*a, f1, *c),
+            lambda a=args, c=cots: gm.gpr_match_reference_bwd(*a, *c),
+            gpr_match_bound_ms("bwd_frozen", g.meta, 1, dtype))
+
+        def k2_pairs(gmodel):
+            """((fwd, outputs, kernel's, plain's), (bwd_frozen, ...)) of K2's
+            GPR route on ``gmodel``'s operands at these moments."""
+            with torch.no_grad():
+                c = gpr_match_cache(gmodel)
+                grid = build_fused_gpr_grid(gmodel.kernel.variance, gmodel.kernel.lengthscales,
+                                            gmodel.x, c.alpha, c.kyy_inv)
+                su, sw, _ = gpr_pair_operands(grid, mx, sxx)
+            ops = (su.contiguous(), sw.contiguous(), grid.alphat, grid.qm)
+            want_f = kc.pair_contract_reference(*ops)
+            want_b = kc.pair_contract_reference_bwd(*ops, *cot, False)
+            got_f, got_b = kc._fwd(*ops), kc._bwd(*ops, *cot, False)
+            sync()
+            return ops, (("fwd", ("evc", "qcol"), got_f, want_f),
+                         ("bwd_frozen", ("dsu", "dsw"), got_b[:2], want_b[:2]))
+
+        # K2's GPR route, on the operands of a model at noise 0.5
+        wmodel = gpr_model(GPR_K, GPR_N, D, GPR_R, device, seed + 3002, noise=0.5).to(dtype)
+        cot = (f(1, GPR_K, GPR_R, GPR_N), f(1, GPR_K, GPR_N))
+        ops, pairs = k2_pairs(wmodel)
+        d2 = ops[0].shape[2]
+        tol = PAIR_TOL[dtype]
+        print(f"pair contract, GPR route N=1 P={GPR_K} D2={d2} M={GPR_N} R={GPR_R} {sfx}, "
+              f"rtol=atol={tol}:")
+        for kind, outs, gots, wants in pairs:
+            name = f"pair_contract_{kind}_{sfx}/gpr"
+            for what, a, b in zip(outs, gots, wants):
+                errs[name] = max(errs[name], check(f"{name} {what}", a, b, tol))
+        if dtype == torch.float64:
+            # and on the main path's conditioning: the noise~GPR_NOISE model,
+            # whose Kyy^-1 (qm) and alpha are large, at K3g's float64 bar
+            print(f"pair contract, GPR route {sfx} at noise~{GPR_NOISE}, bar {MATCH_F64_TOL:g} of the "
+                  f"scale:")
+            for kind, outs, gots, wants in k2_pairs(model)[1]:
+                name = f"pair_contract_{kind}_{sfx}/gpr"
+                for what, a, b in zip(outs, gots, wants):
+                    if not (torch.isfinite(a).all() and record(name, a, b, what) <= MATCH_F64_TOL):
+                        raise AssertionError(f"{name} {what}: kernel disagrees with its plain version "
+                                             f"at noise~{GPR_NOISE}")
+        calls[f"pair_contract_fwd_{sfx}/gpr"] = (
+            lambda o=ops: kc._fwd(*o), lambda o=ops: kc.pair_contract_reference(*o),
+            pair_bound_ms("fwd", 1, GPR_K, d2, GPR_N, dtype, r=GPR_R))
+        calls[f"pair_contract_bwd_frozen_{sfx}/gpr"] = (
+            lambda o=ops, c=cot: kc._bwd(*o, *c, False),
+            lambda o=ops, c=cot: kc.pair_contract_reference_bwd(*o, *c, False),
+            pair_bound_ms("bwd_frozen", 1, GPR_K, d2, GPR_N, dtype, r=GPR_R))
+
+    for name, (kern, plain, (bound, bound_by)) in calls.items():
+        ms = median_ms(kern, flush=flush)
+        warm_ms = median_ms(kern)
+        plain_ms, plain_how = plain_ms_of(plain, flush)
+        timings[name] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, plain_how=plain_how,
+                             bound_ms=bound, bound_by=bound_by, library_ms=None)
+        print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), plain torch "
+              f"{plain_ms:.4f} ms ({plain_how}), bound {bound:.6f} ms ({bound_by})")
+    return errs, timings
+
+
+def syncs_per_leapfrog(loop, ens):
+    """Host synchronizations of one leapfrog step's batched LML+gradient
+    evaluation (the HMC target of _hmc_gpr_ensemble, in the loop's dtype) at
+    states the chains visited: the ensemble's members, one draw from each
+    chain. Counted by torch's sync debug mode: (count, the Python lines that
+    synchronized, the factorizations of the batch's Kyy, i.e. one plus the
+    jitter-escalation levels that ran)."""
+    import warnings
+
+    from gpflowpilco_torch.loops.pilco import gpr_log_posterior
+    from gpflowpilco_torch.models.hmc import _logp_and_grad
+
+    members = ens.members
+    q = torch.cat([p.detach().reshape(ens.num_members, -1) for p in members.parameters()], dim=1)
+    log_prob = gpr_log_posterior(loop.build_dynamics(), loop.drift_spec)  # the same data
+    _logp_and_grad(log_prob, q)  # warm-up
+    sync()
+    cholesky_ex, factorizations = torch.linalg.cholesky_ex, []
+
+    def counted(*a, **kw):
+        factorizations.append(a[0].shape)
+        return cholesky_ex(*a, **kw)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        torch.linalg.cholesky_ex = counted
+        try:
+            _logp_and_grad(log_prob, q)
+        finally:
+            torch.linalg.cholesky_ex = cholesky_ex
+            torch.cuda.set_sync_debug_mode(0)
+    where = [f"{Path(w.filename).name}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+    return len(where), where, len(factorizations)
+
+
+def ensemble_slice_phase(counters, seed, device, step_limit, lbfgs_iters):
+    """8 random episodes, a GPR L-BFGS fit and HMC (8 chains, HMC_CUT),
+    thinned to an 8-member ensemble; then (a) a whole-match ensemble MM
+    policy update in float32, (b) one float64 loss+grad through the
+    pair-grid kernel, held against the unfused float64 loss, and (c) one
+    pathwise ensemble loss+grad and a short pathwise policy update."""
+    from run_torch import build_loop
+
+    from gpflowpilco_torch.loops.driver import outer_loop
+    from gpflowpilco_torch.loops.pilco import DriftSpec, MomentMatchingPILCO, PathwisePILCO, PolicySpec
+    from gpflowpilco_torch.models.gp import GPREnsemble
+    from gpflowpilco_torch.ops import kexp_cuda as kc
+
+    def counts():
+        return {k: v for c in counters for k, v in c.launches.items()}
+
+    def reset():
+        for c in counters:
+            c.reset_launches()
+
+    drift_spec = DriftSpec(model_type="gpr", optimizer="hmc", max_iters=lbfgs_iters, **HMC_CUT)
+    loop = build_loop(seed, device, torch.float32, drift_spec=drift_spec,
+                      policy_spec=PolicySpec(num_restarts=1, step_limit=step_limit),
+                      loop_cls=MomentMatchingPILCO)
+    loop.use_fused_match = True
+    outer_loop(loop, num_episodes=8, num_episodes_init=8, log_summaries=False)
+    sync()
+    reset()
+    t0 = time.perf_counter()
+    info_d = loop.update_dynamics()
+    sync()
+    t_dyn = time.perf_counter() - t0
+    ens = loop.drift_model
+    assert isinstance(ens, GPREnsemble) and ens.num_members == GPR_K
+    assert ens.members.x.shape == (GPR_N, D) and ens.members.y.shape == (GPR_N, GPR_R)
+    noise = ens.members.noise_variance.detach().cpu().numpy()
+    print(f"ensemble slice: GPR L-BFGS fit (max {lbfgs_iters} iterations, {info_d['iters']} run, loss "
+          f"{info_d['loss']:.4f}) and HMC {HMC_CUT} in {1e3 * t_dyn:.1f} ms, of which HMC "
+          f"{1e3 * info_d['hmc_seconds']:.1f} ms; acceptance {info_d['hmc_accept']:.3f}, step size "
+          f"{info_d['hmc_step_size']:.4f}; member noise {np.array2string(noise, precision=6)}")
+    assert math.isfinite(info_d["loss"]) and 0.0 < info_d["hmc_accept"] <= 1.0
+    assert not any(counts().values()), f"the drift fit launched kernels: {counts()}"
+    syncs, where, facts = syncs_per_leapfrog(loop, ens)
+    print(f"ensemble slice: host synchronizations per leapfrog step ({HMC_CUT['hmc_chains']} chains, at "
+          f"the members' states, {loop.dtype}): {syncs}, at {where}; Kyy factorizations {facts} "
+          f"(jitter escalation levels run: {facts - 1})")
+
+    # ---- (a) whole-match ensemble MM policy update, float32: counts zeroed
+    # just before, read just after
+    loop.policy_model = loop.build_policy()
+    before = {n: p.detach().clone() for n, p in loop.policy_model.named_parameters()}
+    reset()
+    t0 = time.perf_counter()
+    info_p = loop.update_policy()
+    sync()
+    t_a = time.perf_counter() - t0
+    delta = counts()
+    print(f"ensemble slice (a): whole-match policy update {1e3 * t_a:.1f} ms = "
+          f"{1e3 * t_a / step_limit:.2f} ms per ensemble MM policy step; loss {info_p['loss']:.6f}, "
+          f"skipped {info_p['skipped_steps']}; launches {delta}")
+    assert math.isfinite(info_p["loss"]), "ensemble whole-match loss is not finite"
+    # per Adam step: one K3g forward and one frozen backward per rollout step
+    # for all 8 members; the policy's K3 forward and full backward, K4, K5a
+    # and K5b as in the whole-match slice (the drift's K3 is now K3g)
+    per_step = {"gpr_match_fwd_f32": HORIZON_STEPS, "gpr_match_bwd_frozen_f32": HORIZON_STEPS,
+                "svgp_match_fwd_f32": HORIZON_STEPS, "svgp_match_bwd_f32": HORIZON_STEPS,
+                "enc_match_fwd_f32": HORIZON_STEPS + 1, "enc_match_bwd_f32": HORIZON_STEPS,
+                "psd_boost_f32": HORIZON_STEPS, "euler_update_f32": HORIZON_STEPS}
+    want = {k: per_step.get(k, 0) * step_limit for k in delta}
+    assert delta == want, f"launches {delta}, expected {want}"
+    moved = max(float((p.detach() - before[n]).abs().max())
+                for n, p in loop.policy_model.named_parameters() if p.requires_grad)
+    assert moved > 0, "policy parameters did not change"
+    launches_a = dict(delta)
+    t0 = time.perf_counter()
+    ep = loop.step()
+    sync()
+    t_ep = time.perf_counter() - t0
+    print(f"ensemble slice (a): RK4 episode {1e3 * t_ep:.1f} ms, reward {ep.metrics['rewards']:.4f}, "
+          f"model-predicted {ep.metrics.get('eReward', float('nan')):.4f}")
+    assert np.isfinite(ep.states).all() and math.isfinite(ep.metrics["eReward"])
+
+    # ---- (b) use_fused_mm, float64 loss with the float32 policy island: one
+    # timed loss+grad, counts zeroed just before and read just after
+    loop.use_fused_match, loop.use_fused_mm = False, True
+    loop.policy_spec = dataclasses.replace(loop.policy_spec, loss_dtype=torch.float64)
+    model = loop.policy_model
+    model.zero_grad(set_to_none=True)
+    reset()
+    t0 = time.perf_counter()
+    loss = loop.policy_loss_fn(model, None, drift=loop.policy_loss_drift())
+    loss.backward()
+    sync()
+    t_b = time.perf_counter() - t0
+    delta = counts()
+    want = dict.fromkeys(delta, 0)
+    for name in ("pair_contract_fwd_f64", "pair_contract_bwd_frozen_f64",
+                 "pair_contract_fwd_f32", "pair_contract_bwd_f32"):
+        want[name] = HORIZON_STEPS
+    print(f"ensemble slice (b): float64 pair-grid ensemble loss+grad {1e3 * t_b:.1f} ms, loss "
+          f"{float(loss.detach()):.9f}; launches {delta}")
+    assert delta == want, f"launches {delta}, expected {want}"
+    launches_b = dict(delta)
+    losses = mm_losses(loop)
+    # the same pair-grid formulation with K2's plain version in the kernel's
+    # place: it isolates the kernel from the formulation (an explicit Kyy^-1
+    # against the unfused path's Cholesky solves)
+    fwd = kc._fwd
+    kc._fwd = kc.pair_contract_reference
+    try:
+        losses.update(mm_losses(loop, paths=(("plain", True),)))
+    finally:
+        kc._fwd = fwd
+    gap = lambda a, b: abs(losses[a] - losses[b]) / abs(losses[b])  # noqa: E731
+    # the ensemble's members have noise ~2e-5, so Kyy^-1 is large and the
+    # float64 loss's rounding noise is too (~1e-6)
+    noise_rel = mm_loss_noise(loop, losses["unfused"])
+    bar = max(1e-9, 10.0 * noise_rel)
+    print(f"ensemble slice (b): 30-step float64 ensemble MM loss via the kernel {losses['kernel']:.15f}, "
+          f"via K2's plain version {losses['plain']:.15f}, unfused {losses['unfused']:.15f}; relative "
+          f"gaps kernel-plain {gap('kernel', 'plain'):.3e}, kernel-unfused {gap('kernel', 'unfused'):.3e}, "
+          f"plain-unfused {gap('plain', 'unfused'):.3e}; rounding noise {noise_rel:.3e}, bar {bar:.3e}")
+    assert math.isfinite(losses["kernel"]) and gap("kernel", "plain") <= bar, \
+        "the ensemble MM loss through the kernel and through its plain version disagree"
+    assert gap("kernel", "unfused") <= bar, "fused and unfused ensemble MM losses disagree"
+
+    # ---- (c) pathwise ensemble: 1024 particles over the 8 members, 1024 bases
+    pw = build_loop(seed, device, torch.float32, drift_spec=drift_spec,
+                    policy_spec=PolicySpec(batch_size=S, num_bases=B, num_restarts=1, step_limit=PW_STEPS),
+                    loop_cls=PathwisePILCO)
+    pw.episodes, pw.drift_model = list(loop.episodes), ens
+    pw.policy_model = pw.build_policy()
+    reset()
+    t0 = time.perf_counter()
+    pw_loss = pw.policy_loss_fn(pw.policy_model, pw.iteration_generator(98))
+    pw_loss.backward()
+    sync()
+    t_c1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info_c = pw.update_policy()
+    sync()
+    t_c = time.perf_counter() - t0
+    delta = counts()
+    print(f"ensemble slice (c): pathwise ensemble loss+grad {1e3 * t_c1:.1f} ms (loss "
+          f"{float(pw_loss.detach()):.6f}); {PW_STEPS}-step policy update {1e3 * t_c:.1f} ms = "
+          f"{1e3 * t_c / PW_STEPS:.2f} ms per pathwise ensemble step, loss {info_c['loss']:.6f}")
+    assert math.isfinite(float(pw_loss.detach())) and math.isfinite(info_c["loss"])
+    assert not any(delta.values()), f"the GPR paths run in plain torch, yet kernels ran: {delta}"
+    return loop, pw, launches_a, launches_b, dict(
+        dynamics_ms=1e3 * t_dyn, hmc_ms=1e3 * info_d["hmc_seconds"], syncs_per_leapfrog=syncs,
+        escalation_levels=facts - 1,
+        hmc_accept=info_d["hmc_accept"], ensemble_mm_step_ms=1e3 * t_a / step_limit,
+        fused_mm_f64_loss_grad_ms=1e3 * t_b, pathwise_loss_grad_ms=1e3 * t_c1,
+        pathwise_step_ms=1e3 * t_c / PW_STEPS)
+
+
 # kernel-name fragments whose rows a profile prints on their own: this
 # repository's kernels and the eigenvalue solver behind psd_project's eigvalsh
 _WATCHED = ("fwd_kernel", "bwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel", "fwd_groups",
-            "bwd_groups", "combine", "enc_fwd", "enc_bwd", "psd_kernel", "euler_kernel", "syev", "eig")
+            "bwd_groups", "fwd_tiles", "bwd_tiles", "combine", "enc_fwd", "enc_bwd", "psd_kernel",
+            "euler_kernel", "syev", "eig")
 # host runtime calls that wait for the device or copy through it
 _SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
 
@@ -1188,10 +1622,10 @@ def _profile(name, fn, out_dir, reps=3, export=True):
         f"{e.key} x{e.count // reps}" for e in host) or "none"))
 
 
-def profile_phase(loop, mm_loop, match_loop, out_dir):
-    """Profiles of one pathwise, one MM and one whole-match MM policy
-    loss+grad evaluation and one drift ELBO+grad evaluation, at the slices'
-    shapes."""
+def profile_phase(loop, mm_loop, match_loop, ens_loop, out_dir):
+    """Profiles of one pathwise, one MM, one whole-match MM and one
+    whole-match ensemble MM policy loss+grad evaluation and one drift
+    ELBO+grad evaluation, at the slices' shapes."""
     from gpflowpilco_torch.models.builders import dynamics_mask
     from gpflowpilco_torch.models.gp import svgp_elbo
     from gpflowpilco_torch.models.priors import pilco_snr_penalty
@@ -1210,6 +1644,15 @@ def profile_phase(loop, mm_loop, match_loop, out_dir):
     _profile(
         "match_policy_step",
         lambda: match_loop.policy_loss_fn(match_model, None, drift=match_drift).backward(),
+        out_dir, export=False,
+    )
+
+    ens_loop.use_fused_mm, ens_loop.use_fused_match = False, True
+    ens_loop.policy_spec = dataclasses.replace(ens_loop.policy_spec, loss_dtype=None)
+    ens_model, ens_drift = ens_loop.policy_model, ens_loop.policy_loss_drift()
+    _profile(
+        "ensemble_match_policy_step",
+        lambda: ens_loop.policy_loss_fn(ens_model, None, drift=ens_drift).backward(),
         out_dir, export=False,
     )
 
@@ -1237,6 +1680,7 @@ def main():
     sys.path[:0] = [str(root), str(root / "examples" / "cartpole_swingup")]
     from gpflowpilco_torch.ops import _build
     from gpflowpilco_torch.ops import enc_match_cuda as ec
+    from gpflowpilco_torch.ops import gpr_match_cuda as gm
     from gpflowpilco_torch.ops import kexp_cuda as kc
     from gpflowpilco_torch.ops import mm_glue_cuda as gc
     from gpflowpilco_torch.ops import mm_match_cuda as mc
@@ -1258,6 +1702,7 @@ def main():
     errs, timings = kernels_phase(pe, args.seed, device)
     pair_errs, pair_timings = pair_kernels_phase(kc, args.seed, device)
     match_errs, match_timings, jacobi_gap = match_kernels_phase(mc, ec, gc, args.seed, device)
+    gpr_errs, gpr_timings = gpr_kernels_phase(gm, kc, args.seed, device)
     loop, launches, slice_ms = slice_phase(pe, args.seed, device, args.step_limit, args.lbfgs_iters)
     mm_loop, pair_launches, mm_ms = mm_slice_phase(
         kc, args.seed, device, args.step_limit, args.lbfgs_iters
@@ -1266,8 +1711,11 @@ def main():
     match_loop, match_launches, match_ms = match_slice_phase(
         counters, args.seed, device, args.step_limit, args.lbfgs_iters, jacobi_gap
     )
+    ens_loop, _, ens_launches_a, ens_launches_b, ens_ms = ensemble_slice_phase(
+        (*counters, gm), args.seed, device, args.step_limit, args.lbfgs_iters
+    )
     if args.profile:
-        profile_phase(loop, mm_loop, match_loop, args.profile)
+        profile_phase(loop, mm_loop, match_loop, ens_loop, args.profile)
 
     for name, n in launches.items():
         if name != "path_eval_bwd_full" and n == 0:
@@ -1278,14 +1726,22 @@ def main():
         launches[name] = n
     errs.update(pair_errs)
     errs.update(match_errs)
+    errs.update(gpr_errs)
     timings.update(pair_timings)
     timings.update(match_timings)
+    timings.update(gpr_timings)
     launches.update(pair_launches)
+    # slice B: K3g's launches from (a); K2's GPR route's from (b), whose
+    # float64 entries are the drift's alone (its float32 ones are the SVGP
+    # policy island's), so the GPR route's float32 rows count none
+    launches.update({k: v for k, v in ens_launches_a.items() if k in gm.launches})
+    launches.update({f"{k}/gpr": ens_launches_b[k] if k.endswith("_f64") else 0 for k in kc.launches})
     sources = dict.fromkeys(pe.launches, "gpflowpilco_torch/csrc/path_eval.cu")
     sources.update(dict.fromkeys(kc.launches, "gpflowpilco_torch/csrc/kexp_pair.cu"))
     sources.update(dict.fromkeys(mc.launches, "gpflowpilco_torch/csrc/mm_match.cu"))
     sources.update(dict.fromkeys(ec.launches, "gpflowpilco_torch/csrc/enc_match.cu"))
     sources.update(dict.fromkeys(gc.launches, "gpflowpilco_torch/csrc/mm_glue.cu"))
+    sources.update(dict.fromkeys(gm.launches, "gpflowpilco_torch/csrc/gpr_match.cu"))
     replaces = {
         "path_eval_fwd": "gpflowpilco_tpu/ops/path_eval_pallas.py:58",
         "path_eval_bwd_dx": "gpflowpilco_tpu/ops/path_eval_pallas.py:102",
@@ -1293,6 +1749,8 @@ def main():
     }
     for name in kc.launches:
         replaces[name] = "gpflowpilco_tpu/ops/kexp_pallas.py:" + ("47" if "_fwd_" in name else "62")
+    for name in gm.launches:
+        replaces[name] = "gpflowpilco_tpu/ops/mm_match_pallas.py:" + ("1120" if "_fwd_" in name else "1133")
     for name in mc.launches:
         replaces[name] = "gpflowpilco_tpu/ops/mm_match_pallas.py:" + (
             "624" if "_fwd_" in name else "637" if "frozen" in name else "657")
@@ -1300,10 +1758,14 @@ def main():
         replaces[name] = "gpflowpilco_tpu/ops/enc_match_pallas.py:" + ("252" if "_fwd_" in name else "262")
     for name in gc.launches:
         replaces[name] = "gpflowpilco_tpu/ops/mm_glue_pallas.py:" + ("87" if "psd" in name else "130")
-    names = (*pe.launches, *kc.launches, *mc.launches, *ec.launches, *gc.launches)
+    # K2's GPR-route rows: the same kernel entries at the GPR grid's shape
+    gpr_route = [f"{k}/gpr" for k in kc.launches if f"{k}/gpr" in timings]
+    for name in gpr_route:
+        base = name.split("/")[0]
+        sources[name], replaces[name] = sources[base], replaces[base]
+    names = (*pe.launches, *kc.launches, *gpr_route, *mc.launches, *ec.launches, *gc.launches,
+             *gm.launches)
     for name in names:
-        if name.startswith(("svgp_match", "enc_match", "psd_boost", "euler_update")):
-            continue
         timings[name].setdefault("library_ms", None)
     kernels = [
         dict(
@@ -1327,6 +1789,7 @@ def main():
     print(f"pathwise slice ms: {json.dumps(slice_ms)}")
     print(f"mm slice ms: {json.dumps(mm_ms)}")
     print(f"whole-match slice ms: {json.dumps(match_ms)}")
+    print(f"ensemble slice: {json.dumps(ens_ms)}")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

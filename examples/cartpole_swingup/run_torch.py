@@ -10,6 +10,10 @@ through the CUDA pair-contraction kernel, ``--fused-match`` running the
 whole-match path (the whole SVGP match, encoder match, PSD guard and Euler
 update as CUDA kernels; the twin of ``run_tpu_full.py --fused-match``), and
 ``--mm-loss-f64`` (or ``--mm-loss-dd``) running the MM loss in float64.
+``--drift-optimizer hmc`` (the twin of ``run_tpu_full.py --drift-optimizer
+hmc``) fits an exact GPR drift by L-BFGS, samples its hyperparameters by HMC
+and trains the policy through the posterior-averaged loss over an ensemble
+of --hmc-ensemble draws; both variants and every MM option take it.
 Validation rollouts, multistart and checkpoints are not ported yet.
 
     python examples/cartpole_swingup/run_torch.py --episodes 10
@@ -21,6 +25,9 @@ Validation rollouts, multistart and checkpoints are not ported yet.
         --mm-loss-f64 --episodes 3 --step-limit 5 --num-centers 16 --lbfgs-iters 30
     python examples/cartpole_swingup/run_torch.py --device cpu --variant mm --fused-match \\
         --episodes 3 --step-limit 5 --num-centers 16 --lbfgs-iters 30
+    python examples/cartpole_swingup/run_torch.py --device cpu --variant mm --fused-match \\
+        --drift-optimizer hmc --episodes 2 --step-limit 3 --lbfgs-iters 20 \\
+        --hmc-warmup 10 --hmc-samples 10 --hmc-leapfrog 4 --hmc-chains 2 --hmc-ensemble 3
 """
 from __future__ import annotations
 
@@ -113,6 +120,14 @@ def main():
     p.add_argument("--mm-loss-dd", action="store_true",
                    help="mm: the JAX package's compensated loss, here float64 with a "
                         "float64 policy chain (PolicySpec.loss_compensated)")
+    p.add_argument("--drift-optimizer", choices=["lbfgs", "hmc"], default="lbfgs",
+                   help="hmc: an exact GPR drift whose hyperparameters are sampled by HMC, "
+                        "thinned to an ensemble (DriftSpec model_type='gpr', optimizer='hmc')")
+    p.add_argument("--hmc-chains", type=int, default=8)
+    p.add_argument("--hmc-warmup", type=int, default=200)
+    p.add_argument("--hmc-samples", type=int, default=200)
+    p.add_argument("--hmc-leapfrog", type=int, default=16)
+    p.add_argument("--hmc-ensemble", type=int, default=8)
     p.add_argument("--step-limit", type=int, default=5000)
     p.add_argument("--num-centers", type=int, default=240)
     p.add_argument("--batch-size", type=int, default=1024)
@@ -134,7 +149,17 @@ def main():
         args.seed,
         torch.device(args.device),
         torch.float32,
-        drift_spec=DriftSpec(num_centers=args.num_centers, max_iters=args.lbfgs_iters),
+        drift_spec=DriftSpec(
+            num_centers=args.num_centers,
+            max_iters=args.lbfgs_iters,
+            model_type="gpr" if args.drift_optimizer == "hmc" else "svgp",
+            optimizer=args.drift_optimizer,
+            hmc_chains=args.hmc_chains,
+            hmc_warmup=args.hmc_warmup,
+            hmc_samples=args.hmc_samples,
+            hmc_leapfrog=args.hmc_leapfrog,
+            hmc_ensemble=args.hmc_ensemble,
+        ),
         policy_spec=PolicySpec(
             step_limit=args.step_limit,
             batch_size=args.batch_size,

@@ -9,7 +9,9 @@ Ported so far, on cartpole swing-up with an SVGP drift: pathwise PILCO
 eKuffu pair grid (``ops/kexp_cuda.py``) or the whole-match path: the SVGP
 match (``ops/mm_match_cuda.py``), the encoder match
 (``ops/enc_match_cuda.py``), the PSD guard and the Euler update
-(``ops/mm_glue_cuda.py``). Their CUDA C++ is in ``csrc/``, built at first
+(``ops/mm_glue_cuda.py``); and, for exact GPR drifts and their HMC
+ensembles (slice B), the GPR whole match (``ops/gpr_match_cuda.py``) and
+the pair grid's GPR route. Their CUDA C++ is in ``csrc/``, built at first
 use into ``build/kernels/``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -1,7 +1,9 @@
 """Pathwise and moment-matching PILCO (counterpart of gpflowpilco_tpu/loops/pilco.py).
 
 Ported: the data plumbing, the SVGP drift fit by L-BFGS (with zero-weight
-padding rows and the refit from the incumbent), the single-start Adam policy
+padding rows and the refit from the incumbent), the exact GPR drift fit by
+L-BFGS and, with ``DriftSpec(model_type="gpr", optimizer="hmc")``, HMC over
+its hyperparameters thinned to a ``GPREnsemble``, the single-start Adam policy
 update, the real-environment step with its random first episodes and the
 retain-best acting gate, ``PathwisePILCO``'s SVGP particle loss (its drift
 evaluation goes through the CUDA kernel op ops/path_eval_cuda.py), and
@@ -9,15 +11,19 @@ evaluation goes through the CUDA kernel op ops/path_eval_cuda.py), and
 goes through the CUDA kernel op ops/kexp_cuda.py under ``use_fused_mm``;
 under ``use_fused_match`` the whole drift and policy matches, the encoder
 match, the PSD guard and the Euler update go through the kernel ops of
-ops/mm_match_cuda.py, ops/enc_match_cuda.py and ops/mm_glue_cuda.py).
+ops/mm_match_cuda.py, ops/enc_match_cuda.py and ops/mm_glue_cuda.py), and
+both losses for GPR and GPREnsemble drifts (the MM drift match through
+ops/kexp_cuda.py's GPR grid or the GPR whole-match kernel op of
+ops/gpr_match_cuda.py; the pathwise GPR paths in plain torch, as in the JAX
+package). An ensemble's members ride one rollout as its batch axis.
 
 Models are ``nn.Module``s trained in place. Randomness comes from
 ``torch.Generator``s seeded from (seed, number of episodes, purpose), the
 counterpart of the JAX package's per-iteration key folds.
 
 Not ported yet, and raising ``NotImplementedError``: multistart policy
-optimization (``num_restarts > 1``), GPR/HMC drifts and the other drift
-optimizers, ``loss_dtype`` for the pathwise loss, checkpointing, and the
+optimization (``num_restarts > 1``), the other drift optimizers
+(natgrad/Adam), ``loss_dtype`` for the pathwise loss, checkpointing, and the
 optimism noise floor.
 """
 from __future__ import annotations
@@ -25,6 +31,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -36,18 +43,24 @@ from ..dynamics.forward import forward_concrete, forward_moments
 from ..dynamics.solvers import euler_rollout, moment_matching_euler_rollout
 from ..envs.base import env_step
 from ..envs.base import rollout as env_rollout
-from ..models.builders import build_svgp, dynamics_mask, policy_mask
-from ..models.gp import SVGP, svgp_elbo
-from ..models.pathwise import PathwiseSVGPTransform, generate_paths_svgp
+from ..models.builders import build_gpr, build_svgp, dynamics_mask, gpr_mask, policy_mask
+from ..models.gp import GPR, SVGP, GPREnsemble, gpr_lml, gpr_stack, gpr_view, svgp_elbo
+from ..models.hmc import HMCConfig, run_hmc
+from ..models.pathwise import (
+    PathwiseGPRTransform,
+    PathwiseSVGPTransform,
+    generate_paths_gpr,
+    generate_paths_svgp,
+)
 from ..models.priors import pilco_snr_penalty
-from ..moment_matching.gp import SVGPTransform
+from ..moment_matching.gp import GPRTransform, SVGPTransform
 from ..moment_matching.rules import SinCos, SquashedProbit
 from ..moments import Chain, DtypeIsland, GaussianMoments
 from ..utils.optimizers import adam_minimize, lbfgs_minimize, make_policy_schedule
 from .core import EpisodeData, EpisodeSpec, stack_episodes
 
 # generator purposes (the JAX package's fold_in salts play this role)
-_DYNAMICS, _POLICY_INIT, _POLICY_OPT, _STEP, _EXPECTED_REWARD = 0, 1, 2, 7, 23
+_DYNAMICS, _POLICY_INIT, _POLICY_OPT, _STEP, _HMC, _EXPECTED_REWARD = 0, 1, 2, 7, 11, 23
 
 
 def _cast_module(module: torch.nn.Module, dtype: Optional[torch.dtype]) -> torch.nn.Module:
@@ -55,12 +68,18 @@ def _cast_module(module: torch.nn.Module, dtype: Optional[torch.dtype]) -> torch
     the casts in the autograd graph, so gradients reach the original
     parameters (the counterpart of the JAX package's _cast_floats on a model
     pytree). The module itself when ``dtype`` is None or already its own."""
-    if dtype is None or all(p.dtype == dtype for p in module.parameters()):
+    if dtype is None or all(
+        t.dtype == dtype for t in (*module.parameters(), *module.buffers()) if t.is_floating_point()
+    ):
         return module
     view = copy.copy(module)  # a new __dict__ holding the same entries
     view._parameters = {
         name: None if p is None else (p.to(dtype) if p.is_floating_point() else p)
         for name, p in module._parameters.items()
+    }
+    view._buffers = {
+        name: None if b is None else (b.to(dtype) if b.is_floating_point() else b)
+        for name, b in module._buffers.items()
     }
     view._modules = {name: _cast_module(m, dtype) for name, m in module._modules.items()}
     return view
@@ -75,8 +94,9 @@ def _same_structure(a: torch.nn.Module, b: torch.nn.Module) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class DriftSpec:
-    """Dynamics-model build/train options. Only ``model_type='svgp'`` with
-    ``optimizer='lbfgs'`` is ported."""
+    """Dynamics-model build/train options. Ported: ``model_type='svgp'``
+    with ``optimizer='lbfgs'``, and ``model_type='gpr'`` with ``'lbfgs'`` or
+    ``'hmc'``."""
 
     reinitialize: bool = True
     model_type: str = "svgp"
@@ -96,6 +116,19 @@ class DriftSpec:
     ls_high: float = 100.0
     # pessimistic refit after optimistic episodes (0 disables; not ported yet)
     optimism_tolerance: float = 0.0
+    # HMC posterior over GPR hyperparameters (requires model_type='gpr'):
+    # chains start around the L-BFGS MAP fit and are thinned to an ensemble
+    # of hmc_ensemble hyperparameter draws
+    hmc_chains: int = 8
+    hmc_warmup: int = 200
+    hmc_samples: int = 200
+    hmc_leapfrog: int = 16
+    hmc_step_size: float = 0.02
+    hmc_ensemble: int = 8
+    hmc_init_jitter: float = 0.05
+    # 'jitter' (fixed-cap random trajectories) or 'chees' (adapted
+    # integration time, at most 4 * hmc_leapfrog steps)
+    hmc_adapt: str = "jitter"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +166,17 @@ class PolicySpec:
     # scan unroll of the JAX MM rollout; accepted and ignored, since eager
     # PyTorch has no scan to unroll
     mm_unroll: int = 30
+
+
+def gpr_log_posterior(model: GPR, spec: DriftSpec) -> Callable:
+    """The HMC target over ``model``'s hyperparameters: flat (C, dim)
+    vectors, in ``named_parameters`` order, to (C,) LML plus SNR penalty."""
+
+    def log_prob(q):
+        m = gpr_view(model, q)
+        return gpr_lml(m) + pilco_snr_penalty(m, spec.snr_threshold, spec.snr_power)
+
+    return log_prob
 
 
 class PILCOBase:
@@ -209,11 +253,15 @@ class PILCOBase:
         return z.reshape(-1, z.shape[-1]), u.reshape(-1, u.shape[-1])
 
     # ------------------------------------------------------------------ builds
-    def build_dynamics(self) -> SVGP:
+    def build_dynamics(self):
         spec = self.drift_spec
+        x, y = self.get_data_dynamics()
+        if spec.model_type == "gpr":
+            return build_gpr(
+                x, y, noise_variance=spec.noise_variance, ls_low=spec.ls_low, ls_high=spec.ls_high
+            )
         if spec.model_type != "svgp":
             raise NotImplementedError(f"drift model_type={spec.model_type!r} is not ported yet")
-        x, y = self.get_data_dynamics()
         return build_svgp(
             x, y,
             num_inducing=spec.num_centers,
@@ -259,13 +307,20 @@ class PILCOBase:
     # ------------------------------------------------------------------ training
     def update_dynamics(self):
         spec = self.drift_spec
-        if spec.model_type != "svgp" or spec.optimizer != "lbfgs":
-            raise NotImplementedError(
-                f"drift {spec.model_type!r}/{spec.optimizer!r}: only the SVGP "
-                "L-BFGS fit is ported yet"
+        if spec.optimizer == "hmc" and spec.model_type != "gpr":
+            raise ValueError(
+                "DriftSpec.optimizer='hmc' samples exact-GP hyperparameter "
+                "posteriors and requires model_type='gpr'"
             )
         if spec.optimism_tolerance:
             raise NotImplementedError("the optimism noise floor is not ported yet")
+        if spec.model_type == "gpr":
+            return self._update_gpr()
+        if spec.model_type != "svgp" or spec.optimizer != "lbfgs":
+            raise NotImplementedError(
+                f"drift {spec.model_type!r}/{spec.optimizer!r}: only the SVGP L-BFGS fit "
+                "and the GPR fits are ported yet"
+            )
         prev_model = self.drift_model
         if self.drift_model is None or spec.reinitialize:
             self.drift_model = self.build_dynamics()
@@ -315,6 +370,66 @@ class PILCOBase:
                 best = (cand, fl, it)
         self.drift_model, final_loss, iters = best
         return {"loss": final_loss, "iters": iters, "refit_candidates": len(candidates)}
+
+    def _update_gpr(self):
+        """L-BFGS MAP fit of an exact GPR (LML plus the SNR penalty; the data
+        stay fixed), then, for ``optimizer='hmc'``, the HMC ensemble. As in
+        the JAX package, a GPR is fit by L-BFGS whatever other optimizer is
+        named."""
+        spec = self.drift_spec
+        # an HMC ensemble is a sampling product, not an optimizable state:
+        # each refit restarts from a fresh point model
+        if self.drift_model is None or spec.reinitialize or isinstance(self.drift_model, GPREnsemble):
+            self.drift_model = self.build_dynamics()
+        model = self.drift_model
+
+        def loss():
+            return -(gpr_lml(model) + pilco_snr_penalty(model, spec.snr_threshold, spec.snr_power))
+
+        final_loss, iters = lbfgs_minimize(
+            loss, gpr_mask(model), max_iters=spec.max_iters, tol=spec.lbfgs_tol
+        )
+        info = {"loss": final_loss, "iters": iters}
+        if spec.optimizer == "hmc":
+            self.drift_model, hmc_info = self._hmc_gpr_ensemble(model)
+            info.update(hmc_info)
+        return info
+
+    def _hmc_gpr_ensemble(self, map_model: GPR):
+        """HMC over the GPR's unconstrained hyperparameters, the chains
+        started around the MAP fit, thinned to a K-member GPREnsemble: K
+        draws at linspace(samples // 2, samples - 1, K), the chains taken
+        round-robin."""
+        spec = self.drift_spec
+        flat0 = torch.cat([p.detach().reshape(-1) for p in map_model.parameters()])
+        log_prob = gpr_log_posterior(map_model, spec)
+        t0 = time.perf_counter()
+        gen = self.iteration_generator(_HMC)
+        init = flat0 + spec.hmc_init_jitter * torch.randn(
+            (spec.hmc_chains, flat0.shape[0]), generator=gen, dtype=flat0.dtype, device=flat0.device
+        )
+        result = run_hmc(
+            log_prob, init, gen,
+            HMCConfig(
+                num_warmup=spec.hmc_warmup,
+                num_samples=spec.hmc_samples,
+                num_leapfrog=spec.hmc_leapfrog,
+                init_step_size=spec.hmc_step_size,
+                adapt_trajectory=spec.hmc_adapt,
+                max_leapfrog=4 * spec.hmc_leapfrog,
+            ),
+        )
+        k = spec.hmc_ensemble
+        t_idx = np.linspace(spec.hmc_samples // 2, spec.hmc_samples - 1, k).astype(np.int64)
+        c_idx = np.arange(k) % spec.hmc_chains
+        draws = result.samples[torch.as_tensor(t_idx), torch.as_tensor(c_idx)]  # (K, dim)
+        ensemble = GPREnsemble(gpr_stack(map_model, draws), num_members=k)
+        info = {
+            "hmc_accept": float(result.accept_prob.mean()),
+            "hmc_step_size": float(result.step_size),
+        }
+        info["hmc_seconds"] = time.perf_counter() - t0  # after the reads above wait for the device
+        return ensemble, info
 
     def policy_loss_fn(self, policy_model: SVGP, generator, drift=None, x0=None):
         raise NotImplementedError
@@ -445,8 +560,8 @@ class PILCOBase:
 
 
 class MomentMatchingPILCO(PILCOBase):
-    """Classic PILCO: deterministic propagation of Gaussian state moments.
-    SVGP drifts only; GPR and ensemble drifts raise."""
+    """Classic PILCO: deterministic propagation of Gaussian state moments,
+    under an SVGP, a GPR or a GPREnsemble drift."""
 
     @property
     def _loss_override(self) -> Optional[torch.dtype]:
@@ -475,25 +590,52 @@ class MomentMatchingPILCO(PILCOBase):
         spec = self.policy_spec
         return self.use_fused_match and spec.loss_dtype is None and not spec.loss_compensated
 
+    def _gpr_transform(self, model: GPR) -> GPRTransform:
+        """Cached GPR drift transform (a stacked GPR for an ensemble). GPR
+        matches are always frozen (the hyperparameters train through the LML
+        or HMC), so the whole-match kernel applies whenever the whole-match
+        path is on."""
+        if self._fused_match_on:
+            return GPRTransform(model=model, fused_match=True).with_cache()
+        return GPRTransform(
+            model=_cast_module(model, self._loss_override), fused=self._fused_mm_on
+        ).with_cache()
+
     def _drift_transform(self, drift_model):
+        if isinstance(drift_model, GPREnsemble):
+            drift_model = drift_model.members
+        if isinstance(drift_model, GPR):
+            if self.policy_spec.loss_compensated:
+                raise NotImplementedError(
+                    "PolicySpec.loss_compensated supports SVGP drifts, as in the JAX package; "
+                    "GPR and ensemble drifts take PolicySpec.loss_dtype"
+                )
+            return self._gpr_transform(drift_model)
         if not isinstance(drift_model, SVGP):
-            raise NotImplementedError("only SVGP drifts are ported for the MM loss yet")
+            raise NotImplementedError(f"no MM loss for a {type(drift_model).__name__} drift")
         if self._fused_match_on:
             return SVGPTransform(model=drift_model, fused_match=True, frozen=True).with_cache()
         return SVGPTransform(
             model=_cast_module(drift_model, self._loss_override), fused=self._fused_mm_on
         ).with_cache()
 
-    def policy_loss_drift(self) -> SVGPTransform:
+    def policy_loss_drift(self):
         """The frozen drift as a cached transform at the loss dtype, built once
         per policy update: its Cholesky, representer and pair factors do not
-        change across optimizer steps."""
+        change across optimizer steps. For an ensemble, one transform of the
+        stacked members."""
         return self._drift_transform(super().policy_loss_drift())
 
-    def _mm_rollout_loss(self, policy_model: SVGP, drift: SVGPTransform) -> torch.Tensor:
+    def _mm_rollout_loss(self, policy_model: SVGP, drift) -> torch.Tensor:
         """Expected cumulative cost of one moment-matched rollout under a
         cached drift transform. The per-step cost is computed after the
-        rollout from the stacked moments, in one batched evaluation."""
+        rollout from the stacked moments, in one batched evaluation.
+
+        Under a stacked GPR (an ensemble's K members) the rollout carries K
+        moment sets as its batch, entry k matched against member k, and the
+        loss is the mean over members of each member's cost summed over the
+        steps: the posterior-averaged loss that the JAX package takes as a
+        vmap of K one-entry rollouts, at one rollout's launches."""
         ld = self._loss_override
         dtype = self.dtype if ld is None else ld
         if ld is not None and self.policy_spec.loss_policy_f32:
@@ -502,9 +644,12 @@ class MomentMatchingPILCO(PILCOBase):
         else:
             pol = self.policy_chain(_cast_module(policy_model, ld))
         spec = self.episode_spec
+        members = 1
+        if isinstance(drift, GPRTransform) and drift.model.stacked:
+            members = drift.model.raw_noise.shape[0]
         x0 = GaussianMoments(
-            mean=torch.as_tensor(spec.state_mean, dtype=dtype, device=self.device)[None],
-            cov=torch.as_tensor(spec.covariance(), dtype=dtype, device=self.device)[None],
+            mean=torch.as_tensor(spec.state_mean, dtype=dtype, device=self.device)[None].repeat(members, 1),
+            cov=torch.as_tensor(spec.covariance(), dtype=dtype, device=self.device)[None].repeat(members, 1, 1),
         )
         fused = self._fused_match_on
         enc = self.encoder
@@ -519,16 +664,16 @@ class MomentMatchingPILCO(PILCOBase):
             num_steps=spec.num_steps,
             fused_update=fused,
         )
-        states = GaussianMoments(mean=means, cov=covs)  # (T, 1, D) stacks
+        states = GaussianMoments(mean=means, cov=covs)  # (T, K, D) stacks
         feats = states if enc is None else enc.moment_match(states).y
-        return self.objective(feats).sum()
+        return self.objective(feats).sum() / members
 
     def policy_loss_fn(self, policy_model: SVGP, generator, drift=None, x0=None):
         """The MM loss; it is deterministic, so ``generator`` and ``x0`` are
         unused. ``drift`` is a cached transform or a drift model."""
         if drift is None:
             drift = self.policy_loss_drift()
-        elif not isinstance(drift, SVGPTransform):
+        elif not isinstance(drift, (SVGPTransform, GPRTransform)):
             drift = self._drift_transform(drift)
         return self._mm_rollout_loss(policy_model, drift)
 
@@ -564,8 +709,10 @@ class PathwisePILCO(PILCOBase):
         if spec.loss_dtype is not None:
             raise NotImplementedError("PolicySpec.loss_dtype applies to the MM loss only")
         drift_model = self.drift_model if drift is None else drift
+        if isinstance(drift_model, (GPR, GPREnsemble)):
+            return self._gpr_particle_loss(policy_model, drift_model, generator, x0)
         if not isinstance(drift_model, SVGP):
-            raise NotImplementedError("only SVGP drifts are ported yet")
+            raise NotImplementedError(f"no pathwise loss for a {type(drift_model).__name__} drift")
         paths = generate_paths_svgp(drift_model, generator, spec.batch_size, spec.num_bases)
         if x0 is None:
             x0 = self.episode_spec.sample(
@@ -573,3 +720,24 @@ class PathwisePILCO(PILCOBase):
             )
         drift_fn = PathwiseSVGPTransform(model=drift_model, paths=paths, fused=True)
         return self._particle_rollout_loss(policy_model, drift_fn, x0)
+
+    def _gpr_particle_loss(self, policy_model: SVGP, drift_model, generator, x0=None):
+        """Particle loss under a GPR drift, on fresh GPR paths (plain torch,
+        as in the JAX package). Under an ensemble the particle budget splits
+        across the K members, batch_size // K each, so every particle rides a
+        hyperparameter draw and a function sample from that member's
+        posterior; the particles are taken member-major, all members in one
+        rollout, and the loss is the mean over all of them (the mean over
+        members of each member's mean)."""
+        spec = self.policy_spec
+        if isinstance(drift_model, GPREnsemble):
+            model = drift_model.members
+            per = max(1, spec.batch_size // drift_model.num_members)
+            total = per * drift_model.num_members
+        else:
+            model, per = drift_model, spec.batch_size
+            total = per
+        paths = generate_paths_gpr(model, generator, per, spec.num_bases)
+        if x0 is None:
+            x0 = self.episode_spec.sample(generator, (total,), dtype=self.dtype, device=self.device)
+        return self._particle_rollout_loss(policy_model, PathwiseGPRTransform(model, paths), x0)

@@ -10,7 +10,7 @@ from typing import List, Optional
 import torch
 
 from ..utils import bijectors as bij
-from .gp import SVGP
+from .gp import GPR, SVGP
 from .initializers import inducing_points_kmeans, lengthscales_median, replace_duplicates
 from .kernels import RBF
 
@@ -73,6 +73,32 @@ def build_svgp(
         w=None,
         whiten=whiten,
     )
+
+
+def build_gpr(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    noise_variance: float = 1.0,
+    ls_low: float = 0.01,
+    ls_high: float = 100.0,
+) -> GPR:
+    """An exact GPR on the device and dtype of ``x``: unit variance,
+    median-heuristic lengthscales, zero mean."""
+    dtype, device = x.dtype, x.device
+    ls = lengthscales_median(x, lower=ls_low, upper=ls_high)  # (D,)
+    return GPR(
+        kernel=RBF.create(torch.ones((), dtype=dtype, device=device), ls, ls_low=ls_low, ls_high=ls_high),
+        x=x,
+        y=y,
+        mean_const=torch.zeros((y.shape[-1],), dtype=dtype, device=device),
+        raw_noise=bij.positive_inv(torch.tensor(noise_variance, dtype=dtype, device=device)),
+    )
+
+
+def gpr_mask(model: GPR) -> List[torch.nn.Parameter]:
+    """Every GPR parameter trains (the kernel, ``mean_const`` and the noise):
+    the data are buffers, the JAX package's frozen ``x`` and ``y``."""
+    return _set_trainable(model, lambda name: False)
 
 
 def _set_trainable(model: SVGP, frozen) -> List[torch.nn.Parameter]:

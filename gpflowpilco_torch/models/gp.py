@@ -1,4 +1,4 @@
-"""Sparse variational GP (counterpart of the SVGP half of gpflowpilco_tpu/models/gp.py).
+"""Sparse variational GP and exact GPR (counterpart of gpflowpilco_tpu/models/gp.py).
 
 An ``SVGP`` is an ``nn.Module`` whose raw parameters are ``nn.Parameter``s;
 the ELBO and predictions are plain functions of it. Latent-stacked layout as
@@ -8,6 +8,7 @@ inducing inputs z (L, M, D), q_mu (M, L), q_sqrt (L, M, M), and an optional
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional
 
@@ -16,7 +17,7 @@ from torch import nn
 
 from .. import config
 from ..ops.linalg import bsolve_triangular as solve_triangular
-from ..ops.linalg import safe_cholesky
+from ..ops.linalg import safe_cholesky, safe_cholesky_entrywise
 from ..utils import bijectors as bij
 from .kernels import RBF
 
@@ -156,3 +157,135 @@ def kl_qu_pu(model: SVGP) -> torch.Tensor:
             torch.log(torch.diagonal(luu, dim1=-2, dim2=-1)), dim=-1
         )
     return 0.5 * torch.sum(trace + mahal - m + log_det_p - log_det_q)
+
+
+# ----------------------------------------------------------------------------
+# GPR: exact GP, one single-output kernel shared across the output columns
+# ----------------------------------------------------------------------------
+class GPR(nn.Module):
+    """Exact GP regression with a Gaussian likelihood (counterpart of the GPR
+    half of gpflowpilco_tpu/models/gp.py).
+
+    The kernel is single-output: variance () and lengthscales (D,). The data
+    ``x`` (N, D) and ``y`` (N, P) are buffers, not parameters, so every
+    parameter (kernel, ``mean_const`` (P,), ``raw_noise`` ()) is a
+    hyperparameter. A *stacked* GPR carries a leading member (or chain)
+    axis K on every parameter (variance (K,), lengthscales (K, D),
+    mean_const (K, P), raw_noise (K,)) and shares one copy of the data: the
+    functions below then work on all K at once, member k against its own
+    hyperparameters.
+    """
+
+    def __init__(
+        self,
+        kernel: RBF,
+        x: torch.Tensor,
+        y: torch.Tensor,
+        mean_const: torch.Tensor,
+        raw_noise: torch.Tensor,
+    ):
+        super().__init__()
+        self.kernel = kernel
+        self.register_buffer("x", x)
+        self.register_buffer("y", y)
+        self.mean_const = nn.Parameter(mean_const)
+        self.raw_noise = nn.Parameter(raw_noise)
+
+    @property
+    def noise_variance(self) -> torch.Tensor:
+        return bij.positive(self.raw_noise)
+
+    @property
+    def stacked(self) -> bool:
+        """True when the parameters carry a leading member axis."""
+        return self.raw_noise.dim() > 0
+
+
+class GPREnsemble(nn.Module):
+    """A posterior ensemble of GPRs sharing the data, with hyperparameters
+    drawn from an HMC posterior: ``members`` is one stacked GPR whose
+    parameters carry the member axis K."""
+
+    def __init__(self, members: GPR, num_members: int):
+        super().__init__()
+        if not members.stacked or members.raw_noise.shape[0] != num_members:
+            raise ValueError("GPREnsemble: members must be a GPR stacked over num_members")
+        self.members = members
+        self.num_members = num_members
+
+
+def gpr_cholesky(model: GPR) -> torch.Tensor:
+    """chol(Knn + noise I) (..., N, N), with the jitter floor and escalating
+    retries decided for each member on its own: sampled noise can reach
+    ~1e-5 on deterministic-simulator data, leaving Knn + noise I singular in
+    float32."""
+    x = model.x
+    knn = model.kernel.gram(x)
+    eye = torch.eye(x.shape[0], dtype=knn.dtype, device=knn.device)
+    kyy = knn + model.noise_variance[..., None, None] * eye
+    return safe_cholesky_entrywise(kyy, config.default_jitter(knn.dtype))
+
+
+def gpr_lml(model: GPR) -> torch.Tensor:
+    """Log marginal likelihood summed over output columns: () for a GPR,
+    (K,) for a stacked one."""
+    n, p = model.y.shape
+    lyy = gpr_cholesky(model)
+    err = model.y - model.mean_const[..., None, :]
+    il_err = solve_triangular(lyy, err, lower=True)
+    half_logdet = torch.sum(torch.log(torch.diagonal(lyy, dim1=-2, dim2=-1)), dim=-1)
+    return -0.5 * torch.sum(il_err**2, dim=(-2, -1)) - p * half_logdet - 0.5 * n * p * _LOG2PI
+
+
+def gpr_predict_f(model: GPR, xs: torch.Tensor, full_cov: bool = False):
+    """Posterior at xs (S, D) -> mean (..., S, P) and var (..., S, P) (one
+    shared variance per point), or cov (..., S, S) with ``full_cov``."""
+    lyy = gpr_cholesky(model)
+    kern = model.kernel
+    a = solve_triangular(lyy, kern.gram(model.x, xs), lower=True)  # (..., N, S)
+    err = model.y - model.mean_const[..., None, :]
+    il_err = solve_triangular(lyy, err, lower=True)  # (..., N, P)
+    mean = a.mT @ il_err + model.mean_const[..., None, :]
+    if full_cov:
+        return mean, kern.gram(xs) - a.mT @ a
+    var = kern.variance[..., None] - torch.sum(a * a, dim=-2)  # (..., S)
+    return mean, var[..., None] * torch.ones_like(mean)
+
+
+def _split_hypers(model: GPR, flat: torch.Tensor):
+    """Cut flat (..., dim) hyperparameter vectors, in ``named_parameters``
+    order, into {name: (..., *shape)}."""
+    batch = flat.shape[:-1]
+    out, k = {}, 0
+    for name, p in model.named_parameters():
+        n = p.numel()
+        out[name] = flat[..., k:k + n].reshape(batch + p.shape)
+        k += n
+    if k != flat.shape[-1]:
+        raise ValueError(f"hyperparameter vector of size {flat.shape[-1]}, the GPR has {k}")
+    return out
+
+
+def gpr_view(model: GPR, flat: torch.Tensor) -> GPR:
+    """A view of ``model`` whose hyperparameters are the flat vectors
+    (..., dim), in the autograd graph of ``flat``; with a leading axis it is
+    a stacked GPR (the HMC chains). The data buffers are shared."""
+    vals = _split_hypers(model, flat)
+    kernel = copy.copy(model.kernel)  # a new __dict__ holding the same entries
+    kernel._parameters = {n: vals[f"kernel.{n}"] for n in model.kernel._parameters}
+    view = copy.copy(model)
+    view._parameters = {n: vals[n] for n in model._parameters}
+    view._modules = {"kernel": kernel}
+    return view
+
+
+def gpr_stack(model: GPR, flat: torch.Tensor) -> GPR:
+    """A stacked GPR whose K members' hyperparameters are the rows of flat
+    (K, dim) (detached), sharing ``model``'s data and kernel bounds."""
+    vals = {n: v.detach().clone() for n, v in _split_hypers(model, flat).items()}
+    kern = model.kernel
+    return GPR(
+        kernel=RBF(vals["kernel.raw_variance"], vals["kernel.raw_lengthscales"],
+                   ls_low=kern.ls_low, ls_high=kern.ls_high),
+        x=model.x, y=model.y, mean_const=vals["mean_const"], raw_noise=vals["raw_noise"],
+    )

@@ -1,5 +1,6 @@
 """Pathwise (decoupled) GP sampling: RFF prior + canonical inducing update
-(counterpart of gpflowpilco_tpu/models/pathwise.py).
+(counterpart of gpflowpilco_tpu/models/pathwise.py), for SVGPs and, with
+the training inputs in place of the inducing points, exact GPRs.
 
   prior   f_s(x) ~= sqrt(2 sigma^2 / B) * sum_b w_sb cos(omega_b . x + phi_b),
             omega_b ~ N(0, diag(1/lengthscales^2)), phi_b ~ U[0, 2pi), w_sb ~ N(0,1)
@@ -19,7 +20,7 @@ import torch
 
 from ..ops.linalg import bcho_solve
 from ..ops.path_eval_cuda import eval_fused_operands, fused_operands
-from .gp import SVGP, chol_kuu
+from .gp import GPR, SVGP, chol_kuu, gpr_cholesky
 from .kernels import RBF
 
 
@@ -128,3 +129,70 @@ class PathwiseSVGPTransform:
         if self.fused:
             return eval_fused_operands(self.model, self._operands, x)
         return eval_paths_svgp(self.model, self.paths, x)
+
+
+# ----------------------------------------------------------------------------
+# exact GPR: plain torch, as in the JAX package (no kernel)
+# ----------------------------------------------------------------------------
+def generate_paths_gpr(
+    model: GPR, generator: Optional[torch.Generator], num_samples: int, num_bases: int
+) -> PathState:
+    """Decoupled sampling for an exact GPR: one RFF frequency set per output
+    column, and the canonical update solves (Knn + noise I) against
+    y - f_prior(X) - a noise draw. A stacked GPR (K members) gives paths
+    with a leading member axis (omega (K, P, B, D), w (K, S, P, B),
+    v (K, S, P, N)), one N x N factorization per member, in one batch."""
+    kern = model.kernel
+    xdata = model.x
+    n, d = xdata.shape
+    p = model.y.shape[-1]
+    batch = kern.variance.shape  # () or (K,)
+    kw = dict(dtype=xdata.dtype, device=xdata.device, generator=generator)
+    ls = kern.lengthscales  # (D,) or (K, D)
+    omega = torch.randn(batch + (p, num_bases, d), **kw) / ls[..., None, None, :]
+    phase = 2.0 * math.pi * torch.rand(batch + (p, num_bases), **kw)
+    w = torch.randn(batch + (num_samples, p, num_bases), **kw)
+    eps = torch.randn(batch + (num_samples, p, n), **kw)
+
+    proj = torch.einsum("nd,...pbd->...pnb", xdata, omega) + phase[..., :, None, :]
+    scale = torch.sqrt(2.0 * kern.variance / num_bases)[..., None, None, None]
+    f_prior_x = torch.einsum("...pnb,...spb->...spn", scale * torch.cos(proj), w)
+    noise = model.noise_variance[..., None, None, None]
+    target = (model.y - model.mean_const[..., None, :]).mT  # (..., P, N)
+    resid = target[..., None, :, :] - f_prior_x - torch.sqrt(noise) * eps  # (..., S, P, N)
+    lyy = gpr_cholesky(model)
+    # one solve per member, num_samples * P right-hand sides
+    rhs = resid.reshape(batch + (num_samples * p, n)).mT
+    v = bcho_solve(lyy, rhs).mT.reshape(batch + (num_samples, p, n))
+    return PathState(omega=omega, phase=phase, w=w, v=v)
+
+
+def eval_paths_gpr(model: GPR, paths: PathState, x: torch.Tensor) -> torch.Tensor:
+    """Evaluate sample s at its own input: x (S, D) -> (S, P), or, for a
+    stacked GPR, x (K, S, D) -> (K, S, P), member k's paths at its rows."""
+    kern = model.kernel
+    proj = torch.einsum("...sd,...pbd->...spb", x, paths.omega) + paths.phase[..., None, :, :]
+    scale = torch.sqrt(2.0 * kern.variance / paths.omega.shape[-2])[..., None, None, None]
+    f = torch.einsum("...spb,...spb->...sp", scale * torch.cos(proj), paths.w)
+    ls = kern.lengthscales[..., None, None, :]
+    d2 = torch.sum(((x[..., :, None, :] - model.x) / ls) ** 2, dim=-1)  # (..., S, N)
+    kxz = kern.variance[..., None, None] * torch.exp(-0.5 * d2)
+    f = f + torch.einsum("...sn,...spn->...sp", kxz, paths.v)
+    return f + model.mean_const[..., None, :]
+
+
+class PathwiseGPRTransform:
+    """GPR drift callable carrying explicit path state. For a stacked GPR the
+    particles (K * S, D) are taken member-major: rows k*S .. (k+1)*S - 1
+    ride member k's paths."""
+
+    def __init__(self, model: GPR, paths: PathState):
+        self.model = model
+        self.paths = paths
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.model.stacked:
+            return eval_paths_gpr(self.model, self.paths, x)
+        k = self.model.raw_noise.shape[0]
+        f = eval_paths_gpr(self.model, self.paths, x.reshape(k, -1, x.shape[-1]))
+        return f.reshape(x.shape[0], -1)

@@ -1,5 +1,5 @@
-"""Closed-form moments of SVGP predictions under Gaussian inputs
-(counterpart of the SVGP half of gpflowpilco_tpu/moment_matching/gp.py).
+"""Closed-form moments of SVGP and GPR predictions under Gaussian inputs
+(counterpart of gpflowpilco_tpu/moment_matching/gp.py).
 
 For x ~ N(m, S) and a latent-stacked SVGP with representer weights alpha_l,
 using the kernel expectations of ops/kexp.py:
@@ -15,7 +15,12 @@ The cross-covariance comes pre-multiplied by Cov(x,x)^{-1} (preinv=True).
 ``fused_match`` runs the whole match as one CUDA kernel op
 (ops/mm_match_cuda.py). Not ported yet: the diagonal-only path
 (``full_output_cov=False`` without a mixing matrix, which raises on the
-unfused path) and GPR drifts.
+unfused path).
+
+The GPR rule (``match_gpr``) is the same with the training inputs as the
+inducing points and one shared kernel, so its eKuffu is a single symmetric
+(X, X) pair; ``fused`` routes it through the pair-grid kernel with R = P
+rows, ``fused_match`` runs the GPR whole match (ops/gpr_match_cuda.py).
 """
 from __future__ import annotations
 
@@ -23,11 +28,19 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..models.gp import SVGP, chol_kuu, svgp_predict_f
+from ..models.gp import GPR, SVGP, chol_kuu, gpr_cholesky, gpr_predict_f, svgp_predict_f
 from ..moments import GaussianMatch, GaussianMoments
 from ..ops import kexp
-from ..ops.kexp_cuda import FusedPairGrid, build_fused_pair_grid, ekuffu_contract_fused
-from ..ops.linalg import bcho_solve
+from ..ops.gpr_match_cuda import FusedGPRMatchGrid, build_fused_gpr_match_grid, fused_gpr_match
+from ..ops.kexp_cuda import (
+    FusedGPRGrid,
+    FusedPairGrid,
+    build_fused_gpr_grid,
+    build_fused_pair_grid,
+    ekuffu_contract_fused,
+    ekuffu_contract_gpr,
+)
+from ..ops.linalg import bcho_solve, cholesky_nan
 from ..ops.mm_match_cuda import FusedMatchGrid, build_fused_match_grid, fused_svgp_match
 from ..ops.linalg import bsolve_triangular as solve_triangular
 
@@ -207,3 +220,133 @@ def _mix_and_finish(model, x, f1_lat, sff_lat, cross_lat, jitter, full_output_co
     if not full_output_cov:
         sff = torch.diag_embed(torch.diagonal(sff, dim1=-2, dim2=-1))
     return GaussianMatch(x=x, y=GaussianMoments(mean=f1, cov=sff), cross=cross, preinv=True)
+
+
+# ----------------------------------------------------------------------------
+# GPR: the training inputs are the inducing points, one shared kernel
+# ----------------------------------------------------------------------------
+class GPRMatchCache(NamedTuple):
+    """State-independent factors of the GPR moment rule (cf. SVGPMatchCache),
+    with a leading member axis for a stacked GPR. ``kyy_inv`` collapses the
+    per-step tr(Kyy^{-1} eKuffu) solves to one contraction."""
+
+    lyy: torch.Tensor  # (..., N, N) chol(Knn + noise I)
+    alpha: torch.Tensor  # (..., N, P) representer weights
+    kyy_inv: torch.Tensor  # (..., N, N)
+    pair: Optional[tuple]  # kexp.ekzxxz_pair_terms for (X, X), unfused only
+    fused_grid: Optional[FusedGPRGrid] = None  # the pair-grid kernel's tensors (K2)
+    match_grid: Optional[FusedGPRMatchGrid] = None  # the GPR whole-match kernel's (K3g)
+
+
+def gpr_match_cache(
+    model: GPR, fused: bool = False, fused_match: bool = False, uncertainty: bool = True
+) -> GPRMatchCache:
+    lyy = gpr_cholesky(model)
+    alpha = bcho_solve(lyy, model.y - model.mean_const[..., None, :])
+    eye = torch.eye(lyy.shape[-1], dtype=lyy.dtype, device=lyy.device)
+    kyy_inv = bcho_solve(lyy, eye.expand(lyy.shape))
+    var, ls = model.kernel.variance, model.kernel.lengthscales
+    return GPRMatchCache(
+        lyy=lyy,
+        alpha=alpha,
+        kyy_inv=kyy_inv,
+        pair=None if fused or fused_match else kexp.ekzxxz_pair_terms(var, ls, model.x, var, ls, model.x),
+        fused_grid=build_fused_gpr_grid(var, ls, model.x, alpha, kyy_inv) if fused else None,
+        match_grid=(
+            build_fused_gpr_match_grid(model, alpha, kyy_inv, uncertainty=uncertainty)
+            if fused_match else None
+        ),
+    )
+
+
+class GPRTransform:
+    """Moment-matchable GPR posterior. ``fused=True`` routes the (X, X) pair
+    grid through the pair-contraction kernel (ops/kexp_cuda.py);
+    ``fused_match=True`` runs the whole match as the GPR whole-match kernel
+    op (ops/gpr_match_cuda.py), whose backward is frozen (moments only): a
+    GPR's hyperparameters train through the LML or HMC, never through the
+    match. For a stacked GPR (an ensemble's members) the inputs' last batch
+    axis is the member axis: entry k is matched against member k."""
+
+    def __init__(
+        self,
+        model: GPR,
+        deterministic: bool = False,
+        jitter: float = 0.0,
+        fused: bool = False,
+        fused_match: bool = False,
+        cache: Optional[GPRMatchCache] = None,
+    ):
+        self.model = model
+        self.deterministic = deterministic
+        self.jitter = jitter
+        self.fused = fused
+        self.fused_match = fused_match
+        self.cache = cache
+
+    def with_cache(self) -> "GPRTransform":
+        cache = gpr_match_cache(
+            self.model, fused=self.fused, fused_match=self.fused_match,
+            uncertainty=not self.deterministic,
+        )
+        return GPRTransform(self.model, self.deterministic, self.jitter, self.fused,
+                            self.fused_match, cache)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return gpr_predict_f(self.model, x)[0]
+
+    def moment_match(self, x: GaussianMoments) -> GaussianMatch:
+        return match_gpr(
+            self.model, x, model_uncertainty=not self.deterministic, jitter=self.jitter,
+            cache=self.cache,
+        )
+
+
+def match_gpr(
+    model: GPR,
+    x: GaussianMoments,
+    model_uncertainty: bool = True,
+    jitter: float = 0.0,
+    cache: Optional[GPRMatchCache] = None,
+) -> GaussianMatch:
+    """The GPR rule: the SVGP rule with the training inputs as inducing
+    points and representer weights alpha = (Knn + noise I)^{-1} (y - mean)."""
+    mx, sxx = x.mean, x.cov
+    if cache is not None and cache.match_grid is not None:
+        grid = cache.match_grid
+        if grid.meta.uncertainty != model_uncertainty:
+            raise ValueError("fused match grid was built with a different model_uncertainty")
+        f1, sff, cross = fused_gpr_match(grid, mx, sxx)
+        y = GaussianMoments(mean=f1 + model.mean_const, cov=_add_jitter_diag(sff, jitter))
+        return GaussianMatch(x=x, y=y, cross=cross, preinv=True)
+    if cache is None:
+        cache = gpr_match_cache(model)
+    kern, xdata = model.kernel, model.x
+    variance = kern.variance
+    lam = kern.lengthscales**2  # (..., D)
+
+    # eKfu and the premultiplied cross solve from one Cholesky of S + Lam
+    chol = cholesky_nan(sxx + torch.diag_embed(lam))
+    il_dx = solve_triangular(chol, (xdata - mx[..., None, :]).mT, lower=True)  # (..., D, N)
+    quad = torch.sum(il_dx * il_dx, dim=-2)
+    hls = torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), -1)
+    lead = 0.5 * torch.sum(torch.log(lam), -1) - hls
+    ekfu = variance[..., None] * torch.exp(lead[..., None] - 0.5 * quad)  # (..., N)
+    iv_dx = solve_triangular(chol, il_dx, lower=True, trans=1)  # (..., D, N)
+    alpha = cache.alpha
+
+    f1 = torch.einsum("...n,...np->...p", ekfu, alpha)
+    if cache.fused_grid is not None:
+        f2, ecov_corr = ekuffu_contract_gpr(cache.fused_grid, mx, sxx)
+    else:
+        ekuffu = kexp.ekzxxz_from_terms(*cache.pair, mx, sxx)  # (..., N, N)
+        f2 = torch.einsum("...mp,...mn,...nq->...pq", alpha, ekuffu, alpha)
+        ecov_corr = torch.einsum("...mn,...mn->...", cache.kyy_inv, ekuffu) if model_uncertainty else None
+    sff = f2 - f1[..., :, None] * f1[..., None, :]
+    if model_uncertainty:
+        # tr(Kyy^{-1} eKuffu) without per-step (N, N) triangular solves
+        eye = torch.eye(sff.shape[-1], dtype=sff.dtype, device=sff.device)
+        sff = sff + eye * (variance - ecov_corr)[..., None, None]
+    cross = torch.einsum("...np,...n,...dn->...dp", alpha, ekfu, iv_dx)  # (..., D, P)
+    y = GaussianMoments(mean=f1 + model.mean_const, cov=_add_jitter_diag(sff, jitter))
+    return GaussianMatch(x=x, y=y, cross=cross, preinv=True)

@@ -22,6 +22,11 @@ raises), CPU tensors to ``pair_contract_reference`` and its backward
 formulas. There is no fallback from one to the other. ``launches`` counts
 kernel launches only.
 
+The GPR match (``build_fused_gpr_grid``, ``ekuffu_contract_gpr``) uses
+the same kernels with one symmetric (X, X) pair per model, the training
+inputs in M's place, and R = 4 rows of alpha^T; an ensemble's members sit on
+the pair axis P.
+
 Unlike the TPU kernel, M is not padded to 128 and D2 = 2D + 2 is not padded
 to 8: the kernel masks the ragged edge itself.
 """
@@ -264,3 +269,77 @@ def ekuffu_contract_fused(grid: FusedPairGrid, mx, sxx):
     ecov_pairs = esc * torch.sum(qcol, dim=-1)  # (N, P)
     ecov_corr = ecov_pairs[:, grid.diag_pos].reshape(batch + (num_latent,))
     return f2_lat, ecov_corr
+
+
+# ------------------------------------------------------------- GPR (X, X) pair
+@dataclass(frozen=True)
+class FusedGPRGrid:
+    """State-independent tensors of the GPR match's single symmetric (X, X)
+    pair, with a member axis K in front (K = 1 for one GPR). Under the
+    shared kernel u = w = X/2, so only the affine rows differ between su and
+    sw. The members go on the kernel's pair axis P: one launch serves every
+    member, and no member computes another's grid."""
+
+    vdiag: torch.Tensor  # (K, D)
+    ut: torch.Tensor  # (K, D, N)
+    g1t: torch.Tensor  # (K, D, N)
+    g11: torch.Tensor  # (K, N)
+    cp: torch.Tensor  # (K,) log v^2 + 0.5 log|V|
+    alphat: torch.Tensor  # (K, R, N) alpha^T: R = P outputs rows
+    qm: torch.Tensor  # (K, N, N) Kyy^{-1}
+
+
+def gpr_pair_factors(variance, lengthscales, xdata):
+    """The x-free factors of a GPR's symmetric (X, X) pair, with a member
+    axis K: variance (K,), lengthscales (K, D), xdata (N, D) ->
+    (vdiag (K, D), ut (K, D, N), g1t (K, D, N), g11 (K, N), cp (K,))."""
+    vdiag, u, _, _ = kexp.ekzxxz_pair_terms(variance, lengthscales, xdata, variance, lengthscales, xdata)
+    g1 = xdata * torch.sqrt(1.0 / (2.0 * lengthscales**2))[:, None, :]  # (K, N, D)
+    cp = torch.log(variance * variance) + 0.5 * torch.sum(torch.log(vdiag), -1)
+    return vdiag, u.mT.contiguous(), g1.mT.contiguous(), torch.sum(g1 * g1, -1), cp
+
+
+def build_fused_gpr_grid(variance, lengthscales, xdata, alpha, kyy_inv) -> FusedGPRGrid:
+    """variance () or (K,); lengthscales (D,) or (K, D); xdata (N, D);
+    alpha (..., N, R); kyy_inv (..., N, N). The kernel takes R <= 4: the
+    cartpole drift's 4 outputs, and the double pendulum's GPR (also 4)."""
+    lift = (lambda a: a) if variance.dim() > 0 else (lambda a: a[None])  # noqa: E731
+    vdiag, ut, g1t, g11, cp = gpr_pair_factors(lift(variance), lift(lengthscales), xdata)
+    return FusedGPRGrid(
+        vdiag=vdiag, ut=ut, g1t=g1t, g11=g11, cp=cp,
+        alphat=lift(alpha).mT.contiguous(),
+        qm=lift(kyy_inv).contiguous(),
+    )
+
+
+def gpr_pair_operands(grid: FusedGPRGrid, mx, sxx):
+    """The kernel's operands for moments mx (B, K, D), sxx (B, K, D, D):
+    (su, sw (B, K, 2D + 2, N), chol (B, K, D, D) of S + V)."""
+    num_b, num_k, _ = mx.shape
+    num_n = grid.ut.shape[-1]
+    chol = cholesky_nan(sxx + torch.diag_embed(grid.vdiag))
+    il_u = bsolve_triangular(chol, grid.ut, lower=True)  # (B, K, D, N)
+    il_m = bsolve_triangular(chol, mx[..., None], lower=True)  # (B, K, D, 1)
+    up = il_u - 0.5 * il_m
+    a_u = torch.sum(up * up, dim=-2) + grid.g11  # (B, K, N)
+    ones = torch.ones((num_b, num_k, 1, num_n), dtype=mx.dtype, device=mx.device)
+    g1t = grid.g1t.expand(num_b, -1, -1, -1)
+    su = torch.cat([up, g1t, a_u[:, :, None, :], ones], dim=-2)
+    sw = torch.cat([up, -g1t, 0.5 * ones, 0.5 * a_u[:, :, None, :]], dim=-2)
+    return su, sw, chol
+
+
+def ekuffu_contract_gpr(grid: FusedGPRGrid, mx, sxx):
+    """mx (..., D), sxx (..., D, D) -> f2 (..., R, R) = alpha^T eKuffu alpha
+    and ecov_corr (...,) = sum(Kyy^{-1} * eKuffu). For a stacked grid the
+    last batch axis of the moments is the member axis."""
+    num_k, d, _ = grid.ut.shape
+    batch = mx.shape[:-1]
+    su, sw, chol = gpr_pair_operands(grid, mx.reshape(-1, num_k, d), sxx.reshape(-1, num_k, d, d))
+    evc, qcol = FusedPairContract.apply(su, sw, grid.alphat, grid.qm)
+    hls = torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), -1)  # (B, K)
+    esc = torch.exp(grid.cp - hls)
+    f2 = esc[..., None, None] * (evc @ grid.alphat.mT)  # (B, K, R, R)
+    ecov_corr = esc * torch.sum(qcol, dim=-1)  # (B, K)
+    r = grid.alphat.shape[1]
+    return f2.reshape(batch + (r, r)), ecov_corr.reshape(batch)

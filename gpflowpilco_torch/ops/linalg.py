@@ -34,25 +34,44 @@ def cholesky_nan(a):
     return chol.masked_fill((info != 0)[..., None, None], float("nan"))
 
 
-def safe_cholesky(a, extra_jitter, max_escalations: int = 2, factor: float = 100.0):
-    """``chol(a + extra_jitter * I)`` with escalating-jitter retries.
+def _escalating_cholesky(a, extra_jitter, max_escalations, factor, entrywise):
+    """``chol(a + extra_jitter * I)``, retried with the jitter raised by
+    ``factor`` up to ``max_escalations`` times while a factor fails; with
+    ``entrywise`` only the failing matrices of the batch take the retry,
+    else the whole batch does. A factor that still fails comes back as NaN.
 
     ``torch.linalg.cholesky`` raises where JAX returns NaN, so this uses
     ``cholesky_ex`` and treats a nonzero ``info`` or a non-finite factor as a
-    failure. On failure the whole batch is refactored with the jitter raised
-    by ``factor``, up to ``max_escalations`` times, as the JAX version does. A
-    factor that still fails comes back as NaN, as it would from JAX.
-    """
+    failure. Costs one host synchronization (the ``any`` check) when no
+    matrix fails, and one more per escalation level that runs."""
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
 
     def attempt(j):
         chol, info = torch.linalg.cholesky_ex(a + j * eye)
-        bad = (info != 0) | ~torch.isfinite(chol).all(dim=(-2, -1))
-        return chol, bad
+        return chol, (info != 0) | ~torch.isfinite(chol).all(dim=(-2, -1))
 
     chol, bad = attempt(extra_jitter)
     for level in range(1, max_escalations + 1):
         if not bool(bad.any()):
             return chol
-        chol, bad = attempt(extra_jitter * factor**level)
+        retry, still = attempt(extra_jitter * factor**level)
+        if entrywise:
+            chol, bad = torch.where(bad[..., None, None], retry, chol), bad & still
+        else:
+            chol, bad = retry, still
     return torch.where(bad[..., None, None], torch.full_like(chol, float("nan")), chol)
+
+
+def safe_cholesky(a, extra_jitter, max_escalations: int = 2, factor: float = 100.0):
+    """``chol(a + extra_jitter * I)`` with escalating-jitter retries of the
+    whole batch when any matrix fails, as the JAX version does unbatched."""
+    return _escalating_cholesky(a, extra_jitter, max_escalations, factor, entrywise=False)
+
+
+def safe_cholesky_entrywise(a, extra_jitter, max_escalations: int = 2, factor: float = 100.0):
+    """``safe_cholesky`` with the escalation decided for each matrix of the
+    batch on its own, as the JAX version behaves under ``vmap`` (its
+    ``lax.cond`` becomes a select per entry): only an entry whose factor
+    failed takes the raised jitter, so one chain's or member's tiny noise
+    does not change another's factor."""
+    return _escalating_cholesky(a, extra_jitter, max_escalations, factor, entrywise=True)

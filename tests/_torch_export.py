@@ -77,3 +77,53 @@ def jax_path_draws(model, key, num_samples, num_bases):
 
 def t(a, dtype=torch.float64):
     return torch.as_tensor(np.array(a), dtype=dtype, device=CPU)
+
+
+def jax_gpr(seed, n=30, d=4, p=3, dtype=jnp.float64, noise=0.05):
+    """A JAX GPR on numpy-drawn data, with numpy-drawn hyperparameters
+    (lengthscales around 1, a nonzero mean)."""
+    from gpflowpilco_tpu.models.gp import GPR
+
+    rng = np.random.default_rng(seed)
+    arr = lambda a: jnp.asarray(a, dtype)  # noqa: E731
+    x = rng.normal(size=(n, d))
+    y = np.sin(x[:, :1] + x[:, 1:2]) * rng.uniform(0.5, 1.5, size=p) + 0.1 * rng.normal(size=(n, p))
+    return GPR(
+        kernel=RBF.create(arr(rng.uniform(0.7, 1.3)), arr(rng.uniform(0.8, 2.0, size=d))),
+        x=arr(x),
+        y=arr(y),
+        mean_const=arr(0.1 * rng.normal(size=p)),
+        raw_noise=bij.positive_inv(arr(noise)),
+    )
+
+
+def jax_gpr_members(seed, k=3, **kw):
+    """A JAX GPR stacked over k members that share the data (the layout of
+    GPREnsemble.members): each member's hyperparameters drawn around those
+    of jax_gpr(seed)."""
+    base = jax_gpr(seed, **kw)
+    rng = np.random.default_rng(seed + 100)
+    def stack(a):
+        a = jnp.asarray(a)
+        return jnp.stack([a + 0.1 * rng.normal(size=a.shape) if i else a for i in range(k)])
+
+    members = jax.tree.map(stack, base)
+    # the data are shared: undo the perturbation of x and y
+    return members.__class__(
+        kernel=members.kernel, x=jnp.stack([base.x] * k), y=jnp.stack([base.y] * k),
+        mean_const=members.mean_const, raw_noise=members.raw_noise,
+    )
+
+
+def gpr_to_numpy(model) -> dict:
+    n = lambda a: np.asarray(a)  # noqa: E731
+    return dict(
+        raw_variance=n(model.kernel.raw_variance),
+        raw_lengthscales=n(model.kernel.raw_lengthscales),
+        x=n(model.x),
+        y=n(model.y),
+        mean_const=n(model.mean_const),
+        raw_noise=n(model.raw_noise),
+        ls_low=model.kernel.ls_low,
+        ls_high=model.kernel.ls_high,
+    )

@@ -297,3 +297,133 @@ def test_torch_mm_glue_kernels_match_reference_on_gpu(dtype, n, d):
         gc._euler(m, s, f1.to(torch.float16), sff, sxf, 1.0, 0.0)
     with pytest.raises(ValueError, match="D <= 16"):
         gc._psd(torch.zeros((1, 17, 17), dtype=dtype, device=dev), 0.0)
+
+
+def _stacked_gpr(k, n, d, r, dev, seed, noise=0.05):
+    """A float64 GPR stacked over k members on random data (lengthscales
+    around 1-2, noise ``noise``), on ``dev``."""
+    from gpflowpilco_torch.models.gp import GPR
+    from gpflowpilco_torch.models.kernels import RBF
+    from gpflowpilco_torch.utils import bijectors as bij
+
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    x = rng.normal(size=(n, d))
+    y = np.sin(x[:, :r] + x[:, -1:]) + 0.1 * rng.normal(size=(n, r))
+    return GPR(RBF.create(f(rng.uniform(0.5, 1.5, size=k)), f(rng.uniform(1.0, 2.0, size=(k, d)))),
+               f(x), f(y), f(0.1 * rng.normal(size=(k, r))),
+               bij.positive_inv(f(noise * rng.uniform(0.5, 2.0, size=k)))).requires_grad_(False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b, k, n, d, r", [(1, 8, 240, 6, 4), (1, 3, 37, 4, 3), (2, 3, 300, 6, 4),
+                                           (1, 2, 130, 10, 2)])
+def test_torch_gpr_match_kernels_match_reference_on_gpu(dtype, b, k, n, d, r):
+    """K3g forward and frozen backward against the plain version: at the
+    ensemble's shape, at N ragged against the 128-row tiles and 64-column
+    chunks, a batch B = 2, D = 10 above the 8-register capacity; float64 to
+    1e-9 of each output's scale, float32 held with its plain version against
+    float64 (_close_vs_truth). Repeated backward runs are bit-identical."""
+    from gpflowpilco_torch.moment_matching.gp import gpr_match_cache
+    from gpflowpilco_torch.ops import gpr_match_cuda as gm
+
+    dev = _gpu_or_skip()
+    model = _stacked_gpr(k, n, d, r, dev, seed=n)
+    with torch.no_grad():
+        c = gpr_match_cache(model)
+        g64 = gm.build_fused_gpr_match_grid(model, c.alpha, c.kyy_inv)
+    g = gm.FusedGPRMatchGrid(**{f: v.to(dtype).contiguous() for f, v in zip(gm.GPR_GRID_FIELDS, g64.tensors())},
+                             meta=g64.meta)
+    rng = np.random.default_rng(n + 1)
+    mx, sxx = _moments(rng, b * k, d, dtype, dev)
+    mx, sxx = mx.reshape(b, k, d).contiguous(), sxx.reshape(b, k, d, d).contiguous()
+    f = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=dtype, device=dev)  # noqa: E731
+    cots = (f(b, k, r), f(b, k, r, r), f(b, k, d, r))
+    up = lambda ts: [x.double() for x in ts]  # noqa: E731
+
+    def check(name, got, plain, truth):
+        if dtype == torch.float64:
+            _close(got, plain, 1e-9, name)
+        else:
+            _close_vs_truth(got, plain, truth, name)
+
+    meta = g.meta
+    before = dict(gm.launches)
+    got = gm._fwd(meta, g, mx, sxx)
+    plain = gm.gpr_match_reference(meta, g, mx, sxx)
+    truth = gm.gpr_match_reference(meta, g64, mx.double(), sxx.double())
+    for name, a, p, t in zip(("f1", "sff", "cross"), got, plain, truth):
+        check(name, a, p, t)
+    res = gm._bwd(meta, g, mx, sxx, got[0], *cots)
+    plain = gm.gpr_match_reference_bwd(meta, g, mx, sxx, *cots)
+    truth = gm.gpr_match_reference_bwd(meta, g64, mx.double(), sxx.double(), *up(cots))
+    for name, a, p, t in zip(("dmx", "dsxx"), res, plain, truth):
+        check(name, a, p, t)
+    torch.cuda.synchronize()
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    for kind in ("fwd", "bwd_frozen"):
+        assert gm.launches[f"gpr_match_{kind}_{sfx}"] == before[f"gpr_match_{kind}_{sfx}"] + 1
+    again = gm._bwd(meta, g, mx, sxx, got[0], *cots)
+    assert all(torch.equal(x, y) for x, y in zip(res, again))
+    with pytest.raises(TypeError):
+        gm._fwd(meta, g, mx.double() if dtype == torch.float32 else mx.float(), sxx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_torch_gpr_pair_grid_kernel_on_gpu(dtype):
+    """K2 on the GPR route: R = 4 rows of alpha^T and 8 members on the pair
+    axis P, through GPRTransform(fused=True) against the unfused rule on the
+    card, values and the (mx, sxx) gradient; float64 to 1e-10 of the scale,
+    float32 to 1e-4 of it (well-conditioned: noise 0.05, N = 60)."""
+    from gpflowpilco_torch.moment_matching.gp import GPRTransform
+    from gpflowpilco_torch.moments import GaussianMoments
+    from gpflowpilco_torch.ops import kexp_cuda as kc
+
+    dev = _gpu_or_skip()
+    model = _stacked_gpr(8, 60, 6, 4, dev, seed=5).to(dtype)
+    rng = np.random.default_rng(6)
+    mx, sxx = _moments(rng, 8, 6, dtype, dev)
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    outs = {}
+    before = dict(kc.launches)
+    for fused in (False, True):
+        m, s = mx.clone().requires_grad_(True), sxx.clone().requires_grad_(True)
+        out = GPRTransform(model, fused=fused).with_cache().moment_match(GaussianMoments(m, s))
+        vals = (out.y.mean, out.y.cov, out.cross)
+        sum(torch.sum(v * (1.0 + 0.1 * i)) for i, v in enumerate(vals)).backward()
+        outs[fused] = (*(v.detach() for v in vals), m.grad, s.grad)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("f1", "sff", "cross", "dmx", "dsxx"), outs[True], outs[False]):
+        _close(a, w, tol, name)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    assert kc.launches[f"pair_contract_fwd_{sfx}"] == before[f"pair_contract_fwd_{sfx}"] + 1
+    assert kc.launches[f"pair_contract_bwd_frozen_{sfx}"] == before[f"pair_contract_bwd_frozen_{sfx}"] + 1
+
+
+@pytest.mark.gpu
+def test_torch_entrywise_escalation_on_gpu():
+    """Per-entry jitter escalation on the card: of 3 float32 GPRs on
+    duplicated inputs, only the tiny-noise one needs a raised jitter; the
+    others' factors agree with their unbatched ones to float32 rounding
+    (the card may factor a batch by another algorithm; the raised jitter
+    would move them by ~1e-2) and all are finite."""
+    from gpflowpilco_torch.models.gp import GPR, gpr_cholesky
+    from gpflowpilco_torch.models.kernels import RBF
+    from gpflowpilco_torch.utils import bijectors as bij
+
+    dev = _gpu_or_skip()
+    rng = np.random.default_rng(6)
+    base = rng.normal(size=(200, 3))
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    x = f32(np.concatenate([base, base]))
+    y = torch.sin(x[:, :1])
+    noises = f32([1e-2, 1e-7, 3e-2])
+    var, ls = f32([1.0, 50.0, 1.0]), f32([[1.0] * 3, [5.0] * 3, [1.5] * 3])
+    with torch.no_grad():
+        chol = gpr_cholesky(GPR(RBF.create(var, ls), x, y, f32(np.zeros((3, 1))), bij.positive_inv(noises)))
+        assert torch.isfinite(chol).all()
+        for k in (0, 2):
+            one = GPR(RBF.create(var[k], ls[k]), x, y, f32(np.zeros(1)), bij.positive_inv(noises[k]))
+            torch.testing.assert_close(chol[k], gpr_cholesky(one), rtol=1e-5, atol=1e-5)

@@ -65,7 +65,9 @@ def test_torch_pathwise_iteration_runs():
 )
 def test_torch_unported_options_raise(what):
     """``loss_dtype`` raises in the pathwise loop only; the MM loop takes it.
-    The MM case: a GPR drift."""
+    The GPR cases: the optimism floor under a GPR drift (not ported for any
+    drift), and in the MM loop the compensated loss under a GPR drift, which
+    the JAX package refuses too (it supports SVGP drifts only)."""
     loop = _tiny_loop(
         loop_cls=MomentMatchingPILCO if what.startswith("mm_") else PathwisePILCO,
         **({"num_restarts": 4} if what == "restarts" else {}),
@@ -74,14 +76,21 @@ def test_torch_unported_options_raise(what):
         loop.policy_spec = PolicySpec(loss_dtype=torch.float64, num_restarts=1)
     if what == "optimism":
         loop.drift_spec = DriftSpec(optimism_tolerance=1.0)
-    if what in ("gpr", "mm_gpr"):
-        loop.drift_spec = DriftSpec(model_type="gpr")
+    if what == "gpr":
+        loop.drift_spec = DriftSpec(model_type="gpr", optimism_tolerance=1.0)
+    if what == "mm_gpr":
+        loop.drift_spec = DriftSpec(model_type="gpr", max_iters=5)
+        loop.policy_spec = PolicySpec(loss_compensated=True, num_restarts=1)
     loop.step()
+    if what == "mm_gpr":
+        loop.update_dynamics()
     with pytest.raises(NotImplementedError):
         if what == "save":
             loop.save()
-        elif what in ("optimism", "gpr", "mm_gpr"):
+        elif what in ("optimism", "gpr"):
             loop.update_dynamics()
+        elif what == "mm_gpr":
+            loop.policy_loss_fn(loop.build_policy(), None)
         else:
             loop.update_dynamics()
             loop.update_policy()
