@@ -71,8 +71,21 @@
    and against the unfused float64 loss, each with 5's bar; (c) one
    pathwise ensemble loss+grad (1024 particles over 8 members, 1024 bases)
    and a PW_STEPS policy update, in plain torch as in the JAX package (no
-   kernel launches).
-10. Prints the kernels' JSON line, then {"ok": true, "device": {...}} as the
+   kernel launches), and (d) the same update with use_fused_rollout: one K6
+   forward and one backward per step for all 8 members; then the float64
+   loss and gradient through K6 against the per-step GPR path at the same
+   paths and x0 (the bar of 10).
+10. K6 (the whole pathwise rollout loss, forward and backward) at the
+   pathwise slice's widths (S=1024, B=1024, M=240, Mp=30, 30 steps) in
+   float32 and float64 against its plain version (rollout_kernels_phase),
+   also at S=1000, at the LCK shape and on the 8-member axis, timed beside it
+   and its bound; then the fused-rollout slice: the pathwise slice's loop
+   with use_fused_rollout, a policy update (one K6 forward and one backward
+   per Adam step, no K1), and at that state the float64 loss and gradient
+   through K6 against the unfused float64 path at the same paths and x0
+   (bar max(1e-9, 10x the loss's rounding noise), cosine >= 0.9999), and,
+   printed, the float32 gradients' cosines.
+11. Prints the kernels' JSON line, then {"ok": true, "device": {...}} as the
    last line. Any failed check raises, so the exit code is non-zero.
 
 Tolerances of the kernel checks, rtol = atol:
@@ -85,6 +98,8 @@ Tolerances of the kernel checks, rtol = atol:
   plain version's, so the gap is a few ulps of the sum's size.
 - K3, K4, K5a, K5b: see match_kernels_phase (relative to each output's
   scale; float32 K3 against a float64 truth).
+- K6: see rollout_kernels_phase (float64 1e-10 of the scale; float32 1e-4
+  of the scale over 5 steps, and against a float64 truth over 30).
 """
 from __future__ import annotations
 
@@ -1423,13 +1438,16 @@ def ensemble_slice_phase(counters, seed, device, step_limit, lbfgs_iters):
     """8 random episodes, a GPR L-BFGS fit and HMC (8 chains, HMC_CUT),
     thinned to an 8-member ensemble; then (a) a whole-match ensemble MM
     policy update in float32, (b) one float64 loss+grad through the
-    pair-grid kernel, held against the unfused float64 loss, and (c) one
-    pathwise ensemble loss+grad and a short pathwise policy update."""
+    pair-grid kernel, held against the unfused float64 loss, (c) one
+    pathwise ensemble loss+grad and a short pathwise policy update, and (d)
+    that update with use_fused_rollout, then the float64 loss and gradient
+    through K6 against the per-step GPR path (f64_rollout_hold)."""
     from run_torch import build_loop
 
     from gpflowpilco_torch.loops.driver import outer_loop
     from gpflowpilco_torch.loops.pilco import DriftSpec, MomentMatchingPILCO, PathwisePILCO, PolicySpec
     from gpflowpilco_torch.models.gp import GPREnsemble
+    from gpflowpilco_torch.models.pathwise import PathState, generate_paths_gpr
     from gpflowpilco_torch.ops import kexp_cuda as kc
 
     def counts():
@@ -1567,12 +1585,329 @@ def ensemble_slice_phase(counters, seed, device, step_limit, lbfgs_iters):
           f"{1e3 * t_c / PW_STEPS:.2f} ms per pathwise ensemble step, loss {info_c['loss']:.6f}")
     assert math.isfinite(float(pw_loss.detach())) and math.isfinite(info_c["loss"])
     assert not any(delta.values()), f"the GPR paths run in plain torch, yet kernels ran: {delta}"
+
+    # ---- (d) the same update with use_fused_rollout: one K6 forward and one
+    # backward per step for all 8 members
+    pw.use_fused_rollout = True
+    assert pw._fused_rollout_eligible(ens.members, pw.policy_model)
+    reset()
+    t0 = time.perf_counter()
+    info_d2 = pw.update_policy()
+    sync()
+    t_d = time.perf_counter() - t0
+    delta = counts()
+    print(f"ensemble slice (d): fused-rollout {PW_STEPS}-step policy update {1e3 * t_d:.1f} ms = "
+          f"{1e3 * t_d / PW_STEPS:.2f} ms per fused pathwise ensemble step, loss {info_d2['loss']:.6f}; "
+          f"launches {delta}")
+    want = dict.fromkeys(delta, 0)
+    want.update(rollout_fwd_f32=PW_STEPS, rollout_bwd_f32=PW_STEPS)
+    assert math.isfinite(info_d2["loss"]) and delta == want, f"launches {delta}, expected {want}"
+    # at that state, float64: K6 with the 8 members on its member axis
+    # against the per-step GPR path at the same paths and x0 (drawn once in
+    # float32 and cast)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    per = S // GPR_K
+    with torch.no_grad():
+        paths = generate_paths_gpr(ens.members, gen, per, B)
+        x0 = pw.episode_spec.sample(gen, (per * GPR_K,), dtype=torch.float32, device=device)
+    pw64 = build_loop(seed, device, torch.float64, drift_spec=drift_spec, policy_spec=pw.policy_spec,
+                      loop_cls=PathwisePILCO)
+    pw64.use_fused_rollout = True
+    rel_d, noise_d, cos_d, _ = f64_rollout_hold(
+        "ensemble slice (d)", pw64, copy.deepcopy(pw.policy_model).double(),
+        copy.deepcopy(pw.policy_loss_drift().members).double(), PathState(*(p.double() for p in paths)), x0.double())
     return loop, pw, launches_a, launches_b, dict(
         dynamics_ms=1e3 * t_dyn, hmc_ms=1e3 * info_d["hmc_seconds"], syncs_per_leapfrog=syncs,
         escalation_levels=facts - 1,
         hmc_accept=info_d["hmc_accept"], ensemble_mm_step_ms=1e3 * t_a / step_limit,
         fused_mm_f64_loss_grad_ms=1e3 * t_b, pathwise_loss_grad_ms=1e3 * t_c1,
-        pathwise_step_ms=1e3 * t_c / PW_STEPS)
+        pathwise_step_ms=1e3 * t_c / PW_STEPS, fused_rollout_step_ms=1e3 * t_d / PW_STEPS,
+        fused_rollout_f64_rel_gap=rel_d, fused_rollout_f64_noise=noise_d, fused_rollout_f64_grad_cos=cos_d)
+
+
+# ---------------------------------------------------------------- K6
+# The whole-rollout kernel at the pathwise slice's widths: S=1024 particles,
+# Ld=4 drift latents over Dxu=6 inputs (5 features and the action), B=1024
+# bases, M=240 centers, Mp=30 policy centers, 30 steps
+ROLL_F64_TOL = 1e-10  # of each output's scale: the same sums in another order
+ROLL_F32_TOL = 1e-4  # of each output's scale over ROLL_SHORT_T steps, where the rollout is healthy
+ROLL_SHORT_T = 5
+ROLL_MEMBERS = 8  # the HMC ensemble's members on K6's member axis
+
+
+def rollout_operands(rc, k, s, lp, ld, u, steps, dtype, device, seed, b=B, m=M, mp=30):
+    """A K6 meta and operands (x0 first) from numpy, cartpole-shaped (D=4,
+    active dim 1): lengthscales 1-2, path weights small enough that 30 steps
+    stay in a healthy state, a non-symmetric precision matrix. Made in
+    float64 and cast."""
+    rng = np.random.default_rng(seed)
+    n = lambda *sh: rng.normal(size=sh)  # noqa: E731
+    d, de = 4, 5
+    dxu = de + u
+    meta = rc.RolloutMeta(num_steps=steps, dt=1.0, squash_scale=19.99999, active_dims=(1,),
+                          state_dim=d, enc_dim=de, act_dim=u, num_latent=ld, pol_latent=lp)
+    ls_p, ls_d = rng.uniform(0.7, 1.5, size=(lp, de)), rng.uniform(1.0, 2.0, size=(k, ld, dxu))
+    zp, zd, a = n(lp, mp, de), n(k, ld, m, dxu), n(de, de)
+    x0 = np.array([0.0, math.pi, 0.0, 0.0]) + 0.1 * n(s, d)
+    ops = (x0, zp, (zp * zp).sum(-1), 0.3 * n(lp, mp), 1.0 / ls_p, n(u, lp), 0.1 * n(u),
+           n(k, ld, b, dxu) / ls_d[:, :, None, :], rng.uniform(0, 2 * math.pi, size=(k, ld, b)),
+           1.0 / ls_d, zd, (zd * zd).sum(-1), 0.1 * n(s, ld, b) * math.sqrt(2.0 / b),
+           0.01 * n(s, ld, m), 0.5 * n(d, ld), 0.01 * n(k, d), n(de),
+           0.1 * a @ a.T + np.eye(de) + 0.02 * n(de, de))
+    return meta, tuple(torch.as_tensor(o, dtype=dtype, device=device).contiguous() for o in ops)
+
+
+def rollout_bound_ms(kind, meta, ops, dtype):
+    """Least time of one K6 launch: each input read once and each output
+    written once, and the operations each pass needs (a cos, sin or exp
+    counts as one, an FMA as two) (_bound). Per particle and step the
+    forward evaluates the policy and the drift's centers (per center the
+    dot with the pre-scaled center, the distance from the per-particle
+    |x|^2 and the pre-computed |z|^2, the exp and the weight: 2 Dxu + 8) and
+    bases (the projection, the phase, the cos and the weight: 2 Dxu + 4).
+    The backward needs per basis the projection, the phase, the sin, the
+    coefficient and the Dxu-term update (4 Dxu + 4; no cos, no weight), per
+    drift center the distance, the exp, the weighted gram and the Dxu-term
+    update (4 Dxu + 8), and per policy center the recomputed forward (2 De +
+    8) and its adjoint (the De-term input update and dzp's, 4 De + 6)."""
+    x0, zp = ops[0], ops[1]
+    k, ld, b, dxu = ops[7].shape
+    s, m, (lp, mp, de) = x0.shape[0], ops[10].shape[2], zp.shape
+    size = torch.finfo(dtype).bits // 8
+    steps = meta.num_steps * s
+    small = 2 * meta.state_dim * ld + 4 * de * de + 40  # encoder, Euler, cost
+    fwd = lp * mp * (2 * de + 8) + ld * b * (2 * dxu + 4) + ld * m * (2 * dxu + 8) + small
+    inputs = sum(t.numel() for t in ops)
+    if kind == "fwd":
+        outputs = s + (meta.num_steps + 1) * x0.numel()
+        return _bound((inputs + outputs) * size, steps * fwd, dtype)
+    # the small serial parts are recomputed and then differentiated
+    bwd = lp * mp * (6 * de + 14) + ld * b * (4 * dxu + 4) + ld * m * (4 * dxu + 8) + 2 * small
+    inputs += s + meta.num_steps * x0.numel() - x0.numel()  # gl; the trajectory replaces x0
+    outputs = lp * mp * de + lp * mp + lp * de
+    return _bound((inputs + outputs) * size, steps * bwd, dtype)
+
+
+def rollout_outputs(rc, meta, ops, gl, kernel):
+    """(loss, trajectory, dzp, dalpha, dilp) through the kernels or the
+    plain versions."""
+    if kernel:
+        loss, traj = rc._fwd(meta, *ops)
+        return (loss, traj, *rc._bwd(meta, traj, gl, *ops[1:]))
+    loss, traj = rc._rollout(meta, *ops)
+    return (loss, traj, *rc.rollout_reference_bwd(meta, traj, gl, *ops[1:]))
+
+
+ROLL_OUTS = ("loss", "trajectory", "dzp", "dalpha", "dilp")
+
+
+def rollout_kernels_phase(rc, seed, device):
+    """Hold K6 (forward and backward) against its plain version at the
+    slice's widths and time both beside the bound. Bars: float64, 30 steps,
+    ROLL_F64_TOL of each output's scale; float32 over ROLL_SHORT_T steps,
+    ROLL_F32_TOL of the scale; float32 over 30 steps, kernel and plain
+    float32 both against float64 on the same inputs, the kernel within 3x
+    the plain version's error plus 1e-4 of the scale (match_kernels_phase's
+    pattern: 30 float32 steps amplify rounding). Correctness only: S=1000
+    (not a multiple of the 4-particle tile), the LCK shape (U=2, Lp=2,
+    Ld=3) and the member axis (ROLL_MEMBERS members: all five outputs
+    against the plain version at the float64 bar, and each member's losses
+    bit-identical to a one-member call). The plain versions launch ~1000
+    small kernels a call, more than the launch queue holds, so they are
+    timed by host wall time (plain_ms_of) after a short hold."""
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=device)
+    errs = {name: 0.0 for name in rc.launches}
+    timings = {}
+    gl_of = lambda s, dtype: torch.full((s,), 1.0 / s, dtype=dtype, device=device)  # noqa: E731
+
+    def record(sfx, what, got, want, tol=None):
+        err = float((got.double() - want.double()).abs().max())
+        name = f"rollout_{'fwd' if what in ('loss', 'trajectory') else 'bwd'}_{sfx}"
+        errs[name] = max(errs[name], err)
+        scaled = scaled_err(got, want)
+        print(f"  {name} {what}: max |kernel - plain| = {err:.3e}, scaled {scaled:.3e}")
+        if tol is not None and not (torch.isfinite(got).all() and scaled <= tol):
+            raise AssertionError(f"{name} {what}: kernel disagrees with its plain version")
+        return scaled
+
+    f64, f32 = torch.float64, torch.float32
+    meta, ops = rollout_operands(rc, 1, S, 1, L, 1, HORIZON_STEPS, f64, device, seed + 4000)
+    print(f"rollout S={S} Ld={L} B={B} M={M} Mp=30 T={HORIZON_STEPS} float64, bar {ROLL_F64_TOL:g} "
+          f"of the scale:")
+    got = rollout_outputs(rc, meta, ops, gl_of(S, f64), True)
+    want = rollout_outputs(rc, meta, ops, gl_of(S, f64), False)
+    sync()
+    for what, a, w in zip(ROLL_OUTS, got, want):
+        record("f64", what, a, w, ROLL_F64_TOL)
+    ops32 = tuple(o.float() for o in ops)
+    print(f"rollout float32 over 30 steps, kernel and plain float32 against float64 (3x + 1e-4):")
+    got32 = rollout_outputs(rc, meta, ops32, gl_of(S, f32), True)
+    plain32 = rollout_outputs(rc, meta, ops32, gl_of(S, f32), False)
+    truth = rollout_outputs(rc, meta, tuple(o.double() for o in ops32), gl_of(S, f64), False)
+    sync()
+    for what, a, p, w in zip(ROLL_OUTS, got32, plain32, truth):
+        record("f32", what, a, p)
+        err_k, err_p = scaled_err(a, w), scaled_err(p, w)
+        print(f"    vs float64: kernel {err_k:.3e}, plain float32 {err_p:.3e}")
+        if not (torch.isfinite(a).all() and err_k <= 3.0 * err_p + 1e-4):
+            raise AssertionError(f"rollout f32 {what}: the kernel is less accurate than plain float32")
+    short, _ = rollout_operands(rc, 1, S, 1, L, 1, ROLL_SHORT_T, f32, device, seed + 4000)
+    print(f"rollout float32 over {ROLL_SHORT_T} steps, bar {ROLL_F32_TOL:g} of the scale:")
+    got_s = rollout_outputs(rc, short, ops32, gl_of(S, f32), True)
+    want_s = rollout_outputs(rc, short, ops32, gl_of(S, f32), False)
+    sync()
+    for what, a, w in zip(ROLL_OUTS, got_s, want_s):
+        record("f32", what, a, w, ROLL_F32_TOL)
+    for label, args in (("S=1000", (1, 1000, 1, L, 1)), ("LCK U=2 Lp=2 Ld=3", (1, 256, 2, 3, 2))):
+        m_x, o_x = rollout_operands(rc, *args, HORIZON_STEPS, f64, device, seed + 4001)
+        print(f"rollout {label} float64, bar {ROLL_F64_TOL:g}:")
+        gl = gl_of(o_x[0].shape[0], f64)
+        for what, a, w in zip(ROLL_OUTS, rollout_outputs(rc, m_x, o_x, gl, True),
+                              rollout_outputs(rc, m_x, o_x, gl, False)):
+            record("f64", what, a, w, ROLL_F64_TOL)
+    m_k, o_k = rollout_operands(rc, ROLL_MEMBERS, S, 1, L, 1, HORIZON_STEPS, f64, device, seed + 4002)
+    print(f"rollout member axis {ROLL_MEMBERS} members x {S // ROLL_MEMBERS} particles float64, bar "
+          f"{ROLL_F64_TOL:g}:")
+    got_k = rollout_outputs(rc, m_k, o_k, gl_of(S, f64), True)
+    for what, a, w in zip(ROLL_OUTS, got_k, rollout_outputs(rc, m_k, o_k, gl_of(S, f64), False)):
+        record("f64", what, a, w, ROLL_F64_TOL)
+    loss_k = got_k[0]
+    per = S // ROLL_MEMBERS
+    for j in range(ROLL_MEMBERS):
+        rows = slice(j * per, (j + 1) * per)
+        one = tuple(o[j:j + 1] if i in (7, 8, 9, 10, 11, 15) else o[rows] if i in (0, 12, 13) else o
+                    for i, o in enumerate(o_k))
+        if not torch.equal(rc._fwd(m_k, *one)[0], loss_k[rows]):
+            raise AssertionError(f"rollout member {j}: the {ROLL_MEMBERS}-member call differs from "
+                                 f"a one-member call")
+    sync()
+    print(f"rollout member axis: {ROLL_MEMBERS} members x {per} particles, each bit-identical to a "
+          f"one-member call")
+
+    for dtype, sfx, o in ((f32, "f32", ops32), (f64, "f64", ops)):
+        gl = gl_of(S, dtype)
+        traj = rc._fwd(meta, *o)[1]
+        plain_traj = rc._rollout(meta, *o)[1]
+        calls = {
+            f"rollout_fwd_{sfx}": (lambda o=o: rc._fwd(meta, *o), lambda o=o: rc._rollout(meta, *o)),
+            f"rollout_bwd_{sfx}": (lambda o=o, t=traj, g=gl: rc._bwd(meta, t, g, *o[1:]),
+                                   lambda o=o, t=plain_traj, g=gl: rc.rollout_reference_bwd(meta, t, g, *o[1:])),
+        }
+        for name, (kern, plain) in calls.items():
+            ms = median_ms(kern, reps=10, flush=flush)
+            warm_ms = median_ms(kern, reps=10)
+            plain_ms, plain_how = plain_ms_of(plain, flush, reps=3, hold_s=0.2)
+            bound, bound_by = rollout_bound_ms(name.split("_")[1], meta, o, dtype)
+            timings[name] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, plain_how=plain_how,
+                                 bound_ms=bound, bound_by=bound_by, library_ms=None)
+            print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), plain torch "
+                  f"{plain_ms:.4f} ms ({plain_how}), bound {bound:.5f} ms ({bound_by})")
+    return errs, timings
+
+
+def _per_step_drift(drift, paths, x0):
+    """The per-step path's drift: for an SVGP K1 in float32 and plain torch
+    in float64; for a GPR (a stacked one for an ensemble) plain torch."""
+    from gpflowpilco_torch.models.gp import GPR
+    from gpflowpilco_torch.models.pathwise import PathwiseGPRTransform, PathwiseSVGPTransform
+
+    if isinstance(drift, GPR):
+        return PathwiseGPRTransform(drift, paths)
+    return PathwiseSVGPTransform(drift, paths, fused=x0.dtype == torch.float32)
+
+
+def _particle_loss_and_grad(loop, policy, drift, paths, x0, fused):
+    """The mean particle loss and its policy gradient at the given paths and
+    x0: through K6 when ``fused``, else the per-step path."""
+    policy.zero_grad(set_to_none=True)
+    if fused:
+        loss = loop._fused_rollout_loss(policy, drift, paths, x0)
+    else:
+        loss = loop._particle_rollout_loss(policy, _per_step_drift(drift, paths, x0), x0)
+    loss.backward()
+    return float(loss.detach()), _flat_grads(policy)
+
+
+def f64_rollout_hold(what, loop64, policy64, drift64, paths64, x064):
+    """The float64 mean particle loss and policy gradient through K6
+    against the per-step path in plain torch at the same paths and x0: the
+    loss within max(1e-9, 10x the per-step loss's rounding noise, x0 moved
+    by 1e-14, 1e-13 and 1e-12), the gradient at cosine >= 0.9999. Returns
+    (relative gap, noise, cosine, the per-step gradient)."""
+    (l_k, g_k), (l_u, g_u) = (_particle_loss_and_grad(loop64, policy64, drift64, paths64, x064, fused)
+                              for fused in (True, False))
+    with torch.no_grad():
+        plain64 = _per_step_drift(drift64, paths64, x064)
+        noise = max(abs(float(loop64._particle_rollout_loss(policy64, plain64, x064 + dx)) - l_u) / abs(l_u)
+                    for dx in (1e-14, 1e-13, 1e-12))
+    rel, bar = abs(l_k - l_u) / abs(l_u), max(1e-9, 10.0 * noise)
+    cos64 = float(g_k @ g_u / (g_k.norm() * g_u.norm()))
+    print(f"{what}: {loop64.episode_spec.num_steps}-step float64 loss via K6 {l_k:.15f}, per-step {l_u:.15f}, relative gap "
+          f"{rel:.3e}; per-step rounding noise {noise:.3e}, bar {bar:.3e}; gradient cosine {cos64:.12f}")
+    assert math.isfinite(l_k) and rel <= bar, f"{what}: K6 and per-step float64 losses disagree"
+    assert cos64 >= 0.9999, f"{what}: K6 and per-step float64 gradients disagree"
+    policy64.zero_grad(set_to_none=True)
+    return rel, noise, cos64, g_u
+
+
+def fused_rollout_slice_phase(rc, pe, loop, seed, device, step_limit):
+    """The pathwise slice's fitted loop with use_fused_rollout: a policy
+    update (counts zeroed just before and read just after: one K6 forward
+    and one backward per Adam step, no K1), then at that state the float64
+    loss and gradient through K6 against the unfused float64 path at the
+    same paths and x0, and, printed, the float32 cosines."""
+    from run_torch import build_loop
+
+    from gpflowpilco_torch.models.pathwise import PathState, generate_paths_svgp
+
+    loop.use_fused_rollout = True
+    assert loop._fused_rollout_eligible(loop.drift_model, loop.policy_model)
+    before = {n: p.detach().clone() for n, p in loop.policy_model.named_parameters()}
+    rc.reset_launches()
+    pe.reset_launches()
+    t0 = time.perf_counter()
+    info_p = loop.update_policy()
+    sync()
+    t_pol = time.perf_counter() - t0
+    delta = {**rc.launches, **pe.launches}
+    print(f"fused rollout: policy update {1e3 * t_pol:.1f} ms = {1e3 * t_pol / step_limit:.2f} ms per "
+          f"fused-rollout policy step; loss {info_p['loss']:.5f}, skipped {info_p['skipped_steps']}; "
+          f"launches {delta}")
+    assert math.isfinite(info_p["loss"]), "fused-rollout policy loss is not finite"
+    want = dict.fromkeys(delta, 0)
+    want.update(rollout_fwd_f32=step_limit, rollout_bwd_f32=step_limit)
+    assert delta == want, f"launches {delta}, expected {want}"
+    moved = max(float((p.detach() - before[n]).abs().max())
+                for n, p in loop.policy_model.named_parameters() if p.requires_grad)
+    assert moved > 0, "policy parameters did not change"
+    launches = dict(rc.launches)
+
+    # ---- float64 at that state: K6 against the unfused path at the same
+    # paths and x0 (drawn once in float32 and cast); bar max(1e-9, 10x the
+    # unfused loss's rounding noise, x0 moved by 1e-14, 1e-13, 1e-12)
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    drift, policy = loop.policy_loss_drift(), loop.policy_model
+    with torch.no_grad():
+        paths = generate_paths_svgp(drift, gen, S, B)
+        x0 = loop.episode_spec.sample(gen, (S,), dtype=torch.float32, device=device)
+    loop64 = build_loop(seed, device, torch.float64, policy_spec=loop.policy_spec)
+    loop64.use_fused_rollout = True
+    rel, noise, cos64, g_u = f64_rollout_hold(
+        "fused rollout", loop64, copy.deepcopy(policy).double(), copy.deepcopy(drift).double(),
+        PathState(*(p.double() for p in paths)), x0.double())
+
+    # ---- printed, not asserted: the float32 gradients (K6 and the K1 path)
+    # against each other and against float64 (30 float32 steps are chaotic)
+    f32 = {name: _particle_loss_and_grad(loop, policy, drift, paths, x0, fused)
+           for name, fused in (("K6 f32", True), ("unfused f32", False))}
+    cos = lambda a, b: float(a @ b / (a.norm() * b.norm()))  # noqa: E731
+    print(f"fused rollout: float32 losses K6 {f32['K6 f32'][0]:.6f}, unfused {f32['unfused f32'][0]:.6f}; "
+          f"gradient cosines K6-vs-unfused {cos(f32['K6 f32'][1], f32['unfused f32'][1]):.6f}, "
+          f"K6 f32-vs-f64 {cos(f32['K6 f32'][1], g_u):.6f}, unfused f32-vs-f64 "
+          f"{cos(f32['unfused f32'][1], g_u):.6f}")
+    policy.zero_grad(set_to_none=True)
+    return launches, dict(policy_step_ms=1e3 * t_pol / step_limit, f64_rel_gap=rel, f64_noise=noise,
+                          f64_grad_cos=cos64)
 
 
 # kernel-name fragments whose rows a profile prints on their own: this
@@ -1623,16 +1958,20 @@ def _profile(name, fn, out_dir, reps=3, export=True):
 
 
 def profile_phase(loop, mm_loop, match_loop, ens_loop, out_dir):
-    """Profiles of one pathwise, one MM, one whole-match MM and one
-    whole-match ensemble MM policy loss+grad evaluation and one drift
-    ELBO+grad evaluation, at the slices' shapes."""
+    """Profiles of one pathwise (the K1 path and the fused rollout), one MM,
+    one whole-match MM and one whole-match ensemble MM policy loss+grad
+    evaluation and one drift ELBO+grad evaluation, at the slices' shapes."""
     from gpflowpilco_torch.models.builders import dynamics_mask
     from gpflowpilco_torch.models.gp import svgp_elbo
     from gpflowpilco_torch.models.priors import pilco_snr_penalty
 
     model, drift = loop.policy_model, loop.policy_loss_drift()
     gen = loop.iteration_generator(99)
+    loop.use_fused_rollout = False
     _profile("policy_step", lambda: loop.policy_loss_fn(model, gen, drift=drift).backward(), out_dir)
+    loop.use_fused_rollout = True
+    _profile("fused_rollout_policy_step",
+             lambda: loop.policy_loss_fn(model, gen, drift=drift).backward(), out_dir)
     mm_model, mm_drift = mm_loop.policy_model, mm_loop.policy_loss_drift()
     # ~33k device events per call: too large a trace to keep
     _profile(
@@ -1676,6 +2015,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU", file=sys.stderr)
         sys.exit(2)
+    t_start = time.perf_counter()
     root = Path(__file__).resolve().parent
     sys.path[:0] = [str(root), str(root / "examples" / "cartpole_swingup")]
     from gpflowpilco_torch.ops import _build
@@ -1685,6 +2025,7 @@ def main():
     from gpflowpilco_torch.ops import mm_glue_cuda as gc
     from gpflowpilco_torch.ops import mm_match_cuda as mc
     from gpflowpilco_torch.ops import path_eval_cuda as pe
+    from gpflowpilco_torch.ops import rollout_cuda as rc
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1699,38 +2040,52 @@ def main():
     print(f"build: {time.perf_counter() - t0:.2f} s wall "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items()) or 'cached'})")
 
-    errs, timings = kernels_phase(pe, args.seed, device)
-    pair_errs, pair_timings = pair_kernels_phase(kc, args.seed, device)
-    match_errs, match_timings, jacobi_gap = match_kernels_phase(mc, ec, gc, args.seed, device)
-    gpr_errs, gpr_timings = gpr_kernels_phase(gm, kc, args.seed, device)
-    loop, launches, slice_ms = slice_phase(pe, args.seed, device, args.step_limit, args.lbfgs_iters)
-    mm_loop, pair_launches, mm_ms = mm_slice_phase(
-        kc, args.seed, device, args.step_limit, args.lbfgs_iters
-    )
-    counters = (pe, kc, mc, ec, gc)
-    match_loop, match_launches, match_ms = match_slice_phase(
-        counters, args.seed, device, args.step_limit, args.lbfgs_iters, jacobi_gap
-    )
-    ens_loop, _, ens_launches_a, ens_launches_b, ens_ms = ensemble_slice_phase(
-        (*counters, gm), args.seed, device, args.step_limit, args.lbfgs_iters
-    )
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *fn_args):
+        t_phase = time.perf_counter()
+        out = fn(*fn_args)
+        phase_s[name] = time.perf_counter() - t_phase
+        return out
+
+    errs, timings = timed("K1", kernels_phase, pe, args.seed, device)
+    pair_errs, pair_timings = timed("K2", pair_kernels_phase, kc, args.seed, device)
+    match_errs, match_timings, jacobi_gap = timed("K3-K5", match_kernels_phase, mc, ec, gc, args.seed, device)
+    gpr_errs, gpr_timings = timed("K3g", gpr_kernels_phase, gm, kc, args.seed, device)
+    roll_errs, roll_timings = timed("K6", rollout_kernels_phase, rc, args.seed, device)
+    loop, launches, slice_ms = timed("pathwise", slice_phase, pe, args.seed, device, args.step_limit,
+                                     args.lbfgs_iters)
+    roll_launches, fused_ms = timed("fused rollout", fused_rollout_slice_phase, rc, pe, loop, args.seed,
+                                    device, args.step_limit)
+    mm_loop, pair_launches, mm_ms = timed("mm", mm_slice_phase, kc, args.seed, device, args.step_limit,
+                                          args.lbfgs_iters)
+    counters = (pe, kc, mc, ec, gc, rc)
+    match_loop, match_launches, match_ms = timed(
+        "whole match", match_slice_phase, counters, args.seed, device, args.step_limit, args.lbfgs_iters,
+        jacobi_gap)
+    ens_loop, _, ens_launches_a, ens_launches_b, ens_ms = timed(
+        "ensemble", ensemble_slice_phase, (*counters, gm), args.seed, device, args.step_limit,
+        args.lbfgs_iters)
     if args.profile:
-        profile_phase(loop, mm_loop, match_loop, ens_loop, args.profile)
+        timed("profile", profile_phase, loop, mm_loop, match_loop, ens_loop, args.profile)
 
     for name, n in launches.items():
         if name != "path_eval_bwd_full" and n == 0:
             raise AssertionError(f"{name} was not launched on the pathwise path")
     for name, n in match_launches.items():
-        if name in pe.launches or name in kc.launches:
+        if name in pe.launches or name in kc.launches or name in rc.launches:
             continue
         launches[name] = n
     errs.update(pair_errs)
     errs.update(match_errs)
     errs.update(gpr_errs)
+    errs.update(roll_errs)
     timings.update(pair_timings)
     timings.update(match_timings)
     timings.update(gpr_timings)
+    timings.update(roll_timings)
     launches.update(pair_launches)
+    launches.update(roll_launches)
     # slice B: K3g's launches from (a); K2's GPR route's from (b), whose
     # float64 entries are the drift's alone (its float32 ones are the SVGP
     # policy island's), so the GPR route's float32 rows count none
@@ -1742,6 +2097,7 @@ def main():
     sources.update(dict.fromkeys(ec.launches, "gpflowpilco_torch/csrc/enc_match.cu"))
     sources.update(dict.fromkeys(gc.launches, "gpflowpilco_torch/csrc/mm_glue.cu"))
     sources.update(dict.fromkeys(gm.launches, "gpflowpilco_torch/csrc/gpr_match.cu"))
+    sources.update(dict.fromkeys(rc.launches, "gpflowpilco_torch/csrc/rollout.cu"))
     replaces = {
         "path_eval_fwd": "gpflowpilco_tpu/ops/path_eval_pallas.py:58",
         "path_eval_bwd_dx": "gpflowpilco_tpu/ops/path_eval_pallas.py:102",
@@ -1758,13 +2114,15 @@ def main():
         replaces[name] = "gpflowpilco_tpu/ops/enc_match_pallas.py:" + ("252" if "_fwd_" in name else "262")
     for name in gc.launches:
         replaces[name] = "gpflowpilco_tpu/ops/mm_glue_pallas.py:" + ("87" if "psd" in name else "130")
+    for name in rc.launches:
+        replaces[name] = "gpflowpilco_tpu/ops/rollout_pallas.py:" + ("195" if "_fwd_" in name else "221")
     # K2's GPR-route rows: the same kernel entries at the GPR grid's shape
     gpr_route = [f"{k}/gpr" for k in kc.launches if f"{k}/gpr" in timings]
     for name in gpr_route:
         base = name.split("/")[0]
         sources[name], replaces[name] = sources[base], replaces[base]
     names = (*pe.launches, *kc.launches, *gpr_route, *mc.launches, *ec.launches, *gc.launches,
-             *gm.launches)
+             *gm.launches, *rc.launches)
     for name in names:
         timings[name].setdefault("library_ms", None)
     kernels = [
@@ -1787,9 +2145,13 @@ def main():
         for name in names
     ]
     print(f"pathwise slice ms: {json.dumps(slice_ms)}")
+    print(f"fused-rollout slice: {json.dumps(fused_ms)} (K1 path {slice_ms['policy_step_ms']:.2f} ms "
+          f"per policy step in this call)")
     print(f"mm slice ms: {json.dumps(mm_ms)}")
     print(f"whole-match slice ms: {json.dumps(match_ms)}")
     print(f"ensemble slice: {json.dumps(ens_ms)}")
+    print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, total "
+          f"{time.perf_counter() - t_start:.1f}")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

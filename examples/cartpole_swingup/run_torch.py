@@ -14,7 +14,10 @@ update as CUDA kernels; the twin of ``run_tpu_full.py --fused-match``), and
 hmc``) fits an exact GPR drift by L-BFGS, samples its hyperparameters by HMC
 and trains the policy through the posterior-averaged loss over an ensemble
 of --hmc-ensemble draws; both variants and every MM option take it.
-Validation rollouts, multistart and checkpoints are not ported yet.
+``--variant pathwise --fused-rollout`` runs the whole 30-step particle
+rollout loss as one CUDA kernel op per Adam step, forward and backward (the
+twin of ``run_tpu_full.py --fused-rollout``), under an SVGP drift or the HMC
+ensemble. Validation rollouts, multistart and checkpoints are not ported yet.
 
     python examples/cartpole_swingup/run_torch.py --episodes 10
     python examples/cartpole_swingup/run_torch.py --variant mm --fused --mm-loss-f64
@@ -25,6 +28,8 @@ Validation rollouts, multistart and checkpoints are not ported yet.
         --mm-loss-f64 --episodes 3 --step-limit 5 --num-centers 16 --lbfgs-iters 30
     python examples/cartpole_swingup/run_torch.py --device cpu --variant mm --fused-match \\
         --episodes 3 --step-limit 5 --num-centers 16 --lbfgs-iters 30
+    python examples/cartpole_swingup/run_torch.py --device cpu --fused-rollout --episodes 2 \\
+        --step-limit 5 --batch-size 16 --num-bases 32 --num-centers 16 --lbfgs-iters 30
     python examples/cartpole_swingup/run_torch.py --device cpu --variant mm --fused-match \\
         --drift-optimizer hmc --episodes 2 --step-limit 3 --lbfgs-iters 20 \\
         --hmc-warmup 10 --hmc-samples 10 --hmc-leapfrog 4 --hmc-chains 2 --hmc-ensemble 3
@@ -114,6 +119,10 @@ def main():
                    help="mm: the whole-match path (use_fused_match): whole SVGP match, encoder "
                         "match, PSD guard and Euler update as CUDA kernels; its drift, encoder "
                         "and glue kernels run when the loss is in the loop dtype")
+    p.add_argument("--fused-rollout", action="store_true",
+                   help="pathwise: the whole particle rollout loss as one CUDA kernel op, "
+                        "forward and backward (use_fused_rollout), where the configuration "
+                        "qualifies; supersedes the path-eval kernel")
     p.add_argument("--mm-loss-f64", action="store_true",
                    help="mm: float64 loss with the policy chain as a float32 island "
                         "(PolicySpec.loss_dtype, loss_policy_f32)")
@@ -173,6 +182,7 @@ def main():
     )
     loop.use_fused_mm = args.fused
     loop.use_fused_match = args.fused_match
+    loop.use_fused_rollout = args.fused_rollout
     outer_loop(loop, num_episodes=args.episodes, num_episodes_init=args.episodes_init)
 
 

@@ -15,7 +15,10 @@ ops/mm_match_cuda.py, ops/enc_match_cuda.py and ops/mm_glue_cuda.py), and
 both losses for GPR and GPREnsemble drifts (the MM drift match through
 ops/kexp_cuda.py's GPR grid or the GPR whole-match kernel op of
 ops/gpr_match_cuda.py; the pathwise GPR paths in plain torch, as in the JAX
-package). An ensemble's members ride one rollout as its batch axis.
+package). An ensemble's members ride one rollout as its batch axis. Under
+``use_fused_rollout`` the whole pathwise rollout loss, for SVGP, GPR and
+ensemble drifts, is one kernel op (ops/rollout_cuda.py, its operands packed
+from the models by models/pathwise.py).
 
 Models are ``nn.Module``s trained in place. Randomness comes from
 ``torch.Generator``s seeded from (seed, number of episodes, purpose), the
@@ -51,6 +54,7 @@ from ..models.pathwise import (
     PathwiseSVGPTransform,
     generate_paths_gpr,
     generate_paths_svgp,
+    pathwise_rollout_loss_fused,
 )
 from ..models.priors import pilco_snr_penalty
 from ..moment_matching.gp import GPRTransform, SVGPTransform
@@ -222,6 +226,10 @@ class PILCOBase:
         # and, in the MM loss, for the frozen drift with the fused encoder,
         # PSD guard and Euler update
         self.use_fused_match: bool = False
+        # the whole pathwise rollout loss as one kernel op (ops/rollout_cuda.py)
+        # where the configuration qualifies (PathwisePILCO._fused_rollout_eligible);
+        # otherwise the per-step path
+        self.use_fused_rollout: bool = False
 
     # ------------------------------------------------------------------ randomness
     def iteration_generator(self, purpose: int) -> torch.Generator:
@@ -718,6 +726,8 @@ class PathwisePILCO(PILCOBase):
             x0 = self.episode_spec.sample(
                 generator, (spec.batch_size,), dtype=self.dtype, device=self.device
             )
+        if self._fused_rollout_eligible(drift_model, policy_model):
+            return self._fused_rollout_loss(policy_model, drift_model, paths, x0)
         drift_fn = PathwiseSVGPTransform(model=drift_model, paths=paths, fused=True)
         return self._particle_rollout_loss(policy_model, drift_fn, x0)
 
@@ -740,4 +750,43 @@ class PathwisePILCO(PILCOBase):
         paths = generate_paths_gpr(model, generator, per, spec.num_bases)
         if x0 is None:
             x0 = self.episode_spec.sample(generator, (total,), dtype=self.dtype, device=self.device)
+        if self._fused_rollout_eligible(model, policy_model):
+            return self._fused_rollout_loss(policy_model, model, paths, x0)
         return self._particle_rollout_loss(policy_model, PathwiseGPRTransform(model, paths), x0)
+
+    # ------------------------------------------------------------- fused rollout
+    def _fused_rollout_eligible(self, drift_model, policy_model) -> bool:
+        """Whether the whole-rollout kernel op serves this configuration, a
+        static check as in the JAX package: an SVGP drift (a w=None one
+        needs as many latents as state dims) or a GPR (a stacked one for an
+        ensemble) with as many outputs as state dims, a SinCos encoder, a
+        Gaussian objective, and the loss in the loop dtype."""
+        if not self.use_fused_rollout or self.policy_spec.loss_dtype is not None:
+            return False
+        state_dim = len(self.episode_spec.state_mean)
+        if isinstance(drift_model, SVGP):
+            drift_ok = drift_model.w is not None or drift_model.z.shape[0] == state_dim
+        elif isinstance(drift_model, GPR):
+            drift_ok = drift_model.y.shape[-1] == state_dim
+        else:
+            return False
+        return (
+            drift_ok
+            and isinstance(self.encoder, Encoder)
+            and isinstance(self.encoder.transform, SinCos)
+            and isinstance(self.objective, GaussianObjective)
+        )
+
+    def _fused_rollout_loss(self, policy_model: SVGP, drift_model, paths, x0: torch.Tensor):
+        """Mean whole-rollout loss over the particles x0 through the kernel
+        op; a stacked GPR's paths carry its members, particles member-major."""
+        loss = pathwise_rollout_loss_fused(
+            policy_model, drift_model, paths, x0,
+            active_dims=tuple(self.encoder.active_dims),
+            action_scale=float(self.policy_spec.action_scale),
+            target=self.objective.target.to(x0.dtype),
+            precis=self.objective.precis.to(x0.dtype),
+            dt=1.0,  # the drift predicts per-control-step deltas
+            num_steps=self.episode_spec.num_steps,
+        )
+        return loss.mean()

@@ -9,17 +9,21 @@ the training inputs in place of the inducing points, exact GPRs.
 Sampling is split in two so that tests can feed the JAX package's draws:
 ``draw_path_noise`` draws the standard normals, the phases, ``w`` and
 ``eps`` from a ``torch.Generator``; ``paths_from_noise`` turns given noise
-into a ``PathState``.
+into a ``PathState``. ``fused_rollout_operands`` packs a policy, a drift
+and its paths into the operands of the whole-rollout kernel op
+(ops/rollout_cuda.py).
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..ops.linalg import bcho_solve
+from ..ops.linalg import bsolve_triangular as solve_triangular
 from ..ops.path_eval_cuda import eval_fused_operands, fused_operands
+from ..ops.rollout_cuda import FusedRolloutLoss, RolloutMeta
 from .gp import GPR, SVGP, chol_kuu, gpr_cholesky
 from .kernels import RBF
 
@@ -196,3 +200,97 @@ class PathwiseGPRTransform:
         k = self.model.raw_noise.shape[0]
         f = eval_paths_gpr(self.model, self.paths, x.reshape(k, -1, x.shape[-1]))
         return f.reshape(x.shape[0], -1)
+
+
+# ----------------------------------------------------------------------------
+# the whole pathwise rollout loss as one kernel op (ops/rollout_cuda.py)
+# ----------------------------------------------------------------------------
+def _policy_alpha(policy_model: SVGP) -> torch.Tensor:
+    """(Lp, Mp) weights of the policy's deterministic mean, Kuu^{-1} q_mu
+    (Luu^{-T} q_mu when whitened), scaled by the kernel variance: the
+    alpha of moment_matching/gp.py's svgp_match_cache without the factors
+    a moment match needs and the rollout does not."""
+    luu = chol_kuu(policy_model)
+    q_mu = policy_model.q_mu.T[..., None]  # (Lp, Mp, 1)
+    if policy_model.whiten:
+        alpha = solve_triangular(luu, q_mu, lower=True, trans=1)[..., 0]
+    else:
+        alpha = bcho_solve(luu, q_mu)[..., 0]
+    return policy_model.kernel.variance[:, None] * alpha
+
+
+def fused_rollout_operands(policy_model: SVGP, drift_model, paths: PathState, *, state_dim: int,
+                           active_dims: Tuple[int, ...], action_scale: float, target, precis,
+                           dt: float = 1.0, num_steps: int = 30):
+    """(meta, operands after x0) of ``FusedRolloutLoss`` for an SVGP policy
+    and an SVGP, GPR or stacked GPR drift with its paths (a stacked GPR's
+    paths carry the member axis in front, its particles member-major).
+
+    The policy's operands are built here in plain torch, inside the autograd
+    graph, so the op's dzp, dalpha and dilp reach the policy's z, q_mu and
+    lengthscales. A GPR's one shared kernel over its P outputs is stacked
+    into P latents with the training inputs as the centers."""
+    d = state_dim
+    kern = drift_model.kernel
+    num_bases = paths.omega.shape[-2]
+    if isinstance(drift_model, GPR):
+        ld, dxu = drift_model.y.shape[-1], drift_model.x.shape[-1]
+        if ld != d:
+            raise ValueError("a GPR drift needs as many outputs as state dims")
+        k = kern.variance.shape[0] if drift_model.stacked else 1
+        ild = (1.0 / kern.lengthscales).reshape(k, 1, dxu).expand(k, ld, dxu)
+        zd = drift_model.x * ild[:, :, None, :]  # (K, P, N, Dxu)
+        var = kern.variance.reshape(k, 1).expand(k, ld)
+        omega = paths.omega.reshape(k, ld, num_bases, dxu)
+        phase = paths.phase.reshape(k, ld, num_bases)
+        mc_d = drift_model.mean_const.reshape(k, d)
+        wd = None
+    else:
+        ld, k = drift_model.z.shape[0], 1
+        ild = (1.0 / kern.lengthscales)[None]  # (1, Ld, Dxu)
+        zd = drift_model.z[None] * ild[:, :, None, :]
+        var = kern.variance[None]
+        omega, phase = paths.omega[None], paths.phase[None]
+        mc_d = drift_model.mean_const.expand(d)[None]
+        wd = drift_model.w
+    if wd is None:
+        if ld != d:
+            raise ValueError("a drift without a mixing matrix needs as many latents as state dims")
+        wd = torch.eye(d, dtype=zd.dtype, device=zd.device)
+    scale = torch.sqrt(2.0 * var / num_bases)  # (K, Ld)
+    w = paths.w.reshape(k, -1, ld, num_bases) * scale[:, None, :, None]
+    v = paths.v.reshape(k, -1, *paths.v.shape[-2:]) * var[:, None, :, None]
+
+    pk = policy_model.kernel
+    lp = policy_model.z.shape[0]
+    ilp = 1.0 / pk.lengthscales  # (Lp, De)
+    zp = policy_model.z * ilp[:, None, :]
+    wp = policy_model.w
+    if wp is None:
+        wp = torch.eye(lp, dtype=zp.dtype, device=zp.device)
+    u_dim = wp.shape[0]
+    de = 2 * len(active_dims) + d - len(active_dims)
+    if zd.shape[-1] != de + u_dim:
+        raise ValueError("the drift's input dim is not the encoded state's plus the action's")
+    meta = RolloutMeta(
+        num_steps=num_steps, dt=float(dt), squash_scale=float(2.0 * action_scale - 1e-5),
+        active_dims=tuple(int(a) for a in active_dims), state_dim=d, enc_dim=de, act_dim=u_dim,
+        num_latent=ld, pol_latent=lp,
+    )
+    ops = (zp, torch.sum(zp * zp, -1), _policy_alpha(policy_model), ilp, wp,
+           policy_model.mean_const.expand(u_dim), omega, phase, ild, zd, torch.sum(zd * zd, -1),
+           w.reshape(-1, ld, num_bases), v.reshape(-1, *v.shape[-2:]), wd, mc_d, target, precis)
+    return meta, tuple(t.contiguous() for t in ops)
+
+
+def pathwise_rollout_loss_fused(policy_model: SVGP, drift_model, paths: PathState, x0, *,
+                                active_dims, action_scale: float, target, precis,
+                                dt: float = 1.0, num_steps: int = 30) -> torch.Tensor:
+    """Per-particle whole-rollout pathwise loss (S,) through
+    ``FusedRolloutLoss``. The drift, its paths and x0 are constants of the
+    differentiated computation."""
+    meta, ops = fused_rollout_operands(
+        policy_model, drift_model, paths, state_dim=x0.shape[-1], active_dims=active_dims,
+        action_scale=action_scale, target=target, precis=precis, dt=dt, num_steps=num_steps,
+    )
+    return FusedRolloutLoss.apply(meta, x0.contiguous(), *ops)

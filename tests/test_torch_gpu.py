@@ -427,3 +427,96 @@ def test_torch_entrywise_escalation_on_gpu():
         for k in (0, 2):
             one = GPR(RBF.create(var[k], ls[k]), x, y, f32(np.zeros(1)), bij.positive_inv(noises[k]))
             torch.testing.assert_close(chol[k], gpr_cholesky(one), rtol=1e-5, atol=1e-5)
+
+
+def _rollout_operands(k, s, d, active, u, lp, ld, b, m, mp, steps, dtype, dev, seed):
+    """A K6 meta and operands (x0 first) from numpy at the given widths: the
+    paths' weights small enough that the rollout stays in a healthy state,
+    a non-symmetric precision matrix."""
+    from gpflowpilco_torch.ops import rollout_cuda as rc
+
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev).contiguous()  # noqa: E731
+    n = lambda *sh: rng.normal(size=sh)  # noqa: E731
+    de = 2 * len(active) + d - len(active)
+    dxu = de + u
+    meta = rc.RolloutMeta(num_steps=steps, dt=1.0, squash_scale=19.99999, active_dims=active,
+                          state_dim=d, enc_dim=de, act_dim=u, num_latent=ld, pol_latent=lp)
+    ls_p = rng.uniform(0.7, 1.5, size=(lp, de))
+    zp = n(lp, mp, de)
+    ls_d = rng.uniform(1.0, 2.0, size=(k, ld, dxu))
+    zd = n(k, ld, m, dxu)
+    a = n(de, de)
+    ops = (0.3 * n(s, d), zp, (zp * zp).sum(-1), 0.3 * n(lp, mp), 1.0 / ls_p, n(u, lp), 0.1 * n(u),
+           n(k, ld, b, dxu) / ls_d[:, :, None, :], rng.uniform(0, 2 * np.pi, size=(k, ld, b)),
+           1.0 / ls_d, zd, (zd * zd).sum(-1), 0.1 * n(s, ld, b) * np.sqrt(2.0 / b),
+           0.01 * n(s, ld, m), 0.5 * n(d, ld), 0.01 * n(k, d), n(de),
+           0.1 * a @ a.T + np.eye(de) + 0.02 * n(de, de))
+    return meta, tuple(f(o) for o in ops)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k, s, d, active, u, lp, ld, b, m, mp", [
+    (1, 1024, 4, (1,), 1, 1, 4, 1024, 240, 30),   # the cartpole slice's widths
+    (1, 1000, 4, (1,), 1, 1, 4, 256, 240, 30),    # S not a multiple of the 4-particle tile
+    (3, 39, 4, (1,), 2, 2, 3, 70, 19, 12),        # the LCK shape, 3 members of 13 particles
+    (1, 37, 6, (4, 0), 2, 3, 6, 300, 270, 260),   # Dxu = 10 (16-wide), M and Mp beyond a block
+])
+def test_torch_rollout_kernels_match_reference_on_gpu(dtype, k, s, d, active, u, lp, ld, b, m, mp):
+    """K6 forward (loss and trajectory) and backward (dzp, dalpha, dilp)
+    against the plain version over 5 steps: float64 to 1e-10, float32 to
+    1e-4 of each output's scale (sums of ~1000 terms in another order, 5
+    steps of a healthy rollout). Repeated backward runs are bit-identical
+    (no atomics)."""
+    from gpflowpilco_torch.ops import rollout_cuda as rc
+
+    dev = _gpu_or_skip()
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    meta, ops = _rollout_operands(k, s, d, active, u, lp, ld, b, m, mp, 5, dtype, dev, seed=s + d)
+    gl = torch.as_tensor(np.random.default_rng(s).uniform(size=s) / s, dtype=dtype, device=dev)
+    before = dict(rc.launches)
+    loss, traj = rc._fwd(meta, *ops)
+    want_loss, want_traj = rc._rollout(meta, *ops)
+    _close(loss, want_loss, tol, "loss")
+    _close(traj, want_traj, tol, "trajectory")
+    got = rc._bwd(meta, traj, gl, *ops[1:])
+    want = rc.rollout_reference_bwd(meta, want_traj, gl, *ops[1:])
+    for name, a, w in zip(("dzp", "dalpha", "dilp"), got, want):
+        _close(a, w, tol, name)
+    again = rc._bwd(meta, traj, gl, *ops[1:])
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    torch.cuda.synchronize()
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    assert rc.launches[f"rollout_fwd_{sfx}"] == before[f"rollout_fwd_{sfx}"] + 1
+    assert rc.launches[f"rollout_bwd_{sfx}"] == before[f"rollout_bwd_{sfx}"] + 2
+    if k > 1:
+        # the member axis: member j's particles against a one-member call
+        per = s // k
+        for j in range(k):
+            rows = slice(j * per, (j + 1) * per)
+            one = tuple(o[j:j + 1] if i in (7, 8, 9, 10, 11, 15) else o[rows] if i in (0, 12, 13) else o
+                        for i, o in enumerate(ops))
+            torch.testing.assert_close(rc._fwd(meta, *one)[0], loss[rows], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_torch_rollout_wrapper_raises_on_gpu():
+    """A wrong dtype, a non-contiguous operand, a shape beyond the register
+    capacities and a gradient asked of a frozen operand raise before any
+    launch."""
+    from gpflowpilco_torch.ops import rollout_cuda as rc
+
+    dev = _gpu_or_skip()
+    meta, ops = _rollout_operands(1, 8, 4, (1,), 1, 1, 4, 16, 8, 6, 3, torch.float64, dev, seed=1)
+    before = dict(rc.launches)
+    with pytest.raises(TypeError):
+        rc._fwd(meta, ops[0].float(), *ops[1:])
+    with pytest.raises(TypeError):
+        rc._fwd(meta, *ops[:13], ops[13].transpose(1, 2).contiguous().transpose(1, 2), *ops[14:])
+    wide, wops = _rollout_operands(1, 8, 9, (1,), 1, 1, 9, 16, 8, 6, 3, torch.float64, dev, seed=2)
+    with pytest.raises(ValueError, match="D <= 8"):
+        rc._fwd(wide, *wops)
+    with pytest.raises(NotImplementedError, match="differentiates only the policy"):
+        rc.FusedRolloutLoss.apply(meta, *ops[:7], ops[7].clone().requires_grad_(True), *ops[8:])
+    assert rc.launches == before
