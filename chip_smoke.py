@@ -14,7 +14,8 @@
      float32 and float64 at the MM path's two shapes: the drift's N=1,
      P=10 latent pairs, D2=14, M=240 and the policy's N=1, P=1, D2=12, M=30.
 4. Pathwise slice: pathwise PILCO on cartpole at full width (1024 particles x
-   1024 bases, horizon 30, up to 240 inducing points): 8 random episodes
+   1024 bases, horizon 30, up to 240 inducing points), its SVGP paths through
+   K1 (use_fused_paths, as run_torch.py --fused): 8 random episodes
    through outer_loop, then one iteration (L-BFGS drift fit, Adam policy
    update, one RK4 episode). The launch counts are zeroed just before that
    iteration and read just after; each kernel the path runs must have run.
@@ -37,7 +38,12 @@
    it, its bound and, for K5a and K5b, torch.linalg.eigvalsh. Float32 K3 is
    held twice: at a random model's grid against float64, and at a
    well-conditioned grid of the same shape against plain float32 at a fixed
-   bar.
+   bar. K3's frozen backward is also held at N=8 (the batch on its block
+   grid), repeated forward and frozen-backward runs must be bit-identical,
+   and the device time of each stage of the tiled entries (tile sweep,
+   finish, combine) is printed from one profiler session. The build prints
+   ptxas's registers and spills of K3's kernels and fails if a float32 tile
+   kernel at the 8-register capacity spills.
 7. Whole-match slice: moment-matching PILCO on cartpole at full width with
    use_fused_match, float32 loop and loss: 8 random episodes, a drift fit,
    then one Adam policy update (counts zeroed just before, read just after;
@@ -108,6 +114,7 @@ import copy
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -418,6 +425,7 @@ def slice_phase(pe, seed, device, step_limit, lbfgs_iters):
             batch_size=S, num_bases=B, num_restarts=1, step_limit=step_limit
         ),
     )
+    loop.use_fused_paths = True  # the SVGP paths through K1, as run_torch.py --fused
     assert loop.episode_spec.num_steps == HORIZON_STEPS
     t0 = time.perf_counter()
     outer_loop(loop, num_episodes=8, num_episodes_init=8, log_summaries=False)
@@ -723,8 +731,9 @@ def match_bound_ms(kind, meta, n, dtype):
     counts once: E itself (two D-term dots, the exponent, the exp: 4D + 5),
     in the forward its two contractions, in the backward the row and column
     sums of E * dE (4D + 6) and, for the full one, the grid cotangents'
-    (4D + 6). The kernel evaluates E twice per backward (a row and a column
-    pass); the function does not need that, so the bound does not count it."""
+    (4D + 6). The full backward's kernel evaluates E twice (a row and a
+    column pass); the function does not need that, so the bound does not
+    count it."""
     num_l, num_p, d, m = meta.num_latent, meta.num_pairs, meta.num_dim, meta.num_m
     size = torch.finfo(dtype).bits // 8
     grid = (num_l + num_p) * d + num_l * (d * m + m + 2) + num_p * (4 * d * m + 4 * m + 1)
@@ -769,6 +778,51 @@ def glue_bound_ms(kind, n, d, dtype):
     if kind == "psd":
         return _bound(n * 2 * d * d * size, n * (jacobi + 2 * d * d), dtype)
     return _bound(n * (3 * d + 4 * d * d) * size, n * (jacobi + 2 * d + 6 * d * d), dtype)
+
+
+def stage_ms(fn, reps=5):
+    """Device ms per call of each kernel ``fn`` launches, by kernel name,
+    from one torch.profiler session over ``reps`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        name = re.search(r"(\w+)<", e.key)
+        name = name.group(1) if name else e.key[:40]
+        out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
+# kernels whose ptxas report chip_smoke prints: K3's (csrc/mm_match.cu)
+PTXAS_K3 = ("svgp_fwd_tiles", "svgp_fwd_combine", "svgp_bwd_tiles", "svgp_bwd_finish", "svgp_bwd_combine",
+            "bwd_groups")
+
+
+def ptxas_report(text, kernels=PTXAS_K3):
+    """[(kernel, 'f' | 'd', register capacity DM or None, registers, spill
+    stores, spill loads)] from nvcc's -Xptxas -v output."""
+    rows, name, spill = [], None, (0, 0)
+    pat = re.compile(r"\d+(" + "|".join(kernels) + r")I([fd])(?:Li(\d+)E)?")
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = pat.search(line)
+            name = (m.group(1), m.group(2), m.group(3) and int(m.group(3))) if m else None
+        elif name and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            spill = (nums[1], nums[2])
+        elif name and "Used" in line and "registers" in line:
+            rows.append((*name, int(re.search(r"Used (\d+) registers", line).group(1)), *spill))
+            name = None
+    return rows
 
 
 def scaled_err(got, want):
@@ -824,9 +878,9 @@ def match_kernels_phase(mc, ec, gc, seed, device):
             sync()
             names = {"fwd": ("f1", "sff", "cross"), "bwd_frozen": ("dmx", "dsxx"),
                      "bwd": ("dmx", "dsxx", *mc.GRID_FIELDS)}
-            for kind, outs in names.items():
-                name = f"svgp_match_{kind}_{sfx}"
-                for what, a, b, c in zip(outs, got[kind], plain[kind], truth[kind]):
+
+            def hold(name, outs, got, plain, truth):
+                for what, a, b, c in zip(outs, got, plain, truth):
                     err = record(name, a, b, what)
                     ok = torch.isfinite(a).all()
                     if dtype == torch.float64:
@@ -837,6 +891,27 @@ def match_kernels_phase(mc, ec, gc, seed, device):
                         ok = ok and err_k <= 3.0 * err_p + 1e-4
                     if not ok:
                         raise AssertionError(f"{name} {what}: kernel disagrees with its plain version")
+
+            for kind, outs in names.items():
+                hold(f"svgp_match_{kind}_{sfx}", outs, got[kind], plain[kind], truth[kind])
+            if where == "drift":
+                # the frozen backward with a batch of 8 on its block grid, by
+                # the same bars; then bit-identical repeats of the tiled entries
+                n8 = 8
+                mx8, sxx8 = state_moments(rng, n8, d, dtype, device)
+                cots8 = (f(n8, num_l), f(n8, num_l, num_l), f(n8, d, num_l))
+                f1_8 = mc._fwd(g.meta, g, mx8, sxx8)[0]
+                print(f"  frozen backward at N={n8}:")
+                hold(f"svgp_match_bwd_frozen_{sfx}", ("dmx", "dsxx"),
+                     mc._bwd(g.meta, g, mx8, sxx8, f1_8, *cots8, True)[:2],
+                     mc.match_reference_bwd(g.meta, g, mx8, sxx8, *cots8, True)[:2],
+                     mc.match_reference_bwd(g64.meta, g64, mx8.double(), sxx8.double(), *up(cots8),
+                                            True)[:2])
+                for kind in ("fwd", "bwd_frozen"):
+                    runs = [k3_outputs(mc, g, mx, sxx, cots, kernel=True)[kind] for _ in range(2)]
+                    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                        raise AssertionError(f"svgp_match_{kind}_{sfx}: repeated runs differ")
+                print(f"  svgp_match_fwd_{sfx}, svgp_match_bwd_frozen_{sfx}: repeated runs bit-identical")
             if dtype == torch.float32:
                 # the float32 kernel against the plain float32 version at a
                 # fixed bar, on a well-conditioned grid of the same shape
@@ -945,6 +1020,12 @@ def match_kernels_phase(mc, ec, gc, seed, device):
         print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), plain torch "
               f"{plain_ms:.4f} ms ({plain_how}), bound {bound:.6f} ms ({bound_by})"
               + ("" if lib_ms is None else f", eigvalsh {lib_ms:.4f} ms ({lib_how})"))
+    # the stages of K3's tiled entries (warm L2): tile sweep, finish, combine
+    for name in ("svgp_match_fwd_f32", "svgp_match_bwd_frozen_f32", "svgp_match_fwd_f64",
+                 "svgp_match_bwd_frozen_f64", "svgp_match_fwd_f32 (policy)"):
+        stages = stage_ms(calls[name][0])
+        timings[name]["stages"] = stages
+        print(f"  stages of {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
     return errs, timings, jacobi_gap["f64"]
 
 
@@ -1912,7 +1993,7 @@ def fused_rollout_slice_phase(rc, pe, loop, seed, device, step_limit):
 
 # kernel-name fragments whose rows a profile prints on their own: this
 # repository's kernels and the eigenvalue solver behind psd_project's eigvalsh
-_WATCHED = ("fwd_kernel", "bwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel", "fwd_groups",
+_WATCHED = ("fwd_kernel", "bwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel", "bwd_finish",
             "bwd_groups", "fwd_tiles", "bwd_tiles", "combine", "enc_fwd", "enc_bwd", "psd_kernel",
             "euler_kernel", "syev", "eig")
 # host runtime calls that wait for the device or copy through it
@@ -2041,6 +2122,13 @@ def main():
           f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items()) or 'cached'})")
 
     phase_s = {"build": time.perf_counter() - t0}
+    k3_regs = ptxas_report(_build.compiler_output.get("mm_match", ""))
+    for kern, t, dm, regs, st, ld in k3_regs:
+        print(f"ptxas mm_match {kern}<{'float' if t == 'f' else 'double'}{'' if dm is None else f', {dm}'}>: "
+              f"{regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+    spills = [r for r in k3_regs if r[0].startswith("svgp_") and r[1] == "f" and r[2] in (None, 8) and r[4] + r[5]]
+    if built.get("mm_match") is not None and (not k3_regs or spills):
+        raise AssertionError(f"K3's tiled float32 kernels at DM=8 spill or were not reported: {spills or k3_regs}")
 
     def timed(name, fn, *fn_args):
         t_phase = time.perf_counter()

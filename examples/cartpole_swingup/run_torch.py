@@ -4,7 +4,8 @@
 The torch twin of ``run_tpu_full.py``: SVGP drift (<= --num-centers inducing
 points) fit by L-BFGS, 30-step horizon, float32 models and fits.
 ``--variant pathwise`` (the default) optimizes 1024 particles x 1024 Fourier
-bases per policy step through the CUDA path-eval kernel; ``--variant mm``
+bases per policy step, with ``--fused`` through the CUDA path-eval kernel
+(plain torch without it, as the JAX package's default); ``--variant mm``
 propagates Gaussian moments, with ``--fused`` routing the eKuffu pair grid
 through the CUDA pair-contraction kernel, ``--fused-match`` running the
 whole-match path (the whole SVGP match, encoder match, PSD guard and Euler
@@ -19,7 +20,7 @@ rollout loss as one CUDA kernel op per Adam step, forward and backward (the
 twin of ``run_tpu_full.py --fused-rollout``), under an SVGP drift or the HMC
 ensemble. Validation rollouts, multistart and checkpoints are not ported yet.
 
-    python examples/cartpole_swingup/run_torch.py --episodes 10
+    python examples/cartpole_swingup/run_torch.py --fused --episodes 10
     python examples/cartpole_swingup/run_torch.py --variant mm --fused --mm-loss-f64
     python examples/cartpole_swingup/run_torch.py --variant mm --fused-match
     python examples/cartpole_swingup/run_torch.py --device cpu --episodes 3 \\
@@ -113,8 +114,10 @@ def main():
     p.add_argument("--device", default="cuda")
     p.add_argument("--variant", choices=["pathwise", "mm"], default="pathwise")
     p.add_argument("--fused", action="store_true",
-                   help="mm: route the eKuffu pair grid through the CUDA pair-contraction "
-                        "kernel (use_fused_mm); the pathwise variant always uses its kernel")
+                   help="the fused kernel ops, as run_tpu_full.py --fused: the pathwise SVGP "
+                        "drift evaluations through the CUDA path-eval kernel (use_fused_paths) "
+                        "and the MM eKuffu pair grid through the CUDA pair-contraction kernel "
+                        "(use_fused_mm)")
     p.add_argument("--fused-match", action="store_true",
                    help="mm: the whole-match path (use_fused_match): whole SVGP match, encoder "
                         "match, PSD guard and Euler update as CUDA kernels; its drift, encoder "
@@ -180,6 +183,7 @@ def main():
         ),
         loop_cls=MomentMatchingPILCO if args.variant == "mm" else PathwisePILCO,
     )
+    loop.use_fused_paths = args.fused
     loop.use_fused_mm = args.fused
     loop.use_fused_match = args.fused_match
     loop.use_fused_rollout = args.fused_rollout

@@ -20,29 +20,73 @@
 //
 // Bound on an H100: at the MM drift's shape (N=1, L=4, P=10, D=6, M=240) a
 // forward must read the grid, dominated by qmat (4 x 240^2 x 4 B = 0.9 MB in
-// float32), and does ~10 x 240^2 x (4D + 4) ~ 16 MFLOP plus 576 k exp: about
-// 0.3 us of memory and operations each, far below a launch. The kernel is
-// latency-bound: only K = 14 blocks run.
+// float32, 0.3 us at 3.35 TB/s), and does ~10 x 240^2 x (4D + 8) ~ 18 MFLOP
+// plus 576 k exp, ~0.3 us at 67 TFLOP/s; the frozen backward ~0.5 us. Far
+// below a launch: the kernels are latency-bound, and what sets their time
+// is how much of the card works at once and how long each block's chain of
+// dependent steps is.
 //
-// Design: one block of 256 threads per group (forward: per group and batch
-// entry; backward: per group, looping over the batch so that the grid
-// cotangents sum in a fixed order). Thread 0 factors the block's D x D
-// matrix into shared memory; each thread then owns columns m of the M
-// inducing points (latent groups) or rows or columns of the M x M exp grid
-// (pair groups), with its D-vectors in registers (loops over a capacity
-// DM in {8, 16}, guarded by the runtime D, unrolled at DM = 8). A pair block stages
-// up, wp, g1, g2, a_u, a_w, alpha_u, alpha_w ((4D + 4) x M values) in
-// dynamic shared memory and sweeps E by columns (forward; coalesced Q reads)
-// and, in the backward, once by rows and once by columns, recomputing E: the
-// row sums (da_u, dup, dg1t, dalpha_u) and column sums (da_w, dwp, dg2t,
-// dalpha_w) each belong to one thread. Block sums go through warp shuffles
-// and one fixed-order pass over the warps. The cross-group combine
-// (sff; dsxx = sym(sum_k da_k) and dmx) is a second, one-thread-per-entry
-// launch. No atomics: repeated runs are bit-identical. Full-precision exp
-// and log (no fast math).
+// Forward and frozen backward (the drift's entries on the whole-match path):
+// the pair grid is cut into tiles of kTI x kTJ cells (64 x 64: 4 x 4 tiles
+// per pair at M=240) that ride the block grid with the batch, (L + P x tiles,
+// N) blocks in the forward and (P x tiles, N) in the frozen backward: 164 and
+// 160 blocks at the drift's shape, where one block per group (14) ran before.
+// A tile block factors its group's D x D matrix (thread 0: a few hundred
+// dependent operations at D=6), solves and stages only its tile's kTI rows
+// (up, g1, a_u/2, alpha_u) and kTJ columns (wp, g2, a_w/2, alpha_w) in shared
+// memory, and its 16 x 16 threads each evaluate a micro-tile of kTI/16 x
+// kTJ/16 cells (rows ty + 16a, columns tx + 16b), reading each row and column
+// factor once per micro-tile and not once per cell. On diagonal pairs under
+// uncertainty the block issues cp.async copies of its tile of qmat into
+// shared memory before it factors and waits for them only before the Q o E
+// contraction, so the only sizeable bytes the kernels read arrive while the
+// exps run. Ragged edges (M not a multiple of the tile) are masked: a row or
+// column beyond M stages a_u/2 = +inf (so E = 0 there), zero weights and a
+// zero-filled Q. The forward's tile blocks write their two partial sums
+// (alpha-weighted f2, sum Q o E) to scratch, and a combine launch (one block
+// per batch entry) adds each pair's tiles in a fixed order and forms sff;
+// the latent blocks write f1 and cross. The frozen backward evaluates each
+// cell of E once: a tile block writes per-row (sum_j e dE, sum_j e dE wp_j)
+// and per-column (sum_i e dE, sum_i e dE up_i) partials, 1 + D values per
+// point and tile, with dE = df2 alpha_u,i alpha_w,j + decov q_ij (rows reduced
+// by shuffles within 16 lanes, columns by a shuffle and a fixed-order pass
+// over the warps); a finish launch, one block per group and batch entry,
+// adds each point's partials over the tiles in a fixed order and runs the
+// post-sweep adjoint (the solves, the dch outer products, tmp_m and
+// chol_rev), the latent groups as before; a third launch sums the groups,
+// one thread per output entry. Against the one-block-per-group design this
+// repairs: too few blocks (14 on 132 SMs), the serial walk of each thread
+// over a whole row or column of E with a dependent global Q load per step,
+// E evaluated twice in the backward (a row and a column pass), and a
+// one-thread sum over the groups. The D x D factor work stays on
+// thread 0: per block it is a few microseconds, overlapped by the Q copies.
+// No tensor cores: the exponent's contraction is only 2D = 12 deep, the
+// only float32 tensor-core path is TF32, whose 10-bit mantissa would put
+// ~1e-3 relative error into exponents that feed exp (the port keeps such
+// sites out of TF32), and the exps and reductions, not the products, set
+// the time.
+//
+// Full backward (the policy's, at M=30): one block of 256 threads per group,
+// looping over the batch so that the grid cotangents sum in a fixed order.
+// Thread 0 factors the block's D x D matrix; each thread then owns columns
+// m of the inducing points (latent groups) or rows or columns of the M x M
+// exp grid (pair groups), staged whole in dynamic shared memory ((4D + 4) x
+// M values), and sweeps E once by rows and once by columns: the row sums
+// (da_u, dup, dg1t, dalpha_u) and column sums (da_w, dwp, dg2t, dalpha_w)
+// each belong to one thread.
+//
+// Register vectors of D values loop over a capacity DM in {8, 16}, guarded
+// by the runtime D, unrolled at DM = 8. Block sums go through warp shuffles
+// and one fixed-order pass over the warps. No atomics: repeated runs are
+// bit-identical. Full-precision exp and log (no fast math).
 //
 // Each entry returns cudaGetLastError() as an int; the caller raises on
-// nonzero. Entries launch on the given stream and do not synchronise.
+// nonzero. Entries launch on the given stream and do not synchronise. The
+// scratch the wrapper allocates: the forward's `scratch`, 2 values per pair,
+// tile and batch entry; both backwards' `gda` and `gdmx`, the groups'
+// cotangents (N x K x D x D and N x K x D); the frozen backward's row and
+// column tile partials `rp` and `cq` (N x P x ceil(M / 64) x (1 + D) x M
+// each).
 
 #include <cuda_runtime.h>
 
@@ -52,6 +96,17 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxD = 16;
 constexpr int kMaxNV = kMaxD * (kMaxD + 1) / 2 + kMaxD + 2;  // most values one block sums
+
+// The forward's and frozen backward's tile of a pair's M x M grid: kTI rows
+// (i, the u side) by kTJ columns (j, the w side); a thread of the 16 x 16
+// block owns kRI x kRJ cells. 64 x 64 was the fastest of 64 x 64, 32 x 64
+// and 32 x 32 at the drift's shape (PERF.md); ops/mm_match_cuda.py sizes
+// the scratch for it (TILE).
+constexpr int kTI = 64;
+constexpr int kTJ = 64;
+constexpr int kRI = kTI / 16;
+constexpr int kRJ = kTJ / 16;
+static_assert(kThreads == 256, "a tile block is 16 x 16 threads");
 
 // A loop of DM or fewer trips over a register capacity DM: fully unrolled at
 // DM = 8, the path's capacity, so every index is a constant; a runtime loop
@@ -69,6 +124,34 @@ __device__ __forceinline__ float sq(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sq(double x) { return sqrt(x); }
 
 __host__ __device__ constexpr int tri(int a, int b) { return a * (a + 1) / 2 + b; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__device__ __forceinline__ void set_inf(float& x) { x = __int_as_float(0x7f800000); }
+__device__ __forceinline__ void set_inf(double& x) { x = __longlong_as_double(0x7ff0000000000000LL); }
+
+// One element from global into shared memory by cp.async (no register
+// holds it; the copy runs while the block computes), zero-filled where
+// !valid. The #else branch is what a host compiler sees.
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src, bool valid) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src),
+               "n"((int)sizeof(T)), "r"(valid ? (int)sizeof(T) : 0)
+               : "memory");
+#else
+  *dst = valid ? *src : T(0);
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#endif
+}
 
 // Grid tensors, unpadded, in GRID_FIELDS order (ops/mm_match_cuda.py).
 template <typename T>
@@ -218,20 +301,26 @@ struct Shared {
   T hls, cexp;
 };
 
-// Pair block: thread 0 factors and solves for ilm; then every thread stages
-// its columns of up, wp, g1, g2, a_u, a_w, alpha_u, alpha_w.
+// Thread 0: factor pair p's matrix and solve for ilm = ch^{-1} mx; cexp.
+template <typename T, int DM>
+__device__ void pair_factor(const Grid<T>& g, const Dims& z, int p, const T* mx, const T* S,
+                            Shared<T, DM>& sh) {
+  const int d = z.D;
+  sh.hls = chol<T, DM>(S, g.kdiag + (size_t)(z.L + p) * d, sh.ch, d);
+  T b[DM];
+  for (int i = 0; i < DM; ++i) b[i] = i < d ? mx[i] : T(0);
+  lsolve<T, DM>(sh.ch, b, d);
+  for (int i = 0; i < DM; ++i) sh.ilm[i] = b[i];
+  sh.cexp = g.cp[p] - sh.hls;
+}
+
+// Full-backward pair block: thread 0 factors and solves for ilm; then every
+// thread stages its columns of up, wp, g1, g2, a_u, a_w, alpha_u, alpha_w.
 template <typename T, int DM>
 __device__ void pair_setup(const Grid<T>& g, const Dims& z, int p, const T* mx, const T* S,
                            Shared<T, DM>& sh, T* dyn) {
-  const int d = z.D, M = z.M, k = z.L + p;
-  if (threadIdx.x == 0) {
-    sh.hls = chol<T, DM>(S, g.kdiag + (size_t)k * d, sh.ch, d);
-    T b[DM];
-    for (int i = 0; i < DM; ++i) b[i] = i < d ? mx[i] : T(0);
-    lsolve<T, DM>(sh.ch, b, d);
-    for (int i = 0; i < DM; ++i) sh.ilm[i] = b[i];
-    sh.cexp = g.cp[p] - sh.hls;
-  }
+  const int d = z.D, M = z.M;
+  if (threadIdx.x == 0) pair_factor<T, DM>(g, z, p, mx, S, sh);
   __syncthreads();
   T* up = dyn;
   T* wp = up + d * M;
@@ -287,103 +376,235 @@ UNROLL_DM
   return ex(cexp - mp);
 }
 
-// ---------------------------------------------------------------- forward
+// ---------------------------------------------------------------- pair tiles
+// A tile block's dynamic shared memory, laid out from its start: Q's tile
+// (kTI x kTJ), the rows' g1 and up (d x kTI each), a_u/2 and alpha_u (kTI
+// each), the columns' g2 and wp (d x kTJ), a_w/2 and alpha_w (kTJ); the
+// frozen backward adds its column partials per warp ((1 + d) x kWarps x kTJ).
+template <typename T>
+struct TileSmem {
+  T *q, *g1, *up, *hu, *alu, *g2, *wp, *hw, *alw, *cred;
+  __device__ TileSmem(T* base, int d) {
+    q = base;
+    g1 = q + kTI * kTJ;
+    up = g1 + d * kTI;
+    hu = up + d * kTI;
+    alu = hu + kTI;
+    g2 = alu + kTI;
+    wp = g2 + d * kTJ;
+    hw = wp + d * kTJ;
+    alw = hw + kTJ;
+    cred = alw + kTJ;
+  }
+};
+
+inline size_t tile_smem_elems(int d, bool bwd) {
+  return (size_t)kTI * kTJ + (size_t)(2 * d + 2) * (kTI + kTJ) +
+         (bwd ? (size_t)(d + 1) * kWarps * kTJ : 0);
+}
+
+// Tile setup for pair p, rows [i0, i0 + kTI) and columns [j0, j0 + kTJ):
+// start the cp.async copies of Q's tile (diagonal pairs under uncertainty),
+// factor on thread 0, then solve and stage the tile's rows and columns. A
+// row or column beyond M stages zeros and a_u/2 (a_w/2) = +inf, so that its
+// cells of E are exp(-inf) = 0. Ends with a barrier; the Q copies may still
+// be in flight (tile_wait_q).
 template <typename T, int DM>
-__global__ void __launch_bounds__(kThreads) fwd_groups(Grid<T> g, Dims z, const T* __restrict__ mx_,
-                                                        const T* __restrict__ sxx, T* __restrict__ f1,
-                                                        T* __restrict__ cross, T* __restrict__ scratch) {
-  __shared__ Shared<T, DM> sh;
-  extern __shared__ __align__(16) unsigned char dyn_raw[];
-  T* dyn = reinterpret_cast<T*>(dyn_raw);
-  const int k = blockIdx.x, n = blockIdx.y, d = z.D, M = z.M;
-  const T* mx = mx_ + (size_t)n * d;
-  const T* S = sxx + (size_t)n * d * d;
-
-  if (k < z.L) {  // latent l: eKfu and the premultiplied cross
-    const int l = k;
-    if (threadIdx.x == 0) sh.hls = chol<T, DM>(S, g.kdiag + (size_t)l * d, sh.ch, d);
-    __syncthreads();
-    const T lead = g.hll[l] - sh.hls, var = g.varr[l];
-    T v[DM + 1];
-#pragma unroll
-    for (int i = 0; i <= DM; ++i) v[i] = T(0);
-    for (int m = threadIdx.x; m < M; m += kThreads) {
-      T y[DM];
-UNROLL_DM
-      for (int i = 0; i < DM; ++i) y[i] = i < d ? g.zt[((size_t)l * d + i) * M + m] - mx[i] : T(0);
-      lsolve<T, DM>(sh.ch, y, d);
-      T quad = y[0] * y[0];
-UNROLL_DM
-      for (int i = 1; i < DM; ++i)
-        if (i < d) quad += y[i] * y[i];
-      const T e = var * ex(lead - T(0.5) * quad);
-      utsolve<T, DM>(sh.ch, y, d);  // y is now iv
-      const T ae = g.alpha[(size_t)l * M + m] * e;
-      v[0] += ae;
-UNROLL_DM
-      for (int i = 0; i < DM; ++i) v[1 + i] += y[i] * ae;
+__device__ __forceinline__ void tile_setup(const Grid<T>& g, const Dims& z, int p, int i0, int j0, bool qd,
+                           const T* mx, const T* S, Shared<T, DM>& sh, const TileSmem<T>& ts) {
+  const int d = z.D, M = z.M;
+  if (qd) {
+    int pi = 0, pj = 0;
+    pair_of(p, z.L, pi, pj);
+    const T* q = g.qmat + (size_t)pi * M * M;
+    for (int c = threadIdx.x; c < kTI * kTJ; c += kThreads) {
+      const int i = i0 + c / kTJ, j = j0 + c % kTJ;
+      const bool valid = i < M && j < M;
+      cp_async_elem(ts.q + c, valid ? q + (size_t)i * M + j : q, valid);
     }
-    block_sum<T, DM + 1>(v, sh.red, sh.out);
-    if (threadIdx.x == 0) {
-      f1[(size_t)n * z.L + l] = sh.out[0];
-      for (int i = 0; i < d; ++i) cross[((size_t)n * d + i) * z.L + l] = sh.out[1 + i];
-    }
-    return;
+    cp_async_commit();
   }
-
-  const int p = k - z.L;
-  int pi = 0, pj = 0;
-  pair_of(p, z.L, pi, pj);
-  pair_setup<T, DM>(g, z, p, mx, S, sh, dyn);
-  const T* up = dyn;
-  const T* wp = up + d * M;
-  const T* g1 = wp + d * M;
-  const T* g2 = g1 + d * M;
-  const T* au = g2 + d * M;
-  const T* aw = au + M;
-  const T* alu = aw + M;
-  const T* alw = alu + M;
-  const bool qd = z.unc && pi == pj;
-  const T* q = g.qmat + (size_t)pi * M * M;
-  const T cexp = sh.cexp;
-  T v[2] = {T(0), T(0)};
-  for (int j = threadIdx.x; j < M; j += kThreads) {
-    T t = T(0), qs = T(0);
-    for (int i = 0; i < M; ++i) {
-      T g1i[DM], upi[DM];
+  if (threadIdx.x == 0) pair_factor<T, DM>(g, z, p, mx, S, sh);
+  __syncthreads();
+  const size_t pdm = (size_t)p * d * M;
+  for (int r = threadIdx.x; r < kTI + kTJ; r += kThreads) {
+    const bool row = r < kTI;
+    const int c = row ? r : r - kTI, m = row ? i0 + c : j0 + c, stride = row ? kTI : kTJ;
+    const T* src = row ? g.ut : g.wt;
+    const T* gsrc = row ? g.g1t : g.g2t;
+    T* dst_g = row ? ts.g1 : ts.g2;
+    T* dst_u = row ? ts.up : ts.wp;
+    if (m < M) {
+      T u[DM];
 UNROLL_DM
-      for (int c = 0; c < DM; ++c) {
-        g1i[c] = c < d ? g1[c * M + i] : T(0);
-        upi[c] = c < d ? up[c * M + i] : T(0);
+      for (int i = 0; i < DM; ++i) u[i] = i < d ? src[pdm + i * M + m] : T(0);
+      lsolve<T, DM>(sh.ch, u, d);
+      T a = (row ? g.g11 : g.g22)[(size_t)p * M + m];
+UNROLL_DM
+      for (int i = 0; i < DM; ++i) {
+        if (i < d) {
+          const T ui = u[i] - T(0.5) * sh.ilm[i];
+          a += ui * ui;
+          dst_u[i * stride + c] = ui;
+          dst_g[i * stride + c] = gsrc[pdm + i * M + m];
+        }
       }
-      const T e = pair_e<T, DM>(g1i, upi, au[i], g2, wp, aw, j, d, M, cexp);
-      t += alu[i] * e;
-      if (qd) qs += q[(size_t)i * M + j] * e;
+      (row ? ts.hu : ts.hw)[c] = T(0.5) * a;
+      (row ? ts.alu : ts.alw)[c] = (row ? g.alpha_u : g.alpha_w)[(size_t)p * M + m];
+    } else {
+      for (int i = 0; i < d; ++i) dst_u[i * stride + c] = dst_g[i * stride + c] = T(0);
+      set_inf((row ? ts.hu : ts.hw)[c]);
+      (row ? ts.alu : ts.alw)[c] = T(0);
     }
-    v[0] += t * alw[j];
-    v[1] += qs;
   }
-  block_sum<T, 2>(v, sh.red, sh.out);
+  __syncthreads();
+}
+
+// Every thread's kRI x kRJ cells of E: rows ty + 16a, columns tx + 16b.
+template <typename T>
+__device__ __forceinline__ void tile_cells(const TileSmem<T>& ts, int d, T cexp, T (&e)[kRI][kRJ]) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int a = 0; a < kRI; ++a)
+#pragma unroll
+    for (int b = 0; b < kRJ; ++b) e[a][b] = T(0);
+  for (int k = 0; k < d; ++k) {
+    T r1[kRI], ru[kRI], c2[kRJ], cw[kRJ];
+#pragma unroll
+    for (int a = 0; a < kRI; ++a) {
+      r1[a] = ts.g1[k * kTI + ty + 16 * a];
+      ru[a] = ts.up[k * kTI + ty + 16 * a];
+    }
+#pragma unroll
+    for (int b = 0; b < kRJ; ++b) {
+      c2[b] = ts.g2[k * kTJ + tx + 16 * b];
+      cw[b] = ts.wp[k * kTJ + tx + 16 * b];
+    }
+#pragma unroll
+    for (int a = 0; a < kRI; ++a)
+#pragma unroll
+      for (int b = 0; b < kRJ; ++b) e[a][b] += ru[a] * cw[b] - r1[a] * c2[b];
+  }
+#pragma unroll
+  for (int a = 0; a < kRI; ++a)
+#pragma unroll
+    for (int b = 0; b < kRJ; ++b)
+      e[a][b] = ex(cexp - (e[a][b] + ts.hu[ty + 16 * a] + ts.hw[tx + 16 * b]));
+}
+
+// Wait for this block's Q copies and make every thread's visible.
+__device__ __forceinline__ void tile_wait_q() {
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------- forward
+// Latent block l of batch entry n: eKfu and the premultiplied cross.
+template <typename T, int DM>
+__device__ void latent_fwd(const Grid<T>& g, const Dims& z, int l, int n, const T* mx,
+                           const T* S, Shared<T, DM>& sh, T* f1, T* cross) {
+  const int d = z.D, M = z.M;
+  if (threadIdx.x == 0) sh.hls = chol<T, DM>(S, g.kdiag + (size_t)l * d, sh.ch, d);
+  __syncthreads();
+  const T lead = g.hll[l] - sh.hls, var = g.varr[l];
+  T v[DM + 1];
+#pragma unroll
+  for (int i = 0; i <= DM; ++i) v[i] = T(0);
+  for (int m = threadIdx.x; m < M; m += kThreads) {
+    T y[DM];
+UNROLL_DM
+    for (int i = 0; i < DM; ++i) y[i] = i < d ? g.zt[((size_t)l * d + i) * M + m] - mx[i] : T(0);
+    lsolve<T, DM>(sh.ch, y, d);
+    T quad = y[0] * y[0];
+UNROLL_DM
+    for (int i = 1; i < DM; ++i)
+      if (i < d) quad += y[i] * y[i];
+    const T e = var * ex(lead - T(0.5) * quad);
+    utsolve<T, DM>(sh.ch, y, d);  // y is now iv
+    const T ae = g.alpha[(size_t)l * M + m] * e;
+    v[0] += ae;
+UNROLL_DM
+    for (int i = 0; i < DM; ++i) v[1 + i] += y[i] * ae;
+  }
+  block_sum<T, DM + 1>(v, sh.red, sh.out);
   if (threadIdx.x == 0) {
-    scratch[((size_t)n * z.P + p) * 2] = sh.out[0];
-    scratch[((size_t)n * z.P + p) * 2 + 1] = sh.out[1];
+    f1[(size_t)n * z.L + l] = sh.out[0];
+    for (int i = 0; i < d; ++i) cross[((size_t)n * d + i) * z.L + l] = sh.out[1 + i];
   }
 }
 
+// Blocks (L + P x tiles, N): the latent blocks first, then pair p's tile t
+// (row tile t / ntj, column tile t % ntj), which writes its (sum alpha_u E
+// alpha_w, sum Q o E) to scratch[n][p][t].
+template <typename T, int DM>
+__global__ void __launch_bounds__(kThreads) svgp_fwd_tiles(Grid<T> g, Dims z, const T* __restrict__ mx_,
+                                                            const T* __restrict__ sxx, T* __restrict__ f1,
+                                                            T* __restrict__ cross, T* __restrict__ scratch) {
+  __shared__ Shared<T, DM> sh;
+  extern __shared__ __align__(16) unsigned char dyn_raw[];
+  const int n = blockIdx.y, d = z.D, M = z.M;
+  const T* mx = mx_ + (size_t)n * d;
+  const T* S = sxx + (size_t)n * d * d;
+  if ((int)blockIdx.x < z.L) {
+    latent_fwd<T, DM>(g, z, blockIdx.x, n, mx, S, sh, f1, cross);
+    return;
+  }
+  const int ntj = cdiv(M, kTJ), nt = cdiv(M, kTI) * ntj;
+  const int p = (blockIdx.x - z.L) / nt, t = (blockIdx.x - z.L) % nt;
+  int pi = 0, pj = 0;
+  pair_of(p, z.L, pi, pj);
+  const bool qd = z.unc && pi == pj;
+  const TileSmem<T> ts(reinterpret_cast<T*>(dyn_raw), d);
+  tile_setup<T, DM>(g, z, p, (t / ntj) * kTI, (t % ntj) * kTJ, qd, mx, S, sh, ts);
+  T e[kRI][kRJ];
+  tile_cells<T>(ts, d, sh.cexp, e);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  T v[2] = {T(0), T(0)};
+#pragma unroll
+  for (int a = 0; a < kRI; ++a) {
+    T r = T(0);
+#pragma unroll
+    for (int b = 0; b < kRJ; ++b) r += e[a][b] * ts.alw[tx + 16 * b];
+    v[0] += ts.alu[ty + 16 * a] * r;
+  }
+  if (qd) {
+    tile_wait_q();
+#pragma unroll
+    for (int a = 0; a < kRI; ++a)
+#pragma unroll
+      for (int b = 0; b < kRJ; ++b) v[1] += ts.q[(ty + 16 * a) * kTJ + tx + 16 * b] * e[a][b];
+  }
+  block_sum<T, 2>(v, sh.red, sh.out);
+  if (threadIdx.x == 0) {
+    T* sc = scratch + (((size_t)n * z.P + p) * nt + t) * 2;
+    sc[0] = sh.out[0];
+    sc[1] = sh.out[1];
+  }
+}
+
+// One block per batch entry: each pair's tiles added in order, then sff.
+// Entries (a, b) and (b, a) add the same values in the same order, so sff
+// is exactly symmetric.
 template <typename T>
-__global__ void fwd_combine(const T* __restrict__ varr, const T* __restrict__ f1,
-                            const T* __restrict__ scratch, T* __restrict__ sff, Dims z) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= z.N) return;
-  const int L = z.L;
+__global__ void svgp_fwd_combine(const T* __restrict__ varr, const T* __restrict__ f1,
+                                 const T* __restrict__ scratch, T* __restrict__ sff, Dims z) {
+  const int n = blockIdx.x, L = z.L;
+  const int nt = cdiv(z.M, kTI) * cdiv(z.M, kTJ);
   const T* f = f1 + (size_t)n * L;
-  const T* sc = scratch + (size_t)n * z.P * 2;
-  for (int a = 0; a < L; ++a)
-    for (int b = 0; b < L; ++b) {
-      T s = sc[2 * pair_index(a, b, L)] - f[a] * f[b];
-      if (z.unc && a == b) s += varr[a] - sc[2 * pair_index(a, a, L) + 1];
-      sff[((size_t)n * L + a) * L + b] = s;
+  const T* sc = scratch + (size_t)n * z.P * nt * 2;
+  for (int ab = threadIdx.x; ab < L * L; ab += blockDim.x) {
+    const int a = ab / L, b = ab % L;
+    const T* s2 = sc + (size_t)pair_index(a, b, L) * nt * 2;
+    T f2 = T(0);
+    for (int t = 0; t < nt; ++t) f2 += s2[2 * t];
+    T s = f2 - f[a] * f[b];
+    if (z.unc && a == b) {
+      T ecov = T(0);
+      for (int t = 0; t < nt; ++t) ecov += s2[2 * t + 1];
+      s += varr[a] - ecov;
     }
+    sff[((size_t)n * L + a) * L + b] = s;
+  }
 }
 
 // ---------------------------------------------------------------- backward
@@ -400,7 +621,288 @@ __device__ void finish_group(Shared<T, DM>& sh, const T* pc_sum, T dhls, T* gda_
     for (int b = 0; b < d; ++b) gda_nk[a * d + b] = b <= a ? sh.da[a * DM + b] : T(0);
 }
 
+// Latent block l of batch entry n: the group's da and dmx share (and, FULL,
+// the latent grid cotangents, accumulated over the batch loop).
 template <typename T, int DM, bool FULL>
+__device__ void latent_bwd(const Grid<T>& g, const GridGrad<T>& dg, const Dims& z, int l, int n,
+                           const T* mx, const T* S, const T* dsff, const T* f1_, const T* df1_,
+                           const T* dcross_, T* gda_nk, T* gdmx_nk, Shared<T, DM>& sh) {
+  constexpr int NT = DM * (DM + 1) / 2;
+  constexpr int NV = NT + DM + 2;
+  const int k = l, d = z.D, M = z.M, L = z.L;
+  T v[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) v[i] = T(0);
+  if (threadIdx.x == 0) sh.hls = chol<T, DM>(S, g.kdiag + (size_t)l * d, sh.ch, d);
+  __syncthreads();
+  const T lead = g.hll[l] - sh.hls, var = g.varr[l];
+  const T* f1 = f1_ + (size_t)n * L;
+  T df1 = df1_[(size_t)n * L + l];
+  T corr = T(0);
+  for (int j = 0; j < L; ++j) corr += (dsff[l * L + j] + dsff[j * L + l]) * f1[j];
+  df1 -= corr;
+  T dcr[DM];
+UNROLL_DM
+  for (int i = 0; i < DM; ++i) dcr[i] = i < d ? dcross_[((size_t)n * d + i) * L + l] : T(0);
+  // v: [0, NT) dch partials, [NT, NT + DM) dmx, NT + DM: sum ede, NT + DM + 1: dvarr_lat
+  for (int m = threadIdx.x; m < M; m += kThreads) {
+    T y[DM], iv[DM];
+UNROLL_DM
+    for (int i = 0; i < DM; ++i) y[i] = i < d ? g.zt[((size_t)l * d + i) * M + m] - mx[i] : T(0);
+    lsolve<T, DM>(sh.ch, y, d);
+    T quad = y[0] * y[0];
+UNROLL_DM
+    for (int i = 1; i < DM; ++i)
+      if (i < d) quad += y[i] * y[i];
+    const T e = var * ex(lead - T(0.5) * quad);
+UNROLL_DM
+    for (int i = 0; i < DM; ++i) iv[i] = y[i];
+    utsolve<T, DM>(sh.ch, iv, d);
+    const T al = g.alpha[(size_t)l * M + m];
+    const T ae = al * e;
+    T dae = df1;
+UNROLL_DM
+    for (int i = 0; i < DM; ++i) dae += dcr[i] * iv[i];
+    const T de = al * dae;
+    const T ede = e * de;
+    const T dquad = T(-0.5) * ede;
+    v[NT + DM] += ede;
+    if (FULL) {
+      v[NT + DM + 1] += de * (e / var);
+      acc(dg.alpha + (size_t)l * M + m, dae * e, n);
+    }
+    T t[DM];
+UNROLL_DM
+    for (int i = 0; i < DM; ++i) t[i] = dcr[i] * ae;
+    lsolve<T, DM>(sh.ch, t, d);
+    T dz[DM];
+UNROLL_DM
+    for (int i = 0; i < DM; ++i) dz[i] = T(2) * y[i] * dquad + t[i];
+UNROLL_DM
+    for (int a = 0; a < DM; ++a)
+UNROLL_DM
+      for (int b = 0; b < DM; ++b)
+        if (b <= a) v[tri(a, b)] -= t[b] * iv[a];
+    utsolve<T, DM>(sh.ch, dz, d);
+UNROLL_DM
+    for (int a = 0; a < DM; ++a) {
+UNROLL_DM
+      for (int b = 0; b < DM; ++b)
+        if (b <= a) v[tri(a, b)] -= dz[a] * y[b];
+      v[NT + a] -= dz[a];
+      if (FULL && a < d) acc(dg.zt + ((size_t)l * d + a) * M + m, dz[a], n);
+    }
+  }
+  block_sum<T, NV>(v, sh.red, sh.out);
+  if (threadIdx.x == 0) {
+    const T s_ede = sh.out[NT + DM];
+    finish_group<T, DM>(sh, sh.out, -s_ede, gda_nk, d);
+    for (int i = 0; i < d; ++i) gdmx_nk[i] = sh.out[NT + i];
+    if (FULL) {
+      for (int a = 0; a < d; ++a) acc(dg.kdiag + (size_t)k * d + a, sh.da[a * DM + a], n);
+      acc(dg.hll + l, s_ede, n);
+      acc(dg.varr + l, sh.out[NT + DM + 1] + (z.unc ? dsff[l * L + l] : T(0)), n);
+    }
+  }
+  __syncthreads();
+}
+
+// Pair p's cotangent weights: df2 on alpha_u E alpha_w, decov on Q o E.
+template <typename T>
+__device__ __forceinline__ void pair_cots(const Dims& z, int pi, int pj, const T* dsff, T& df2,
+                                          T& decov) {
+  const int L = z.L;
+  const bool diag = pi == pj;
+  df2 = dsff[pi * L + pj] + (diag ? T(0) : dsff[pj * L + pi]);
+  decov = z.unc && diag ? -dsff[pi * L + pi] : T(0);
+}
+
+// Frozen backward, stage 1. Blocks (P x tiles, N): pair p's tile t writes,
+// for each of its rows i, rp[n][p][t % ntj][c][i] and, for each of its
+// columns j, cq[n][p][t / ntj][c][j], c in [0, d]: with ede = E dE,
+//   rp: c = 0 sum_j ede, c >= 1 sum_j ede wp_j[c - 1];
+//   cq: c = 0 sum_i ede, c >= 1 sum_i ede up_i[c - 1].
+template <typename T, int DM>
+__global__ void __launch_bounds__(kThreads) svgp_bwd_tiles(Grid<T> g, Dims z, const T* __restrict__ mx_,
+                                                            const T* __restrict__ sxx,
+                                                            const T* __restrict__ dsff_, T* __restrict__ rp,
+                                                            T* __restrict__ cq) {
+  __shared__ Shared<T, DM> sh;
+  extern __shared__ __align__(16) unsigned char dyn_raw[];
+  const int n = blockIdx.y, d = z.D, M = z.M;
+  const int nti = cdiv(M, kTI), ntj = cdiv(M, kTJ), nt = nti * ntj;
+  const int p = blockIdx.x / nt, t = blockIdx.x % nt, ti = t / ntj, tj = t % ntj;
+  const int i0 = ti * kTI, j0 = tj * kTJ;
+  const T* mx = mx_ + (size_t)n * d;
+  const T* S = sxx + (size_t)n * d * d;
+  int pi = 0, pj = 0;
+  pair_of(p, z.L, pi, pj);
+  const bool qd = z.unc && pi == pj;
+  const TileSmem<T> ts(reinterpret_cast<T*>(dyn_raw), d);
+  tile_setup<T, DM>(g, z, p, i0, j0, qd, mx, S, sh, ts);
+  T e[kRI][kRJ];
+  tile_cells<T>(ts, d, sh.cexp, e);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4, lane = threadIdx.x & 31,
+            warp = threadIdx.x >> 5;
+  T df2, decov;
+  pair_cots<T>(z, pi, pj, dsff_ + (size_t)n * z.L * z.L, df2, decov);
+  if (qd) tile_wait_q();
+#pragma unroll
+  for (int a = 0; a < kRI; ++a)
+#pragma unroll
+    for (int b = 0; b < kRJ; ++b) {
+      T de = df2 * (ts.alu[ty + 16 * a] * ts.alw[tx + 16 * b]);
+      if (qd) de += decov * ts.q[(ty + 16 * a) * kTJ + tx + 16 * b];
+      e[a][b] *= de;  // e dE from here on
+    }
+  const size_t np = (size_t)n * z.P + p;
+  T* rpt = rp + ((np * ntj + tj) * (d + 1)) * M;
+  for (int c = 0; c <= d; ++c) {
+    // rows: this thread's columns, then the 16 lanes of its row (xor
+    // shuffles stay within a half-warp); lane tx = 0 writes
+    T w[kRJ];
+#pragma unroll
+    for (int b = 0; b < kRJ; ++b) w[b] = c == 0 ? T(1) : ts.wp[(c - 1) * kTJ + tx + 16 * b];
+#pragma unroll
+    for (int a = 0; a < kRI; ++a) {
+      T s = T(0);
+#pragma unroll
+      for (int b = 0; b < kRJ; ++b) s += e[a][b] * w[b];
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      const int i = i0 + ty + 16 * a;
+      if (tx == 0 && i < M) rpt[(size_t)c * M + i] = s;
+    }
+    // columns: this thread's rows, then the warp's two rows of threads
+    T u[kRI];
+#pragma unroll
+    for (int a = 0; a < kRI; ++a) u[a] = c == 0 ? T(1) : ts.up[(c - 1) * kTI + ty + 16 * a];
+#pragma unroll
+    for (int b = 0; b < kRJ; ++b) {
+      T s = T(0);
+#pragma unroll
+      for (int a = 0; a < kRI; ++a) s += e[a][b] * u[a];
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (lane < 16) ts.cred[((size_t)c * kWarps + warp) * kTJ + tx + 16 * b] = s;
+    }
+  }
+  __syncthreads();
+  // columns: the warps in order
+  T* cqt = cq + ((np * nti + ti) * (d + 1)) * M;
+  for (int r = threadIdx.x; r < (d + 1) * kTJ; r += kThreads) {
+    const int c = r / kTJ, col = r % kTJ;
+    T s = T(0);
+    for (int w = 0; w < kWarps; ++w) s += ts.cred[((size_t)c * kWarps + w) * kTJ + col];
+    if (j0 + col < M) cqt[(size_t)c * M + j0 + col] = s;
+  }
+}
+
+// Frozen backward, stage 2. Blocks (K, N): a latent group runs latent_bwd;
+// pair p adds each point's tile partials in order and runs the adjoint
+// that follows the sweep in _bwd_core (dup -> tmp_u, the dch outer
+// products, the column twin, tmp_m), then finish_group.
+template <typename T, int DM>
+__global__ void __launch_bounds__(kThreads) svgp_bwd_finish(
+    Grid<T> g, Dims z, const T* __restrict__ mx_, const T* __restrict__ sxx, const T* __restrict__ f1_,
+    const T* __restrict__ df1_, const T* __restrict__ dsff_, const T* __restrict__ dcross_,
+    const T* __restrict__ rp, const T* __restrict__ cq, T* __restrict__ gda, T* __restrict__ gdmx) {
+  __shared__ Shared<T, DM> sh;
+  constexpr int NT = DM * (DM + 1) / 2;
+  constexpr int NV = NT + DM + 2;
+  const int k = blockIdx.x, n = blockIdx.y, d = z.D, M = z.M, L = z.L;
+  const T* mx = mx_ + (size_t)n * d;
+  const T* S = sxx + (size_t)n * d * d;
+  const T* dsff = dsff_ + (size_t)n * L * L;
+  T* gda_nk = gda + ((size_t)n * z.K + k) * d * d;
+  T* gdmx_nk = gdmx + ((size_t)n * z.K + k) * d;
+  if (k < L) {
+    const GridGrad<T> none = {};
+    latent_bwd<T, DM, false>(g, none, z, k, n, mx, S, dsff, f1_, df1_, dcross_, gda_nk, gdmx_nk, sh);
+    return;
+  }
+  const int p = k - L;
+  const int nti = cdiv(M, kTI), ntj = cdiv(M, kTJ);
+  if (threadIdx.x == 0) pair_factor<T, DM>(g, z, p, mx, S, sh);
+  __syncthreads();
+  T v[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) v[i] = T(0);
+  // v: [0, NT) dch partials, [NT, NT + DM) dup + dwp sums, NT + DM: sum ede
+  const size_t pdm = (size_t)p * d * M;
+  const size_t np = (size_t)n * z.P + p;
+  for (int r = threadIdx.x; r < 2 * M; r += kThreads) {
+    const bool row = r < M;  // row i: da_u, dup; column j: da_w, dwp
+    const int m = row ? r : r - M, ntl = row ? ntj : nti;
+    const T* part = (row ? rp : cq) + np * ntl * (d + 1) * M + m;
+    T il[DM], upm[DM], sum[DM + 1];
+UNROLL_DM
+    for (int c = 0; c < DM; ++c) il[c] = c < d ? (row ? g.ut : g.wt)[pdm + c * M + m] : T(0);
+    lsolve<T, DM>(sh.ch, il, d);
+UNROLL_DM
+    for (int c = 0; c < DM; ++c) upm[c] = c < d ? il[c] - T(0.5) * sh.ilm[c] : T(0);
+#pragma unroll
+    for (int c = 0; c <= DM; ++c) sum[c] = T(0);
+    for (int t = 0; t < ntl; ++t) {
+#pragma unroll
+      for (int c = 0; c <= DM; ++c)
+        if (c <= d) sum[c] += part[((size_t)t * (d + 1) + c) * M];
+    }
+    const T da = T(-0.5) * sum[0];
+    T dup[DM];
+UNROLL_DM
+    for (int c = 0; c < DM; ++c) dup[c] = c < d ? -sum[1 + c] + T(2) * upm[c] * da : T(0);
+    if (row) v[NT + DM] += sum[0];
+UNROLL_DM
+    for (int c = 0; c < DM; ++c) v[NT + c] += dup[c];
+    utsolve<T, DM>(sh.ch, dup, d);  // tmp_u (tmp_w)
+UNROLL_DM
+    for (int a = 0; a < DM; ++a)
+UNROLL_DM
+      for (int b = 0; b < DM; ++b)
+        if (b <= a) v[tri(a, b)] -= dup[a] * il[b];
+  }
+  block_sum<T, NV>(v, sh.red, sh.out);
+  if (threadIdx.x == 0) {
+    T tm[DM];
+    for (int i = 0; i < DM; ++i) tm[i] = i < d ? T(-0.5) * sh.out[NT + i] : T(0);
+    utsolve<T, DM>(sh.ch, tm, d);  // tmp_m
+    for (int a = 0; a < d; ++a)
+      for (int b = 0; b <= a; ++b) sh.out[tri(a, b)] -= tm[a] * sh.ilm[b];
+    finish_group<T, DM>(sh, sh.out, -sh.out[NT + DM], gda_nk, d);
+    for (int i = 0; i < d; ++i) gdmx_nk[i] = tm[i];
+  }
+}
+
+// Both backwards' last stage: one block per batch entry and one thread per
+// entry of dmx and of dsxx's lower triangle, each adding the groups in
+// order.
+template <typename T>
+__global__ void svgp_bwd_combine(const T* __restrict__ gda, const T* __restrict__ gdmx,
+                                 T* __restrict__ dmx, T* __restrict__ dsxx, Dims z) {
+  const int n = blockIdx.x, d = z.D;
+  for (int r = threadIdx.x; r < d + d * (d + 1) / 2; r += blockDim.x) {
+    T s = T(0);
+    if (r < d) {
+      for (int k = 0; k < z.K; ++k) s += gdmx[((size_t)n * z.K + k) * d + r];
+      dmx[(size_t)n * d + r] = s;
+      continue;
+    }
+    int a = 0, b = r - d;  // the (r - d)-th entry (a, b) of the lower triangle, by rows
+    while (b > a) b -= ++a;
+    for (int k = 0; k < z.K; ++k) s += gda[(((size_t)n * z.K + k) * d + a) * d + b];
+    T* out = dsxx + (size_t)n * d * d;
+    if (a == b) {
+      out[a * d + a] = s;
+    } else {
+      out[a * d + b] = T(0.5) * s;
+      out[b * d + a] = T(0.5) * s;
+    }
+  }
+}
+
+// Full backward: one block per group, looping over the batch so that the
+// grid cotangents sum in a fixed order.
+template <typename T, int DM>
 __global__ void __launch_bounds__(kThreads) bwd_groups(
     Grid<T> g, GridGrad<T> dg, Dims z, const T* __restrict__ mx_, const T* __restrict__ sxx,
     const T* __restrict__ f1_, const T* __restrict__ df1_, const T* __restrict__ dsff_,
@@ -416,89 +918,17 @@ __global__ void __launch_bounds__(kThreads) bwd_groups(
     const T* mx = mx_ + (size_t)n * d;
     const T* S = sxx + (size_t)n * d * d;
     const T* dsff = dsff_ + (size_t)n * L * L;
-    T v[NV];
-#pragma unroll
-    for (int i = 0; i < NV; ++i) v[i] = T(0);
     T* gda_nk = gda + ((size_t)n * z.K + k) * d * d;
     T* gdmx_nk = gdmx + ((size_t)n * z.K + k) * d;
 
-    if (k < L) {  // latent l
-      const int l = k;
-      if (threadIdx.x == 0) sh.hls = chol<T, DM>(S, g.kdiag + (size_t)l * d, sh.ch, d);
-      __syncthreads();
-      const T lead = g.hll[l] - sh.hls, var = g.varr[l];
-      const T* f1 = f1_ + (size_t)n * L;
-      T df1 = df1_[(size_t)n * L + l];
-      T corr = T(0);
-      for (int j = 0; j < L; ++j) corr += (dsff[l * L + j] + dsff[j * L + l]) * f1[j];
-      df1 -= corr;
-      T dcr[DM];
-UNROLL_DM
-      for (int i = 0; i < DM; ++i) dcr[i] = i < d ? dcross_[((size_t)n * d + i) * L + l] : T(0);
-      // v: [0, NT) dch partials, [NT, NT + DM) dmx, NT + DM: sum ede, NT + DM + 1: dvarr_lat
-      for (int m = threadIdx.x; m < M; m += kThreads) {
-        T y[DM], iv[DM];
-UNROLL_DM
-        for (int i = 0; i < DM; ++i) y[i] = i < d ? g.zt[((size_t)l * d + i) * M + m] - mx[i] : T(0);
-        lsolve<T, DM>(sh.ch, y, d);
-        T quad = y[0] * y[0];
-UNROLL_DM
-        for (int i = 1; i < DM; ++i)
-          if (i < d) quad += y[i] * y[i];
-        const T e = var * ex(lead - T(0.5) * quad);
-UNROLL_DM
-        for (int i = 0; i < DM; ++i) iv[i] = y[i];
-        utsolve<T, DM>(sh.ch, iv, d);
-        const T al = g.alpha[(size_t)l * M + m];
-        const T ae = al * e;
-        T dae = df1;
-UNROLL_DM
-        for (int i = 0; i < DM; ++i) dae += dcr[i] * iv[i];
-        const T de = al * dae;
-        const T ede = e * de;
-        const T dquad = T(-0.5) * ede;
-        v[NT + DM] += ede;
-        if (FULL) {
-          v[NT + DM + 1] += de * (e / var);
-          acc(dg.alpha + (size_t)l * M + m, dae * e, n);
-        }
-        T t[DM];
-UNROLL_DM
-        for (int i = 0; i < DM; ++i) t[i] = dcr[i] * ae;
-        lsolve<T, DM>(sh.ch, t, d);
-        T dz[DM];
-UNROLL_DM
-        for (int i = 0; i < DM; ++i) dz[i] = T(2) * y[i] * dquad + t[i];
-UNROLL_DM
-        for (int a = 0; a < DM; ++a)
-UNROLL_DM
-          for (int b = 0; b < DM; ++b)
-            if (b <= a) v[tri(a, b)] -= t[b] * iv[a];
-        utsolve<T, DM>(sh.ch, dz, d);
-UNROLL_DM
-        for (int a = 0; a < DM; ++a) {
-UNROLL_DM
-          for (int b = 0; b < DM; ++b)
-            if (b <= a) v[tri(a, b)] -= dz[a] * y[b];
-          v[NT + a] -= dz[a];
-          if (FULL && a < d) acc(dg.zt + ((size_t)l * d + a) * M + m, dz[a], n);
-        }
-      }
-      block_sum<T, NV>(v, sh.red, sh.out);
-      if (threadIdx.x == 0) {
-        const T s_ede = sh.out[NT + DM];
-        finish_group<T, DM>(sh, sh.out, -s_ede, gda_nk, d);
-        for (int i = 0; i < d; ++i) gdmx_nk[i] = sh.out[NT + i];
-        if (FULL) {
-          for (int a = 0; a < d; ++a) acc(dg.kdiag + (size_t)k * d + a, sh.da[a * DM + a], n);
-          acc(dg.hll + l, s_ede, n);
-          acc(dg.varr + l, sh.out[NT + DM + 1] + (z.unc ? dsff[l * L + l] : T(0)), n);
-        }
-      }
-      __syncthreads();
+    if (k < L) {
+      latent_bwd<T, DM, true>(g, dg, z, k, n, mx, S, dsff, f1_, df1_, dcross_, gda_nk, gdmx_nk, sh);
       continue;
     }
 
+    T v[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) v[i] = T(0);
     // pair p
     const int p = k - L;
     int pi = 0, pj = 0;
@@ -515,8 +945,8 @@ UNROLL_DM
     const bool diag = pi == pj;
     const bool qd = z.unc && diag;
     const T* q = g.qmat + (size_t)pi * M * M;
-    const T df2 = dsff[pi * L + pj] + (diag ? T(0) : dsff[pj * L + pi]);
-    const T decov = qd ? -dsff[pi * L + pi] : T(0);
+    T df2, decov;
+    pair_cots<T>(z, pi, pj, dsff, df2, decov);
     const T cexp = sh.cexp;
     const size_t pdm = (size_t)p * d * M;
     // v: [0, NT) dch partials, [NT, NT + DM) dup + dwp sums, NT + DM: sum ede
@@ -544,9 +974,9 @@ UNROLL_DM
         for (int c = 0; c < DM; ++c)
           if (c < d) {
             accw[c] += ede * wp[c * M + j];
-            if (FULL) accg[c] += ede * g2[c * M + j];
+            accg[c] += ede * g2[c * M + j];
           }
-        if (FULL) ea += e * alw[j];
+        ea += e * alw[j];
       }
       const T da_u = T(-0.5) * rs;
       T dup[DM];
@@ -562,14 +992,12 @@ UNROLL_DM
 UNROLL_DM
         for (int b = 0; b < DM; ++b)
           if (b <= a) v[tri(a, b)] -= dup[a] * ilu[b];
-      if (FULL) {
-        for (int c = 0; c < d; ++c) {
-          acc(dg.ut + pdm + c * M + i, dup[c], n);
-          acc(dg.g1t + pdm + c * M + i, accg[c], n);
-        }
-        acc(dg.g11 + (size_t)p * M + i, da_u, n);
-        acc(dg.alpha_u + (size_t)p * M + i, df2 * ea, n);
+      for (int c = 0; c < d; ++c) {
+        acc(dg.ut + pdm + c * M + i, dup[c], n);
+        acc(dg.g1t + pdm + c * M + i, accg[c], n);
       }
+      acc(dg.g11 + (size_t)p * M + i, da_u, n);
+      acc(dg.alpha_u + (size_t)p * M + i, df2 * ea, n);
     }
 
     // column pass: thread j owns da_w[j], dwp[:, j], dg2t[:, j], dalpha_w[j]
@@ -600,12 +1028,10 @@ UNROLL_DM
 UNROLL_DM
         for (int c = 0; c < DM; ++c) {
           accu[c] += ede * upi[c];
-          if (FULL) accg[c] += ede * g1i[c];
+          accg[c] += ede * g1i[c];
         }
-        if (FULL) {
-          ea += alu[i] * e;
-          if (diag) acc(dg.qmat + ((size_t)pi * M + i) * M + j, decov * e, n);
-        }
+        ea += alu[i] * e;
+        if (diag) acc(dg.qmat + ((size_t)pi * M + i) * M + j, decov * e, n);
       }
       const T da_w = T(-0.5) * cs;
       T dwp[DM];
@@ -620,14 +1046,12 @@ UNROLL_DM
 UNROLL_DM
         for (int b = 0; b < DM; ++b)
           if (b <= a) v[tri(a, b)] -= dwp[a] * ilw[b];
-      if (FULL) {
-        for (int c = 0; c < d; ++c) {
-          acc(dg.wt + pdm + c * M + j, dwp[c], n);
-          acc(dg.g2t + pdm + c * M + j, accg[c], n);
-        }
-        acc(dg.g22 + (size_t)p * M + j, da_w, n);
-        acc(dg.alpha_w + (size_t)p * M + j, df2 * ea, n);
+      for (int c = 0; c < d; ++c) {
+        acc(dg.wt + pdm + c * M + j, dwp[c], n);
+        acc(dg.g2t + pdm + c * M + j, accg[c], n);
       }
+      acc(dg.g22 + (size_t)p * M + j, da_w, n);
+      acc(dg.alpha_w + (size_t)p * M + j, df2 * ea, n);
     }
 
     block_sum<T, NV>(v, sh.red, sh.out);
@@ -640,38 +1064,11 @@ UNROLL_DM
       const T s = sh.out[NT + DM];
       finish_group<T, DM>(sh, sh.out, -s, gda_nk, d);
       for (int i = 0; i < d; ++i) gdmx_nk[i] = tm[i];
-      if (FULL) {
-        for (int a = 0; a < d; ++a) acc(dg.kdiag + (size_t)k * d + a, sh.da[a * DM + a], n);
-        acc(dg.cp + p, s, n);
-      }
+      for (int a = 0; a < d; ++a) acc(dg.kdiag + (size_t)k * d + a, sh.da[a * DM + a], n);
+      acc(dg.cp + p, s, n);
     }
     __syncthreads();
   }
-}
-
-template <typename T>
-__global__ void bwd_combine(const T* __restrict__ gda, const T* __restrict__ gdmx,
-                            T* __restrict__ dmx, T* __restrict__ dsxx, Dims z) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= z.N) return;
-  const int d = z.D;
-  for (int i = 0; i < d; ++i) {
-    T s = T(0);
-    for (int k = 0; k < z.K; ++k) s += gdmx[((size_t)n * z.K + k) * d + i];
-    dmx[(size_t)n * d + i] = s;
-  }
-  for (int a = 0; a < d; ++a)
-    for (int b = 0; b <= a; ++b) {
-      T s = T(0);
-      for (int k = 0; k < z.K; ++k) s += gda[(((size_t)n * z.K + k) * d + a) * d + b];
-      T* out = dsxx + (size_t)n * d * d;
-      if (a == b) {
-        out[a * d + a] = s;
-      } else {
-        out[a * d + b] = T(0.5) * s;
-        out[b * d + a] = T(0.5) * s;
-      }
-    }
 }
 
 // ---------------------------------------------------------------- launchers
@@ -691,36 +1088,52 @@ inline cudaError_t allow_shared(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T>
-size_t dyn_bytes(const Dims& z) {
-  return (size_t)(4 * z.D + 4) * z.M * sizeof(T);
-}
-
 template <typename T, int DM>
 int fwd_dm(const Grid<T>& g, const Dims& z, const T* mx, const T* sxx, T* f1, T* sff, T* cross,
            T* scratch, cudaStream_t st) {
-  const size_t bytes = dyn_bytes<T>(z);
-  cudaError_t err = allow_shared(fwd_groups<T, DM>, bytes);
+  const int nt = cdiv(z.M, kTI) * cdiv(z.M, kTJ);
+  const size_t bytes = tile_smem_elems(z.D, false) * sizeof(T);
+  cudaError_t err = allow_shared(svgp_fwd_tiles<T, DM>, bytes);
   if (err != cudaSuccess) return (int)err;
-  fwd_groups<T, DM><<<dim3(z.K, z.N), kThreads, bytes, st>>>(g, z, mx, sxx, f1, cross, scratch);
+  svgp_fwd_tiles<T, DM><<<dim3(z.L + z.P * nt, z.N), kThreads, bytes, st>>>(g, z, mx, sxx, f1, cross,
+                                                                            scratch);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fwd_combine<T><<<(z.N + 127) / 128, 128, 0, st>>>(g.varr, f1, scratch, sff, z);
+  svgp_fwd_combine<T><<<z.N, 32, 0, st>>>(g.varr, f1, scratch, sff, z);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DM, bool FULL>
-int bwd_dm(const Grid<T>& g, const GridGrad<T>& dg, const Dims& z, const T* mx, const T* sxx,
-           const T* f1, const T* df1, const T* dsff, const T* dcross, T* dmx, T* dsxx, T* gda,
-           T* gdmx, cudaStream_t st) {
-  const size_t bytes = dyn_bytes<T>(z);
-  cudaError_t err = allow_shared(bwd_groups<T, DM, FULL>, bytes);
+template <typename T, int DM>
+int bwd_frozen_dm(const Grid<T>& g, const Dims& z, const T* mx, const T* sxx, const T* f1,
+                  const T* df1, const T* dsff, const T* dcross, T* dmx, T* dsxx, T* gda, T* gdmx,
+                  T* rp, T* cq, cudaStream_t st) {
+  const int nti = cdiv(z.M, kTI), ntj = cdiv(z.M, kTJ);
+  const size_t bytes = tile_smem_elems(z.D, true) * sizeof(T);
+  cudaError_t err = allow_shared(svgp_bwd_tiles<T, DM>, bytes);
   if (err != cudaSuccess) return (int)err;
-  bwd_groups<T, DM, FULL><<<z.K, kThreads, bytes, st>>>(g, dg, z, mx, sxx, f1, df1, dsff, dcross,
-                                                        gda, gdmx);
+  svgp_bwd_tiles<T, DM><<<dim3(z.P * nti * ntj, z.N), kThreads, bytes, st>>>(g, z, mx, sxx, dsff, rp,
+                                                                             cq);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_combine<T><<<(z.N + 127) / 128, 128, 0, st>>>(gda, gdmx, dmx, dsxx, z);
+  svgp_bwd_finish<T, DM><<<dim3(z.K, z.N), kThreads, 0, st>>>(g, z, mx, sxx, f1, df1, dsff, dcross,
+                                                               rp, cq, gda, gdmx);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  svgp_bwd_combine<T><<<z.N, 64, 0, st>>>(gda, gdmx, dmx, dsxx, z);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DM>
+int bwd_full_dm(const Grid<T>& g, const GridGrad<T>& dg, const Dims& z, const T* mx, const T* sxx,
+                const T* f1, const T* df1, const T* dsff, const T* dcross, T* dmx, T* dsxx, T* gda,
+                T* gdmx, cudaStream_t st) {
+  const size_t bytes = (size_t)(4 * z.D + 4) * z.M * sizeof(T);
+  cudaError_t err = allow_shared(bwd_groups<T, DM>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  bwd_groups<T, DM><<<z.K, kThreads, bytes, st>>>(g, dg, z, mx, sxx, f1, df1, dsff, dcross, gda, gdmx);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  svgp_bwd_combine<T><<<z.N, 64, 0, st>>>(gda, gdmx, dmx, dsxx, z);
   return (int)cudaGetLastError();
 }
 
@@ -734,16 +1147,28 @@ int launch_fwd(const Grid<T>& g, const T* mx, const T* sxx, T* f1, T* sff, T* cr
   return fwd_dm<T, 16>(g, z, mx, sxx, f1, sff, cross, scratch, st);
 }
 
-template <typename T, bool FULL>
-int launch_bwd(const Grid<T>& g, const GridGrad<T>& dg, const T* mx, const T* sxx, const T* f1,
-               const T* df1, const T* dsff, const T* dcross, T* dmx, T* dsxx, T* gda, T* gdmx,
-               int N, int L, int D, int M, int unc, void* stream) {
+template <typename T>
+int launch_bwd_frozen(const Grid<T>& g, const T* mx, const T* sxx, const T* f1, const T* df1,
+                      const T* dsff, const T* dcross, T* dmx, T* dsxx, T* gda, T* gdmx, T* rp,
+                      T* cq, int N, int L, int D, int M, int unc, void* stream) {
   Dims z;
   if (!make_dims(N, L, D, M, unc, z)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (D <= 8)
-    return bwd_dm<T, 8, FULL>(g, dg, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, st);
-  return bwd_dm<T, 16, FULL>(g, dg, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, st);
+    return bwd_frozen_dm<T, 8>(g, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, rp, cq, st);
+  return bwd_frozen_dm<T, 16>(g, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, rp, cq, st);
+}
+
+template <typename T>
+int launch_bwd_full(const Grid<T>& g, const GridGrad<T>& dg, const T* mx, const T* sxx, const T* f1,
+                    const T* df1, const T* dsff, const T* dcross, T* dmx, T* dsxx, T* gda, T* gdmx,
+                    int N, int L, int D, int M, int unc, void* stream) {
+  Dims z;
+  if (!make_dims(N, L, D, M, unc, z)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 8)
+    return bwd_full_dm<T, 8>(g, dg, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, st);
+  return bwd_full_dm<T, 16>(g, dg, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, st);
 }
 
 }  // namespace
@@ -763,12 +1188,11 @@ int launch_bwd(const Grid<T>& g, const GridGrad<T>& dg, const T* mx, const T* sx
   }                                                                                              \
   extern "C" int svgp_match_bwd_frozen_##SFX(                                                    \
       const T* mx, const T* sxx, GRID_ARGS(T), const T* f1, const T* df1, const T* dsff,         \
-      const T* dcross, T* dmx, T* dsxx, T* gda, T* gdmx, int N, int L, int D, int M, int unc,    \
-      void* stream) {                                                                            \
+      const T* dcross, T* dmx, T* dsxx, T* gda, T* gdmx, T* rp, T* cq, int N, int L, int D,      \
+      int M, int unc, void* stream) {                                                            \
     const Grid<T> g = GRID_INIT;                                                                 \
-    const GridGrad<T> dg = {};                                                                   \
-    return launch_bwd<T, false>(g, dg, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, N, \
-                                L, D, M, unc, stream);                                           \
+    return launch_bwd_frozen<T>(g, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, rp, cq, \
+                                N, L, D, M, unc, stream);                                        \
   }                                                                                              \
   extern "C" int svgp_match_bwd_##SFX(                                                           \
       const T* mx, const T* sxx, GRID_ARGS(T), const T* f1, const T* df1, const T* dsff,         \
@@ -779,8 +1203,8 @@ int launch_bwd(const Grid<T>& g, const GridGrad<T>& dg, const T* mx, const T* sx
     const Grid<T> g = GRID_INIT;                                                                 \
     const GridGrad<T> dg = {d_kdiag, d_zt, d_alpha, d_varr, d_hll, d_qmat, d_ut, d_wt, d_g1t,    \
                             d_g2t, d_g11, d_g22, d_cp, d_alpha_u, d_alpha_w};                    \
-    return launch_bwd<T, true>(g, dg, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, N,  \
-                               L, D, M, unc, stream);                                            \
+    return launch_bwd_full<T>(g, dg, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, N, L, \
+                              D, M, unc, stream);                                                \
   }
 
 MM_MATCH_ENTRIES(float, f32)

@@ -6,7 +6,8 @@ L-BFGS and, with ``DriftSpec(model_type="gpr", optimizer="hmc")``, HMC over
 its hyperparameters thinned to a ``GPREnsemble``, the single-start Adam policy
 update, the real-environment step with its random first episodes and the
 retain-best acting gate, ``PathwisePILCO``'s SVGP particle loss (its drift
-evaluation goes through the CUDA kernel op ops/path_eval_cuda.py), and
+evaluation goes through the CUDA kernel op ops/path_eval_cuda.py under
+``use_fused_paths``), and
 ``MomentMatchingPILCO``'s SVGP moment-matched loss (its eKuffu pair grid
 goes through the CUDA kernel op ops/kexp_cuda.py under ``use_fused_mm``;
 under ``use_fused_match`` the whole drift and policy matches, the encoder
@@ -26,8 +27,11 @@ counterpart of the JAX package's per-iteration key folds.
 
 Not ported yet, and raising ``NotImplementedError``: multistart policy
 optimization (``num_restarts > 1``), the other drift optimizers
-(natgrad/Adam), ``loss_dtype`` for the pathwise loss, checkpointing, and the
-optimism noise floor.
+(natgrad/Adam), checkpointing, and the optimism noise floor. As in the JAX
+package, ``PathwisePILCO`` runs its loss in the loop dtype whatever
+``PolicySpec.loss_dtype`` says (that option only keeps the loss off the
+fused rollout), and evaluates its SVGP paths through the path-eval kernel
+op only under ``use_fused_paths``.
 """
 from __future__ import annotations
 
@@ -219,6 +223,9 @@ class PILCOBase:
         self.best_policy_model: Optional[SVGP] = None
         self.best_policy_score: float = float("-inf")
         self.acting_model: Optional[SVGP] = None
+        # route the pathwise SVGP drift evaluations through the path-eval
+        # kernel op (ops/path_eval_cuda.py); plain torch otherwise
+        self.use_fused_paths: bool = False
         # route the MM eKuffu pair grid through the CUDA contraction kernel
         # (ops/kexp_cuda.py)
         self.use_fused_mm: bool = False
@@ -712,10 +719,10 @@ class PathwisePILCO(PILCOBase):
 
     def policy_loss_fn(self, policy_model: SVGP, generator, drift=None, x0=None):
         """Particle loss on fresh sample paths of the drift (and fresh initial
-        states unless ``x0`` is given)."""
+        states unless ``x0`` is given). The loss runs in the loop dtype, as
+        in the JAX package: ``PolicySpec.loss_dtype`` only keeps it off the
+        fused rollout (``_fused_rollout_eligible``)."""
         spec = self.policy_spec
-        if spec.loss_dtype is not None:
-            raise NotImplementedError("PolicySpec.loss_dtype applies to the MM loss only")
         drift_model = self.drift_model if drift is None else drift
         if isinstance(drift_model, (GPR, GPREnsemble)):
             return self._gpr_particle_loss(policy_model, drift_model, generator, x0)
@@ -728,7 +735,7 @@ class PathwisePILCO(PILCOBase):
             )
         if self._fused_rollout_eligible(drift_model, policy_model):
             return self._fused_rollout_loss(policy_model, drift_model, paths, x0)
-        drift_fn = PathwiseSVGPTransform(model=drift_model, paths=paths, fused=True)
+        drift_fn = PathwiseSVGPTransform(model=drift_model, paths=paths, fused=self.use_fused_paths)
         return self._particle_rollout_loss(policy_model, drift_fn, x0)
 
     def _gpr_particle_loss(self, policy_model: SVGP, drift_model, generator, x0=None):

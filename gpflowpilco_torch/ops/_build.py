@@ -5,7 +5,9 @@ repository root, where the hash covers the source text and the compiler
 flags, so an edited source is rebuilt and an unchanged one is reused.
 ``build_all`` starts one ``nvcc`` per source, all together, and waits for
 them. Nothing is built or imported when this module is imported.
-``launch`` calls one entry of a library on the current stream.
+``launch`` calls one entry of a library on the current stream. ptxas
+reports each kernel's registers and spills (``-Xptxas -v``); the compiler's
+output of each library built in this process is kept in ``compiler_output``.
 """
 from __future__ import annotations
 
@@ -25,10 +27,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+compiler_output: Dict[str, str] = {}
 
 
 def sources() -> Dict[str, Path]:
@@ -62,6 +65,7 @@ def _compile(nvcc: str, name: str):
     took = time.perf_counter() - t0
     if proc.returncode != 0:
         return took, f"nvcc failed for {name} (exit {proc.returncode}):\n{proc.stdout}"
+    compiler_output[name] = proc.stdout
     os.replace(tmp, out)
     return took, None
 

@@ -24,7 +24,9 @@ Dispatch is by the device of the tensors: CUDA tensors go to the kernels of
 ``csrc/mm_match.cu`` (float32 or float64, contiguous, D <= 16, else the
 wrapper raises), CPU tensors to ``match_reference`` and
 ``match_reference_bwd``. There is no fallback from one to the other.
-``launches`` counts kernel launches only.
+``launches`` counts kernel launches only, one per entry call. The forward
+and the frozen backward cut each pair's M x M grid into tiles on the block
+grid; the wrapper allocates their tile partials (``tile_count``).
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ launches = {
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 MAX_D = 16  # csrc/mm_match.cu's largest register capacity
 MAX_SHARED_BYTES = 232448 - 20480  # a block's 227 KB less the kernel's static shared memory
+TILE = 64  # csrc/mm_match.cu's tile side (kTI, kTJ) in the forward and the frozen backward
 
 
 def reset_launches():
@@ -302,15 +305,29 @@ def match_reference_bwd(meta: MatchMeta, g: FusedMatchGrid, mx, sxx, df1_in, dsf
 
 
 # ----------------------------------------------------------------- dispatch
-def shared_bytes(meta: MatchMeta, dtype) -> int:
-    """Dynamic shared memory of a pair block: the staged (4D + 4) x M factors."""
-    return (4 * meta.num_dim + 4) * meta.num_m * (torch.finfo(dtype).bits // 8)
+def shared_bytes(meta: MatchMeta, dtype, kind: str) -> int:
+    """Dynamic shared memory of a pair block. The full backward (``"bwd"``)
+    stages its group's (4D + 4) x M factors; a tile block of the forward
+    (``"fwd"``) or the frozen backward (``"bwd_frozen"``) stages Q's tile and
+    its rows' and columns' 2D + 2 factors, and the frozen backward adds its
+    column partials per warp ((D + 1) x 8 x TILE)."""
+    d, size = meta.num_dim, torch.finfo(dtype).bits // 8
+    if kind == "bwd":
+        return (4 * d + 4) * meta.num_m * size
+    parts = (d + 1) * 8 * TILE if kind == "bwd_frozen" else 0
+    return (TILE * TILE + (2 * d + 2) * 2 * TILE + parts) * size
 
 
-def operand_check(name: str, meta: MatchMeta, g: FusedMatchGrid, mx, sxx, cots=()):
+def tile_count(meta: MatchMeta) -> int:
+    """Tiles along one side of a pair's grid: ceil(M / TILE)."""
+    return -(-meta.num_m // TILE)
+
+
+def operand_check(name: str, kind: str, meta: MatchMeta, g: FusedMatchGrid, mx, sxx, cots=()):
     """Raise ValueError unless every operand has the shape the kernels index
-    it by, D <= 16 and the staged factors fit a block's shared memory, and
-    TypeError unless all share one float32 or float64 dtype."""
+    it by, D <= 16 and the entry ``kind``'s staged factors fit a block's
+    shared memory, and TypeError unless all share one float32 or float64
+    dtype."""
     num_l, num_p, d, m = meta.num_latent, meta.num_pairs, meta.num_dim, meta.num_m
     n = mx.shape[0]
     shapes = dict(
@@ -330,9 +347,10 @@ def operand_check(name: str, meta: MatchMeta, g: FusedMatchGrid, mx, sxx, cots=(
     dtypes = {t.dtype for _, t, _ in want}
     if len(dtypes) != 1 or mx.dtype not in _SUFFIX:
         raise TypeError(f"{name}: operands must share float32 or float64, got {dtypes}")
-    if shared_bytes(meta, mx.dtype) > MAX_SHARED_BYTES:
-        raise ValueError(f"{name}: D={d}, M={m} need {shared_bytes(meta, mx.dtype)} bytes of "
-                         f"shared memory, more than a block has")
+    need = shared_bytes(meta, mx.dtype, kind)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: D={d}, M={m} need {need} bytes of shared memory, more than "
+                         f"a block has")
     return n
 
 
@@ -342,13 +360,13 @@ def _ints(meta: MatchMeta, n: int):
 
 
 def _fwd(meta: MatchMeta, g: FusedMatchGrid, mx, sxx):
-    n = operand_check("svgp_match_fwd", meta, g, mx, sxx)
+    n = operand_check("svgp_match_fwd", "fwd", meta, g, mx, sxx)
     if mx.device.type == "cpu":
         return match_reference(meta, g, mx, sxx)
     num_l, d = meta.num_latent, meta.num_dim
     new = lambda *shape: torch.empty(shape, dtype=mx.dtype, device=mx.device)  # noqa: E731
     f1, sff, cross = new(n, num_l), new(n, num_l, num_l), new(n, d, num_l)
-    scratch = new(n, meta.num_pairs, 2)
+    scratch = new(n, meta.num_pairs, tile_count(meta) ** 2, 2)  # per tile: f2, sum Q o E
     name = f"svgp_match_fwd_{_SUFFIX[mx.dtype]}"
     _build.launch("mm_match", name, (mx, sxx, *g.tensors(), f1, sff, cross, scratch),
                   *_ints(meta, n))
@@ -359,19 +377,23 @@ def _fwd(meta: MatchMeta, g: FusedMatchGrid, mx, sxx):
 def _bwd(meta: MatchMeta, g: FusedMatchGrid, mx, sxx, f1, df1, dsff, dcross, frozen: bool):
     num_l, num_k, d = meta.num_latent, meta.num_latent + meta.num_pairs, meta.num_dim
     n = mx.shape[0]
-    operand_check("svgp_match_bwd", meta, g, mx, sxx,
+    operand_check("svgp_match_bwd", "bwd_frozen" if frozen else "bwd", meta, g, mx, sxx,
                   ((f1, (n, num_l)), (df1, (n, num_l)), (dsff, (n, num_l, num_l)),
                    (dcross, (n, d, num_l))))
     if mx.device.type == "cpu":
         return match_reference_bwd(meta, g, mx, sxx, df1, dsff, dcross, frozen)
     dmx, dsxx = torch.empty_like(mx), torch.empty_like(sxx)
-    gda = torch.empty((n, num_k, d, d), dtype=mx.dtype, device=mx.device)
-    gdmx = torch.empty((n, num_k, d), dtype=mx.dtype, device=mx.device)
+    new = lambda *shape: torch.empty(shape, dtype=mx.dtype, device=mx.device)  # noqa: E731
+    gda, gdmx = new(n, num_k, d, d), new(n, num_k, d)  # the groups' cotangents
     ins = (mx, sxx, *g.tensors(), f1, df1, dsff, dcross)
     sfx = _SUFFIX[mx.dtype]
     if frozen:
+        # the tile partials of e dE: 1 + D values per row (rp) and per column
+        # (cq) for each batch entry, pair and tile along the other side
+        rp = new(n, meta.num_pairs, tile_count(meta), d + 1, meta.num_m)
+        cq = new(n, meta.num_pairs, tile_count(meta), d + 1, meta.num_m)
         name = f"svgp_match_bwd_frozen_{sfx}"
-        _build.launch("mm_match", name, (*ins, dmx, dsxx, gda, gdmx), *_ints(meta, n))
+        _build.launch("mm_match", name, (*ins, dmx, dsxx, gda, gdmx, rp, cq), *_ints(meta, n))
         launches[name] += 1
         return dmx, dsxx, None
     dts = [torch.empty_like(t) for t in g.tensors()]

@@ -147,14 +147,17 @@ def _close_vs_truth(got, plain, truth, what=""):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n, num_latent, d, m", [(1, 4, 6, 240), (1, 1, 5, 30), (3, 2, 4, 37),
-                                                 (2, 3, 10, 45)])
+                                                 (2, 3, 10, 45), (1, 2, 6, 65), (2, 3, 4, 1),
+                                                 (8, 4, 6, 240)])
 def test_torch_svgp_match_kernels_match_reference_on_gpu(dtype, n, num_latent, d, m):
     """K3 forward, frozen and full backward against the plain version at the
     drift's and the policy's shapes and at ragged ones (M not a multiple of
-    the block, a batch N = 3, D = 10 above the 8-register capacity): in
-    float64 to 1e-9 of each output's scale; in float32 both are held against
-    the float64 plain version of the same inputs (_close_vs_truth). Repeated
-    backward runs are bit-identical (no atomics)."""
+    the 64-point tile: 37, 45, a tile plus one (65) and below one tile (1, 30);
+    a batch N = 2, 3 and 8, on the block grid of the forward and the frozen
+    backward; D = 10 above the 8-register capacity): in float64 to 1e-9 of
+    each output's scale; in float32 both are held against the float64 plain
+    version of the same inputs (_close_vs_truth). Repeated runs of every
+    entry are bit-identical (no atomics)."""
     from gpflowpilco_torch.ops import mm_match_cuda as mc
 
     dev = _gpu_or_skip()
@@ -197,6 +200,11 @@ def test_torch_svgp_match_kernels_match_reference_on_gpu(dtype, n, num_latent, d
     for kind in ("fwd", "bwd_frozen", "bwd"):
         name = f"svgp_match_{kind}_{sfx}"
         assert mc.launches[name] == before[name] + 1, name
+    a, b = mc._fwd(g.meta, g, mx, sxx), mc._fwd(g.meta, g, mx, sxx)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    a = mc._bwd(g.meta, g, mx, sxx, f1, *cots, True)
+    b = mc._bwd(g.meta, g, mx, sxx, f1, *cots, True)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     a = mc._bwd(g.meta, g, mx, sxx, f1, *cots, False)
     b = mc._bwd(g.meta, g, mx, sxx, f1, *cots, False)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

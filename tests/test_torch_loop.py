@@ -1,6 +1,7 @@
 """The PyTorch port's optimizers and loop: Adam and L-BFGS against the JAX
 package's drivers (float64), the not-yet-ported options of the pathwise and
 moment-matching loops, and one tiny pathwise PILCO iteration on the CPU."""
+import dataclasses
 import math
 import pathlib
 import sys
@@ -14,6 +15,7 @@ from gpflowpilco_tpu.models.gp import svgp_elbo as jax_elbo
 from gpflowpilco_tpu.models.priors import pilco_snr_penalty as jax_snr
 from gpflowpilco_tpu.utils import optimizers as jopt
 from gpflowpilco_torch.convert import svgp_from_numpy
+from gpflowpilco_torch.loops import pilco
 from gpflowpilco_torch.loops.driver import outer_loop
 from gpflowpilco_torch.loops.pilco import DriftSpec, MomentMatchingPILCO, PathwisePILCO, PolicySpec
 from gpflowpilco_torch.models.gp import svgp_elbo
@@ -28,9 +30,9 @@ import run_torch  # noqa: E402
 torch.set_num_threads(1)
 
 
-def _tiny_loop(seed=5, loop_cls=PathwisePILCO, **policy):
+def _tiny_loop(seed=5, loop_cls=PathwisePILCO, dtype=torch.float64, **policy):
     return run_torch.build_loop(
-        seed, CPU, torch.float64,
+        seed, CPU, dtype,
         drift_spec=DriftSpec(num_centers=6, max_iters=10, pad_data_multiple=0),
         policy_spec=PolicySpec(
             **{**dict(num_centers=5, step_limit=10, batch_size=8, num_bases=16, num_restarts=1), **policy}
@@ -60,20 +62,15 @@ def test_torch_pathwise_iteration_runs():
     assert len(loop.episodes) == 3 and "fallback" in loop.episodes[-1].metrics
 
 
-@pytest.mark.parametrize(
-    "what", ["restarts", "loss_dtype", "optimism", "gpr", "save", "mm_gpr"]
-)
+@pytest.mark.parametrize("what", ["restarts", "optimism", "gpr", "save", "mm_gpr"])
 def test_torch_unported_options_raise(what):
-    """``loss_dtype`` raises in the pathwise loop only; the MM loop takes it.
-    The GPR cases: the optimism floor under a GPR drift (not ported for any
-    drift), and in the MM loop the compensated loss under a GPR drift, which
-    the JAX package refuses too (it supports SVGP drifts only)."""
+    """The GPR cases: the optimism floor under a GPR drift (not ported for
+    any drift), and in the MM loop the compensated loss under a GPR drift,
+    which the JAX package refuses too (it supports SVGP drifts only)."""
     loop = _tiny_loop(
         loop_cls=MomentMatchingPILCO if what.startswith("mm_") else PathwisePILCO,
         **({"num_restarts": 4} if what == "restarts" else {}),
     )
-    if what == "loss_dtype":
-        loop.policy_spec = PolicySpec(loss_dtype=torch.float64, num_restarts=1)
     if what == "optimism":
         loop.drift_spec = DriftSpec(optimism_tolerance=1.0)
     if what == "gpr":
@@ -94,6 +91,88 @@ def test_torch_unported_options_raise(what):
         else:
             loop.update_dynamics()
             loop.update_policy()
+
+
+def _pathwise_models(dtype):
+    """A drift over the cartpole loop's 5 features and the action (4
+    latents, the state's dims) and a policy over the features, from the JAX
+    builders, in ``dtype``."""
+    drift = svgp_from_numpy(svgp_to_numpy(jax_svgp(40, num_latent=4, m=8, d=6)), CPU, dtype)
+    drift.requires_grad_(False)
+    pol = svgp_from_numpy(svgp_to_numpy(jax_svgp(43, num_latent=1, m=6, d=5)), CPU, dtype)
+    return drift, pol
+
+
+def _pathwise_loss(loop, pol, drift):
+    """The pathwise loss and its policy gradient at one generator state (the
+    same paths and x0 on every call)."""
+    pol.zero_grad(set_to_none=True)
+    loss = loop.policy_loss_fn(pol, torch.Generator().manual_seed(5), drift=drift)
+    loss.backward()
+    grad = torch.cat([p.grad.reshape(-1) for p in pol.parameters() if p.grad is not None])
+    return loss.detach(), grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_torch_pathwise_loss_dtype_runs_in_loop_dtype(dtype):
+    """(a) As in the JAX package, PolicySpec.loss_dtype does not change the
+    pathwise loss: with loss_dtype=float64 it runs in the loop's dtype and
+    equals the loss without it, value and policy gradient, to 1e-12
+    relative, at the same generator state."""
+    loop = _tiny_loop(dtype=dtype)
+    drift, pol = _pathwise_models(dtype)
+    plain, g_plain = _pathwise_loss(loop, pol, drift)
+    loop.policy_spec = dataclasses.replace(loop.policy_spec, loss_dtype=torch.float64)
+    got, g_got = _pathwise_loss(loop, pol, drift)
+    assert got.dtype == dtype and plain.dtype == dtype
+    assert abs(float(got) - float(plain)) <= 1e-12 * abs(float(plain))
+    assert float((g_got - g_plain).abs().max()) <= 1e-12 * float(g_plain.abs().max())
+
+
+def test_torch_pathwise_loss_dtype_takes_per_step_path(monkeypatch):
+    """(b) Under use_fused_rollout, loss_dtype keeps the loss off the fused
+    rollout, as JAX's _fused_rollout_eligible does: the per-step path runs
+    and gives the loss the loop gives without use_fused_rollout."""
+    loop = _tiny_loop()
+    drift, pol = _pathwise_models(torch.float64)
+    per_step, _ = _pathwise_loss(loop, pol, drift)
+    loop.use_fused_rollout = True
+    loop.policy_spec = dataclasses.replace(loop.policy_spec, loss_dtype=torch.float64)
+    assert not loop._fused_rollout_eligible(drift, pol)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the fused rollout ran under loss_dtype")
+
+    monkeypatch.setattr(loop, "_fused_rollout_loss", refuse)
+    got, _ = _pathwise_loss(loop, pol, drift)
+    assert abs(float(got) - float(per_step)) <= 1e-12 * abs(float(per_step))
+
+
+def test_torch_pathwise_use_fused_paths():
+    """use_fused_paths defaults to False, as in the JAX package, and routes
+    the SVGP paths through the path-eval op (its plain version on the CPU)
+    only when set; the float64 loss and policy gradient are the same either
+    way to 1e-12 relative."""
+    loop = _tiny_loop()
+    assert loop.use_fused_paths is False
+    drift, pol = _pathwise_models(torch.float64)
+    calls = []
+    real = pilco.PathwiseSVGPTransform
+
+    def spy(model, paths, fused=False):
+        calls.append(fused)
+        return real(model=model, paths=paths, fused=fused)
+
+    pilco.PathwiseSVGPTransform = spy
+    try:
+        off, g_off = _pathwise_loss(loop, pol, drift)
+        loop.use_fused_paths = True
+        on, g_on = _pathwise_loss(loop, pol, drift)
+    finally:
+        pilco.PathwiseSVGPTransform = real
+    assert calls == [False, True]
+    assert abs(float(on) - float(off)) <= 1e-12 * abs(float(off))
+    assert float((g_on - g_off).abs().max()) <= 1e-12 * float(g_off.abs().max())
 
 
 def test_torch_policy_schedule_matches_optax():

@@ -6,6 +6,7 @@ JAX plain match_svgp; the frozen and full gradients, down to the model's
 parameters; the plain hand adjoint against autograd of the plain forward.
 On the CPU the op runs its plain version."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -164,3 +165,134 @@ def test_torch_whole_match_wrapper_checks_operands():
     shifted = dataclasses.replace(grid, zt=grid.zt[..., :-1])
     with pytest.raises(ValueError, match="zt"):
         mc.fused_svgp_match(shifted, t(mx), t(sxx))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd_frozen", "bwd"])
+def test_torch_whole_match_shared_memory_check_per_entry(kind):
+    """Only the full backward stages a group's whole (4D + 4) x M factors in
+    shared memory; the forward's and the frozen backward's tile blocks need
+    the same bytes at any M. At D=16, M=800 in float32 the full backward's
+    operands are refused and the others' pass."""
+    d, m = 16, 800
+    meta = mc.MatchMeta(num_latent=1, num_pairs=1, num_dim=d, num_m=m, uncertainty=True,
+                        pairs=((0, 0),))
+    shapes = dict(kdiag=(2, d), zt=(1, d, m), alpha=(1, m), varr=(1,), hll=(1,), qmat=(1, m, m),
+                  ut=(1, d, m), wt=(1, d, m), g1t=(1, d, m), g2t=(1, d, m), g11=(1, m),
+                  g22=(1, m), cp=(1,), alpha_u=(1, m), alpha_w=(1, m))
+    grid = mc.FusedMatchGrid(**{f: torch.zeros(shapes[f]) for f in mc.GRID_FIELDS}, meta=meta)
+    mx, sxx = torch.zeros(1, d), torch.zeros(1, d, d)
+    assert mc.shared_bytes(meta, torch.float32, kind) == (
+        (4 * d + 4) * m * 4 if kind == "bwd" else mc.shared_bytes(meta._replace(num_m=1),
+                                                                   torch.float32, kind))
+    if kind == "bwd":
+        with pytest.raises(ValueError, match="shared memory"):
+            mc.operand_check("svgp_match_bwd", kind, meta, grid, mx, sxx)
+    else:
+        assert mc.operand_check("svgp_match", kind, meta, grid, mx, sxx) == 1
+
+
+# ---------------------------------------------------------------- tile split
+def _tile_split(meta, g, mx, sxx, df1_in, dsff, dcross, ti, tj):
+    """The stages of csrc/mm_match.cu's forward and frozen backward, in f64
+    torch: each pair's M x M grid cut into ti x tj tiles; per tile the
+    forward's partials (alpha_u^T E alpha_w, sum Q o E) and the backward's
+    row and column partials of e dE (sum_j, sum_j wp_j; sum_i, sum_i up_i);
+    the partials added over the tiles in tile order; then sff, and the
+    adjoint that follows the sweep (dup, dwp -> tmp_u, tmp_w, tmp_m, dch,
+    chol_rev) with the latent groups as match_reference_bwd has them.
+    Returns (f1, sff, cross, dmx, dsxx)."""
+    p = mc._forward_parts(meta, g, mx, sxx)
+    pi, pj, diag_pos, full = mc._pair_index(meta, mx.device)
+    n, num_p, m = mx.shape[0], meta.num_pairs, meta.num_m
+    ch_p, up, wp = p["ch_p"], p["up"], p["wp"]
+    hls_p = torch.sum(torch.log(torch.diagonal(ch_p, dim1=-2, dim2=-1)), -1)
+    cexp = g.cp - hls_p  # (N, P)
+    hu = 0.5 * (g.g11 + torch.sum(up * up, -2))  # (N, P, M)
+    hw = 0.5 * (g.g22 + torch.sum(wp * wp, -2))
+    q = torch.zeros((num_p, m, m), dtype=mx.dtype)
+    if meta.uncertainty:
+        q[diag_pos] = g.qmat
+    ddiag = torch.diagonal(dsff, dim1=-2, dim2=-1)
+    df2 = dsff[:, pi, pj] + torch.where(pi != pj, dsff[:, pj, pi], torch.zeros_like(dsff[:, pi, pj]))
+    decov = torch.zeros((n, num_p), dtype=mx.dtype)
+    if meta.uncertainty:
+        decov[:, diag_pos] = -ddiag
+    rows = [(i, min(i + ti, m)) for i in range(0, m, ti)]
+    cols = [(j, min(j + tj, m)) for j in range(0, m, tj)]
+    f2 = torch.zeros((n, num_p), dtype=mx.dtype)
+    ecq = torch.zeros((n, num_p), dtype=mx.dtype)
+    rs = torch.zeros((n, num_p, 1 + meta.num_dim, m), dtype=mx.dtype)  # rows: sum e dE, ... wp
+    cs = torch.zeros_like(rs)  # columns: sum e dE, ... up
+    for i0, i1 in rows:  # tile order: row tile, then column tile
+        for j0, j1 in cols:
+            mp = (-(g.g1t[..., i0:i1].mT @ g.g2t[..., j0:j1])
+                  + up[..., i0:i1].mT @ wp[..., j0:j1]
+                  + hu[..., i0:i1, None] + hw[..., None, j0:j1])
+            e = torch.exp(cexp[..., None, None] - mp)  # (N, P, ti, tj)
+            f2 = f2 + torch.einsum("pi,npij,pj->np", g.alpha_u[:, i0:i1], e, g.alpha_w[:, j0:j1])
+            ecq = ecq + torch.sum(q[:, i0:i1, j0:j1] * e, (-2, -1))
+            de = (df2[..., None, None] * g.alpha_u[:, i0:i1, None] * g.alpha_w[:, None, j0:j1]
+                  + decov[..., None, None] * q[:, i0:i1, j0:j1])
+            ede = e * de
+            rs[..., 0, i0:i1] += ede.sum(-1)
+            rs[..., 1:, i0:i1] += (ede @ wp[..., j0:j1].mT).mT
+            cs[..., 0, j0:j1] += ede.sum(-2)
+            cs[..., 1:, j0:j1] += up[..., i0:i1] @ ede
+    f1 = p["f1"]
+    sff = f2[:, full] - f1[:, :, None] * f1[:, None, :]
+    if meta.uncertainty:
+        sff = sff + torch.diag_embed(g.varr - ecq[:, diag_pos])
+
+    # the latent groups, as match_reference_bwd
+    ch_l, y, e_l, iv, ae = p["ch_l"], p["y"], p["e"], p["iv"], p["ae"]
+    df1 = df1_in - ((dsff + dsff.mT) @ f1[..., None])[..., 0]
+    dcr = dcross.mT
+    dae = df1[..., None] + torch.sum(dcr[..., None] * iv, -2)
+    ede_l = e_l * (g.alpha * dae)
+    t_iv = mc._solve(ch_l, dcr[..., None] * ae[:, :, None, :])
+    dzc = mc._solve(ch_l, 2.0 * y * (-0.5 * ede_l)[:, :, None, :] + t_iv, trans=1)
+    dch_l = -torch.tril(iv @ t_iv.mT) - torch.tril(dzc @ y.mT)
+    dch_l = dch_l + torch.diag_embed(-torch.sum(ede_l, -1)[..., None]
+                                     / torch.diagonal(ch_l, dim1=-2, dim2=-1))
+    dmx = -torch.sum(dzc, dim=(1, 3))
+    # the pair groups, from the summed partials
+    dup = -rs[..., 1:, :] + 2.0 * up * (-0.5 * rs[..., :1, :])
+    dwp = -cs[..., 1:, :] + 2.0 * wp * (-0.5 * cs[..., :1, :])
+    tmp_m = mc._solve(ch_p, (-0.5 * (dup.sum(-1) + dwp.sum(-1)))[..., None], trans=1)
+    dch_p = -torch.tril(mc._solve(ch_p, dup, trans=1) @ p["ilu"].mT
+                        + mc._solve(ch_p, dwp, trans=1) @ p["ilw"].mT + tmp_m @ p["ilm"].mT)
+    dch_p = dch_p + torch.diag_embed(-rs[..., 0, :].sum(-1)[..., None]
+                                     / torch.diagonal(ch_p, dim1=-2, dim2=-1))
+    dmx = dmx + torch.sum(tmp_m[..., 0], 1)
+    low = torch.sum(mc.chol_rev(p["ch"], torch.cat([dch_l, dch_p], 1)), 1)
+    return f1, sff, p["cross"], dmx, 0.5 * (low + low.mT)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(num_latent, d, m, unc):
+    _, tm = _models(70 + m, num_latent=num_latent, m=m, d=d)
+    return svgp_match_cache(tm, fused_match=True, uncertainty=unc).match_grid
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("num_latent, d, m, unc", [(4, 6, 240, True), (2, 4, 37, True), (1, 5, 30, False)])
+@pytest.mark.parametrize("tile", ["64x64", "32x64", "MxM"])
+def test_torch_whole_match_tile_split_matches_reference(tile, num_latent, d, m, unc, n):
+    """The tile decomposition of the forward and the frozen backward (the
+    drift's shape with its ragged last tile, M=37 and the policy's M=30, in
+    tiles of 64 x 64, 32 x 64 and the whole grid, at N=1 and 3) against
+    match_reference and match_reference_bwd(frozen=True), in float64, to
+    1e-12 of each output's scale."""
+    with torch.no_grad():
+        grid = _split_case(num_latent, d, m, unc)
+        ti, tj = (m, m) if tile == "MxM" else map(int, tile.split("x"))
+        mx, sxx = _state(80 + n, d=d, n=n)
+        rng = np.random.default_rng(90 + n)
+        cots = (t(rng.normal(size=(n, num_latent))), t(rng.normal(size=(n, num_latent, num_latent))),
+                t(rng.normal(size=(n, d, num_latent))))
+        got = _tile_split(grid.meta, grid, t(mx), t(sxx), *cots, ti, tj)
+        want = (*mc.match_reference(grid.meta, grid, t(mx), t(sxx)),
+                *mc.match_reference_bwd(grid.meta, grid, t(mx), t(sxx), *cots, frozen=True)[:2])
+    for what, a, b in zip(("f1", "sff", "cross", "dmx", "dsxx"), got, want):
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        assert err <= 1e-12, (what, err)
