@@ -31,19 +31,21 @@
    1e-9 relative, or to 10x the loss's own rounding noise where that is
    larger (mm_loss_noise).
 6. Whole-match kernels: K3 (the whole SVGP match: forward, frozen and full
-   backward) at the drift's (N=1, L=4, D=6, M=240, with model uncertainty)
-   and the policy's (N=1, L=1, D=5, M=30) shapes, K4 (the encoder match) at
+   backward) at the drift's (N=1, L=4, D=6, M=240, with model uncertainty),
+   the policy's (N=1, L=1, D=5, M=30) and the HMC ensemble policy's (the
+   policy's with the 8 members as its batch, N=8) shapes, K4 (the encoder match) at
    N=1 and N=30, K5a (the PSD boost) at D=6 and K5b (the Euler update) at
    D=4, each in float32 and float64 against its plain version, timed beside
    it, its bound and, for K5a and K5b, torch.linalg.eigvalsh. Float32 K3 is
    held twice: at a random model's grid against float64, and at a
    well-conditioned grid of the same shape against plain float32 at a fixed
    bar. K3's frozen backward is also held at N=8 (the batch on its block
-   grid), repeated forward and frozen-backward runs must be bit-identical,
-   and the device time of each stage of the tiled entries (tile sweep,
-   finish, combine) is printed from one profiler session. The build prints
-   ptxas's registers and spills of K3's kernels and fails if a float32 tile
-   kernel at the 8-register capacity spills.
+   grid), repeated forward and frozen-backward runs, and full-backward runs
+   at N=8, must be bit-identical, and the device time of each stage of the
+   tiled entries (tile sweep, finish, combine) and of the full backward
+   (groups, slot sum, combine) is printed from one profiler session. The
+   build prints ptxas's registers and spills of K3's and K3g's kernels and
+   fails if a float32 tile kernel at the 8-register capacity spills.
 7. Whole-match slice: moment-matching PILCO on cartpole at full width with
    use_fused_match, float32 loop and loss: 8 random episodes, a drift fit,
    then one Adam policy update (counts zeroed just before, read just after;
@@ -61,7 +63,9 @@
    and K2's GPR route (forward and frozen backward with R=4 rows and the 8
    members on the pair axis) at K=8 members, N=240, D=6, R=4, in float32
    and float64 against their plain versions (K2's float64 GPR route also at
-   the members' noise, GPR_NOISE), timed beside them and their bounds.
+   the members' noise, GPR_NOISE), timed beside them and their bounds; the
+   device time of each of K3g's backward stages (tile sweep, finish,
+   combine) is printed.
 9. HMC-ensemble slice (slice B): cartpole at full width with an exact GPR
    drift: 8 random episodes (N=240), an L-BFGS MAP fit, HMC with 8 chains
    (warmup, samples and leapfrog cut to HMC_CUT) thinned to an 8-member
@@ -647,10 +651,13 @@ def mm_slice_phase(kc, seed, device, step_limit, lbfgs_iters):
 
 # ---------------------------------------------------------------- whole match
 # The whole-match path's shapes: K3 at the drift's (N=1, L=4 latents over the
-# 5 features and the action, M=240, with model uncertainty) and the policy's
-# (N=1, L=1, D=5, M=30, deterministic); K4 at N=1 in the rollout and N=30 on
-# the post-rollout cost; K5a on the policy joint (D=6), K5b on the state (D=4)
-MATCH_SHAPES = {"drift": (1, L, D, M, True), "policy": (1, 1, 5, 30, False)}
+# 5 features and the action, M=240, with model uncertainty), the policy's
+# (N=1, L=1, D=5, M=30, deterministic) and the HMC ensemble policy's (the
+# policy match with the 8 members as its batch, N=8); K4 at N=1 in the
+# rollout and N=30 on the post-rollout cost; K5a on the policy joint (D=6),
+# K5b on the state (D=4)
+MATCH_SHAPES = {"drift": (1, L, D, M, True), "policy": (1, 1, 5, 30, False),
+                "ensemble policy": (8, 1, 5, 30, False)}
 MATCH_F64_TOL = 1e-9  # K3 float64, of each output's scale: sums of M^2 terms, 6 x 6 adjoints
 # K3 float32 against plain float32 on the well-conditioned grid, of each
 # output's scale: there the plain float32 version itself misses float64 by a
@@ -802,9 +809,11 @@ def stage_ms(fn, reps=5):
     return out
 
 
-# kernels whose ptxas report chip_smoke prints: K3's (csrc/mm_match.cu)
+# kernels whose ptxas report chip_smoke prints: K3's (csrc/mm_match.cu) and
+# K3g's (csrc/gpr_match.cu)
 PTXAS_K3 = ("svgp_fwd_tiles", "svgp_fwd_combine", "svgp_bwd_tiles", "svgp_bwd_finish", "svgp_bwd_combine",
-            "bwd_groups")
+            "bwd_groups", "svgp_bwd_slots")
+PTXAS_K3G = ("fwd_tiles", "fwd_combine", "gpr_bwd_tiles", "gpr_bwd_finish", "bwd_combine")
 
 
 def ptxas_report(text, kernels=PTXAS_K3):
@@ -912,6 +921,12 @@ def match_kernels_phase(mc, ec, gc, seed, device):
                     if not all(torch.equal(a, b) for a, b in zip(*runs)):
                         raise AssertionError(f"svgp_match_{kind}_{sfx}: repeated runs differ")
                 print(f"  svgp_match_fwd_{sfx}, svgp_match_bwd_frozen_{sfx}: repeated runs bit-identical")
+            if where == "ensemble policy":
+                # the full backward's batch on the block grid, its slots added in order
+                runs = [k3_outputs(mc, g, mx, sxx, cots, kernel=True)["bwd"] for _ in range(2)]
+                if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                    raise AssertionError(f"svgp_match_bwd_{sfx}: repeated runs differ at N={n}")
+                print(f"  svgp_match_bwd_{sfx} at N={n}: repeated runs bit-identical")
             if dtype == torch.float32:
                 # the float32 kernel against the plain float32 version at a
                 # fixed bar, on a well-conditioned grid of the same shape
@@ -949,6 +964,11 @@ def match_kernels_phase(mc, ec, gc, seed, device):
                 calls["svgp_match_fwd_f32 (policy)"] = (
                     lambda a=args: mc._fwd(*a), lambda a=args: mc.match_reference(*a),
                     match_bound_ms("fwd", g.meta, n, dtype), None)
+            if where == "ensemble policy" and dtype == torch.float32:
+                calls["svgp_match_bwd_f32 (ensemble policy)"] = (
+                    lambda a=args, c=cots, f=f1: mc._bwd(*a, f, *c, False),
+                    lambda a=args, c=cots: mc.match_reference_bwd(*a, *c, False),
+                    match_bound_ms("bwd", g.meta, n, dtype), None)
 
         tol = SMALL_TOL[dtype]
         meta = ec.make_enc_meta(ENC_ACTIVE, ENC_D)
@@ -1020,9 +1040,11 @@ def match_kernels_phase(mc, ec, gc, seed, device):
         print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), plain torch "
               f"{plain_ms:.4f} ms ({plain_how}), bound {bound:.6f} ms ({bound_by})"
               + ("" if lib_ms is None else f", eigvalsh {lib_ms:.4f} ms ({lib_how})"))
-    # the stages of K3's tiled entries (warm L2): tile sweep, finish, combine
+    # the stages of K3's entries (warm L2): tile sweep, finish, combine; the
+    # full backward's groups, slot sum (N > 1) and combine
     for name in ("svgp_match_fwd_f32", "svgp_match_bwd_frozen_f32", "svgp_match_fwd_f64",
-                 "svgp_match_bwd_frozen_f64", "svgp_match_fwd_f32 (policy)"):
+                 "svgp_match_bwd_frozen_f64", "svgp_match_fwd_f32 (policy)", "svgp_match_bwd_f32",
+                 "svgp_match_bwd_f32 (ensemble policy)"):
         stages = stage_ms(calls[name][0])
         timings[name]["stages"] = stages
         print(f"  stages of {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
@@ -1476,6 +1498,12 @@ def gpr_kernels_phase(gm, kc, seed, device):
                              bound_ms=bound, bound_by=bound_by, library_ms=None)
         print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), plain torch "
               f"{plain_ms:.4f} ms ({plain_how}), bound {bound:.6f} ms ({bound_by})")
+    # the stages of K3g's entries (warm L2); the frozen backward's tile sweep,
+    # finish and combine
+    for name in ("gpr_match_fwd_f32", "gpr_match_bwd_frozen_f32", "gpr_match_bwd_frozen_f64"):
+        stages = stage_ms(calls[name][0])
+        timings[name]["stages"] = stages
+        print(f"  stages of {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
     return errs, timings
 
 
@@ -1994,8 +2022,8 @@ def fused_rollout_slice_phase(rc, pe, loop, seed, device, step_limit):
 # kernel-name fragments whose rows a profile prints on their own: this
 # repository's kernels and the eigenvalue solver behind psd_project's eigvalsh
 _WATCHED = ("fwd_kernel", "bwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel", "bwd_finish",
-            "bwd_groups", "fwd_tiles", "bwd_tiles", "combine", "enc_fwd", "enc_bwd", "psd_kernel",
-            "euler_kernel", "syev", "eig")
+            "bwd_groups", "bwd_slots", "fwd_tiles", "bwd_tiles", "combine", "enc_fwd", "enc_bwd",
+            "psd_kernel", "euler_kernel", "syev", "eig")
 # host runtime calls that wait for the device or copy through it
 _SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
 
@@ -2122,13 +2150,19 @@ def main():
           f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items()) or 'cached'})")
 
     phase_s = {"build": time.perf_counter() - t0}
-    k3_regs = ptxas_report(_build.compiler_output.get("mm_match", ""))
-    for kern, t, dm, regs, st, ld in k3_regs:
-        print(f"ptxas mm_match {kern}<{'float' if t == 'f' else 'double'}{'' if dm is None else f', {dm}'}>: "
-              f"{regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
-    spills = [r for r in k3_regs if r[0].startswith("svgp_") and r[1] == "f" and r[2] in (None, 8) and r[4] + r[5]]
-    if built.get("mm_match") is not None and (not k3_regs or spills):
-        raise AssertionError(f"K3's tiled float32 kernels at DM=8 spill or were not reported: {spills or k3_regs}")
+    # ptxas: every K3 and K3g kernel's registers and spills; a float32 tile
+    # kernel at the 8-register capacity must not spill
+    for lib, kernels, tiled in (("mm_match", PTXAS_K3, "svgp_"), ("gpr_match", PTXAS_K3G, "gpr_bwd_tiles")):
+        regs = ptxas_report(_build.compiler_output.get(lib, ""), kernels)
+        for kern, t, dm, n_regs, st, ld in regs:
+            dm_s = "" if dm is None else f", {dm}"
+            print(f"ptxas {lib} {kern}<{'float' if t == 'f' else 'double'}{dm_s}>: {n_regs} registers, "
+                  f"{st} bytes spill stores, {ld} bytes spill loads")
+        spills = [r for r in regs
+                  if r[0].startswith(tiled) and r[1] == "f" and r[2] in (None, 8) and r[4] + r[5]]
+        if built.get(lib) is not None and (not regs or spills):
+            raise AssertionError(f"{lib}'s tiled float32 kernels at DM=8 spill or were not reported: "
+                                 f"{spills or regs}")
 
     def timed(name, fn, *fn_args):
         t_phase = time.perf_counter()

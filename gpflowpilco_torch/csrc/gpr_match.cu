@@ -16,30 +16,51 @@
 //          f2 = alpha^T E alpha,  ecov = sum_ij Kyy^{-1}_ij E_ij
 //   sff = f2 - f1 f1^T + I (var - ecov)   (the uncertainty term when asked)
 // The backward is frozen (moments only), the hand adjoint of
-// mm_match_pallas._gpr_bwd_core (:1027). Because E is symmetric, a thread
-// that owns row i also has column i: with s_ij = de(i,j) + de(j,i) =
-// (vL_i + vR_i).alpha_j + 2 decov Kyy^{-1}_ij (vL = dsff^T alpha_i,
-// vR = dsff alpha_i), one sweep over j gives da_u_i = -sum_j E s / 2 and
-// dup_i = -sum_j E s up_j + 2 up_i da_u_i, which the TPU kernel took from a
-// row pass and a column pass.
+// mm_match_pallas._gpr_bwd_core (:1027). Because E is symmetric, row i's
+// sums over j cover what the TPU kernel took from a row pass and a column
+// pass: with s_ij = de(i,j) + de(j,i) = (vL_i + vR_i).alpha_j + 2 decov
+// Kyy^{-1}_ij (vL = dsff^T alpha_i, vR = dsff alpha_i), da_u_i = -sum_j E s / 2
+// and dup_i = -sum_j E s up_j + 2 up_i da_u_i.
 //
 // Bound on an H100: at the ensemble's shape (K=8 members, N=240, D=6, R=4) a
 // forward must read Kyy^{-1} (8 x 240^2 x 4 B = 1.8 MB in float32), ~0.55 us
 // at 3.35 TB/s, and does ~8 x 240^2 x 35 ~ 16 MFLOP plus 0.46 M exp, ~0.25 us:
-// both far below a launch, so the kernel is latency-bound.
+// both far below a launch, so the kernels are latency-bound, and what sets
+// their time is how many blocks work at once and how long each block's
+// chain of dependent steps is.
 //
-// Design: one block of 128 threads per (row tile of 128, member, batch
+// Forward: one block of 128 threads per (row tile of 128, member, batch
 // entry), each thread owning a row i of E with its D-vectors and solves in
 // registers (loops over a capacity DM in {8, 16}, guarded by the runtime D,
 // unrolled at DM = 8). Columns are swept in chunks of 64 staged in shared
 // memory (up_j, g1_j, a_j, alpha_j, solved by the block for the chunk), so N
-// has no limit: no buffer grows with N, and Kyy^{-1} streams from global
-// memory and L2, read as Kyy^{-1}[j, i] (= [i, j]) so the threads of a warp
-// read neighbouring addresses. E is recomputed in the backward. Each block
-// writes its tile's partial sums; a second, one-thread-per-entry launch
-// adds the tiles in a fixed order and finishes (sff; in the backward the
-// Cholesky adjoints, dmx and dsxx = sym(da0 + da1)). No atomics: repeated
-// runs are bit-identical. Full-precision exp and log (no fast math).
+// has no limit, and Kyy^{-1} streams from global memory and L2, read as
+// Kyy^{-1}[j, i] (= [i, j]) so the threads of a warp read neighbouring
+// addresses. Each block writes its tile's partial sums; a second,
+// one-thread-per-entry launch adds the tiles in a fixed order and forms sff.
+//
+// Frozen backward, three launches. gpr_bwd_tiles cuts each member's N x N
+// grid into 64 x 64 tiles on the block grid ((ceil(N/64)^2, K, B) blocks:
+// 128 at the ensemble's shape, one wave on 132 SMs, where 16 blocks each
+// walked whole rows before). Thread 0 factors S + diag(vdiag) and solves for
+// ch^{-1} mx; the block stages its 64 rows' (up, g1, a/2, vl, vs) and 64
+// columns' (up, g1, a/2, alpha) in shared memory, one thread per point, and
+// Kyy^{-1}'s tile arrives by cp.async, issued before the factor and awaited
+// before its first use. Each of the 16 x 16 threads evaluates a 4 x 4
+// micro-tile of E once and sums its rows' E sl, E s2 and E s2 up_j over its
+// columns; the 16 lanes that share a row add theirs by shuffles, and each
+// row's D + 2 partials go to rp[b][k][column tile]. A ragged edge is
+// masked: a point beyond N stages a/2 = +inf (so E = 0), zero weights, and
+// a zero-filled Kyy^{-1}. gpr_bwd_finish (a thread per point, 128 per
+// block; threads 0 and 32 factor the two matrices at once) runs the eKfu
+// adjoint of its point, adds its row partials over the column tiles in
+// order and runs the post-sweep adjoint (dup -> tmp_u, the outer products
+// with ch^{-1} u_i), and block-sums both into the scratch that bwd_combine,
+// one thread per (entry, member), adds over the row tiles in a fixed order
+// before the Cholesky adjoints, dmx and dsxx = sym(da0 + da1). The serial
+// factor work of all three (chol_r, chol_rev_r) runs in registers. Every
+// sum has a fixed order and there are no atomics: repeated runs are
+// bit-identical. Full-precision exp and log (no fast math).
 //
 // Each entry returns cudaGetLastError() as an int; the caller raises on
 // nonzero. Entries launch on the given stream and do not synchronise.
@@ -53,6 +74,36 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 64;  // columns of E staged at a time
 constexpr int kMaxR = 4;    // output columns (cartpole and the double pendulum: 4)
 constexpr int kMaxD = 16;
+// The frozen backward's tile of a member's N x N grid: kT x kT cells on 16 x
+// 16 threads, kR x kR cells each; ops/gpr_match_cuda.py sizes the row
+// partials for it (TILE).
+constexpr int kT = 64;
+constexpr int kR = kT / 16;
+constexpr int kTileThreads = 256;
+
+// A backward tile block's dynamic shared memory, laid out from its start:
+// Kyy^-1's tile (kT x kT), the rows' up and g1 (d x kT each), a/2, vl and
+// vs (kMaxR x kT each), then the columns' up and g1, a/2 and alpha.
+template <typename T>
+struct TileSmem {
+  T *q, *rup, *rg1, *rh, *rvl, *rvs, *cup, *cg1, *chh, *cal;
+  __device__ TileSmem(T* base, int d) {
+    q = base;
+    rup = q + kT * kT;
+    rg1 = rup + d * kT;
+    rh = rg1 + d * kT;
+    rvl = rh + kT;
+    rvs = rvl + kMaxR * kT;
+    cup = rvs + kMaxR * kT;
+    cg1 = cup + d * kT;
+    chh = cg1 + d * kT;
+    cal = chh + kT;
+  }
+};
+
+inline size_t tile_smem_elems(int d) {
+  return (size_t)kT * kT + (size_t)(4 * d + 2) * kT + (size_t)3 * kMaxR * kT;
+}
 
 #define UNROLL_DM _Pragma("unroll (DM <= 8 ? DM : 1)")
 
@@ -65,6 +116,33 @@ __device__ __forceinline__ double sq(double x) { return sqrt(x); }
 
 __host__ __device__ constexpr int tri(int a, int b) { return a * (a + 1) / 2 + b; }
 __host__ __device__ constexpr int ntri(int dm) { return dm * (dm + 1) / 2; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__device__ __forceinline__ void set_inf(float& x) { x = __int_as_float(0x7f800000); }
+__device__ __forceinline__ void set_inf(double& x) { x = __longlong_as_double(0x7ff0000000000000LL); }
+
+// One element from global into shared memory by cp.async, zero-filled where
+// !valid. The #else branch is what a host compiler sees.
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src, bool valid) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src),
+               "n"((int)sizeof(T)), "r"(valid ? (int)sizeof(T) : 0)
+               : "memory");
+#else
+  *dst = valid ? *src : T(0);
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#endif
+}
 // partial sums per tile: forward latent (f1, cross) then pair (f2, ecov);
 // backward latent (dch0, dzc, dhls0) then pair (dch1, dilm, dhls1)
 __host__ __device__ constexpr int nv_fwd_lat(int dm) { return kMaxR + dm * kMaxR; }
@@ -142,28 +220,6 @@ UNROLL_DM
         if (j > i && j < d) a -= ch[j * DM + i] * b[j];
       b[i] = a / ch[i * DM + i];
     }
-  }
-}
-
-// The lower-triangle cotangent da of the factored matrix from the factor's
-// cotangent dl (destroyed); mm_match_pallas._chol_rev.
-template <typename T, int DM>
-__device__ void chol_rev(const T* ch, T* dl, T* da, int d) {
-  for (int i = 0; i < DM * DM; ++i) da[i] = T(0);
-  for (int j = d - 1; j >= 0; --j) {
-    const T inv = T(1) / ch[j * DM + j];
-    for (int i = d - 1; i > j; --i) {
-      const T gi = dl[i * DM + j] * inv;
-      da[i * DM + j] += gi;
-      dl[j * DM + j] -= gi * ch[i * DM + j];
-      for (int k = 0; k < j; ++k) {
-        dl[i * DM + k] -= gi * ch[j * DM + k];
-        dl[j * DM + k] -= gi * ch[i * DM + k];
-      }
-    }
-    const T s = T(0.5) * dl[j * DM + j] * inv;
-    da[j * DM + j] += s;
-    for (int k = 0; k < j; ++k) dl[j * DM + k] -= T(2) * s * ch[j * DM + k];
   }
 }
 
@@ -381,26 +437,298 @@ __global__ void fwd_combine(const T* __restrict__ varr, const T* __restrict__ sc
 }
 
 // ---------------------------------------------------------------- backward
+// The backward's serial factor work, in registers: the Cholesky factor (the
+// operations of chol above, in its order) and its adjoint, the lower-triangle
+// cotangent da of the factored matrix from the factor's cotangent dl
+// (destroyed; mm_match_pallas._chol_rev). Their loops run over the capacity
+// DM with guards (constant trip counts), unrolled at DM = 8, so that a
+// matrix in a local array stays in registers, where chol walks its matrix
+// in memory one dependent access at a time.
+#define UNROLL_DM2 _Pragma("unroll (DM <= 8 ? DM * DM : 1)")
+
 template <typename T, int DM>
-__global__ void __launch_bounds__(kThreads) bwd_tiles(
+__device__ __forceinline__ T chol_r(const T* S, const T* kd, T* ch, int d) {
+UNROLL_DM2
+  for (int i = 0; i < DM * DM; ++i) ch[i] = T(0);
+UNROLL_DM
+  for (int j = 0; j < DM; ++j) {
+    if (j < d) {
+      T s = S[j * d + j] + kd[j];
+UNROLL_DM
+      for (int k = 0; k < DM; ++k)
+        if (k < j) s -= ch[j * DM + k] * ch[j * DM + k];
+      ch[j * DM + j] = sq(s);
+      const T inv = T(1) / ch[j * DM + j];
+UNROLL_DM
+      for (int i = 0; i < DM; ++i) {
+        if (i > j && i < d) {
+          T t = S[i * d + j];
+UNROLL_DM
+          for (int k = 0; k < DM; ++k)
+            if (k < j) t -= ch[i * DM + k] * ch[j * DM + k];
+          ch[i * DM + j] = t * inv;
+        }
+      }
+    }
+  }
+  T hls = T(0);
+UNROLL_DM
+  for (int i = 0; i < DM; ++i)
+    if (i < d) hls += lg(ch[i * DM + i]);
+  return hls;
+}
+
+template <typename T, int DM>
+__device__ __forceinline__ void chol_rev_r(const T* ch, T* dl, T* da, int d) {
+UNROLL_DM2
+  for (int i = 0; i < DM * DM; ++i) da[i] = T(0);
+UNROLL_DM
+  for (int jj = 0; jj < DM; ++jj) {
+    const int j = DM - 1 - jj;
+    if (j < d) {
+      const T inv = T(1) / ch[j * DM + j];
+UNROLL_DM
+      for (int ii = 0; ii < DM; ++ii) {
+        const int i = DM - 1 - ii;
+        if (i > j && i < d) {
+          const T gi = dl[i * DM + j] * inv;
+          da[i * DM + j] += gi;
+          dl[j * DM + j] -= gi * ch[i * DM + j];
+UNROLL_DM
+          for (int k = 0; k < DM; ++k)
+            if (k < j) {
+              dl[i * DM + k] -= gi * ch[j * DM + k];
+              dl[j * DM + k] -= gi * ch[i * DM + k];
+            }
+        }
+      }
+      const T s = T(0.5) * dl[j * DM + j] * inv;
+      da[j * DM + j] += s;
+UNROLL_DM
+      for (int k = 0; k < DM; ++k)
+        if (k < j) dl[j * DM + k] -= T(2) * s * ch[j * DM + k];
+    }
+  }
+}
+
+// Factor S + diag(vdiag_k) into ch (shared) and solve ilm = ch^{-1} mx on
+// the calling thread; returns sum log ch_ii.
+template <typename T, int DM>
+__device__ __forceinline__ T pair_factor(const Grid<T>& g, const Dims& z, int k, const T* mx, const T* S,
+                                         T* ch, T* ilm) {
+  const int d = z.D;
+  T c[DM * DM], m[DM];
+  const T hls = chol_r<T, DM>(S, g.kdiag + ((size_t)k * 2 + 1) * d, c, d);
+UNROLL_DM
+  for (int q = 0; q < DM; ++q) m[q] = q < d ? mx[q] : T(0);
+  lsolve<T, DM>(c, m, d);
+UNROLL_DM2
+  for (int q = 0; q < DM * DM; ++q) ch[q] = c[q];
+UNROLL_DM
+  for (int q = 0; q < DM; ++q) ilm[q] = m[q];
+  return hls;
+}
+
+// Stage 1. Blocks (tiles^2, K, B): tile (ti, tj) of member k's N x N grid,
+// rows i in [64 ti, 64 ti + 64) and columns j in [64 tj, 64 tj + 64), for
+// batch entry b. With sl_ij = vl_i.alpha_j + decov Kyy^-1_ij and s2_ij =
+// vs_i.alpha_j + 2 decov Kyy^-1_ij, each row i of the tile gets
+//   rp[b][k][tj][0][i] = sum_j E sl,  rp[..][1][i] = sum_j E s2,
+//   rp[..][2 + q][i] = sum_j E s2 up_j[q]   (q < d).
+template <typename T, int DM>
+__global__ void __launch_bounds__(kTileThreads) gpr_bwd_tiles(Grid<T> g, Dims z, const T* __restrict__ mx_,
+                                                               const T* __restrict__ sxx,
+                                                               const T* __restrict__ dsff_,
+                                                               T* __restrict__ rp) {
+  __shared__ T ch1[DM * DM];
+  __shared__ T ilm[DM];
+  __shared__ T cexp;
+  extern __shared__ __align__(16) unsigned char dyn_raw[];
+  const int d = z.D, N = z.N, R = z.R, nt = cdiv(N, kT);
+  const int ti = blockIdx.x / nt, tj = blockIdx.x % nt, k = blockIdx.y, b = blockIdx.z;
+  const int i0 = ti * kT, j0 = tj * kT;
+  const size_t bk = (size_t)b * z.K + k;
+  const T* mx = mx_ + bk * d;
+  const T* dsff = dsff_ + bk * R * R;
+  const TileSmem<T> ts(reinterpret_cast<T*>(dyn_raw), d);
+  if (z.unc) {  // Kyy^-1's tile, in flight through the factor and the staging
+    const T* kinv = g.kyy_inv + (size_t)k * N * N;
+    for (int c = threadIdx.x; c < kT * kT; c += kTileThreads) {
+      const int i = i0 + c / kT, j = j0 + c % kT;
+      const bool valid = i < N && j < N;
+      cp_async_elem(ts.q + c, valid ? kinv + (size_t)i * N + j : kinv, valid);
+    }
+    cp_async_commit();
+  }
+  if (threadIdx.x == 0) cexp = g.cp[k] - pair_factor<T, DM>(g, z, k, mx, sxx + bk * d * d, ch1, ilm);
+  __syncthreads();
+  // staging, one thread per point: up, g1, a/2, and alpha (columns) or
+  // vl = dsff^T alpha_i and vs = (dsff^T + dsff) alpha_i (rows); a point
+  // beyond N stages zeros and a/2 = +inf, so that its cells of E are 0
+  for (int r = threadIdx.x; r < 2 * kT; r += kTileThreads) {
+    const bool row = r < kT;
+    const int c = row ? r : r - kT, m = (row ? i0 : j0) + c;
+    T* sup = row ? ts.rup : ts.cup;
+    T* sg1 = row ? ts.rg1 : ts.cg1;
+    if (m < N) {
+      const size_t kdn = (size_t)k * d * N;
+      T u[DM];
+UNROLL_DM
+      for (int q = 0; q < DM; ++q) u[q] = q < d ? g.ut[kdn + (size_t)q * N + m] : T(0);
+      lsolve<T, DM>(ch1, u, d);
+      T a = g.g11[(size_t)k * N + m];
+UNROLL_DM
+      for (int q = 0; q < DM; ++q)
+        if (q < d) {
+          const T uq = u[q] - T(0.5) * ilm[q];
+          a += uq * uq;
+          sup[q * kT + c] = uq;
+          sg1[q * kT + c] = g.g1t[kdn + (size_t)q * N + m];
+        }
+      (row ? ts.rh : ts.chh)[c] = T(0.5) * a;
+      T al[kMaxR];
+#pragma unroll
+      for (int q = 0; q < kMaxR; ++q) al[q] = q < R ? g.alpha[((size_t)k * N + m) * R + q] : T(0);
+#pragma unroll
+      for (int q = 0; q < kMaxR; ++q) {
+        if (row) {
+          T l = T(0), rr = T(0);
+          if (q < R)
+            for (int w = 0; w < R; ++w) {
+              l += al[w] * dsff[w * R + q];
+              rr += dsff[q * R + w] * al[w];
+            }
+          ts.rvl[q * kT + c] = l;
+          ts.rvs[q * kT + c] = l + rr;
+        } else {
+          ts.cal[q * kT + c] = al[q];
+        }
+      }
+    } else {
+      for (int q = 0; q < d; ++q) sup[q * kT + c] = sg1[q * kT + c] = T(0);
+      set_inf((row ? ts.rh : ts.chh)[c]);
+      for (int q = 0; q < kMaxR; ++q) {
+        if (row) {
+          ts.rvl[q * kT + c] = ts.rvs[q * kT + c] = T(0);
+        } else {
+          ts.cal[q * kT + c] = T(0);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // this thread's kR x kR cells: rows ty + 16a, columns tx + 16b
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  T el[kR][kR], e2[kR][kR];
+#pragma unroll
+  for (int a = 0; a < kR; ++a)
+#pragma unroll
+    for (int bb = 0; bb < kR; ++bb) el[a][bb] = T(0);
+  for (int q = 0; q < d; ++q) {
+    T ru[kR], r1[kR], cu[kR], c1[kR];
+#pragma unroll
+    for (int a = 0; a < kR; ++a) {
+      ru[a] = ts.rup[q * kT + ty + 16 * a];
+      r1[a] = ts.rg1[q * kT + ty + 16 * a];
+    }
+#pragma unroll
+    for (int bb = 0; bb < kR; ++bb) {
+      cu[bb] = ts.cup[q * kT + tx + 16 * bb];
+      c1[bb] = ts.cg1[q * kT + tx + 16 * bb];
+    }
+#pragma unroll
+    for (int a = 0; a < kR; ++a)
+#pragma unroll
+      for (int bb = 0; bb < kR; ++bb) el[a][bb] += ru[a] * cu[bb] - r1[a] * c1[bb];
+  }
+  T decov = T(0);
+  if (z.unc)
+    for (int q = 0; q < R; ++q) decov -= dsff[q * R + q];
+  if (z.unc) cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < kR; ++a) {
+    const int ri = ty + 16 * a;
+    T vl[kMaxR], vs[kMaxR];
+#pragma unroll
+    for (int q = 0; q < kMaxR; ++q) {
+      vl[q] = ts.rvl[q * kT + ri];
+      vs[q] = ts.rvs[q * kT + ri];
+    }
+#pragma unroll
+    for (int bb = 0; bb < kR; ++bb) {
+      const int cj = tx + 16 * bb;
+      const T e = ex(cexp - (el[a][bb] + ts.rh[ri] + ts.chh[cj]));
+      T sl = T(0), s2 = T(0);
+#pragma unroll
+      for (int q = 0; q < kMaxR; ++q) {
+        sl += vl[q] * ts.cal[q * kT + cj];
+        s2 += vs[q] * ts.cal[q * kT + cj];
+      }
+      if (z.unc) {
+        const T kq = decov * ts.q[ri * kT + cj];
+        sl += kq;
+        s2 += T(2) * kq;
+      }
+      el[a][bb] = e * sl;
+      e2[a][bb] = e * s2;
+    }
+  }
+  // the row sums: this thread's columns, then the 16 lanes of its row (xor
+  // shuffles stay within a half-warp); lane tx = 0 writes
+  T* rpt = rp + (bk * nt + tj) * (d + 2) * N;
+  for (int c = 0; c < d + 2; ++c) {
+    T w[kR];
+#pragma unroll
+    for (int bb = 0; bb < kR; ++bb) w[bb] = c < 2 ? T(1) : ts.cup[(c - 2) * kT + tx + 16 * bb];
+#pragma unroll
+    for (int a = 0; a < kR; ++a) {
+      T v = T(0);
+#pragma unroll
+      for (int bb = 0; bb < kR; ++bb) v += (c == 0 ? el[a][bb] : e2[a][bb]) * w[bb];
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      const int i = i0 + ty + 16 * a;
+      if (tx == 0 && i < N) rpt[(size_t)c * N + i] = v;
+    }
+  }
+}
+
+// Stage 2. Blocks (ceil(N / 128), K, B), a thread per point i: the eKfu
+// adjoint of row i, and the pair adjoint after the sweep, from row i's
+// partials added over the column tiles in order; each block sums both and
+// writes them to scratch[b][k][tile] (bwd_combine adds the tiles).
+template <typename T, int DM>
+__global__ void __launch_bounds__(kThreads) gpr_bwd_finish(
     Grid<T> g, Dims z, const T* __restrict__ mx_, const T* __restrict__ sxx,
     const T* __restrict__ f1_, const T* __restrict__ df1_, const T* __restrict__ dsff_,
-    const T* __restrict__ dcross_, T* __restrict__ scratch) {
+    const T* __restrict__ dcross_, const T* __restrict__ rp, T* __restrict__ scratch) {
   __shared__ Shared<T, DM> sh;
   constexpr int NT = ntri(DM), NB = nv_bwd(DM);
   const int tile = blockIdx.x, k = blockIdx.y, b = blockIdx.z, d = z.D, N = z.N, R = z.R;
+  const int nt = cdiv(N, kT);
   const size_t bk = (size_t)b * z.K + k;
   const T* mx = mx_ + bk * d;
-  setup<T, DM>(g, z, k, mx, sxx + bk * d * d, sh);
+  const T* S = sxx + bk * d * d;
+  // the two factors at once, on threads 0 and 32 (two warps)
+  if (threadIdx.x == 0) {
+    T c[DM * DM];
+    sh.hls0 = chol_r<T, DM>(S, g.kdiag + (size_t)k * 2 * d, c, d);
+UNROLL_DM2
+    for (int q = 0; q < DM * DM; ++q) sh.ch0[q] = c[q];
+  } else if (threadIdx.x == 32) {
+    sh.hls1 = pair_factor<T, DM>(g, z, k, mx, S, sh.ch1, sh.ilm);
+  }
+  __syncthreads();
   const int i = tile * kThreads + threadIdx.x;
   const bool row = i < N;
   T* out = scratch + (bk * z.tiles + tile) * 2 * NB;
 
-  // the output cotangents, as the sums over columns need them
+  // the output cotangents, as the eKfu part needs them
   const T* f1 = f1_ + bk * R;
   const T* dsff = dsff_ + bk * R * R;
   T df1[kMaxR], al[kMaxR];
-  T decov = T(0);
   for (int r = 0; r < kMaxR; ++r) {
     df1[r] = T(0);
     al[r] = (row && r < R) ? g.alpha[((size_t)k * N + i) * R + r] : T(0);
@@ -408,7 +736,6 @@ __global__ void __launch_bounds__(kThreads) bwd_tiles(
       T c = df1_[bk * R + r];
       for (int q = 0; q < R; ++q) c -= (dsff[r * R + q] + dsff[q * R + r]) * f1[q];
       df1[r] = c;
-      if (z.unc) decov -= dsff[r * R + r];
     }
   }
 
@@ -456,53 +783,24 @@ UNROLL_DM
   }
 
   // pair part: [0, NT) dch1, [NT, NT + DM) dilm, NT + DM: dhls1
-  T ilu[DM], up[DM], g1[DM], a = T(0);
-  if (row) pair_row<T, DM>(g, z, k, i, sh, ilu, up, g1, a);
-  T vl[kMaxR], vs[kMaxR];  // dsff^T alpha_i and (dsff^T + dsff) alpha_i
-  for (int r = 0; r < kMaxR; ++r) {
-    T l = T(0), rr = T(0);
-    if (r < R)
-      for (int q = 0; q < R; ++q) {
-        l += al[q] * dsff[q * R + r];
-        rr += dsff[r * R + q] * al[q];
-      }
-    vl[r] = l;
-    vs[r] = l + rr;
-  }
-  const T cexp = g.cp[k] - sh.hls1;
-  const T* kinv = g.kyy_inv + (size_t)k * N * N;
-  T acc[DM], ssum = T(0), dsum = T(0);
-UNROLL_DM
-  for (int q = 0; q < DM; ++q) acc[q] = T(0);
-  for (int j0 = 0; j0 < N; j0 += kChunk) {
-    stage<T, DM>(g, z, k, j0, sh);
-    if (row) {
-      const int nj = min(kChunk, N - j0);
-      for (int c = 0; c < nj; ++c) {
-        const T e = pair_e<T, DM>(sh, g1, up, a, c, d, cexp);
-        T sl = T(0), s2 = T(0);
-#pragma unroll
-        for (int r = 0; r < kMaxR; ++r) {
-          sl += vl[r] * sh.cal[r][c];
-          s2 += vs[r] * sh.cal[r][c];
-        }
-        if (z.unc) {
-          const T kq = decov * kinv[(size_t)(j0 + c) * N + i];
-          sl += kq;
-          s2 += T(2) * kq;
-        }
-        dsum += e * sl;
-        const T es = e * s2;
-        ssum += es;
-UNROLL_DM
-        for (int q = 0; q < DM; ++q) acc[q] += es * sh.cup[q][c];
-      }
-    }
-  }
   T v[NB];
 #pragma unroll
   for (int q = 0; q < NB; ++q) v[q] = T(0);
   if (row) {
+    T ilu[DM], up[DM], g1[DM], a = T(0);
+    pair_row<T, DM>(g, z, k, i, sh, ilu, up, g1, a);
+    // row i's sums over all N columns, the column tiles added in order
+    T dsum = T(0), ssum = T(0), acc[DM];
+UNROLL_DM
+    for (int q = 0; q < DM; ++q) acc[q] = T(0);
+    for (int t = 0; t < nt; ++t) {
+      const T* part = rp + (bk * nt + t) * (d + 2) * N + i;
+      dsum += part[0];
+      ssum += part[N];
+UNROLL_DM
+      for (int q = 0; q < DM; ++q)
+        if (q < d) acc[q] += part[(size_t)(2 + q) * N];
+    }
     const T da_u = T(-0.5) * ssum;
     T dup[DM];
 UNROLL_DM
@@ -522,6 +820,8 @@ UNROLL_DM
   for (int q = threadIdx.x; q < NB; q += kThreads) out[NB + q] = sh.out[q];
 }
 
+// Stage 3. A thread per (entry, member): the row tiles' sums added in order,
+// then both Cholesky adjoints, dmx and dsxx = sym(da0 + da1), in registers.
 template <typename T, int DM>
 __global__ void bwd_combine(Grid<T> g, Dims z, const T* __restrict__ mx_, const T* __restrict__ sxx,
                             const T* __restrict__ scratch, T* __restrict__ dmx,
@@ -533,44 +833,58 @@ __global__ void bwd_combine(Grid<T> g, Dims z, const T* __restrict__ mx_, const 
   const T* mx = mx_ + (size_t)bk * d;
   const T* S = sxx + (size_t)bk * d * d;
   T s[2 * NB];
+#pragma unroll
   for (int q = 0; q < 2 * NB; ++q) s[q] = T(0);
   for (int tile = 0; tile < z.tiles; ++tile) {
     const T* p = scratch + ((size_t)bk * z.tiles + tile) * 2 * NB;
+#pragma unroll
     for (int q = 0; q < 2 * NB; ++q) s[q] += p[q];
   }
   T ch[DM * DM], dl[DM * DM], da[DM * DM], low[DM * DM];
   // eKfu factor
-  chol<T, DM>(S, g.kdiag + (size_t)k * 2 * d, ch, d);
-  for (int q = 0; q < DM * DM; ++q) dl[q] = T(0);
-  for (int a = 0; a < d; ++a)
-    for (int c = 0; c <= a; ++c) dl[a * DM + c] = s[tri(a, c)];
-  for (int a = 0; a < d; ++a) dl[a * DM + a] += s[NT + DM] / ch[a * DM + a];
-  chol_rev<T, DM>(ch, dl, da, d);
+  chol_r<T, DM>(S, g.kdiag + (size_t)k * 2 * d, ch, d);
+UNROLL_DM
+  for (int a = 0; a < DM; ++a)
+UNROLL_DM
+    for (int c = 0; c < DM; ++c) dl[a * DM + c] = a < d && c <= a ? s[tri(a, c)] : T(0);
+UNROLL_DM
+  for (int a = 0; a < DM; ++a)
+    if (a < d) dl[a * DM + a] += s[NT + DM] / ch[a * DM + a];
+  chol_rev_r<T, DM>(ch, dl, da, d);
+UNROLL_DM2
   for (int q = 0; q < DM * DM; ++q) low[q] = da[q];
   // pair factor, with the mean's solve ilm = ch1^{-1} mx
-  chol<T, DM>(S, g.kdiag + ((size_t)k * 2 + 1) * d, ch, d);
   T ilm[DM], tm[DM];
+  chol_r<T, DM>(S, g.kdiag + ((size_t)k * 2 + 1) * d, ch, d);
+UNROLL_DM
   for (int q = 0; q < DM; ++q) {
     ilm[q] = q < d ? mx[q] : T(0);
     tm[q] = q < d ? s[NB + NT + q] : T(0);
   }
   lsolve<T, DM>(ch, ilm, d);
   utsolve<T, DM>(ch, tm, d);  // tmp_m
-  for (int q = 0; q < DM * DM; ++q) dl[q] = T(0);
-  for (int a = 0; a < d; ++a)
-    for (int c = 0; c <= a; ++c) dl[a * DM + c] = s[NB + tri(a, c)] - tm[a] * ilm[c];
-  for (int a = 0; a < d; ++a) dl[a * DM + a] += s[NB + NT + DM] / ch[a * DM + a];
-  chol_rev<T, DM>(ch, dl, da, d);
+UNROLL_DM
+  for (int a = 0; a < DM; ++a)
+UNROLL_DM
+    for (int c = 0; c < DM; ++c) dl[a * DM + c] = a < d && c <= a ? s[NB + tri(a, c)] - tm[a] * ilm[c] : T(0);
+UNROLL_DM
+  for (int a = 0; a < DM; ++a)
+    if (a < d) dl[a * DM + a] += s[NB + NT + DM] / ch[a * DM + a];
+  chol_rev_r<T, DM>(ch, dl, da, d);
   for (int q = 0; q < d; ++q) dmx[(size_t)bk * d + q] = -s[NT + q] + tm[q];
   T* o = dsxx + (size_t)bk * d * d;
-  for (int a = 0; a < d; ++a)
-    for (int c = 0; c <= a; ++c) {
-      const T v = low[a * DM + c] + da[a * DM + c];
-      if (a == c) {
-        o[a * d + a] = v;
-      } else {
-        o[a * d + c] = T(0.5) * v;
-        o[c * d + a] = T(0.5) * v;
+UNROLL_DM
+  for (int a = 0; a < DM; ++a)
+UNROLL_DM
+    for (int c = 0; c < DM; ++c) {
+      if (a < d && c <= a) {
+        const T v = low[a * DM + c] + da[a * DM + c];
+        if (a == c) {
+          o[a * d + a] = v;
+        } else {
+          o[a * d + c] = T(0.5) * v;
+          o[c * d + a] = T(0.5) * v;
+        }
       }
     }
 }
@@ -600,10 +914,18 @@ int fwd_dm(const Grid<T>& g, const Dims& z, const T* mx, const T* sxx, T* f1, T*
 
 template <typename T, int DM>
 int bwd_dm(const Grid<T>& g, const Dims& z, const T* mx, const T* sxx, const T* f1, const T* df1,
-           const T* dsff, const T* dcross, T* dmx, T* dsxx, T* scratch, cudaStream_t st) {
-  bwd_tiles<T, DM><<<dim3(z.tiles, z.K, z.B), kThreads, 0, st>>>(g, z, mx, sxx, f1, df1, dsff,
-                                                                 dcross, scratch);
-  cudaError_t err = cudaGetLastError();
+           const T* dsff, const T* dcross, T* dmx, T* dsxx, T* scratch, T* rp, cudaStream_t st) {
+  const int nt = cdiv(z.N, kT);
+  const size_t bytes = tile_smem_elems(z.D) * sizeof(T);
+  cudaError_t err =
+      cudaFuncSetAttribute(gpr_bwd_tiles<T, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  gpr_bwd_tiles<T, DM><<<dim3(nt * nt, z.K, z.B), kTileThreads, bytes, st>>>(g, z, mx, sxx, dsff, rp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gpr_bwd_finish<T, DM><<<dim3(z.tiles, z.K, z.B), kThreads, 0, st>>>(g, z, mx, sxx, f1, df1, dsff,
+                                                                      dcross, rp, scratch);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = z.B * z.K;
   bwd_combine<T, DM><<<(n + 127) / 128, 128, 0, st>>>(g, z, mx, sxx, scratch, dmx, dsxx);
@@ -617,7 +939,8 @@ int bwd_dm(const Grid<T>& g, const Dims& z, const T* mx, const T* sxx, const T* 
       const T *ut, const T *g1t, const T *g11, const T *cp
 #define GPR_GRID_INIT {kdiag, xt, alpha, varr, hll, kyy_inv, ut, g1t, g11, cp}
 
-// Scratch: (B, K, tiles, NV), NV from ops/gpr_match_cuda.py:scratch_values.
+// Scratch: (B, K, tiles, NV), NV from ops/gpr_match_cuda.py:scratch_values;
+// the backward's row partials rp: (B, K, ceil(N / 64), D + 2, N).
 #define GPR_MATCH_ENTRIES(T, SFX)                                                                \
   extern "C" int gpr_match_fwd_##SFX(const T* mx, const T* sxx, GPR_GRID_ARGS(T), T* f1, T* sff, \
                                      T* cross, T* scratch, int B, int K, int D, int N, int R,    \
@@ -631,15 +954,15 @@ int bwd_dm(const Grid<T>& g, const Dims& z, const T* mx, const T* sxx, const T* 
   }                                                                                              \
   extern "C" int gpr_match_bwd_frozen_##SFX(                                                     \
       const T* mx, const T* sxx, GPR_GRID_ARGS(T), const T* f1, const T* df1, const T* dsff,     \
-      const T* dcross, T* dmx, T* dsxx, T* scratch, int B, int K, int D, int N, int R, int unc,  \
-      void* stream) {                                                                            \
+      const T* dcross, T* dmx, T* dsxx, T* scratch, T* rp, int B, int K, int D, int N, int R,    \
+      int unc, void* stream) {                                                                   \
     const Grid<T> g = GPR_GRID_INIT;                                                             \
     Dims z;                                                                                      \
     if (!make_dims(B, K, D, N, R, unc, z)) return (int)cudaErrorInvalidValue;                    \
     cudaStream_t st = (cudaStream_t)stream;                                                      \
     if (D <= 8)                                                                                  \
-      return bwd_dm<T, 8>(g, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, scratch, st);        \
-    return bwd_dm<T, 16>(g, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, scratch, st);         \
+      return bwd_dm<T, 8>(g, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, scratch, rp, st);    \
+    return bwd_dm<T, 16>(g, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, scratch, rp, st);     \
   }
 
 GPR_MATCH_ENTRIES(float, f32)

@@ -66,14 +66,21 @@
 // sites out of TF32), and the exps and reductions, not the products, set
 // the time.
 //
-// Full backward (the policy's, at M=30): one block of 256 threads per group,
-// looping over the batch so that the grid cotangents sum in a fixed order.
-// Thread 0 factors the block's D x D matrix; each thread then owns columns
-// m of the inducing points (latent groups) or rows or columns of the M x M
-// exp grid (pair groups), staged whole in dynamic shared memory ((4D + 4) x
-// M values), and sweeps E once by rows and once by columns: the row sums
-// (da_u, dup, dg1t, dalpha_u) and column sums (da_w, dwp, dg2t, dalpha_w)
-// each belong to one thread.
+// Full backward (the policy's, at M=30, with the 8 members of an HMC
+// ensemble as its batch): one block of 256 threads per group and batch
+// entry, (K, N) blocks, 16 at the ensemble policy's shape where one block
+// per group walked the batch in turn (2 blocks). Thread 0 factors the
+// block's D x D matrix; each thread then owns columns m of the inducing
+// points (latent groups) or rows or columns of the M x M exp grid (pair
+// groups), staged whole in dynamic shared memory ((4D + 4) x M values), and
+// sweeps E once by rows, on threads [0, 128), and at the same time once by
+// columns, on threads [128, 256): the row sums (da_u, dup, dg1t, dalpha_u)
+// and column sums (da_w, dwp, dg2t, dalpha_w) each belong to one thread (at
+// M = 30 one pass at a time left 226 of the 256 threads idle). Each block
+// writes its grid cotangents to its batch entry's slot of a scratch of N x
+// the grid's size; a second launch, one thread per grid value, adds the
+// slots in the order n = 0..N-1 (at N = 1 the blocks write the cotangents
+// in place and that launch is skipped).
 //
 // Register vectors of D values loop over a capacity DM in {8, 16}, guarded
 // by the runtime D, unrolled at DM = 8. Block sums go through warp shuffles
@@ -86,7 +93,10 @@
 // tile and batch entry; both backwards' `gda` and `gdmx`, the groups'
 // cotangents (N x K x D x D and N x K x D); the frozen backward's row and
 // column tile partials `rp` and `cq` (N x P x ceil(M / 64) x (1 + D) x M
-// each).
+// each); the full backward's `slots`, N x grid_elems values when N > 1
+// (grid_elems: 0.30 M values at the drift's shape L=4, D=6, M=240, 1813 at
+// the policy's L=1, D=5, M=30). The full backward's grid cotangents are
+// one flat buffer, `dgrid`, in GRID_FIELDS order (grid_grad_at).
 
 #include <cuda_runtime.h>
 
@@ -94,6 +104,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kHalf = kThreads / 2;  // the full backward's row and column halves
 constexpr int kMaxD = 16;
 constexpr int kMaxNV = kMaxD * (kMaxD + 1) / 2 + kMaxD + 2;  // most values one block sums
 
@@ -190,10 +201,33 @@ __device__ __forceinline__ int pair_index(int i, int j, int L) {
   return i * L - i * (i - 1) / 2 + (j - i);
 }
 
-// Accumulate into an output that the batch loop owns: write at n = 0.
+// The full backward's grid cotangents, one flat buffer in GRID_FIELDS
+// order (ops/mm_match_cuda.py makes its tensors views of it): the fields of
+// a buffer that starts at base, and its length.
+inline __host__ __device__ size_t grid_elems(const Dims& z) {
+  const size_t dm = (size_t)z.D * z.M, m = z.M;
+  return (size_t)z.K * z.D + z.L * (dm + m + 2 + m * m) + z.P * (4 * dm + 4 * m + 1);
+}
 template <typename T>
-__device__ __forceinline__ void acc(T* dst, T v, int n) {
-  *dst = n == 0 ? v : *dst + v;
+inline GridGrad<T> grid_grad_at(T* base, const Dims& z) {
+  const size_t dm = (size_t)z.D * z.M, m = z.M;
+  GridGrad<T> g;
+  g.kdiag = base;
+  g.zt = g.kdiag + (size_t)z.K * z.D;
+  g.alpha = g.zt + z.L * dm;
+  g.varr = g.alpha + z.L * m;
+  g.hll = g.varr + z.L;
+  g.qmat = g.hll + z.L;
+  g.ut = g.qmat + z.L * m * m;
+  g.wt = g.ut + z.P * dm;
+  g.g1t = g.wt + z.P * dm;
+  g.g2t = g.g1t + z.P * dm;
+  g.g11 = g.g2t + z.P * dm;
+  g.g22 = g.g11 + z.P * m;
+  g.cp = g.g22 + z.P * m;
+  g.alpha_u = g.cp + z.P;
+  g.alpha_w = g.alpha_u + z.P * m;
+  return g;
 }
 
 // Sum NV per-thread values over the block into out[NV] (shared). Fixed
@@ -622,9 +656,9 @@ __device__ void finish_group(Shared<T, DM>& sh, const T* pc_sum, T dhls, T* gda_
 }
 
 // Latent block l of batch entry n: the group's da and dmx share (and, FULL,
-// the latent grid cotangents, accumulated over the batch loop).
+// entry n's latent grid cotangents, written to dg at offset o).
 template <typename T, int DM, bool FULL>
-__device__ void latent_bwd(const Grid<T>& g, const GridGrad<T>& dg, const Dims& z, int l, int n,
+__device__ void latent_bwd(const Grid<T>& g, const GridGrad<T>& dg, size_t o, const Dims& z, int l, int n,
                            const T* mx, const T* S, const T* dsff, const T* f1_, const T* df1_,
                            const T* dcross_, T* gda_nk, T* gdmx_nk, Shared<T, DM>& sh) {
   constexpr int NT = DM * (DM + 1) / 2;
@@ -669,7 +703,7 @@ UNROLL_DM
     v[NT + DM] += ede;
     if (FULL) {
       v[NT + DM + 1] += de * (e / var);
-      acc(dg.alpha + (size_t)l * M + m, dae * e, n);
+      dg.alpha[o + (size_t)l * M + m] = dae * e;
     }
     T t[DM];
 UNROLL_DM
@@ -690,7 +724,7 @@ UNROLL_DM
       for (int b = 0; b < DM; ++b)
         if (b <= a) v[tri(a, b)] -= dz[a] * y[b];
       v[NT + a] -= dz[a];
-      if (FULL && a < d) acc(dg.zt + ((size_t)l * d + a) * M + m, dz[a], n);
+      if (FULL && a < d) dg.zt[o + ((size_t)l * d + a) * M + m] = dz[a];
     }
   }
   block_sum<T, NV>(v, sh.red, sh.out);
@@ -699,9 +733,9 @@ UNROLL_DM
     finish_group<T, DM>(sh, sh.out, -s_ede, gda_nk, d);
     for (int i = 0; i < d; ++i) gdmx_nk[i] = sh.out[NT + i];
     if (FULL) {
-      for (int a = 0; a < d; ++a) acc(dg.kdiag + (size_t)k * d + a, sh.da[a * DM + a], n);
-      acc(dg.hll + l, s_ede, n);
-      acc(dg.varr + l, sh.out[NT + DM + 1] + (z.unc ? dsff[l * L + l] : T(0)), n);
+      for (int a = 0; a < d; ++a) dg.kdiag[o + (size_t)k * d + a] = sh.da[a * DM + a];
+      dg.hll[o + l] = s_ede;
+      dg.varr[o + l] = sh.out[NT + DM + 1] + (z.unc ? dsff[l * L + l] : T(0));
     }
   }
   __syncthreads();
@@ -817,7 +851,7 @@ __global__ void __launch_bounds__(kThreads) svgp_bwd_finish(
   T* gdmx_nk = gdmx + ((size_t)n * z.K + k) * d;
   if (k < L) {
     const GridGrad<T> none = {};
-    latent_bwd<T, DM, false>(g, none, z, k, n, mx, S, dsff, f1_, df1_, dcross_, gda_nk, gdmx_nk, sh);
+    latent_bwd<T, DM, false>(g, none, 0, z, k, n, mx, S, dsff, f1_, df1_, dcross_, gda_nk, gdmx_nk, sh);
     return;
   }
   const int p = k - L;
@@ -900,11 +934,13 @@ __global__ void svgp_bwd_combine(const T* __restrict__ gda, const T* __restrict_
   }
 }
 
-// Full backward: one block per group, looping over the batch so that the
-// grid cotangents sum in a fixed order.
+// Full backward, stage 1. Blocks (K, N): group k of batch entry n writes its
+// da and dmx share to gda and gdmx and its grid cotangents to dg at offset
+// n x slot: the entries' slots of a scratch of N x grid_elems values, or, at
+// N = 1 (slot = 0), the cotangents themselves.
 template <typename T, int DM>
 __global__ void __launch_bounds__(kThreads) bwd_groups(
-    Grid<T> g, GridGrad<T> dg, Dims z, const T* __restrict__ mx_, const T* __restrict__ sxx,
+    Grid<T> g, GridGrad<T> dg, size_t slot, Dims z, const T* __restrict__ mx_, const T* __restrict__ sxx,
     const T* __restrict__ f1_, const T* __restrict__ df1_, const T* __restrict__ dsff_,
     const T* __restrict__ dcross_, T* __restrict__ gda, T* __restrict__ gdmx) {
   __shared__ Shared<T, DM> sh;
@@ -912,47 +948,49 @@ __global__ void __launch_bounds__(kThreads) bwd_groups(
   T* dyn = reinterpret_cast<T*>(dyn_raw);
   constexpr int NT = DM * (DM + 1) / 2;
   constexpr int NV = NT + DM + 2;
-  const int k = blockIdx.x, d = z.D, M = z.M, L = z.L;
+  const int k = blockIdx.x, n = blockIdx.y, d = z.D, M = z.M, L = z.L;
+  const size_t o = n * slot;
+  const T* mx = mx_ + (size_t)n * d;
+  const T* S = sxx + (size_t)n * d * d;
+  const T* dsff = dsff_ + (size_t)n * L * L;
+  T* gda_nk = gda + ((size_t)n * z.K + k) * d * d;
+  T* gdmx_nk = gdmx + ((size_t)n * z.K + k) * d;
 
-  for (int n = 0; n < z.N; ++n) {
-    const T* mx = mx_ + (size_t)n * d;
-    const T* S = sxx + (size_t)n * d * d;
-    const T* dsff = dsff_ + (size_t)n * L * L;
-    T* gda_nk = gda + ((size_t)n * z.K + k) * d * d;
-    T* gdmx_nk = gdmx + ((size_t)n * z.K + k) * d;
+  if (k < L) {
+    latent_bwd<T, DM, true>(g, dg, o, z, k, n, mx, S, dsff, f1_, df1_, dcross_, gda_nk, gdmx_nk, sh);
+    return;
+  }
 
-    if (k < L) {
-      latent_bwd<T, DM, true>(g, dg, z, k, n, mx, S, dsff, f1_, df1_, dcross_, gda_nk, gdmx_nk, sh);
-      continue;
-    }
-
-    T v[NV];
+  T v[NV];
 #pragma unroll
-    for (int i = 0; i < NV; ++i) v[i] = T(0);
-    // pair p
-    const int p = k - L;
-    int pi = 0, pj = 0;
-    pair_of(p, L, pi, pj);
-    pair_setup<T, DM>(g, z, p, mx, S, sh, dyn);
-    const T* up = dyn;
-    const T* wp = up + d * M;
-    const T* g1 = wp + d * M;
-    const T* g2 = g1 + d * M;
-    const T* au = g2 + d * M;
-    const T* aw = au + M;
-    const T* alu = aw + M;
-    const T* alw = alu + M;
-    const bool diag = pi == pj;
-    const bool qd = z.unc && diag;
-    const T* q = g.qmat + (size_t)pi * M * M;
-    T df2, decov;
-    pair_cots<T>(z, pi, pj, dsff, df2, decov);
-    const T cexp = sh.cexp;
-    const size_t pdm = (size_t)p * d * M;
-    // v: [0, NT) dch partials, [NT, NT + DM) dup + dwp sums, NT + DM: sum ede
+  for (int i = 0; i < NV; ++i) v[i] = T(0);
+  // pair p
+  const int p = k - L;
+  int pi = 0, pj = 0;
+  pair_of(p, L, pi, pj);
+  pair_setup<T, DM>(g, z, p, mx, S, sh, dyn);
+  const T* up = dyn;
+  const T* wp = up + d * M;
+  const T* g1 = wp + d * M;
+  const T* g2 = g1 + d * M;
+  const T* au = g2 + d * M;
+  const T* aw = au + M;
+  const T* alu = aw + M;
+  const T* alw = alu + M;
+  const bool diag = pi == pj;
+  const bool qd = z.unc && diag;
+  const T* q = g.qmat + (size_t)pi * M * M;
+  T df2, decov;
+  pair_cots<T>(z, pi, pj, dsff, df2, decov);
+  const T cexp = sh.cexp;
+  const size_t pdm = (size_t)p * d * M;
+  // v: [0, NT) dch partials, [NT, NT + DM) dup + dwp sums, NT + DM: sum ede
 
+  // the row pass on threads [0, kHalf) and the column pass on [kHalf,
+  // kThreads), at the same time; each thread's v holds its own pass's sums
+  if (threadIdx.x < kHalf) {
     // row pass: thread i owns da_u[i], dup[:, i], dg1t[:, i], dalpha_u[i]
-    for (int i = threadIdx.x; i < M; i += kThreads) {
+    for (int i = threadIdx.x; i < M; i += kHalf) {
       T g1i[DM], upi[DM], ilu[DM];
 UNROLL_DM
       for (int c = 0; c < DM; ++c) {
@@ -993,16 +1031,16 @@ UNROLL_DM
         for (int b = 0; b < DM; ++b)
           if (b <= a) v[tri(a, b)] -= dup[a] * ilu[b];
       for (int c = 0; c < d; ++c) {
-        acc(dg.ut + pdm + c * M + i, dup[c], n);
-        acc(dg.g1t + pdm + c * M + i, accg[c], n);
+        dg.ut[o + pdm + c * M + i] = dup[c];
+        dg.g1t[o + pdm + c * M + i] = accg[c];
       }
-      acc(dg.g11 + (size_t)p * M + i, da_u, n);
-      acc(dg.alpha_u + (size_t)p * M + i, df2 * ea, n);
+      dg.g11[o + (size_t)p * M + i] = da_u;
+      dg.alpha_u[o + (size_t)p * M + i] = df2 * ea;
     }
-
+  } else {
     // column pass: thread j owns da_w[j], dwp[:, j], dg2t[:, j], dalpha_w[j]
     // and column j of dqmat
-    for (int j = threadIdx.x; j < M; j += kThreads) {
+    for (int j = threadIdx.x - kHalf; j < M; j += kHalf) {
       T wpj[DM], ilw[DM];
 UNROLL_DM
       for (int c = 0; c < DM; ++c) {
@@ -1031,7 +1069,7 @@ UNROLL_DM
           accg[c] += ede * g1i[c];
         }
         ea += alu[i] * e;
-        if (diag) acc(dg.qmat + ((size_t)pi * M + i) * M + j, decov * e, n);
+        if (diag) dg.qmat[o + ((size_t)pi * M + i) * M + j] = decov * e;
       }
       const T da_w = T(-0.5) * cs;
       T dwp[DM];
@@ -1047,28 +1085,39 @@ UNROLL_DM
         for (int b = 0; b < DM; ++b)
           if (b <= a) v[tri(a, b)] -= dwp[a] * ilw[b];
       for (int c = 0; c < d; ++c) {
-        acc(dg.wt + pdm + c * M + j, dwp[c], n);
-        acc(dg.g2t + pdm + c * M + j, accg[c], n);
+        dg.wt[o + pdm + c * M + j] = dwp[c];
+        dg.g2t[o + pdm + c * M + j] = accg[c];
       }
-      acc(dg.g22 + (size_t)p * M + j, da_w, n);
-      acc(dg.alpha_w + (size_t)p * M + j, df2 * ea, n);
+      dg.g22[o + (size_t)p * M + j] = da_w;
+      dg.alpha_w[o + (size_t)p * M + j] = df2 * ea;
     }
-
-    block_sum<T, NV>(v, sh.red, sh.out);
-    if (threadIdx.x == 0) {
-      T tm[DM];
-      for (int i = 0; i < DM; ++i) tm[i] = i < d ? T(-0.5) * sh.out[NT + i] : T(0);
-      utsolve<T, DM>(sh.ch, tm, d);  // tmp_m
-      for (int a = 0; a < d; ++a)
-        for (int b = 0; b <= a; ++b) sh.out[tri(a, b)] -= tm[a] * sh.ilm[b];
-      const T s = sh.out[NT + DM];
-      finish_group<T, DM>(sh, sh.out, -s, gda_nk, d);
-      for (int i = 0; i < d; ++i) gdmx_nk[i] = tm[i];
-      for (int a = 0; a < d; ++a) acc(dg.kdiag + (size_t)k * d + a, sh.da[a * DM + a], n);
-      acc(dg.cp + p, s, n);
-    }
-    __syncthreads();
   }
+
+  block_sum<T, NV>(v, sh.red, sh.out);
+  if (threadIdx.x == 0) {
+    T tm[DM];
+    for (int i = 0; i < DM; ++i) tm[i] = i < d ? T(-0.5) * sh.out[NT + i] : T(0);
+    utsolve<T, DM>(sh.ch, tm, d);  // tmp_m
+    for (int a = 0; a < d; ++a)
+      for (int b = 0; b <= a; ++b) sh.out[tri(a, b)] -= tm[a] * sh.ilm[b];
+    const T s = sh.out[NT + DM];
+    finish_group<T, DM>(sh, sh.out, -s, gda_nk, d);
+    for (int i = 0; i < d; ++i) gdmx_nk[i] = tm[i];
+    for (int a = 0; a < d; ++a) dg.kdiag[o + (size_t)k * d + a] = sh.da[a * DM + a];
+    dg.cp[o + p] = s;
+  }
+}
+
+// Full backward, stage 2 (N > 1): one thread per grid cotangent adds the
+// entries' slots in order n = 0..N-1.
+template <typename T>
+__global__ void svgp_bwd_slots(const T* __restrict__ slots, T* __restrict__ dgrid, Dims z) {
+  const size_t total = grid_elems(z);
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  T s = slots[e];
+  for (int n = 1; n < z.N; ++n) s += slots[n * total + e];
+  dgrid[e] = s;
 }
 
 // ---------------------------------------------------------------- launchers
@@ -1124,15 +1173,23 @@ int bwd_frozen_dm(const Grid<T>& g, const Dims& z, const T* mx, const T* sxx, co
 }
 
 template <typename T, int DM>
-int bwd_full_dm(const Grid<T>& g, const GridGrad<T>& dg, const Dims& z, const T* mx, const T* sxx,
-                const T* f1, const T* df1, const T* dsff, const T* dcross, T* dmx, T* dsxx, T* gda,
-                T* gdmx, cudaStream_t st) {
+int bwd_full_dm(const Grid<T>& g, const Dims& z, const T* mx, const T* sxx, const T* f1, const T* df1,
+                const T* dsff, const T* dcross, T* dmx, T* dsxx, T* gda, T* gdmx, T* dgrid, T* slots,
+                cudaStream_t st) {
   const size_t bytes = (size_t)(4 * z.D + 4) * z.M * sizeof(T);
   cudaError_t err = allow_shared(bwd_groups<T, DM>, bytes);
   if (err != cudaSuccess) return (int)err;
-  bwd_groups<T, DM><<<z.K, kThreads, bytes, st>>>(g, dg, z, mx, sxx, f1, df1, dsff, dcross, gda, gdmx);
+  const GridGrad<T> dg = grid_grad_at(z.N == 1 ? dgrid : slots, z);
+  const size_t slot = z.N == 1 ? 0 : grid_elems(z);
+  bwd_groups<T, DM><<<dim3(z.K, z.N), kThreads, bytes, st>>>(g, dg, slot, z, mx, sxx, f1, df1, dsff, dcross,
+                                                             gda, gdmx);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (z.N > 1) {
+    svgp_bwd_slots<T><<<(unsigned)cdiv((int)grid_elems(z), 256), 256, 0, st>>>(slots, dgrid, z);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   svgp_bwd_combine<T><<<z.N, 64, 0, st>>>(gda, gdmx, dmx, dsxx, z);
   return (int)cudaGetLastError();
 }
@@ -1160,15 +1217,17 @@ int launch_bwd_frozen(const Grid<T>& g, const T* mx, const T* sxx, const T* f1, 
 }
 
 template <typename T>
-int launch_bwd_full(const Grid<T>& g, const GridGrad<T>& dg, const T* mx, const T* sxx, const T* f1,
-                    const T* df1, const T* dsff, const T* dcross, T* dmx, T* dsxx, T* gda, T* gdmx,
-                    int N, int L, int D, int M, int unc, void* stream) {
+int launch_bwd_full(const Grid<T>& g, const T* mx, const T* sxx, const T* f1, const T* df1,
+                    const T* dsff, const T* dcross, T* dmx, T* dsxx, T* gda, T* gdmx, T* dgrid,
+                    T* slots, int N, int L, int D, int M, int unc, void* stream) {
   Dims z;
   if (!make_dims(N, L, D, M, unc, z)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (D <= 8)
-    return bwd_full_dm<T, 8>(g, dg, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, st);
-  return bwd_full_dm<T, 16>(g, dg, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, st);
+    return bwd_full_dm<T, 8>(g, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, dgrid, slots,
+                             st);
+  return bwd_full_dm<T, 16>(g, z, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, dgrid, slots,
+                            st);
 }
 
 }  // namespace
@@ -1196,15 +1255,11 @@ int launch_bwd_full(const Grid<T>& g, const GridGrad<T>& dg, const T* mx, const 
   }                                                                                              \
   extern "C" int svgp_match_bwd_##SFX(                                                           \
       const T* mx, const T* sxx, GRID_ARGS(T), const T* f1, const T* df1, const T* dsff,         \
-      const T* dcross, T* dmx, T* dsxx, T* gda, T* gdmx, T* d_kdiag, T* d_zt, T* d_alpha,        \
-      T* d_varr, T* d_hll, T* d_qmat, T* d_ut, T* d_wt, T* d_g1t, T* d_g2t, T* d_g11,            \
-      T* d_g22, T* d_cp, T* d_alpha_u, T* d_alpha_w, int N, int L, int D, int M, int unc,        \
-      void* stream) {                                                                            \
+      const T* dcross, T* dmx, T* dsxx, T* gda, T* gdmx, T* dgrid, T* slots, int N, int L,       \
+      int D, int M, int unc, void* stream) {                                                     \
     const Grid<T> g = GRID_INIT;                                                                 \
-    const GridGrad<T> dg = {d_kdiag, d_zt, d_alpha, d_varr, d_hll, d_qmat, d_ut, d_wt, d_g1t,    \
-                            d_g2t, d_g11, d_g22, d_cp, d_alpha_u, d_alpha_w};                    \
-    return launch_bwd_full<T>(g, dg, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, N, L, \
-                              D, M, unc, stream);                                                \
+    return launch_bwd_full<T>(g, mx, sxx, f1, df1, dsff, dcross, dmx, dsxx, gda, gdmx, dgrid,    \
+                              slots, N, L, D, M, unc, stream);                                   \
   }
 
 MM_MATCH_ENTRIES(float, f32)

@@ -26,7 +26,10 @@ Dispatch is by the device of the tensors: CUDA tensors go to the kernels of
 N, else the wrapper raises), CPU tensors to ``gpr_match_reference`` and
 ``gpr_match_reference_bwd``. There is no fallback from one to the other.
 ``launches`` counts kernel launches only (a call of the groups and the
-combine counts once).
+combine counts once). The frozen backward cuts each member's N x N grid
+into TILE x TILE tiles on the block grid; the wrapper allocates their row
+partials, (B, K, ceil(N / TILE), D + 2, N) values, beside the scratch of
+per-row-tile sums that both entries share.
 """
 from __future__ import annotations
 
@@ -45,7 +48,8 @@ launches = {f"gpr_match_{kind}_{sfx}": 0 for kind in ("fwd", "bwd_frozen") for s
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 MAX_D, MAX_R = 16, 4  # csrc/gpr_match.cu's kMaxD and kMaxR
-_ROWS = 128  # rows of E per block (kThreads)
+_ROWS = 128  # rows of E per block of the forward and of the backward's finish (kThreads)
+TILE = 64  # the frozen backward's tile side (kT): its row partials have ceil(N / TILE) column tiles
 
 
 def reset_launches():
@@ -220,9 +224,12 @@ def _bwd(meta: GPRMatchMeta, g: FusedGPRMatchGrid, mx, sxx, f1, df1, dsff, dcros
     if mx.device.type == "cpu":
         return gpr_match_reference_bwd(meta, g, mx, sxx, df1, dsff, dcross)
     dmx, dsxx = torch.empty_like(mx), torch.empty_like(sxx)
+    # each row's D + 2 partial sums over each column tile of E
+    rp = torch.empty((b, k, -(-meta.num_n // TILE), d + 2, meta.num_n), dtype=mx.dtype,
+                     device=mx.device)
     name = f"gpr_match_bwd_frozen_{_SUFFIX[mx.dtype]}"
     _build.launch("gpr_match", name, (mx, sxx, *g.tensors(), f1, df1, dsff, dcross, dmx, dsxx,
-                                      _scratch(meta, b, True, mx)), *_ints(meta, b))
+                                      _scratch(meta, b, True, mx), rp), *_ints(meta, b))
     launches[name] += 1
     return dmx, dsxx
 

@@ -26,7 +26,10 @@ wrapper raises), CPU tensors to ``match_reference`` and
 ``match_reference_bwd``. There is no fallback from one to the other.
 ``launches`` counts kernel launches only, one per entry call. The forward
 and the frozen backward cut each pair's M x M grid into tiles on the block
-grid; the wrapper allocates their tile partials (``tile_count``).
+grid; the wrapper allocates their tile partials (``tile_count``). The full
+backward runs a block per group and batch entry; with a batch of N > 1 the
+wrapper allocates N slots of the grid cotangents (N x 0.30 M values at the
+drift's shape), which the kernel adds in batch order.
 """
 from __future__ import annotations
 
@@ -396,10 +399,15 @@ def _bwd(meta: MatchMeta, g: FusedMatchGrid, mx, sxx, f1, df1, dsff, dcross, fro
         _build.launch("mm_match", name, (*ins, dmx, dsxx, gda, gdmx, rp, cq), *_ints(meta, n))
         launches[name] += 1
         return dmx, dsxx, None
-    dts = [torch.empty_like(t) for t in g.tensors()]
+    # the grid cotangents: one flat buffer in GRID_FIELDS order, each field a
+    # view of it; with a batch, the kernel's per-entry slots of it
+    sizes = [t.numel() for t in g.tensors()]
+    dgrid = new(sum(sizes))
+    slots = new(n * dgrid.numel() if n > 1 else 0)
     name = f"svgp_match_bwd_{sfx}"
-    _build.launch("mm_match", name, (*ins, dmx, dsxx, gda, gdmx, *dts), *_ints(meta, n))
+    _build.launch("mm_match", name, (*ins, dmx, dsxx, gda, gdmx, dgrid, slots), *_ints(meta, n))
     launches[name] += 1
+    dts = [v.view_as(t) for v, t in zip(dgrid.split(sizes), g.tensors())]
     return dmx, dsxx, FusedMatchGrid(**dict(zip(GRID_FIELDS, dts)), meta=meta)
 
 

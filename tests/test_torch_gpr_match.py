@@ -21,7 +21,8 @@ from gpflowpilco_tpu.ops.mm_match_pallas import fused_gpr_match as jax_fused_gpr
 from gpflowpilco_torch.convert import gpr_from_numpy
 from gpflowpilco_torch.moment_matching.gp import GPRTransform, gpr_match_cache
 from gpflowpilco_torch.moments import GaussianMoments
-from gpflowpilco_torch.ops.gpr_match_cuda import build_fused_gpr_match_grid, fused_gpr_match
+from gpflowpilco_torch.ops.gpr_match_cuda import (build_fused_gpr_match_grid, fused_gpr_match,
+                                                 gpr_match_reference_bwd)
 from gpflowpilco_torch.ops.kexp_cuda import build_fused_gpr_grid, ekuffu_contract_gpr
 
 from ._torch_export import CPU, gpr_to_numpy, jax_gpr, jax_gpr_members, t
@@ -170,3 +171,98 @@ def test_torch_gpr_kernel_routes_match_unfused(route):
         got = GPRTransform(tm, **{route: True}).with_cache().moment_match(x)
     for a, b in ((got.y.mean, ref.y.mean), (got.y.cov, ref.y.cov), (got.cross, ref.cross)):
         assert a.shape == b.shape and _scaled(a, b) <= 1e-10
+
+
+# ---------------------------------------------------------------- tile split
+def _gpr_tile_split(meta, g, mx, sxx, df1_in, dsff, dcross, tile):
+    """The stages of csrc/gpr_match.cu's frozen backward, in float64 torch:
+    each member's N x N grid cut into tile x tile cells; per tile, each
+    row's partials (sum_j E sl, sum_j E s2, sum_j E s2 up_j) with sl_ij =
+    vl_i.alpha_j + decov Kyy^-1_ij and s2_ij = vs_i.alpha_j + 2 decov
+    Kyy^-1_ij; the partials added over the column tiles in tile order; then
+    the finish's per-point adjoints (eKfu, and dup -> tmp_u after the
+    sweep) and the combine's Cholesky adjoints. Returns (dmx, dsxx)."""
+    from gpflowpilco_torch.ops import mm_match_cuda as mc
+    from gpflowpilco_torch.ops.gpr_match_cuda import _solve, gpr_match_reference
+
+    n = meta.num_n
+    f1 = gpr_match_reference(meta, g, mx, sxx)[0]
+    ch = torch.linalg.cholesky(sxx[:, :, None] + torch.diag_embed(g.kdiag))  # (B, K, 2, D, D)
+    ch0, ch1 = ch[:, :, 0], ch[:, :, 1]
+    diag0, diag1 = (torch.diagonal(c, dim1=-2, dim2=-1) for c in (ch0, ch1))
+    # eKfu, a point per column
+    y = _solve(ch0, g.xt - mx[..., None])  # (B, K, D, N)
+    e = g.varr[:, None] * torch.exp((g.hll - torch.sum(torch.log(diag0), -1))[..., None]
+                                    - 0.5 * torch.sum(y * y, -2))
+    iv = _solve(ch0, y, trans=1)
+    df1 = df1_in - ((dsff + dsff.mT) @ f1[..., None])[..., 0]  # (B, K, R)
+    adc = dcross @ g.alpha.mT  # (B, K, D, N)
+    ede = e * ((g.alpha @ df1[..., None])[..., 0] + torch.sum(iv * adc, -2))
+    t_iv = _solve(ch0, e[..., None, :] * adc)
+    dz = _solve(ch0, -y * ede[..., None, :] + t_iv, trans=1)
+    dl0 = -torch.tril(iv @ t_iv.mT) - torch.tril(dz @ y.mT)
+    dl0 = dl0 + torch.diag_embed(-torch.sum(ede, -1)[..., None] / diag0)
+    # the pair's tiles
+    ilu = _solve(ch1, g.ut)
+    ilm = _solve(ch1, mx[..., None])
+    up = ilu - 0.5 * ilm  # (B, K, D, N)
+    hu = 0.5 * (g.g11 + torch.sum(up * up, -2))  # (B, K, N)
+    cexp = g.cp - torch.sum(torch.log(diag1), -1)  # (B, K)
+    vl = g.alpha @ dsff  # (B, K, N, R): dsff^T alpha_i
+    vs = vl + g.alpha @ dsff.mT
+    decov = -torch.diagonal(dsff, dim1=-2, dim2=-1).sum(-1) if meta.uncertainty else torch.zeros_like(cexp)
+    spans = [(i, min(i + tile, n)) for i in range(0, n, tile)]
+    parts = []  # per column tile: (B, K, D + 2, N)
+    for j0, j1 in spans:
+        rp = torch.zeros(mx.shape[:2] + (meta.num_dim + 2, n), dtype=mx.dtype)
+        for i0, i1 in spans:
+            mp = (up[..., i0:i1].mT @ up[..., j0:j1] - g.g1t[:, :, i0:i1].mT @ g.g1t[:, :, j0:j1]
+                  + hu[..., i0:i1, None] + hu[..., None, j0:j1])
+            ep = torch.exp(cexp[..., None, None] - mp)
+            kq = decov[..., None, None] * g.kyy_inv[:, i0:i1, j0:j1]
+            sl = vl[..., i0:i1, :] @ g.alpha[:, j0:j1].mT + kq
+            s2 = vs[..., i0:i1, :] @ g.alpha[:, j0:j1].mT + 2.0 * kq
+            rp[..., 0, i0:i1] = torch.sum(ep * sl, -1)
+            rp[..., 1, i0:i1] = torch.sum(ep * s2, -1)
+            rp[..., 2:, i0:i1] = ((ep * s2) @ up[..., j0:j1].mT).mT
+        parts.append(rp)
+    total = parts[0]
+    for rp in parts[1:]:
+        total = total + rp
+    dsum, ssum, acc = total[..., 0, :], total[..., 1, :], total[..., 2:, :]
+    dup = -acc + 2.0 * up * (-0.5 * ssum)[..., None, :]
+    dilm = torch.sum(-0.5 * dup, -1)  # (B, K, D)
+    tmp_u = _solve(ch1, dup, trans=1)
+    tm = _solve(ch1, dilm[..., None], trans=1)
+    dl1 = -torch.tril(tmp_u @ ilu.mT) - torch.tril(tm @ ilm.mT)
+    dl1 = dl1 + torch.diag_embed(-torch.sum(dsum, -1)[..., None] / diag1)
+    low = mc.chol_rev(ch0, dl0) + mc.chol_rev(ch1, dl1)
+    return -torch.sum(dz, -1) + tm[..., 0], 0.5 * (low + low.mT)
+
+
+@pytest.mark.parametrize("b, k, n, d, r, tile", [
+    (1, 8, 240, 6, 4, 64),  # the HMC ensemble's shape, a ragged last tile
+    (1, 3, 37, 4, 3, 64),   # below one tile
+    (1, 2, 130, 10, 2, 64),  # D above the 8-register capacity, a tile plus 2
+    (2, 3, 100, 6, 4, 64),  # a batch B = 2
+    (1, 3, 240, 6, 4, 240),  # the whole grid as one tile
+])
+def test_torch_gpr_whole_match_tile_split_matches_reference(b, k, n, d, r, tile):
+    """The tile decomposition of K3g's frozen backward (row partials of 64 x
+    64 tiles of E, added over the column tiles in order, then the finish and
+    the combine) against gpr_match_reference_bwd, in float64, to 1e-12 of
+    each output's scale."""
+    tm = gpr_from_numpy(gpr_to_numpy(jax_gpr_members(40 + n, k=k, n=n, d=d, p=r)), CPU,
+                        torch.float64).requires_grad_(False)
+    rng = np.random.default_rng(41 + n)
+    a = rng.normal(size=(b, k, d, d))
+    mx, sxx = t(0.3 * rng.normal(size=(b, k, d))), t(0.04 * a @ np.swapaxes(a, -1, -2) + 0.15 * np.eye(d))
+    cots = (t(rng.normal(size=(b, k, r))), t(rng.normal(size=(b, k, r, r))), t(rng.normal(size=(b, k, d, r))))
+    with torch.no_grad():
+        c = gpr_match_cache(tm)
+        grid = build_fused_gpr_match_grid(tm, c.alpha, c.kyy_inv, uncertainty=True)
+        got = _gpr_tile_split(grid.meta, grid, mx, sxx, *cots, tile)
+    want = gpr_match_reference_bwd(grid.meta, grid, mx, sxx, *cots)
+    for what, x, w in zip(("dmx", "dsxx"), got, want):
+        err = float((x - w).abs().max()) / float(w.abs().max())
+        assert err <= 1e-12, (what, err)

@@ -148,13 +148,14 @@ def _close_vs_truth(got, plain, truth, what=""):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n, num_latent, d, m", [(1, 4, 6, 240), (1, 1, 5, 30), (3, 2, 4, 37),
                                                  (2, 3, 10, 45), (1, 2, 6, 65), (2, 3, 4, 1),
-                                                 (8, 4, 6, 240)])
+                                                 (8, 4, 6, 240), (8, 1, 5, 30)])
 def test_torch_svgp_match_kernels_match_reference_on_gpu(dtype, n, num_latent, d, m):
     """K3 forward, frozen and full backward against the plain version at the
     drift's and the policy's shapes and at ragged ones (M not a multiple of
     the 64-point tile: 37, 45, a tile plus one (65) and below one tile (1, 30);
-    a batch N = 2, 3 and 8, on the block grid of the forward and the frozen
-    backward; D = 10 above the 8-register capacity): in float64 to 1e-9 of
+    a batch N = 2, 3 and 8 on the block grid, N = 8 also at the HMC ensemble
+    policy's shape, where the full backward adds its entries' slots; D = 10
+    above the 8-register capacity): in float64 to 1e-9 of
     each output's scale; in float32 both are held against the float64 plain
     version of the same inputs (_close_vs_truth). Repeated runs of every
     entry are bit-identical (no atomics)."""
@@ -326,13 +327,15 @@ def _stacked_gpr(k, n, d, r, dev, seed, noise=0.05):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("b, k, n, d, r", [(1, 8, 240, 6, 4), (1, 3, 37, 4, 3), (2, 3, 300, 6, 4),
-                                           (1, 2, 130, 10, 2)])
+                                           (1, 2, 130, 10, 2), (1, 3, 64, 6, 4), (1, 2, 1, 6, 4)])
 def test_torch_gpr_match_kernels_match_reference_on_gpu(dtype, b, k, n, d, r):
     """K3g forward and frozen backward against the plain version: at the
-    ensemble's shape, at N ragged against the 128-row tiles and 64-column
-    chunks, a batch B = 2, D = 10 above the 8-register capacity; float64 to
-    1e-9 of each output's scale, float32 held with its plain version against
-    float64 (_close_vs_truth). Repeated backward runs are bit-identical."""
+    ensemble's shape, at N ragged against the forward's 128-row tiles and
+    64-column chunks and the backward's 64 x 64 tiles, at N = 64 (exact
+    tiles) and N = 1, a batch B = 2, D = 10 above the 8-register capacity;
+    float64 to 1e-9 of each output's scale, float32 held with its plain
+    version against float64 (_close_vs_truth). Repeated forward and backward
+    runs are bit-identical."""
     from gpflowpilco_torch.moment_matching.gp import gpr_match_cache
     from gpflowpilco_torch.ops import gpr_match_cuda as gm
 
@@ -374,6 +377,7 @@ def test_torch_gpr_match_kernels_match_reference_on_gpu(dtype, b, k, n, d, r):
         assert gm.launches[f"gpr_match_{kind}_{sfx}"] == before[f"gpr_match_{kind}_{sfx}"] + 1
     again = gm._bwd(meta, g, mx, sxx, got[0], *cots)
     assert all(torch.equal(x, y) for x, y in zip(res, again))
+    assert all(torch.equal(x, y) for x, y in zip(got, gm._fwd(meta, g, mx, sxx)))
     with pytest.raises(TypeError):
         gm._fwd(meta, g, mx.double() if dtype == torch.float32 else mx.float(), sxx)
 

@@ -296,3 +296,29 @@ def test_torch_whole_match_tile_split_matches_reference(tile, num_latent, d, m, 
     for what, a, b in zip(("f1", "sff", "cross", "dmx", "dsxx"), got, want):
         err = float((a - b).abs().max()) / float(b.abs().max())
         assert err <= 1e-12, (what, err)
+
+
+@pytest.mark.parametrize("num_latent, d, m, unc", [(1, 5, 30, False), (2, 4, 37, True)])
+def test_torch_whole_match_full_backward_batch_is_sum_of_entries(num_latent, d, m, unc):
+    """The decomposition that the full backward's batch on the block grid
+    rests on: match_reference_bwd(frozen=False) on a batch of N=8 (the HMC
+    ensemble policy's shape, and a ragged M=37 with model uncertainty)
+    gives each entry's (dmx, dsxx) as its own one-entry call does, and grid
+    cotangents equal to the per-entry ones added in the order n = 0..7, in
+    float64, to 1e-12 of each output's scale."""
+    n = 8
+    with torch.no_grad():
+        grid = _split_case(num_latent, d, m, unc)
+        mx, sxx = (t(a) for a in _state(95, d=d, n=n))
+        rng = np.random.default_rng(96)
+        cots = (t(rng.normal(size=(n, num_latent))), t(rng.normal(size=(n, num_latent, num_latent))),
+                t(rng.normal(size=(n, d, num_latent))))
+        dmx, dsxx, dgrid = mc.match_reference_bwd(grid.meta, grid, mx, sxx, *cots, frozen=False)
+        ones = [mc.match_reference_bwd(grid.meta, grid, mx[i:i + 1], sxx[i:i + 1],
+                                       *(c[i:i + 1] for c in cots), frozen=False) for i in range(n)]
+    summed = [sum(parts[1:], parts[0]) for parts in zip(*(o[2].tensors() for o in ones))]
+    pairs = [("dmx", dmx, torch.cat([o[0] for o in ones])), ("dsxx", dsxx, torch.cat([o[1] for o in ones]))]
+    pairs += list(zip(mc.GRID_FIELDS, dgrid.tensors(), summed))
+    for what, a, b in pairs:
+        err = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-300)
+        assert a.shape == b.shape and err <= 1e-12, (what, err)
