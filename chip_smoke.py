@@ -12,7 +12,9 @@
      latents, B=1024 Fourier bases, M=240 inducing points, D=6, float32;
    - K2 (eKuffu pair contraction: forward, full and frozen backward) in
      float32 and float64 at the MM path's two shapes: the drift's N=1,
-     P=10 latent pairs, D2=14, M=240 and the policy's N=1, P=1, D2=12, M=30.
+     P=10 latent pairs, D2=14, M=240 and the policy's N=1, P=1, D2=12, M=30;
+     the frozen backward's repeated runs bit-identical, and the device time
+     of its stages (tiles, finish) printed.
 4. Pathwise slice: pathwise PILCO on cartpole at full width (1024 particles x
    1024 bases, horizon 30, up to 240 inducing points), its SVGP paths through
    K1 (use_fused_paths, as run_torch.py --fused): 8 random episodes
@@ -44,8 +46,9 @@
    at N=8, must be bit-identical, and the device time of each stage of the
    tiled entries (tile sweep, finish, combine) and of the full backward
    (groups, slot sum, combine) is printed from one profiler session. The
-   build prints ptxas's registers and spills of K3's and K3g's kernels and
-   fails if a float32 tile kernel at the 8-register capacity spills.
+   build prints ptxas's registers and spills of K2's, K3's and K3g's
+   kernels and fails if a float32 tile kernel at the main path's register
+   capacity spills (K3's and K3g's at 8, K2's frozen tiles at 16).
 7. Whole-match slice: moment-matching PILCO on cartpole at full width with
    use_fused_match, float32 loop and loss: 8 random episodes, a drift fit,
    then one Adam policy update (counts zeroed just before, read just after;
@@ -63,9 +66,11 @@
    and K2's GPR route (forward and frozen backward with R=4 rows and the 8
    members on the pair axis) at K=8 members, N=240, D=6, R=4, in float32
    and float64 against their plain versions (K2's float64 GPR route also at
-   the members' noise, GPR_NOISE), timed beside them and their bounds; the
-   device time of each of K3g's backward stages (tile sweep, finish,
-   combine) is printed.
+   the members' noise, GPR_NOISE), timed beside them and their bounds;
+   K3g's repeated forward and backward runs must be bit-identical, and so
+   must K2's GPR-route frozen backward's; the device time
+   of each of K3g's stages (forward tiles and combine; backward tile sweep,
+   finish, combine) and of K2's GPR-route frozen backward is printed.
 9. HMC-ensemble slice (slice B): cartpole at full width with an exact GPR
    drift: 8 random episodes (N=240), an L-BFGS MAP fit, HMC with 8 chains
    (warmup, samples and leapfrog cut to HMC_CUT) thinned to an 8-member
@@ -341,17 +346,17 @@ def pair_bound_ms(kind, n, p, d2, m, dtype, r=1):
     return _bound((inputs + outputs) * size, ops, dtype)
 
 
-def pair_inputs(rng, n, p, d2, m, dtype, device):
+def pair_inputs(rng, n, p, d2, m, dtype, device, r=1):
     """su, sw >= 0 with exponents su^T sw of order 1 (E spans ~e^0..e^-5, as
-    in the pair grid), alu, qm and the backward's cotangents."""
+    in the pair grid), alu (r rows), qm and the backward's cotangents."""
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=device).contiguous()  # noqa: E731
     scale = 1.5 / math.sqrt(d2)
     return dict(
         su=f(np.abs(rng.normal(size=(n, p, d2, m))) * scale),
         sw=f(np.abs(rng.normal(size=(n, p, d2, m))) * scale),
-        alu=f(rng.normal(size=(p, 1, m))),
+        alu=f(rng.normal(size=(p, r, m))),
         qm=f(rng.normal(size=(p, m, m))),
-        devc=f(rng.normal(size=(n, p, 1, m))),
+        devc=f(rng.normal(size=(n, p, r, m))),
         dqcol=f(rng.normal(size=(n, p, m))),
     )
 
@@ -388,6 +393,7 @@ def pair_kernels_phase(kc, seed, device):
                 name = f"pair_contract_{kind}_{sfx}"
                 for out, g, w in triples:
                     errs[name] = max(errs[name], check(f"{name} {out}", g, w, tol))
+            frozen_repeats(kc, ops, cot, f"pair_contract_bwd_frozen_{sfx}")
             if PAIR_MAIN[dtype] != where:
                 continue
             calls = {
@@ -407,7 +413,20 @@ def pair_kernels_phase(kc, seed, device):
                                      bound_ms=bound, bound_by=bound_by)
                 print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), "
                       f"plain torch {plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
+            # the frozen backward's stages (warm L2): tiles and finish
+            stages = stage_ms(calls["bwd_frozen"][0])
+            timings[f"pair_contract_bwd_frozen_{sfx}"]["stages"] = stages
+            print(f"  stages of pair_contract_bwd_frozen_{sfx}: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
     return errs, timings
+
+
+def frozen_repeats(kc, ops, cot, name):
+    """Two runs of K2's frozen backward must be bit-identical."""
+    runs = [kc._bwd(*ops, *cot, False)[:2] for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"{name}: repeated runs differ")
+    print(f"  {name}: repeated runs bit-identical")
 
 
 def slice_phase(pe, seed, device, step_limit, lbfgs_iters):
@@ -788,8 +807,10 @@ def glue_bound_ms(kind, n, d, dtype):
 
 
 def stage_ms(fn, reps=5):
-    """Device ms per call of each kernel ``fn`` launches, by kernel name,
-    from one torch.profiler session over ``reps`` calls after a warm-up."""
+    """Device ms per launch of each kernel ``fn`` launches, by kernel name:
+    the mean over the launches that one torch.profiler session over
+    ``reps`` calls after a warm-up recorded (a session can drop some of
+    its calls' events, so the total over ``reps`` would undercount)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -798,33 +819,42 @@ def stage_ms(fn, reps=5):
         for _ in range(reps):
             fn()
         sync()
-    out = {}
+    total = {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
         name = re.search(r"(\w+)<", e.key)
         name = name.group(1) if name else e.key[:40]
-        out[name] = out.get(name, 0.0) + us / 1e3 / reps
-    return out
+        t_us, n = total.get(name, (0.0, 0))
+        total[name] = (t_us + us, n + e.count)
+    return {name: t_us / 1e3 / n for name, (t_us, n) in total.items() if n}
 
 
-# kernels whose ptxas report chip_smoke prints: K3's (csrc/mm_match.cu) and
-# K3g's (csrc/gpr_match.cu)
+# kernels whose ptxas report chip_smoke prints: K3's (csrc/mm_match.cu),
+# K3g's (csrc/gpr_match.cu) and K2's (csrc/kexp_pair.cu)
 PTXAS_K3 = ("svgp_fwd_tiles", "svgp_fwd_combine", "svgp_bwd_tiles", "svgp_bwd_finish", "svgp_bwd_combine",
             "bwd_groups", "svgp_bwd_slots")
-PTXAS_K3G = ("fwd_tiles", "fwd_combine", "gpr_bwd_tiles", "gpr_bwd_finish", "bwd_combine")
+PTXAS_K3G = ("gpr_fwd_tiles", "fwd_combine", "gpr_bwd_tiles", "gpr_bwd_finish", "bwd_combine")
+PTXAS_K2 = ("fwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel", "bwd_frozen_tiles", "bwd_frozen_finish")
+# (library, its kernels, the tile kernels that must not spill in float32 at
+# the main path's register capacity, that capacity): K3's and K3g's at D <= 8
+# (DM = 8), K2's frozen tiles at D2 <= 16 (DM = 16)
+PTXAS_LIBS = (("mm_match", PTXAS_K3, ("svgp_fwd_tiles", "svgp_bwd_tiles"), 8),
+              ("gpr_match", PTXAS_K3G, ("gpr_fwd_tiles", "gpr_bwd_tiles"), 8),
+              ("kexp_pair", PTXAS_K2, ("bwd_frozen_tiles",), 16))
 
 
 def ptxas_report(text, kernels=PTXAS_K3):
-    """[(kernel, 'f' | 'd', register capacity DM or None, registers, spill
-    stores, spill loads)] from nvcc's -Xptxas -v output."""
+    """[(kernel, 'f' | 'd', its integer template arguments (the register
+    capacity DM first, then a tile side), registers, spill stores, spill
+    loads)] from nvcc's -Xptxas -v output."""
     rows, name, spill = [], None, (0, 0)
-    pat = re.compile(r"\d+(" + "|".join(kernels) + r")I([fd])(?:Li(\d+)E)?")
+    pat = re.compile(r"\d+(" + "|".join(kernels) + r")I([fd])((?:Li\d+E)*)")
     for line in text.splitlines():
         if "Compiling entry function" in line:
             m = pat.search(line)
-            name = (m.group(1), m.group(2), m.group(3) and int(m.group(3))) if m else None
+            name = (m.group(1), m.group(2), tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(3)))) if m else None
         elif name and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
             spill = (nums[1], nums[2])
@@ -1420,6 +1450,11 @@ def gpr_kernels_phase(gm, kc, seed, device):
                     ok = ok and err_k <= 3.0 * err_p + 1e-4
                 if not ok:
                     raise AssertionError(f"{name} {what}: kernel disagrees with its plain version")
+        for kind in names:
+            runs = [k3g_outputs(g, mx, sxx, cots, True)[kind] for _ in range(2)]
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError(f"gpr_match_{kind}_{sfx}: repeated runs differ")
+        print(f"  gpr_match_fwd_{sfx}, gpr_match_bwd_frozen_{sfx}: repeated runs bit-identical")
         if dtype == torch.float32:
             wc = gpr_well_conditioned(g, rng)
             mxw, sxxw = state_moments(rng, GPR_K, D, dtype, device, shift=WC_STATE_SHIFT)
@@ -1444,8 +1479,9 @@ def gpr_kernels_phase(gm, kc, seed, device):
             gpr_match_bound_ms("bwd_frozen", g.meta, 1, dtype))
 
         def k2_pairs(gmodel):
-            """((fwd, outputs, kernel's, plain's), (bwd_frozen, ...)) of K2's
-            GPR route on ``gmodel``'s operands at these moments."""
+            """(operands, ((fwd, outputs, kernel's, plain's), (bwd_frozen,
+            ...))) of K2's GPR route on ``gmodel``'s operands at these
+            moments."""
             with torch.no_grad():
                 c = gpr_match_cache(gmodel)
                 grid = build_fused_gpr_grid(gmodel.kernel.variance, gmodel.kernel.lengthscales,
@@ -1471,6 +1507,7 @@ def gpr_kernels_phase(gm, kc, seed, device):
             name = f"pair_contract_{kind}_{sfx}/gpr"
             for what, a, b in zip(outs, gots, wants):
                 errs[name] = max(errs[name], check(f"{name} {what}", a, b, tol))
+        frozen_repeats(kc, ops, cot, f"pair_contract_bwd_frozen_{sfx}/gpr")
         if dtype == torch.float64:
             # and on the main path's conditioning: the noise~GPR_NOISE model,
             # whose Kyy^-1 (qm) and alpha are large, at K3g's float64 bar
@@ -1498,9 +1535,11 @@ def gpr_kernels_phase(gm, kc, seed, device):
                              bound_ms=bound, bound_by=bound_by, library_ms=None)
         print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), plain torch "
               f"{plain_ms:.4f} ms ({plain_how}), bound {bound:.6f} ms ({bound_by})")
-    # the stages of K3g's entries (warm L2); the frozen backward's tile sweep,
+    # the stages of K3g's entries (warm L2): the forward's tiles and combine,
+    # the frozen backward's tile sweep,
     # finish and combine
-    for name in ("gpr_match_fwd_f32", "gpr_match_bwd_frozen_f32", "gpr_match_bwd_frozen_f64"):
+    for name in ("gpr_match_fwd_f32", "gpr_match_fwd_f64", "gpr_match_bwd_frozen_f32", "gpr_match_bwd_frozen_f64",
+                 "pair_contract_bwd_frozen_f64/gpr"):
         stages = stage_ms(calls[name][0])
         timings[name]["stages"] = stages
         print(f"  stages of {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
@@ -2022,8 +2061,8 @@ def fused_rollout_slice_phase(rc, pe, loop, seed, device, step_limit):
 # kernel-name fragments whose rows a profile prints on their own: this
 # repository's kernels and the eigenvalue solver behind psd_project's eigvalsh
 _WATCHED = ("fwd_kernel", "bwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel", "bwd_finish",
-            "bwd_groups", "bwd_slots", "fwd_tiles", "bwd_tiles", "combine", "enc_fwd", "enc_bwd",
-            "psd_kernel", "euler_kernel", "syev", "eig")
+            "bwd_frozen_tiles", "bwd_frozen_finish", "bwd_groups", "bwd_slots", "fwd_tiles", "bwd_tiles",
+            "combine", "enc_fwd", "enc_bwd", "psd_kernel", "euler_kernel", "syev", "eig")
 # host runtime calls that wait for the device or copy through it
 _SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
 
@@ -2150,18 +2189,17 @@ def main():
           f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items()) or 'cached'})")
 
     phase_s = {"build": time.perf_counter() - t0}
-    # ptxas: every K3 and K3g kernel's registers and spills; a float32 tile
-    # kernel at the 8-register capacity must not spill
-    for lib, kernels, tiled in (("mm_match", PTXAS_K3, "svgp_"), ("gpr_match", PTXAS_K3G, "gpr_bwd_tiles")):
+    # ptxas: every K2, K3 and K3g kernel's registers and spills; a float32
+    # tile kernel at the main path's register capacity must not spill
+    for lib, kernels, tiled, cap in PTXAS_LIBS:
         regs = ptxas_report(_build.compiler_output.get(lib, ""), kernels)
-        for kern, t, dm, n_regs, st, ld in regs:
-            dm_s = "" if dm is None else f", {dm}"
-            print(f"ptxas {lib} {kern}<{'float' if t == 'f' else 'double'}{dm_s}>: {n_regs} registers, "
+        for kern, t, params, n_regs, st, ld in regs:
+            targs = "".join(f", {v}" for v in params)
+            print(f"ptxas {lib} {kern}<{'float' if t == 'f' else 'double'}{targs}>: {n_regs} registers, "
                   f"{st} bytes spill stores, {ld} bytes spill loads")
-        spills = [r for r in regs
-                  if r[0].startswith(tiled) and r[1] == "f" and r[2] in (None, 8) and r[4] + r[5]]
+        spills = [r for r in regs if r[0] in tiled and r[1] == "f" and r[2][:1] == (cap,) and r[4] + r[5]]
         if built.get(lib) is not None and (not regs or spills):
-            raise AssertionError(f"{lib}'s tiled float32 kernels at DM=8 spill or were not reported: "
+            raise AssertionError(f"{lib}'s float32 tile kernels at DM={cap} spill or were not reported: "
                                  f"{spills or regs}")
 
     def timed(name, fn, *fn_args):

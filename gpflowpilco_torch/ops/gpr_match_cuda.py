@@ -25,11 +25,13 @@ Dispatch is by the device of the tensors: CUDA tensors go to the kernels of
 ``csrc/gpr_match.cu`` (float32 or float64, contiguous, D <= 16, R <= 4, any
 N, else the wrapper raises), CPU tensors to ``gpr_match_reference`` and
 ``gpr_match_reference_bwd``. There is no fallback from one to the other.
-``launches`` counts kernel launches only (a call of the groups and the
-combine counts once). The frozen backward cuts each member's N x N grid
-into TILE x TILE tiles on the block grid; the wrapper allocates their row
-partials, (B, K, ceil(N / TILE), D + 2, N) values, beside the scratch of
-per-row-tile sums that both entries share.
+``launches`` counts kernel launches only (a call of the tiles and the
+combine counts once). Both entries cut each member's N x N grid into
+TILE x TILE tiles on the block grid. The wrapper allocates the scratch of
+partial sums: the forward's, per (entry, member), one slot per eKfu block
+of _LATENT points and one per tile; the backward's, one slot per block of
+_ROWS points of its finish, and the tiles' row partials, (B, K,
+ceil(N / TILE), D + 2, N) values.
 """
 from __future__ import annotations
 
@@ -48,8 +50,9 @@ launches = {f"gpr_match_{kind}_{sfx}": 0 for kind in ("fwd", "bwd_frozen") for s
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 MAX_D, MAX_R = 16, 4  # csrc/gpr_match.cu's kMaxD and kMaxR
-_ROWS = 128  # rows of E per block of the forward and of the backward's finish (kThreads)
-TILE = 64  # the frozen backward's tile side (kT): its row partials have ceil(N / TILE) column tiles
+_ROWS = 128  # points per block of the backward's finish (kThreads)
+TILE = 64  # the tile side of both entries (kT): ceil(N / TILE)^2 tiles per member
+_LATENT = 256  # points per eKfu block of the forward (kTileThreads)
 
 
 def reset_launches():
@@ -109,7 +112,7 @@ def build_fused_gpr_match_grid(model, alpha, kyy_inv, uncertainty: bool = True) 
         alpha=alpha.contiguous(),
         varr=var.contiguous(),
         hll=0.5 * torch.sum(torch.log(lam), -1),
-        # the kernel reads Kyy^{-1}[j, i] for [i, j]
+        # symmetric: the backward reads Kyy^{-1}[i, j] for [j, i] too
         kyy_inv=(0.5 * (kyy_inv + kyy_inv.mT)).contiguous(),
         ut=ut, g1t=g1t, g11=g11, cp=cp,
         meta=meta,
@@ -160,19 +163,20 @@ def gpr_match_reference_bwd(meta: GPRMatchMeta, g: FusedGPRMatchGrid, mx, sxx, d
 
 
 # ----------------------------------------------------------------- dispatch
-def scratch_values(d: int, backward: bool) -> int:
-    """Partial sums per row tile (csrc/gpr_match.cu nv_fwd_*, nv_bwd) at the
-    register capacity of D."""
+def scratch_values(d: int, n: int, backward: bool) -> int:
+    """Partial sums per (entry, member) (csrc/gpr_match.cu nv_fwd_*, nv_bwd)
+    at the register capacity of D: the forward's eKfu slots and tile slots,
+    or the backward finish's slots."""
     dm = 8 if d <= 8 else 16
     if backward:
-        return 2 * (dm * (dm + 1) // 2 + dm + 1)
-    return MAX_R + dm * MAX_R + MAX_R * MAX_R + 1
+        return -(-n // _ROWS) * 2 * (dm * (dm + 1) // 2 + dm + 1)
+    return -(-n // _LATENT) * (MAX_R + dm * MAX_R) + (-(-n // TILE)) ** 2 * (MAX_R * MAX_R + 1)
 
 
 def operand_check(name: str, meta: GPRMatchMeta, g: FusedGPRMatchGrid, mx, sxx, cots=()):
     """Raise ValueError unless every operand has the shape the kernels index
     it by, D <= 16 and R <= 4, and TypeError unless all share one float32 or
-    float64 dtype. N has no limit: the kernels stage columns in chunks."""
+    float64 dtype. N has no limit: the kernels cut the grid into tiles."""
     r, d, n, k = meta.num_out, meta.num_dim, meta.num_n, meta.num_members
     b = mx.shape[0]
     shapes = dict(kdiag=(k, 2, d), xt=(d, n), alpha=(k, n, r), varr=(k,), hll=(k,),
@@ -197,9 +201,8 @@ def _ints(meta: GPRMatchMeta, b: int):
 
 
 def _scratch(meta: GPRMatchMeta, b: int, backward: bool, like):
-    tiles = -(-meta.num_n // _ROWS)
-    nv = scratch_values(meta.num_dim, backward)
-    return torch.empty((b, meta.num_members, tiles, nv), dtype=like.dtype, device=like.device)
+    nv = scratch_values(meta.num_dim, meta.num_n, backward)
+    return torch.empty((b, meta.num_members, nv), dtype=like.dtype, device=like.device)
 
 
 def _fwd(meta: GPRMatchMeta, g: FusedGPRMatchGrid, mx, sxx):

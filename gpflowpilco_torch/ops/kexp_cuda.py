@@ -20,7 +20,10 @@ Dispatch is by the device of the tensors: CUDA tensors go to the kernels of
 ``csrc/kexp_pair.cu`` (float32 or float64, contiguous, else the wrapper
 raises), CPU tensors to ``pair_contract_reference`` and its backward
 formulas. There is no fallback from one to the other. ``launches`` counts
-kernel launches only.
+kernel launches only (a call of the frozen backward's tiles and finish
+counts once). The frozen backward cuts each (n, p) grid into
+FROZEN_TILE x FROZEN_TILE tiles on the block grid; the wrapper allocates
+their row and column partials (``frozen_partials``).
 
 The GPR match (``build_fused_gpr_grid``, ``ekuffu_contract_gpr``) uses
 the same kernels with one symmetric (X, X) pair per model, the training
@@ -49,6 +52,7 @@ launches = {
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _MAX_D2, _MAX_R = 32, 4  # kMaxD2, kMaxR in csrc/kexp_pair.cu
+FROZEN_TILE = 32  # the frozen backward's tile side, kFT in csrc/kexp_pair.cu
 
 
 def reset_launches():
@@ -86,6 +90,16 @@ def _launch(kind: str, inputs, outputs, shape):
     name = f"pair_contract_{kind}_{_SUFFIX[inputs[0].dtype]}"
     _build.launch("kexp_pair", name, (*inputs, *outputs), *(ctypes.c_int(v) for v in shape))
     launches[name] += 1
+
+
+def frozen_partials(n, p, d2, m, like):
+    """The frozen backward's scratch: dsu's row partials (N, P, ceil(M /
+    FROZEN_TILE), D2, M), one slab per column tile, then dsw's column
+    partials, one per row tile; empty when one tile covers M (the kernel
+    then writes dsu and dsw itself)."""
+    nt = -(-m // FROZEN_TILE)
+    shape = (2, n, p, nt, d2, m) if nt > 1 else (0,)
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
 
 
 # ----------------------------------------------------------------- plain torch
@@ -133,7 +147,8 @@ def _bwd(su, sw, alu, qm, devc, dqcol, want_model):
         return pair_contract_reference_bwd(su, sw, alu, qm, devc, dqcol, want_model)
     dsu, dsw = torch.empty_like(su), torch.empty_like(sw)
     if not want_model:
-        _launch("bwd_frozen", (su, sw, alu, qm, devc, dqcol), (dsu, dsw), shape)
+        part = frozen_partials(*shape[:4], su)
+        _launch("bwd_frozen", (su, sw, alu, qm, devc, dqcol), (dsu, dsw, part), shape)
         return dsu, dsw, None, None
     dalu, dqm = torch.empty_like(alu), torch.empty_like(qm)
     _launch("bwd", (su, sw, alu, qm, devc, dqcol), (dsu, dsw, dalu, dqm), shape)

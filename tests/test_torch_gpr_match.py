@@ -266,3 +266,79 @@ def test_torch_gpr_whole_match_tile_split_matches_reference(b, k, n, d, r, tile)
     for what, x, w in zip(("dmx", "dsxx"), got, want):
         err = float((x - w).abs().max()) / float(w.abs().max())
         assert err <= 1e-12, (what, err)
+
+
+def _gpr_fwd_tile_split(meta, g, mx, sxx, tile, latent):
+    """The stages of csrc/gpr_match.cu's forward, in float64 torch: the eKfu
+    blocks of ``latent`` points each (their f1 and cross partials), each
+    member's N x N grid cut into tile x tile cells (per tile, f2's share
+    alpha_i^T E alpha_j and ecov's sum Kyy^-1 o E), then the combine: the
+    eKfu slots and the tile slots (ti-major) added in order, and sff.
+    Returns (f1, sff, cross)."""
+    from gpflowpilco_torch.ops.gpr_match_cuda import _solve
+
+    n = meta.num_n
+    ch = torch.linalg.cholesky(sxx[:, :, None] + torch.diag_embed(g.kdiag))  # (B, K, 2, D, D)
+    ch0, ch1 = ch[:, :, 0], ch[:, :, 1]
+    hls0, hls1 = (torch.sum(torch.log(torch.diagonal(c, dim1=-2, dim2=-1)), -1) for c in (ch0, ch1))
+    # eKfu, a point per thread of a block
+    y = _solve(ch0, g.xt - mx[..., None])  # (B, K, D, N)
+    e = g.varr[:, None] * torch.exp((g.hll - hls0)[..., None] - 0.5 * torch.sum(y * y, -2))
+    iv = _solve(ch0, y, trans=1)
+    ae = e[..., None] * g.alpha  # (B, K, N, R)
+    lat = [(ae[..., a:a + latent, :].sum(-2), iv[..., a:a + latent] @ ae[..., a:a + latent, :])
+           for a in range(0, n, latent)]
+    # the pair's tiles
+    up = _solve(ch1, g.ut) - 0.5 * _solve(ch1, mx[..., None])  # (B, K, D, N)
+    hu = 0.5 * (g.g11 + torch.sum(up * up, -2))  # (B, K, N)
+    cexp = g.cp - hls1  # (B, K)
+    spans = [(i, min(i + tile, n)) for i in range(0, n, tile)]
+    pair = []
+    for i0, i1 in spans:
+        for j0, j1 in spans:
+            mp = (up[..., i0:i1].mT @ up[..., j0:j1] - g.g1t[:, :, i0:i1].mT @ g.g1t[:, :, j0:j1]
+                  + hu[..., i0:i1, None] + hu[..., None, j0:j1])
+            ep = torch.exp(cexp[..., None, None] - mp)
+            f2 = g.alpha[:, i0:i1].mT @ ep @ g.alpha[:, j0:j1]  # (B, K, R, R)
+            ecov = torch.sum(g.kyy_inv[:, i0:i1, j0:j1] * ep, dim=(-2, -1))
+            pair.append((f2, ecov))
+    f1, cross = lat[0]
+    for a, c in lat[1:]:
+        f1, cross = f1 + a, cross + c
+    f2, ecov = pair[0]
+    for a, c in pair[1:]:
+        f2, ecov = f2 + a, ecov + c
+    sff = f2 - f1[..., :, None] * f1[..., None, :]
+    if meta.uncertainty:
+        sff = sff + torch.eye(meta.num_out, dtype=mx.dtype) * (g.varr - ecov)[..., None, None]
+    return f1, sff, cross
+
+
+@pytest.mark.parametrize("b, k, n, d, r, tile", [
+    (1, 8, 240, 6, 4, 64),  # the HMC ensemble's shape, a ragged last tile
+    (1, 3, 37, 4, 3, 64),   # below one tile
+    (1, 2, 130, 10, 2, 64),  # D above the 8-register capacity, a tile plus 2
+    (2, 3, 100, 6, 4, 64),  # a batch B = 2
+    (1, 3, 240, 6, 4, 240),  # the whole grid as one tile
+])
+def test_torch_gpr_whole_match_fwd_tile_split_matches_reference(b, k, n, d, r, tile):
+    """The tile decomposition of K3g's forward (64 x 64 tiles of E, each
+    tile's f2 and ecov partials, the eKfu blocks of 256 points, and the
+    combine's order) against gpr_match_reference, in float64, to 1e-12 of
+    each output's scale."""
+    from gpflowpilco_torch.ops.gpr_match_cuda import _LATENT, TILE, gpr_match_reference
+
+    assert TILE == 64
+    tm = gpr_from_numpy(gpr_to_numpy(jax_gpr_members(40 + n, k=k, n=n, d=d, p=r)), CPU,
+                        torch.float64).requires_grad_(False)
+    rng = np.random.default_rng(41 + n)
+    a = rng.normal(size=(b, k, d, d))
+    mx, sxx = t(0.3 * rng.normal(size=(b, k, d))), t(0.04 * a @ np.swapaxes(a, -1, -2) + 0.15 * np.eye(d))
+    with torch.no_grad():
+        c = gpr_match_cache(tm)
+        grid = build_fused_gpr_match_grid(tm, c.alpha, c.kyy_inv, uncertainty=True)
+        got = _gpr_fwd_tile_split(grid.meta, grid, mx, sxx, tile, _LATENT)
+        want = gpr_match_reference(grid.meta, grid, mx, sxx)
+    for what, x, w in zip(("f1", "sff", "cross"), got, want):
+        err = float((x - w).abs().max()) / float(w.abs().max())
+        assert err <= 1e-12, (what, err)

@@ -45,13 +45,18 @@ def test_torch_path_eval_kernels_match_reference_on_gpu(d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n, p, d2, m", [(1, 10, 14, 240), (3, 3, 14, 17), (1, 1, 12, 30), (2, 2, 20, 45)])
-def test_torch_pair_contract_kernels_match_reference_on_gpu(dtype, n, p, d2, m):
+@pytest.mark.parametrize("n, p, d2, m, r", [(1, 10, 14, 240, 1), (3, 3, 14, 17, 1), (1, 1, 12, 30, 1),
+                                           (2, 2, 20, 45, 1), (1, 2, 14, 64, 1), (1, 2, 14, 65, 1),
+                                           (2, 1, 14, 129, 1), (1, 8, 14, 240, 4)])
+def test_torch_pair_contract_kernels_match_reference_on_gpu(dtype, n, p, d2, m, r):
     """K2 forward, full and frozen backward against the plain version, at the
-    drift's and the policy's shapes and at ragged ones (M not a multiple of
-    the kernel's 32-wide tiles, a batch N > 1, D2 > 16). Each output is a sum
-    of at most M terms taken in another order: rtol = atol = 1e-4 in float32,
-    1e-10 in float64."""
+    drift's and the policy's shapes, the GPR route's (8 members on P, R = 4
+    rows of alpha^T) and ragged ones (M not a multiple of the 32-wide passes
+    or of the frozen backward's 32-wide tiles: 17, 30, 45, 65, 129; M = 64
+    exact tiles; a batch N > 1, D2 > 16). Each output is a sum of at most M
+    terms taken in another order: rtol = atol = 1e-4 in float32, 1e-10 in
+    float64. Repeated full and frozen backward runs are bit-identical (no
+    atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from gpflowpilco_torch.ops import kexp_cuda as kc
@@ -63,8 +68,8 @@ def test_torch_pair_contract_kernels_match_reference_on_gpu(dtype, n, p, d2, m):
     # exponents su^T sw >= 0, as in the pair grid: E = exp(-su^T sw) <= 1
     su = f(np.abs(rng.normal(size=(n, p, d2, m))) / d2)
     sw = f(np.abs(rng.normal(size=(n, p, d2, m))) / d2)
-    alu, qm = f(rng.normal(size=(p, 1, m))), f(rng.normal(size=(p, m, m)))
-    devc, dqcol = f(rng.normal(size=(n, p, 1, m))), f(rng.normal(size=(n, p, m)))
+    alu, qm = f(rng.normal(size=(p, r, m))), f(rng.normal(size=(p, m, m)))
+    devc, dqcol = f(rng.normal(size=(n, p, r, m))), f(rng.normal(size=(n, p, m)))
     before = dict(kc.launches)
     for got, want in zip(kc._fwd(su, sw, alu, qm), kc.pair_contract_reference(su, sw, alu, qm)):
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
@@ -86,9 +91,10 @@ def test_torch_pair_contract_kernels_match_reference_on_gpu(dtype, n, p, d2, m):
     with pytest.raises(TypeError):  # mixed dtypes
         kc._fwd(su, sw, alu, qm.to(torch.float32 if dtype == torch.float64 else torch.float64))
     # repeated runs are bit-identical: no atomics
-    a = kc._bwd(su, sw, alu, qm, devc, dqcol, True)
-    b = kc._bwd(su, sw, alu, qm, devc, dqcol, True)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for model in (True, False):
+        a = kc._bwd(su, sw, alu, qm, devc, dqcol, model)
+        b = kc._bwd(su, sw, alu, qm, devc, dqcol, model)
+        assert all(x is y is None or torch.equal(x, y) for x, y in zip(a, b)), model
 
 
 def _gpu_or_skip():
@@ -327,12 +333,14 @@ def _stacked_gpr(k, n, d, r, dev, seed, noise=0.05):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("b, k, n, d, r", [(1, 8, 240, 6, 4), (1, 3, 37, 4, 3), (2, 3, 300, 6, 4),
-                                           (1, 2, 130, 10, 2), (1, 3, 64, 6, 4), (1, 2, 1, 6, 4)])
+                                           (1, 2, 130, 10, 2), (1, 3, 64, 6, 4), (1, 2, 1, 6, 4),
+                                           (1, 3, 65, 6, 4), (1, 2, 129, 6, 4)])
 def test_torch_gpr_match_kernels_match_reference_on_gpu(dtype, b, k, n, d, r):
     """K3g forward and frozen backward against the plain version: at the
-    ensemble's shape, at N ragged against the forward's 128-row tiles and
-    64-column chunks and the backward's 64 x 64 tiles, at N = 64 (exact
-    tiles) and N = 1, a batch B = 2, D = 10 above the 8-register capacity;
+    ensemble's shape, at N ragged against the 64 x 64 tiles of both (37
+    below one tile; 65 and 129 a tile plus one; 130, 240, 300) and the
+    forward's 256-point eKfu blocks (300), at N = 64 (exact tiles) and
+    N = 1, a batch B = 2, D = 10 above the 8-register capacity;
     float64 to 1e-9 of each output's scale, float32 held with its plain
     version against float64 (_close_vs_truth). Repeated forward and backward
     runs are bit-identical."""

@@ -175,3 +175,58 @@ def test_torch_ekuffu_contract_fused_matches_jax():
         (tmx.grad, jg_mx), (tsxx.grad, jg_sxx), (tm.q_mu.grad, jg_model.q_mu), (tm.z.grad, jg_model.z),
     ):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9, atol=1e-12)
+
+
+def _frozen_tile_split(su, sw, alu, qm, devc, dqcol, tile):
+    """The stages of csrc/kexp_pair.cu's frozen backward, in float64 torch:
+    each (n, p) grid cut into tile x tile cells; per tile, E evaluated once,
+    g = -E o (alu^T devc + qm o dqcol), the row partial g sw_tile^T into
+    dsu's slab of the column tile and the column partial su_tile g into
+    dsw's slab of the row tile; then each slab list added in tile order.
+    Returns (dsu, dsw)."""
+    m = su.shape[-1]
+    spans = [(i, min(i + tile, m)) for i in range(0, m, tile)]
+    dsu_p = torch.zeros((len(spans),) + su.shape, dtype=su.dtype)
+    dsw_p = torch.zeros((len(spans),) + sw.shape, dtype=sw.dtype)
+    for ti, (i0, i1) in enumerate(spans):
+        for tj, (j0, j1) in enumerate(spans):
+            e = torch.exp(-(su[..., i0:i1].mT @ sw[..., j0:j1]))
+            g = -e * (alu[:, :, i0:i1].mT @ devc[..., j0:j1] + qm[:, i0:i1, j0:j1] * dqcol[..., None, j0:j1])
+            dsu_p[tj][..., i0:i1] = sw[..., j0:j1] @ g.mT
+            dsw_p[ti][..., j0:j1] = su[..., i0:i1] @ g
+    dsu, dsw = dsu_p[0], dsw_p[0]
+    for a, b in zip(dsu_p[1:], dsw_p[1:]):
+        dsu, dsw = dsu + a, dsw + b
+    return dsu, dsw
+
+
+@pytest.mark.parametrize("n, p, d2, m, r", [
+    (1, 10, 14, 240, 1),  # the MM drift's shape
+    (3, 3, 14, 17, 1),    # below one tile, a batch N = 3
+    (2, 2, 20, 45, 1),    # D2 above 16
+    (1, 1, 12, 30, 1),    # the policy's shape
+    (1, 8, 14, 240, 4),   # the GPR route: 8 members on P, R = 4 rows of alpha^T
+])
+def test_torch_pair_contract_frozen_tile_split_matches_reference(n, p, d2, m, r):
+    """The tile decomposition of K2's frozen backward (E once per tile of
+    the kernel's side, row and column partials from that one tile, added in
+    tile order) against pair_contract_reference_bwd(..., False), in
+    float64, to 1e-12 of each output's scale."""
+    o = _operands(np.random.default_rng(1000 + m + r), n, p, d2, m, r=r)
+    args = [t(o[k]) for k in ("su", "sw", "alu", "qm", "devc", "dqcol")]
+    got = _frozen_tile_split(*args, kc.FROZEN_TILE)
+    want = kc.pair_contract_reference_bwd(*args, False)
+    for what, x, w in zip(("dsu", "dsw"), got, want[:2]):
+        err = float((x - w).abs().max()) / float(w.abs().max())
+        assert err <= 1e-12, (what, err)
+
+
+def test_torch_pair_contract_frozen_partials_layout():
+    """The frozen backward's scratch: two partial slabs per tile of M, (2,
+    N, P, ceil(M / FROZEN_TILE), D2, M), and none when one tile covers M
+    (the policy's M = 30 and a tile side of 32)."""
+    assert kc.FROZEN_TILE == 32
+    like = torch.zeros(1, dtype=torch.float64)
+    assert kc.frozen_partials(1, 10, 14, 240, like).shape == (2, 1, 10, 8, 14, 240)
+    assert kc.frozen_partials(3, 3, 14, 33, like).shape == (2, 3, 3, 2, 14, 33)
+    assert kc.frozen_partials(1, 1, 12, 30, like).numel() == 0
