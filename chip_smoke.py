@@ -832,17 +832,21 @@ def stage_ms(fn, reps=5):
 
 
 # kernels whose ptxas report chip_smoke prints: K3's (csrc/mm_match.cu),
-# K3g's (csrc/gpr_match.cu) and K2's (csrc/kexp_pair.cu)
+# K3g's (csrc/gpr_match.cu), K2's (csrc/kexp_pair.cu) and K6's
+# (csrc/rollout.cu)
 PTXAS_K3 = ("svgp_fwd_tiles", "svgp_fwd_combine", "svgp_bwd_tiles", "svgp_bwd_finish", "svgp_bwd_combine",
             "bwd_groups", "svgp_bwd_slots")
 PTXAS_K3G = ("gpr_fwd_tiles", "fwd_combine", "gpr_bwd_tiles", "gpr_bwd_finish", "bwd_combine")
 PTXAS_K2 = ("fwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel", "bwd_frozen_tiles", "bwd_frozen_finish")
+PTXAS_K6 = ("fwd_kernel", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads")
 # (library, its kernels, the tile kernels that must not spill in float32 at
 # the main path's register capacity, that capacity): K3's and K3g's at D <= 8
-# (DM = 8), K2's frozen tiles at D2 <= 16 (DM = 16)
+# (DM = 8), K2's frozen tiles at D2 <= 16 (DM = 16), K6's phase-1 Jacobian
+# kernel at Dxu <= 8 (DXU = 8)
 PTXAS_LIBS = (("mm_match", PTXAS_K3, ("svgp_fwd_tiles", "svgp_bwd_tiles"), 8),
               ("gpr_match", PTXAS_K3G, ("gpr_fwd_tiles", "gpr_bwd_tiles"), 8),
-              ("kexp_pair", PTXAS_K2, ("bwd_frozen_tiles",), 16))
+              ("kexp_pair", PTXAS_K2, ("bwd_frozen_tiles",), 16),
+              ("rollout", PTXAS_K6, ("bwd_jac",), 8))
 
 
 def ptxas_report(text, kernels=PTXAS_K3):
@@ -1950,6 +1954,11 @@ def rollout_kernels_phase(rc, seed, device):
                                  bound_ms=bound, bound_by=bound_by, library_ms=None)
             print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), plain torch "
                   f"{plain_ms:.4f} ms ({plain_how}), bound {bound:.5f} ms ({bound_by})")
+        # the backward's stages (warm L2): jac, maps, adjoint, grads and the slot sums
+        name = f"rollout_bwd_{sfx}"
+        stages = stage_ms(calls[name][0])
+        timings[name]["stages"] = stages
+        print(f"  stages of {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
     return errs, timings
 
 
@@ -2060,7 +2069,8 @@ def fused_rollout_slice_phase(rc, pe, loop, seed, device, step_limit):
 
 # kernel-name fragments whose rows a profile prints on their own: this
 # repository's kernels and the eigenvalue solver behind psd_project's eigvalsh
-_WATCHED = ("fwd_kernel", "bwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel", "bwd_finish",
+_WATCHED = ("fwd_kernel", "bwd_kernel", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads",
+            "bwd_cols_kernel", "bwd_rows_kernel", "bwd_finish",
             "bwd_frozen_tiles", "bwd_frozen_finish", "bwd_groups", "bwd_slots", "fwd_tiles", "bwd_tiles",
             "combine", "enc_fwd", "enc_bwd", "psd_kernel", "euler_kernel", "syev", "eig")
 # host runtime calls that wait for the device or copy through it
@@ -2189,7 +2199,7 @@ def main():
           f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items()) or 'cached'})")
 
     phase_s = {"build": time.perf_counter() - t0}
-    # ptxas: every K2, K3 and K3g kernel's registers and spills; a float32
+    # ptxas: every K2, K3, K3g and K6 kernel's registers and spills; a float32
     # tile kernel at the main path's register capacity must not spill
     for lib, kernels, tiled, cap in PTXAS_LIBS:
         regs = ptxas_report(_build.compiler_output.get(lib, ""), kernels)

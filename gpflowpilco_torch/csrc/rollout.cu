@@ -12,16 +12,17 @@
 //       + sum_m exp(-1/2 |xu ild_l - zd_lm|^2) v_slm;
 //   x += dt (f Wd' + mc_d); loss += -exp(-1/2 err' P err), err = encode(x) - target,
 // writing the loss (S,) and the trajectory (T+1, S, D).
-// Backward: in reverse time from the stored trajectory, recomputing each
-// step's internals, the adjoint of the state through the cost, the drift,
-// the squash and the policy; each block writes its partial dzp (Lp, Mp, De),
-// dalpha (Lp, Mp) and dilp (Lp, De), summed outside the kernel (no atomics).
-// The cost's gradient uses sym(P) err, exact for any P.
+// Backward: from the stored trajectory, the adjoint of the state through
+// the cost, the drift, the squash and the policy, returned as partial dzp
+// (Lp, Mp, De) and dalpha (Lp, Mp) per slot of rows and dilp (Lp, De) per
+// particle, summed outside the kernels (no atomics). The cost's gradient
+// uses sym(P) err, exact for any P.
 //
 // The drift operands carry a member axis K in front (1 for an SVGP drift);
-// particle s rides member s / per. A block takes a tile of kTile particles
-// of one member, so every omega and zd row it reads from L2 serves kTile
-// particles, as in csrc/path_eval.cu.
+// particle s rides member s / per. A forward block takes a tile of kTile
+// particles of one member, so every omega and zd row it reads from L2
+// serves kTile particles, as in csrc/path_eval.cu; a bwd_jac block takes
+// rows of one member.
 //
 // Bound on an H100 (SXM): per particle and step the forward does
 // Ld (B + M) projections of Dxu terms with a cos or an exp each, about 85k
@@ -31,17 +32,24 @@
 // bytes (w, v, the trajectory; 0.006 ms). The backward needs about 147k
 // per particle and step (a sin and two Dxu-term passes per basis and
 // center, no cos or weight), about 1.7x the forward.
-// The kernel is bound by operations, and by its latency: the steps are
-// sequential, so a block runs its 30 steps one after another.
-// Design: one 256-thread block per tile; the tile's states, encoded inputs
-// and per-step scalars live in shared memory across the steps; threads
-// stride over the bases B, the centers M and the policy centers Mp, each
-// holding the tile's xu rows in registers; per-step sums meet in a
-// warp-shuffle plus shared-memory block reduction; the small serial parts
-// (encoder, squash, Euler, cost) run on one thread per particle. The
-// |x|^2+|z|^2-2x.z expansions are plain FMA loops in the working type (no
-// fast math), as the JAX kernel pins HIGHEST precision. The normal CDF is
-// normcdf, exact, where the TPU kernel approximated it.
+// Forward design: the steps are sequential (x_{t+1} depends on x_t through
+// cos, exp and Phi), so a block runs its 30 steps one after another; one
+// 256-thread block per tile; the tile's states, encoded inputs and per-step
+// scalars live in shared memory across the steps; threads stride over the
+// bases B, the centers M and the policy centers Mp, each holding the tile's
+// xu rows in registers; per-step sums meet in a warp-shuffle plus
+// shared-memory block reduction; the small serial parts (encoder, squash,
+// Euler, cost) run on one thread per particle.
+// Backward design: every heavy term of a step is linear in the carried
+// adjoint, with coefficients that depend on the trajectory alone, so all
+// T x S steps' Jacobians are formed at once (bwd_jac: a thread per (row,
+// drift latent), the bases and centers staged by cp.async), then each
+// step's small linear maps (bwd_maps), then only the D x D recurrence runs
+// in sequence (bwd_adjoint), then the policy gradients over all rows
+// (bwd_grads). See the backward section below.
+// The |x|^2+|z|^2-2x.z expansions are plain FMA loops in the working type
+// (no fast math), as the JAX kernel pins HIGHEST precision. The normal CDF
+// is normcdf, exact, where the TPU kernel approximated it.
 //
 // Each entry returns cudaGetLastError() as an int; the caller raises on
 // nonzero. Entries launch on the given stream and do not synchronise.
@@ -353,229 +361,504 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Ops<T> o, Dims n, T* __re
   if (tid < np) loss[s0 + tid] = acc_loss[tid];
 }
 
+// ---------------------------------------------------------------- backward
+// Every heavy term of a backward step is linear in the carried adjoint, with
+// coefficients fixed by the stored trajectory, so the backward runs as four
+// launches: bwd_jac (every step's drift Jacobians at once), bwd_maps (every
+// step's linear maps and cost term), bwd_adjoint (the small recurrence, a
+// thread per particle) and bwd_grads (the policy gradients over all rows).
+// A row is a (step t, particle s) pair. Scratch (ops/rollout_cuda.py sizes
+// it from the shapes): jac (T, S, Ld, Dxu), maps (T, NM, S), glat (T, Lp, S).
+
+// cp.async of one element into shared memory; zero-filled when !valid
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src, bool valid) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src),
+               "n"((int)sizeof(T)), "r"(valid ? (int)sizeof(T) : 0)
+               : "memory");
+#else
+  *dst = valid ? *src : T(0);
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+constexpr int kJacThreads = 128;  // bwd_jac
+// adjacent rows per bwd_jac thread: two in float32 (128 registers, four
+// blocks an SM), one in float64 (two rows take 208 registers)
+template <typename T>
+__host__ __device__ constexpr int jac_rpt() { return sizeof(T) == 4 ? 2 : 1; }
+// rows of a bwd_jac block, all of one member
+template <typename T>
+__host__ __device__ constexpr int jac_rows() { return kJacThreads * jac_rpt<T>(); }
+constexpr int kChunk = 64;         // omega or zd rows a bwd_jac block stages per pass
+constexpr int kRowThreads = 64;    // bwd_maps: a thread per row
+constexpr int kAdjThreads = 32;    // bwd_adjoint: a thread per particle
+constexpr int kGradRows = 64;      // rows per bwd_grads block (GRAD_ROWS)
+constexpr int kGradThreads = 64;
+
+// maps fields of a row: A_t^T (D x D, [d'][d]), the policy-latent map
+// (Lp x D), the cost term c_{t+1} (D), h_l . e (Lp x De) for dilp
+__host__ __device__ __forceinline__ int nmaps(const Dims& n) { return n.D * n.D + n.Lp * n.D + n.D + n.Lp * n.De; }
+
+// The policy's latents g_l at one encoded state e (sequential over Mp).
 template <typename T, int DXU>
-__global__ void __launch_bounds__(kThreads) bwd_kernel(const T* __restrict__ traj,
-                                                       const T* __restrict__ gl, Ops<T> o, Dims n,
-                                                       T* __restrict__ dzp, T* __restrict__ dal,
-                                                       T* __restrict__ dilp) {
-  constexpr int NV = kTile * DXU;
-  __shared__ Tile<T, DXU> t;
-  __shared__ T g[kTile][kMaxD];       // the carried state adjoint
-  __shared__ T g1[kTile][kMaxD];      // g plus the cost's gradient at x_{t+1}
-  __shared__ T gf[kTile][kMaxLd];     // the drift latents' cotangents
-  __shared__ T vec[kTile][DXU];       // a reduced vector per particle
-  __shared__ T ge[kTile][DXU];        // the encoded state's cotangent
-  __shared__ T dilp_p[kTile][kMaxLp][DXU];
-  __shared__ T red[kWarps * NV];
-  const int k = blockIdx.x / n.tiles;
-  const int p0 = (blockIdx.x % n.tiles) * kTile;
-  const int np = min(kTile, n.per - p0);
-  const size_t s0 = (size_t)k * n.per + p0;
-  const int tid = threadIdx.x;
-  T* dzp_b = dzp + (size_t)blockIdx.x * n.Lp * n.Mp * n.De;
-  T* dal_b = dal + (size_t)blockIdx.x * n.Lp * n.Mp;
-  T* dilp_b = dilp + (size_t)blockIdx.x * n.Lp * n.De;
-
-  // thread tid owns the policy centers m = tid, tid + kThreads, ...
-  for (int m = tid; m < n.Mp; m += kThreads) {
-    for (int l = 0; l < n.Lp; ++l) {
-      dal_b[l * n.Mp + m] = T(0);
-      for (int i = 0; i < n.De; ++i) dzp_b[((size_t)l * n.Mp + m) * n.De + i] = T(0);
-    }
-  }
-  if (tid < kTile) {
-    for (int d = 0; d < kMaxD; ++d) g[tid][d] = T(0);
-    for (int l = 0; l < kMaxLp; ++l)
-      for (int i = 0; i < DXU; ++i) dilp_p[tid][l][i] = T(0);
-  }
-  __syncthreads();
-
-  for (int r = 0; r < n.T; ++r) {
-    const int step = n.T - 1 - r;
-    // the cost's gradient at x_{t+1} and the state x_t, one thread per particle
-    if (tid < kTile) {
-      for (int d = 0; d < kMaxD; ++d) t.x[tid][d] = T(0);
-      if (tid < np) {
-        const size_t s = s0 + tid;
-        T x1[kMaxD], gg[kMaxD], ge1[DXU];
-        for (int d = 0; d < n.D; ++d) {
-          x1[d] = traj[((size_t)(step + 1) * n.S + s) * n.D + d];
-          t.x[tid][d] = traj[((size_t)step * n.S + s) * n.D + d];
-          gg[d] = g[tid][d];
-        }
-        cost<T, DXU>(n, o, x1, ge1, gl[s]);
-        encode_bwd(n, x1, ge1, gg);
-        for (int d = 0; d < n.D; ++d) g1[tid][d] = gg[d];
-        for (int l = 0; l < n.Ld; ++l) {
-          T a = T(0);
-          for (int d = 0; d < n.D; ++d) a = fm(o.wd[d * n.Ld + l], gg[d], a);
-          gf[tid][l] = T(n.dt) * a;
-        }
-      } else {
-        for (int l = 0; l < kMaxLd; ++l) gf[tid][l] = T(0);
+__device__ void policy_row(const Dims& n, const Ops<T>& o, const T (&e)[DXU], T (&g)[kMaxLp]) {
+#pragma unroll
+  for (int l = 0; l < kMaxLp; ++l) {
+    T acc = T(0);
+    if (l < n.Lp) {
+      T es[DXU];
+      T s2 = T(0);
+#pragma unroll
+      for (int i = 0; i < DXU; ++i) {
+        es[i] = i < n.De ? e[i] * o.ilp[l * n.De + i] : T(0);
+        s2 = fm(es[i], es[i], s2);
       }
-    }
-    __syncthreads();
-    // the step's forward internals at x_t, recomputed
-    encode_tile(n, o, t, np);
-    __syncthreads();
-    policy_tile(n, o, t, red, np);
-
-    // the drift's adjoint: gxu = sum_l gf_l (-sum_b sin(proj) w omega_lb
-    //                                + (sum_m kv zd_lm - sum_m kv xs_l) ild_l)
-    T xr[kTile][DXU];
-    load_xu(t, xr);
-    T gacc[kTile][DXU];
-#pragma unroll
-    for (int p = 0; p < kTile; ++p)
-#pragma unroll
-      for (int i = 0; i < DXU; ++i) gacc[p][i] = T(0);
-    for (int l = 0; l < n.Ld; ++l) {
-      const size_t kl = (size_t)k * n.Ld + l;
-      T gfl[kTile];
-#pragma unroll
-      for (int p = 0; p < kTile; ++p) gfl[p] = gf[p][l];
-      const T* om = o.omega + kl * n.B * n.Dxu;
-      for (int b = tid; b < n.B; b += kThreads) {
-        T orow[DXU];
-        load_row(orow, om + (size_t)b * n.Dxu, n.Dxu);
-        const T ph = o.phase[kl * n.B + b];
-#pragma unroll
-        for (int p = 0; p < kTile; ++p) {
-          if (p < np) {
-            const T c = gfl[p] * sn(dot(xr[p], orow) + ph) * o.w[((s0 + p) * n.Ld + l) * n.B + b];
-#pragma unroll
-            for (int i = 0; i < DXU; ++i) gacc[p][i] = fm(-c, orow[i], gacc[p][i]);
-          }
-        }
-      }
-      T il[DXU];
-      load_row(il, o.ild + kl * n.Dxu, n.Dxu);
-      T x2[kTile], kvsum[kTile];
-#pragma unroll
-      for (int p = 0; p < kTile; ++p) {
-        T s2 = T(0);
-#pragma unroll
-        for (int i = 0; i < DXU; ++i) s2 = fm(xr[p][i] * il[i], xr[p][i] * il[i], s2);
-        x2[p] = s2;
-        kvsum[p] = T(0);
-      }
-      for (int m = tid; m < n.M; m += kThreads) {
-        T zr[DXU];
-        load_row(zr, o.zd + (kl * n.M + m) * n.Dxu, n.Dxu);
-        const T zz = o.zd2[kl * n.M + m];
-#pragma unroll
-        for (int p = 0; p < kTile; ++p) {
-          if (p < np) {
-            T xz = T(0);
-#pragma unroll
-            for (int i = 0; i < DXU; ++i) xz = fm(xr[p][i] * il[i], zr[i], xz);
-            const T d2 = mx(x2[p] + zz - T(2) * xz, T(0));
-            const T kv = gfl[p] * (ex(T(-0.5) * d2) * o.v[((s0 + p) * n.Ld + l) * n.M + m]);
-            kvsum[p] += kv;
-#pragma unroll
-            for (int i = 0; i < DXU; ++i) gacc[p][i] = fm(kv * il[i], zr[i], gacc[p][i]);
-          }
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < kTile; ++p)
-#pragma unroll
-        for (int i = 0; i < DXU; ++i) gacc[p][i] = fm(-kvsum[p] * xr[p][i] * il[i], il[i], gacc[p][i]);
-    }
-    T flat_g[NV];
-#pragma unroll
-    for (int p = 0; p < kTile; ++p)
-#pragma unroll
-      for (int i = 0; i < DXU; ++i) flat_g[p * DXU + i] = gacc[p][i];
-    const T gxu = block_sum(flat_g, red);
-    if (tid < NV) vec[tid / DXU][tid % DXU] = gxu;
-    __syncthreads();
-
-    // the squash (du/dgraw = s pdf(graw)) and the Wp mixing
-    if (tid < np) {
-      const int p = tid;
-      T graw_g[kMaxU];
-      for (int u = 0; u < n.U; ++u) {
-        const T gr = t.graw[p][u];
-        graw_g[u] = vec[p][n.De + u] * T(n.squash) * T(0.3989422804014327) * ex(T(-0.5) * gr * gr);
-      }
-      for (int l = 0; l < n.Lp; ++l) {
-        T a = T(0);
-        for (int u = 0; u < n.U; ++u) a = fm(graw_g[u], o.wp[u * n.Lp + l], a);
-        t.glat[p][l] = a;
-      }
-      for (int i = 0; i < DXU; ++i) ge[p][i] = i < n.De ? vec[p][i] : T(0);
-    }
-    __syncthreads();
-
-    // the policy latents: dalpha and dzp by the thread owning center m;
-    // sum_m amat zp_lm (entries < De) and row sums of amat (entry DXU - 1)
-    // reduced over the block for each particle
-    for (int l = 0; l < n.Lp; ++l) {
-      T part[NV];
-#pragma unroll
-      for (int i = 0; i < NV; ++i) part[i] = T(0);
-      for (int m = tid; m < n.Mp; m += kThreads) {
+      for (int m = 0; m < n.Mp; ++m) {
         T zr[DXU];
         load_row(zr, o.zp + ((size_t)l * n.Mp + m) * n.De, n.De);
-        const T z2 = o.zp2[l * n.Mp + m], al = o.alpha[l * n.Mp + m];
-        T dal_m = T(0), dz[DXU];
-#pragma unroll
-        for (int i = 0; i < DXU; ++i) dz[i] = T(0);
-#pragma unroll
-        for (int p = 0; p < kTile; ++p) {
-          if (p < np) {
-            T esr[DXU];
-#pragma unroll
-            for (int i = 0; i < DXU; ++i) esr[i] = t.es[p][l][i];
-            const T d2 = mx(t.e2[p][l] + z2 - T(2) * dot(esr, zr), T(0));
-            const T kp = ex(T(-0.5) * d2);
-            const T gcol = t.glat[p][l];
-            dal_m = fm(kp, gcol, dal_m);
-            const T amat = kp * gcol * al;
-            part[p * DXU + DXU - 1] += amat;
-#pragma unroll
-            for (int i = 0; i < DXU - 1; ++i) {
-              part[p * DXU + i] = fm(amat, zr[i], part[p * DXU + i]);
-              dz[i] = fm(amat, esr[i] - zr[i], dz[i]);
-            }
-          }
-        }
-        dal_b[l * n.Mp + m] += dal_m;
-        for (int i = 0; i < n.De; ++i) dzp_b[((size_t)l * n.Mp + m) * n.De + i] += dz[i];
+        const T d2 = mx(s2 + o.zp2[l * n.Mp + m] - T(2) * dot(es, zr), T(0));
+        acc = fm(ex(T(-0.5) * d2), o.alpha[l * n.Mp + m], acc);
       }
-      const T total = block_sum(part, red);
-      if (tid < NV) vec[tid / DXU][tid % DXU] = total;
-      __syncthreads();
-      if (tid < np) {
-        const int p = tid;
-        const T row_a = vec[p][DXU - 1];
-        for (int i = 0; i < n.De; ++i) {
-          const T ges = vec[p][i] - t.es[p][l][i] * row_a;  // dL / d(e il_l)
-          ge[p][i] = fm(ges, o.ilp[l * n.De + i], ge[p][i]);
-          dilp_p[p][l][i] = fm(ges, t.xu[p][i], dilp_p[p][l][i]);
-        }
-      }
-      __syncthreads();
     }
+    g[l] = acc;
+  }
+}
 
-    // the carried adjoint through the encoder at x_t
-    if (tid < np) {
-      T gg[kMaxD];
-      for (int d = 0; d < n.D; ++d) gg[d] = g1[tid][d];
-      encode_bwd(n, t.x[tid], ge[tid], gg);
-      for (int d = 0; d < n.D; ++d) g[tid][d] = gg[d];
+// graw_u = mc_p + Wp g
+template <typename T>
+__device__ __forceinline__ T graw_of(const Dims& n, const Ops<T>& o, const T (&g)[kMaxLp], int u) {
+  T a = o.mcp[u];
+#pragma unroll
+  for (int l = 0; l < kMaxLp; ++l)
+    if (l < n.Lp) a = fm(o.wp[u * n.Lp + l], g[l], a);
+  return a;
+}
+
+// A staged row of DXU values from shared memory, 16 bytes a load
+template <int DXU>
+__device__ __forceinline__ void lds_row(float (&r)[DXU], const float* p) {
+#pragma unroll
+  for (int i = 0; i < DXU; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + i);
+    r[i] = v.x, r[i + 1] = v.y, r[i + 2] = v.z, r[i + 3] = v.w;
+  }
+}
+template <int DXU>
+__device__ __forceinline__ void lds_row(double (&r)[DXU], const double* p) {
+#pragma unroll
+  for (int i = 0; i < DXU; i += 2) {
+    const double2 v = *reinterpret_cast<const double2*>(p + i);
+    r[i] = v.x, r[i + 1] = v.y;
+  }
+}
+
+// Phase 1. Block: one member k, drift latent l and tile of jac_rows rows of
+// that member, particle-major (a particle's steps adjacent, so a tile reads
+// the w and v rows of a few particles). Thread: jac_rpt adjacent rows; it
+// recomputes each step's input xu and accumulates J_l = d f_l / d xu over
+// the B bases and M centers, whose omega and phase (zd and zd2) rows arrive
+// by cp.async in chunks of kChunk, double-buffered. Each staged row serves
+// the thread's rows from registers; each cell's sin or exp once.
+template <typename T, int DXU>
+__global__ void __launch_bounds__(kJacThreads) bwd_jac(const T* __restrict__ traj, Ops<T> o, Dims n,
+                                                       T* __restrict__ jac) {
+  constexpr int R = jac_rpt<T>(), kRows = jac_rows<T>();
+  __shared__ __align__(16) T srow[2][kChunk][DXU];
+  __shared__ T ssc[2][kChunk];
+  const int rows = n.per * n.T;
+  const int tiles = (rows + kRows - 1) / kRows;
+  const int l = blockIdx.x % n.Ld;
+  const int k = blockIdx.x / (n.Ld * tiles);
+  const int r0 = (blockIdx.x / n.Ld) % tiles * kRows + threadIdx.x * R;
+  const size_t kl = (size_t)k * n.Ld + l;
+  const int nb = (n.B + kChunk - 1) / kChunk;
+  const int nc = nb + (n.M + kChunk - 1) / kChunk;
+
+  // chunk c (bases first, then centers) into buffer c & 1
+  auto stage = [&](int c) {
+    const bool basis = c < nb;
+    const int j0 = (basis ? c : c - nb) * kChunk, cnt = basis ? n.B : n.M;
+    const T* src = basis ? o.omega + kl * n.B * n.Dxu : o.zd + kl * n.M * n.Dxu;
+    const T* ssrc = basis ? o.phase + kl * n.B : o.zd2 + kl * n.M;
+    for (int q = threadIdx.x; q < kChunk * DXU; q += kJacThreads) {
+      const int j = q / DXU, i = q % DXU;
+      const bool v = j0 + j < cnt && i < n.Dxu;
+      cp_async_elem(&srow[c & 1][j][i], v ? src + (size_t)(j0 + j) * n.Dxu + i : src, v);
+    }
+    for (int j = threadIdx.x; j < kChunk; j += kJacThreads)
+      cp_async_elem(&ssc[c & 1][j], j0 + j < cnt ? ssrc + j0 + j : ssrc, j0 + j < cnt);
+    cp_async_commit();
+  };
+  stage(0);  // its copy overlaps the rows' recomputed forward
+
+  // the rows' step inputs; a ragged tile's spare rows repeat the last row
+  // and are not written
+  T xu[R][DXU];
+  const T* wrow[R];
+  const T* vrow[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int rr = min(r0 + q, rows - 1);
+    const int t = rr % n.T;
+    const size_t s = (size_t)k * n.per + rr / n.T;
+    wrow[q] = o.w + (s * n.Ld + l) * n.B;
+    vrow[q] = o.v + (s * n.Ld + l) * n.M;
+    T x[kMaxD];
+    for (int d = 0; d < n.D; ++d) x[d] = traj[((size_t)t * n.S + s) * n.D + d];
+    T e[DXU];
+    encode<T, DXU>(n, x, e);
+    T g[kMaxLp];
+    policy_row(n, o, e, g);
+#pragma unroll
+    for (int i = 0; i < DXU; ++i) {
+      T val = T(0);
+      if (i < n.De) val = e[i];
+      else if (i < n.Dxu) val = T(n.squash) * (ncdf(graw_of(n, o, g, i - n.De)) - T(0.5));
+      xu[q][i] = val;
+    }
+  }
+
+  // -sum_b sin(xu . omega_lb + phase_lb) w_slb omega_lb
+  T jb[R][DXU];
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+#pragma unroll
+    for (int i = 0; i < DXU; ++i) jb[q][i] = T(0);
+  int c = 0;
+  for (; c < nb; ++c) {
+    if (c + 1 < nc) {
+      stage(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int b0 = c * kChunk, cnt = min(kChunk, n.B - b0);
+    // unrolled by 4 here and by 2 over the centers, whose loop holds more
+    // values (by 4 there the float32 kernel spills)
+#pragma unroll 4
+    for (int j = 0; j < cnt; ++j) {
+      T orow[DXU];
+      lds_row(orow, srow[c & 1][j]);
+      const T ph = ssc[c & 1][j];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const T cf = sn(dot(xu[q], orow) + ph) * __ldg(wrow[q] + b0 + j);
+#pragma unroll
+        for (int i = 0; i < DXU; ++i) jb[q][i] = fm(-cf, orow[i], jb[q][i]);
+      }
+    }
+    __syncthreads();  // the buffer is refilled by the next pass
+  }
+
+  // sum_m kv_m zd_lm and sum_m kv_m, kv_m = exp(-1/2 |xs - zd_lm|^2) v_slm
+  T il[DXU], xs[R][DXU], x2[R], jc[R][DXU], kvsum[R];
+#pragma unroll
+  for (int i = 0; i < DXU; ++i) il[i] = i < n.Dxu ? o.ild[kl * n.Dxu + i] : T(0);
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    x2[q] = kvsum[q] = T(0);
+#pragma unroll
+    for (int i = 0; i < DXU; ++i) {
+      xs[q][i] = xu[q][i] * il[i];
+      x2[q] = fm(xs[q][i], xs[q][i], x2[q]);
+      jc[q][i] = T(0);
+    }
+  }
+  for (; c < nc; ++c) {
+    if (c + 1 < nc) {
+      stage(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int m0 = (c - nb) * kChunk, cnt = min(kChunk, n.M - m0);
+#pragma unroll 2
+    for (int j = 0; j < cnt; ++j) {
+      T zr[DXU];
+      lds_row(zr, srow[c & 1][j]);
+      const T zz = ssc[c & 1][j];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const T d2 = mx(x2[q] + zz - T(2) * dot(xs[q], zr), T(0));
+        const T kv = ex(T(-0.5) * d2) * __ldg(vrow[q] + m0 + j);
+        kvsum[q] += kv;
+#pragma unroll
+        for (int i = 0; i < DXU; ++i) jc[q][i] = fm(kv, zr[i], jc[q][i]);
+      }
     }
     __syncthreads();
   }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int r = r0 + q;
+    if (r < rows) {
+      const size_t s = (size_t)k * n.per + r / n.T;
+      T* out = jac + (((size_t)(r % n.T) * n.S + s) * n.Ld + l) * n.Dxu;
+#pragma unroll
+      for (int i = 0; i < DXU; ++i)
+        if (i < n.Dxu) out[i] = fm(jc[q][i] - kvsum[q] * xs[q][i], il[i], jb[q][i]);
+    }
+  }
+}
 
-  // the block's dilp, its particles summed in a fixed order
-  for (int i = tid; i < n.Lp * n.De; i += kThreads) {
-    const int l = i / n.De, j = i % n.De;
-    T a = T(0);
-    for (int p = 0; p < np; ++p) a += dilp_p[p][l][j];
-    dilp_b[i] = a;
+// Phase 1, continued. Thread: one row (t, s), step-major. With y the
+// adjoint of x_{t+1} plus the cost's gradient there, the step's adjoint is
+//   gxu = G y,  G = dt sum_l J_l Wd[:, l]^T          (the drift, through Wd)
+//   glat = Mg y,  Mg[l'] = sum_u s pdf(graw_u) Wp[u, l'] G[De + u]   (squash)
+//   ges_l' = glat_l' h_l',  h_l = sum_m kp alpha zp_lm - es_l sum_m kp alpha
+//   g_t = y + encode_bwd(x_t, G[:De] y + sum_l' ilp_l' ges_l') = A_t^T y,
+// all linear in y: the maps are pushed through by the D unit vectors y = e_d.
+template <typename T, int DXU>
+__global__ void __launch_bounds__(kRowThreads) bwd_maps(const T* __restrict__ traj, const T* __restrict__ gl,
+                                                        Ops<T> o, Dims n, const T* __restrict__ jac,
+                                                        T* __restrict__ maps) {
+  const int row = blockIdx.x * kRowThreads + threadIdx.x;
+  if (row >= n.S * n.T) return;
+  const int t = row / n.S, s = row % n.S;
+  const int fmg = n.D * n.D, fc = fmg + n.Lp * n.D, fhe = fc + n.D;
+  T* out = maps + (size_t)t * nmaps(n) * n.S + s;  // field f at out[f * S]
+  const T* jr = jac + ((size_t)t * n.S + s) * n.Ld * n.Dxu;
+  T x[kMaxD], x1[kMaxD];
+  for (int d = 0; d < n.D; ++d) {
+    x[d] = traj[((size_t)t * n.S + s) * n.D + d];
+    x1[d] = traj[((size_t)(t + 1) * n.S + s) * n.D + d];
+  }
+  // the cost's gradient at x_{t+1}
+  {
+    T ge1[DXU], cv[kMaxD];
+    cost<T, DXU>(n, o, x1, ge1, gl[s]);
+    for (int d = 0; d < n.D; ++d) cv[d] = T(0);
+    encode_bwd(n, x1, ge1, cv);
+    for (int d = 0; d < n.D; ++d) out[(size_t)(fc + d) * n.S] = cv[d];
+  }
+  // the policy at x_t: latents g_l, and h_l scaled by ilp_l (for ge) and by e (for dilp)
+  T e[DXU];
+  encode<T, DXU>(n, x, e);
+  T g[kMaxLp], hi[kMaxLp][DXU];
+#pragma unroll
+  for (int l = 0; l < kMaxLp; ++l) {
+    T acc = T(0);
+#pragma unroll
+    for (int i = 0; i < DXU; ++i) hi[l][i] = T(0);
+    if (l < n.Lp) {
+      T es[DXU], hz[DXU];
+      T s2 = T(0);
+#pragma unroll
+      for (int i = 0; i < DXU; ++i) {
+        es[i] = i < n.De ? e[i] * o.ilp[l * n.De + i] : T(0);
+        s2 = fm(es[i], es[i], s2);
+        hz[i] = T(0);
+      }
+      for (int m = 0; m < n.Mp; ++m) {
+        T zr[DXU];
+        load_row(zr, o.zp + ((size_t)l * n.Mp + m) * n.De, n.De);
+        const T d2 = mx(s2 + o.zp2[l * n.Mp + m] - T(2) * dot(es, zr), T(0));
+        const T a = ex(T(-0.5) * d2) * o.alpha[l * n.Mp + m];
+        acc += a;
+#pragma unroll
+        for (int i = 0; i < DXU; ++i) hz[i] = fm(a, zr[i], hz[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < DXU; ++i) {
+        if (i < n.De) {
+          const T h = hz[i] - es[i] * acc;
+          hi[l][i] = h * o.ilp[l * n.De + i];
+          out[(size_t)(fhe + l * n.De + i) * n.S] = h * e[i];
+        }
+      }
+    }
+    g[l] = acc;
+  }
+  T pd[kMaxU];
+#pragma unroll
+  for (int u = 0; u < kMaxU; ++u) {
+    const T gr = u < n.U ? graw_of(n, o, g, u) : T(0);
+    pd[u] = T(n.squash) * T(0.3989422804014327) * ex(T(-0.5) * gr * gr);
+  }
+  // column d of G, Mg and A_t^T
+  for (int d = 0; d < n.D; ++d) {
+    T gx[DXU];
+#pragma unroll
+    for (int i = 0; i < DXU; ++i) gx[i] = T(0);
+    for (int l = 0; l < n.Ld; ++l) {
+      const T wl = T(n.dt) * o.wd[d * n.Ld + l];
+#pragma unroll
+      for (int i = 0; i < DXU; ++i)
+        if (i < n.Dxu) gx[i] = fm(jr[l * n.Dxu + i], wl, gx[i]);
+    }
+    T mg[kMaxLp];
+#pragma unroll
+    for (int l = 0; l < kMaxLp; ++l) {
+      T a = T(0);
+#pragma unroll
+      for (int i = 0; i < DXU; ++i) {
+        const int u = i - n.De;
+        if (l < n.Lp && u >= 0 && u < n.U) a = fm(gx[i] * pd[u], o.wp[u * n.Lp + l], a);
+      }
+      mg[l] = a;
+      if (l < n.Lp) out[(size_t)(fmg + l * n.D + d) * n.S] = a;
+    }
+    T ge[DXU];
+#pragma unroll
+    for (int i = 0; i < DXU; ++i) {
+      T a = i < n.De ? gx[i] : T(0);
+#pragma unroll
+      for (int l = 0; l < kMaxLp; ++l) a = fm(hi[l][i], mg[l], a);
+      ge[i] = a;
+    }
+    T col[kMaxD];
+    for (int q = 0; q < n.D; ++q) col[q] = q == d ? T(1) : T(0);
+    encode_bwd(n, x, ge, col);
+    for (int q = 0; q < n.D; ++q) out[(size_t)(q * n.D + d) * n.S] = col[q];
+  }
+}
+
+// Phase 2. Thread: one particle; for t = T-1 .. 0: y = g + c_{t+1},
+// glat_t = Mg_t y, dilp += glat_t h_t e_t, g = A_t^T y. Step t-1's maps
+// (coalesced: step-major, particles adjacent) arrive by cp.async into the
+// thread's own column of shared memory while step t runs, so the chain of
+// dependent steps waits on shared memory, not on L2.
+template <typename T, int DXU>
+__global__ void __launch_bounds__(kAdjThreads) bwd_adjoint(const T* __restrict__ maps, Dims n,
+                                                           T* __restrict__ glat, T* __restrict__ dilp) {
+  extern __shared__ __align__(16) unsigned char adj_smem[];
+  T* buf = reinterpret_cast<T*>(adj_smem);  // [2][nmaps][kAdjThreads]
+  const int lane = threadIdx.x;
+  const int s = blockIdx.x * kAdjThreads + lane;
+  const bool valid = s < n.S;
+  const int nm = nmaps(n);
+  const int fmg = n.D * n.D, fc = fmg + n.Lp * n.D, fhe = fc + n.D;
+  // step t's maps into buffer t & 1, this thread's column only (no barrier)
+  auto stage = [&](int t) {
+    const T* src = maps + (size_t)t * nm * n.S + (valid ? s : 0);
+    T* dst = buf + (size_t)(t & 1) * nm * kAdjThreads + lane;
+    for (int f = 0; f < nm; ++f) cp_async_elem(dst + f * kAdjThreads, src + (size_t)f * n.S, valid);
+    cp_async_commit();
+  };
+  T g[kMaxD], acc[kMaxLp][DXU];
+#pragma unroll
+  for (int d = 0; d < kMaxD; ++d) g[d] = T(0);
+#pragma unroll
+  for (int l = 0; l < kMaxLp; ++l)
+#pragma unroll
+    for (int i = 0; i < DXU; ++i) acc[l][i] = T(0);
+  stage(n.T - 1);
+  for (int t = n.T - 1; t >= 0; --t) {
+    if (t > 0) {
+      stage(t - 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    const T* in = buf + (size_t)(t & 1) * nm * kAdjThreads + lane;  // field f at in[f * kAdjThreads]
+    T y[kMaxD];
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d) y[d] = d < n.D ? g[d] + in[(fc + d) * kAdjThreads] : T(0);
+#pragma unroll
+    for (int l = 0; l < kMaxLp; ++l) {
+      if (l < n.Lp) {
+        T a = T(0);
+#pragma unroll
+        for (int d = 0; d < kMaxD; ++d)
+          if (d < n.D) a = fm(in[(fmg + l * n.D + d) * kAdjThreads], y[d], a);
+        if (valid) glat[((size_t)t * n.Lp + l) * n.S + s] = a;
+#pragma unroll
+        for (int i = 0; i < DXU; ++i)
+          if (i < n.De) acc[l][i] = fm(a, in[(fhe + l * n.De + i) * kAdjThreads], acc[l][i]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxD; ++q) {
+      T a = T(0);
+      if (q < n.D) {
+#pragma unroll
+        for (int d = 0; d < kMaxD; ++d)
+          if (d < n.D) a = fm(in[(q * n.D + d) * kAdjThreads], y[d], a);
+      }
+      g[q] = a;
+    }
+  }
+  if (!valid) return;
+#pragma unroll
+  for (int l = 0; l < kMaxLp; ++l)
+#pragma unroll
+    for (int i = 0; i < DXU; ++i)
+      if (l < n.Lp && i < n.De) dilp[((size_t)s * n.Lp + l) * n.De + i] = acc[l][i];
+}
+
+// Phase 3. Block: kGradRows rows, step-major; the rows' scaled policy
+// inputs are staged in shared memory, then a thread per policy center
+// (l, m) walks the rows in order: dalpha = sum kp glat, dzp = alpha
+// (sum kp glat es - dalpha zp). Each block writes its slot; the wrapper adds
+// the slots in order.
+template <typename T, int DXU>
+__global__ void __launch_bounds__(kGradThreads) bwd_grads(const T* __restrict__ traj,
+                                                          const T* __restrict__ glat, Ops<T> o, Dims n,
+                                                          T* __restrict__ dzp, T* __restrict__ dal) {
+  __shared__ T es[kGradRows][kMaxLp][DXU];
+  __shared__ T e2[kGradRows][kMaxLp], ga[kGradRows][kMaxLp];
+  const int rows = n.S * n.T, r0 = blockIdx.x * kGradRows;
+  for (int j = threadIdx.x; j < kGradRows; j += kGradThreads) {
+    const int row = r0 + j;
+    const bool valid = row < rows;
+    const int t = valid ? row / n.S : 0, s = valid ? row % n.S : 0;
+    T x[kMaxD], e[DXU];
+    for (int d = 0; d < n.D; ++d) x[d] = traj[((size_t)t * n.S + s) * n.D + d];
+    encode<T, DXU>(n, x, e);
+#pragma unroll
+    for (int l = 0; l < kMaxLp; ++l) {
+      T s2 = T(0);
+#pragma unroll
+      for (int i = 0; i < DXU; ++i) {
+        const T v = (valid && l < n.Lp && i < n.De) ? e[i] * o.ilp[l * n.De + i] : T(0);
+        es[j][l][i] = v;
+        s2 = fm(v, v, s2);
+      }
+      e2[j][l] = s2;
+      ga[j][l] = (valid && l < n.Lp) ? glat[((size_t)t * n.Lp + l) * n.S + s] : T(0);
+    }
+  }
+  __syncthreads();
+  const int nr = min(kGradRows, rows - r0);
+  for (int c = threadIdx.x; c < n.Lp * n.Mp; c += kGradThreads) {
+    const int l = c / n.Mp;
+    T zr[DXU], p1[DXU];
+    load_row(zr, o.zp + (size_t)c * n.De, n.De);
+    const T z2 = o.zp2[c];
+#pragma unroll
+    for (int i = 0; i < DXU; ++i) p1[i] = T(0);
+    T p0 = T(0);
+    for (int j = 0; j < nr; ++j) {
+      T esr[DXU];
+#pragma unroll
+      for (int i = 0; i < DXU; ++i) esr[i] = es[j][l][i];
+      const T d2 = mx(e2[j][l] + z2 - T(2) * dot(esr, zr), T(0));
+      const T a = ex(T(-0.5) * d2) * ga[j][l];
+      p0 += a;
+#pragma unroll
+      for (int i = 0; i < DXU; ++i) p1[i] = fm(a, esr[i], p1[i]);
+    }
+    const size_t slot = (size_t)blockIdx.x * n.Lp * n.Mp + c;
+    dal[slot] = p0;
+    const T al = o.alpha[c];
+#pragma unroll
+    for (int i = 0; i < DXU; ++i)
+      if (i < n.De) dzp[slot * n.De + i] = al * (p1[i] - p0 * zr[i]);
   }
 }
 
@@ -599,18 +882,37 @@ int launch_fwd(const Ops<T>& o, Dims n, T* loss, T* traj, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(const T* traj, const T* gl, const Ops<T>& o, Dims n, T* dzp, T* dal, T* dilp,
-               void* stream) {
-  if (bad_dims(n)) return (int)cudaErrorInvalidValue;
-  n.tiles = (n.per + kTile - 1) / kTile;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = n.K * n.tiles;
-  if (n.Dxu <= 8)
-    bwd_kernel<T, 8><<<blocks, kThreads, 0, st>>>(traj, gl, o, n, dzp, dal, dilp);
-  else
-    bwd_kernel<T, 16><<<blocks, kThreads, 0, st>>>(traj, gl, o, n, dzp, dal, dilp);
+template <typename T, int DXU>
+int launch_bwd_phases(const T* traj, const T* gl, const Ops<T>& o, const Dims& n, T* jac, T* maps,
+                      T* glat, T* dzp, T* dal, T* dilp, cudaStream_t st) {
+  const int rows = n.S * n.T;
+  const int jac_blocks = n.K * ((n.per * n.T + jac_rows<T>() - 1) / jac_rows<T>()) * n.Ld;
+  bwd_jac<T, DXU><<<jac_blocks, kJacThreads, 0, st>>>(traj, o, n, jac);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  bwd_maps<T, DXU><<<(rows + kRowThreads - 1) / kRowThreads, kRowThreads, 0, st>>>(traj, gl, o, n, jac,
+                                                                                    maps);
+  if ((err = (int)cudaGetLastError())) return err;
+  const size_t adj_smem = 2 * (size_t)nmaps(n) * kAdjThreads * sizeof(T);
+  if (adj_smem > 48 * 1024 &&
+      (err = (int)cudaFuncSetAttribute(bwd_adjoint<T, DXU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)adj_smem)))
+    return err;
+  bwd_adjoint<T, DXU><<<(n.S + kAdjThreads - 1) / kAdjThreads, kAdjThreads, adj_smem, st>>>(maps, n, glat,
+                                                                                          dilp);
+  if ((err = (int)cudaGetLastError())) return err;
+  bwd_grads<T, DXU><<<(rows + kGradRows - 1) / kGradRows, kGradThreads, 0, st>>>(traj, glat, o, n, dzp,
+                                                                                  dal);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const T* traj, const T* gl, const Ops<T>& o, Dims n, T* jac, T* maps, T* glat, T* dzp,
+               T* dal, T* dilp, void* stream) {
+  if (bad_dims(n)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n.Dxu <= 8) return launch_bwd_phases<T, 8>(traj, gl, o, n, jac, maps, glat, dzp, dal, dilp, st);
+  return launch_bwd_phases<T, 16>(traj, gl, o, n, jac, maps, glat, dzp, dal, dilp, st);
 }
 
 }  // namespace
@@ -633,10 +935,11 @@ int launch_bwd(const T* traj, const T* gl, const Ops<T>& o, Dims n, T* dzp, T* d
                                    ROLLOUT_SCALARS, void* stream) {                           \
     return launch_fwd<T>(ROLLOUT_OPS(T, x0), ROLLOUT_DIMS, loss, traj, stream);                \
   }                                                                                            \
-  extern "C" int rollout_bwd_##SFX(const T* traj, const T* gl, ROLLOUT_OPERANDS(T), T* dzp,   \
-                                   T* dal, T* dilp, ROLLOUT_SCALARS, void* stream) {          \
-    return launch_bwd<T>(traj, gl, ROLLOUT_OPS(T, nullptr), ROLLOUT_DIMS, dzp, dal, dilp,      \
-                         stream);                                                              \
+  extern "C" int rollout_bwd_##SFX(const T* traj, const T* gl, ROLLOUT_OPERANDS(T), T* jac,   \
+                                   T* maps, T* glat, T* dzp, T* dal, T* dilp, ROLLOUT_SCALARS,  \
+                                   void* stream) {                                             \
+    return launch_bwd<T>(traj, gl, ROLLOUT_OPS(T, nullptr), ROLLOUT_DIMS, jac, maps, glat, dzp, \
+                         dal, dilp, stream);                                                   \
   }
 
 ROLLOUT_ENTRIES(float, f32)

@@ -15,8 +15,12 @@ runs all T rollout steps and returns the per-particle loss (S,):
         loss += -exp(-1/2 (encode(x) - target)' P (encode(x) - target))
 
 ``FusedRolloutLoss`` saves only the (T+1, S, D) trajectory; its backward
-recomputes every step's internals in reverse time and returns gradients for
-the policy operands (zp, alpha, ilp) alone, as the JAX ``custom_vjp`` does.
+recomputes every step's internals and returns gradients for the policy
+operands (zp, alpha, ilp) alone, as the JAX ``custom_vjp`` does. On the card
+the backward is one entry of four launches: every step's drift Jacobians and
+linear maps at once, the adjoint recurrence per particle, then the policy
+gradients, with a scratch of ``bwd_scratch_sizes`` elements (a few MB at
+S=1024, T=30) allocated here.
 zp2 = sum(zp^2) gets no cotangent: the dzp formula is already the total
 derivative through it. Every other operand is frozen (policy optimization)
 and asking for its gradient raises.
@@ -29,7 +33,8 @@ Dispatch is by the device of the tensors: CUDA tensors go to the kernels of
 ``csrc/rollout.cu`` (float32 or float64, contiguous, within the register
 capacities below, else the wrapper raises), CPU tensors to
 ``rollout_reference`` and ``rollout_reference_bwd``. There is no fallback
-from one to the other. ``launches`` counts kernel launches only.
+from one to the other. ``launches`` counts entry calls that launch kernels
+(one per call, whatever the number of launches in it).
 
 The normal CDF is exact here (``torch.special.ndtr``; ``normcdf`` in the
 kernel), where the TPU kernel used the Abramowitz-Stegun approximation for
@@ -53,7 +58,7 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # csrc/rollout.cu's register capacities: state dim, drift input (De + U),
 # action, policy latents, drift latents; active dims travel as 4-bit fields
 MAX_D, MAX_DXU, MAX_U, MAX_LP, MAX_LD = 8, 16, 4, 4, 8
-TILE = 4  # particles per block (kTile), never across two members
+GRAD_ROWS = 64  # (step, particle) rows per slot of the backward's dzp and dalpha (kGradRows)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 OPERANDS = ("x0", "zp", "zp2", "alpha", "ilp", "wp", "mc_p", "omega", "phase", "ild", "zd",
@@ -258,11 +263,6 @@ def _ints(meta: RolloutMeta, s, k, b, m, mp):
             ctypes.c_double(meta.squash_scale))
 
 
-def num_blocks(s: int, k: int) -> int:
-    """Blocks of a launch: K members x ceil((S / K) / TILE) particle tiles."""
-    return k * -(-(s // k) // TILE)
-
-
 def _fwd(meta: RolloutMeta, *ops):
     """(loss (S,), trajectory (T+1, S, D))."""
     shape = operand_check("rollout_fwd", meta, ops)
@@ -278,6 +278,17 @@ def _fwd(meta: RolloutMeta, *ops):
     return loss, traj
 
 
+def bwd_scratch_sizes(meta: RolloutMeta, s: int):
+    """Elements of the backward's scratch, (jac, maps, glat): per (step,
+    particle) row the drift Jacobians (Ld x Dxu), the step's linear maps
+    (A_t^T D x D, the policy-latent map Lp x D, the cost term D, h e Lp x
+    De) and the policy-latents' cotangent (Lp)."""
+    rows = meta.num_steps * s
+    d, lp = meta.state_dim, meta.pol_latent
+    nm = d * d + lp * d + d + lp * meta.enc_dim
+    return rows * meta.num_latent * (meta.enc_dim + meta.act_dim), rows * nm, rows * lp
+
+
 def _bwd(meta: RolloutMeta, traj, gl, *ops):
     """(dzp, dalpha, dilp) from the trajectory and the loss cotangent; ``ops``
     are the operands after x0."""
@@ -287,14 +298,20 @@ def _bwd(meta: RolloutMeta, traj, gl, *ops):
     shape = operand_check("rollout_bwd", meta, (x0, *ops), extra)
     if x0.device.type == "cpu":
         return rollout_reference_bwd(meta, traj, gl, *ops)
+    sizes = bwd_scratch_sizes(meta, s)
+    if max(sizes) >= 2**31:
+        raise ValueError(f"rollout_bwd: T x S = {meta.num_steps} x {s} rows need scratch of {sizes} "
+                         f"elements; the kernels index rows by int and take fewer than 2**31")
     zp, alpha, ilp = ops[0], ops[2], ops[3]
-    nblk = num_blocks(s, shape[1])
-    new = lambda like: torch.empty((nblk, *like.shape), dtype=like.dtype, device=like.device)  # noqa: E731
-    dzp, dal, dilp = new(zp), new(alpha), new(ilp)
+    scratch = torch.empty((sum(sizes),), dtype=x0.dtype, device=x0.device)
+    jac, maps, glat = scratch.split(sizes)
+    nslot = -(-(meta.num_steps * s) // GRAD_ROWS)
+    new = lambda n, like: torch.empty((n, *like.shape), dtype=like.dtype, device=like.device)  # noqa: E731
+    dzp, dal, dilp = new(nslot, zp), new(nslot, alpha), new(s, ilp)
     name = f"rollout_bwd_{_SUFFIX[x0.dtype]}"
-    _build.launch("rollout", name, (traj, gl, *ops, dzp, dal, dilp), *_ints(meta, *shape))
+    _build.launch("rollout", name, (traj, gl, *ops, jac, maps, glat, dzp, dal, dilp), *_ints(meta, *shape))
     launches[name] += 1
-    # per-block partial sums, added outside the kernel: no atomics
+    # per-slot and per-particle partial sums, added in order outside the kernels: no atomics
     return dzp.sum(0), dal.sum(0), dilp.sum(0)
 
 

@@ -1,24 +1,31 @@
 #!/usr/bin/env python3
 """Time K2 (the eKuffu pair contraction, csrc/kexp_pair.cu), K3 (the whole
-SVGP match, csrc/mm_match.cu) and K3g (the whole GPR match,
-csrc/gpr_match.cu) on one NVIDIA GPU: this checkout against others (a
+SVGP match, csrc/mm_match.cu), K3g (the whole GPR match,
+csrc/gpr_match.cu) and K6 (the whole pathwise rollout loss,
+csrc/rollout.cu) on one NVIDIA GPU: this checkout against others (a
 parent commit's ``git archive``, a variant), in one run on one card.
 
-    python scripts/k3_bench.py [--parent DIR] [--other NAME=DIR ...] [--out FILE]
+    python scripts/k3_bench.py [--parent DIR] [--other NAME=DIR ...] [--only PREFIX ...] [--out FILE]
 
 All checkouts build first, their ``nvcc`` processes together. Then each
 runs in a process of its own, in turns (parent, this, others, then the same
 in reverse), and times every K3 entry at the whole-match path's shapes,
 K3g's at the HMC ensemble's, and K2's six entries at the MM drift's and
 policy's shapes and its forward and frozen backward on the GPR route (P=8
-members, R=4), with chip_smoke.py's method (median device time over 30
+members, R=4), and K6's forward and backward at the fused-rollout slice's
+shape (S=1024, B=1024, M=240, Mp=30, T=30) and on the 8-member axis (K=8,
+128 particles each), with chip_smoke.py's method (median device time over 30
 calls, L2 flushed, and warm; chip_smoke's *_bound_ms for the bounds).
 Each checkout is reported by the smaller of its medians. On the same
 inputs, each other checkout's outputs are compared with this one's: K3g's
 forward at its bars (float64: 1e-9 of the scale; float32: within 3x the
 plain float32 version's error against float64, plus 1e-4 of the scale),
 K2's frozen backward at its own (rtol = atol = 1e-10 in float64, 1e-4 in
-float32), every other entry bit for bit. Each checkout's per-stage
+float32), K6's backward at chip_smoke.py's (float64: 1e-10 of the scale;
+float32 over 30 steps: within 3x the plain float32 version's error against
+float64, plus 1e-4 of the scale), every other entry, K6's forward
+included, bit for bit. ``--only`` keeps the entries whose name starts with
+one of the prefixes (``k6_``: K6 alone). Each checkout's per-stage
 device times (torch.profiler) and each library's ptxas registers and spills
 are printed. The last line is one JSON object of all the numbers, also
 written to --out.
@@ -50,8 +57,11 @@ CASES = (
     *((f"k2_{kind}", sfx, where) for sfx in ("f64", "f32") for where in ("drift", "policy")
       for kind in ("fwd", "bwd", "bwd_frozen")),
     *((f"k2_{kind}", sfx, "gpr") for sfx in ("f64", "f32") for kind in ("fwd", "bwd_frozen")),
+    *((f"k6_{kind}", sfx, where) for where in ("slice", "members") for sfx in ("f32", "f64")
+      for kind in ("fwd", "bwd")),
 )
-LIBS = ("mm_match", "gpr_match", "kexp_pair")
+LIBS = ("mm_match", "gpr_match", "kexp_pair", "rollout")
+K6_MEMBERS = 8  # the HMC ensemble's members on K6's member axis
 K2_GPR = (1, 8, 14, 240, 4)  # (N, P, D2, M, R) of K2's GPR route
 
 
@@ -70,7 +80,9 @@ def build(root):
     took = _build.build_all(LIBS)
     cs, out = _smoke(), getattr(_build, "compiler_output", {})
     # fwd_tiles: an older checkout's name of K3g's forward tile kernel
-    kernels = {"mm_match": cs.PTXAS_K3, "gpr_match": (*cs.PTXAS_K3G, "fwd_tiles"), "kexp_pair": cs.PTXAS_K2}
+    # bwd_kernel: an older checkout's K6 backward
+    kernels = {"mm_match": cs.PTXAS_K3, "gpr_match": (*cs.PTXAS_K3G, "fwd_tiles"), "kexp_pair": cs.PTXAS_K2,
+               "rollout": (*getattr(cs, "PTXAS_K6", ("fwd_kernel",)), "bwd_kernel")}
     ptxas = {lib: cs.ptxas_report(out.get(lib, ""), kernels[lib]) for lib in LIBS}
     print(json.dumps({"built": str(root), "seconds": took, "ptxas": ptxas}))
 
@@ -86,13 +98,34 @@ def _k2_case(cs, kc, kind, dtype, where, device):
     return (lambda: kc._bwd(*ops, *cot, kind == "bwd")[:2 if kind == "bwd_frozen" else 4]), bound
 
 
-def run(root, save):
+def _k6_case(cs, rc, kind, dtype, where, device, outs, key):
+    """(fn, bound) of a K6 entry on chip_smoke's rollout operands; for the
+    float32 backward also the plain float32 and float64 outputs (the bars)."""
+    import torch
+
+    k = K6_MEMBERS if where == "members" else 1
+    meta, ops = cs.rollout_operands(rc, k, cs.S, 1, cs.L, 1, cs.HORIZON_STEPS, dtype, device, 4000 + k)
+    bound, _ = cs.rollout_bound_ms(kind, meta, ops, dtype)
+    if kind == "fwd":
+        return (lambda: rc._fwd(meta, *ops)), bound
+    gl = torch.full((cs.S,), 1.0 / cs.S, dtype=dtype, device=device)
+    traj = rc._fwd(meta, *ops)[1]
+    if dtype == torch.float32:
+        outs[f"{key}/plain"] = [t.cpu() for t in rc.rollout_reference_bwd(meta, traj, gl, *ops[1:])]
+        ops64 = tuple(o.double() for o in ops)
+        traj64 = rc._rollout(meta, *ops64)[1]
+        outs[f"{key}/truth"] = [t.cpu() for t in rc.rollout_reference_bwd(meta, traj64, gl.double(), *ops64[1:])]
+    return (lambda: rc._bwd(meta, traj, gl, *ops[1:])), bound
+
+
+def run(root, save, only=()):
     import torch
 
     sys.path.insert(0, str(root))
     from gpflowpilco_torch.ops import gpr_match_cuda as gm
     from gpflowpilco_torch.ops import kexp_cuda as kc
     from gpflowpilco_torch.ops import mm_match_cuda as mc
+    from gpflowpilco_torch.ops import rollout_cuda as rc
 
     cs = _smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -106,8 +139,15 @@ def run(root, save):
                         stages=cs.stage_ms(fn))
 
     for kind, sfx, where in CASES:
+        if only and not kind.startswith(tuple(only)):
+            continue
         dtype = dtypes[sfx]
         key = f"{kind}_{sfx}_{where}"
+        if kind.startswith("k6_"):
+            fn, bound = _k6_case(cs, rc, kind[3:], dtype, where, device, outs, key)
+            outs[key] = [t.cpu() for t in fn()]
+            timed(key, fn, bound)
+            continue
         if kind.startswith("k2_"):
             fn, bound = _k2_case(cs, kc, kind[3:], dtype, where, device)
             outs[key] = [t.cpu() for t in fn()]
@@ -163,7 +203,7 @@ def compare(a, b, cs):
         if "/" in k or k not in b:
             continue
         pairs = list(zip(a[k], b[k]))
-        if not k.startswith(("gpr_fwd_", "k2_bwd_frozen")):
+        if not k.startswith(("gpr_fwd_", "k2_bwd_frozen", "k6_bwd")):
             diff = {i: float((x.double() - y.double()).abs().max()) for i, (x, y) in enumerate(pairs)
                     if not torch.equal(x, y)}
             out[k] = diff or True
@@ -174,6 +214,14 @@ def compare(a, b, cs):
             else:
                 ok = all(cs.scaled_err(x, t) <= 3.0 * cs.scaled_err(p, t) + 1e-4
                          for x, p, t in zip(a[k], plain, truth))
+            out[k] = dict(scaled_vs_parent=max(cs.scaled_err(x, y) for x, y in pairs), bars_hold=ok)
+        elif k.startswith("k6_bwd"):
+            if "_f64_" in k:
+                ok = all(cs.scaled_err(x, y) <= cs.ROLL_F64_TOL for x, y in pairs)
+            else:
+                truth, plain = a[f"{k}/truth"], a[f"{k}/plain"]
+                ok = all(cs.scaled_err(x, t) <= 3.0 * cs.scaled_err(p, t) + 1e-4
+                         for side in (a[k], b[k]) for x, p, t in zip(side, plain, truth))
             out[k] = dict(scaled_vs_parent=max(cs.scaled_err(x, y) for x, y in pairs), bars_hold=ok)
         elif k.startswith("k2_bwd_frozen"):
             tol = 1e-10 if "_f64_" in k else 1e-4
@@ -187,14 +235,16 @@ def main():
     p.add_argument("--parent", default=None, help="a checkout to time beside this one")
     p.add_argument("--other", action="append", default=[], metavar="NAME=DIR",
                    help="another checkout to time in the same turns")
+    p.add_argument("--only", action="append", default=[], metavar="PREFIX",
+                   help="time only the entries whose name starts with PREFIX (k6_, k2_, gpr_, ...)")
     p.add_argument("--out", default=str(ROOT / "build" / "k3_bench" / "k3_bench.json"))
     p.add_argument("--build", metavar="ROOT", help=argparse.SUPPRESS)
-    p.add_argument("--run", nargs=2, metavar=("ROOT", "SAVE"), help=argparse.SUPPRESS)
+    p.add_argument("--run", nargs="+", metavar="ROOT SAVE [PREFIX ...]", help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.build:
         return build(Path(args.build))
     if args.run:
-        return run(Path(args.run[0]), args.run[1])
+        return run(Path(args.run[0]), args.run[1], args.run[2:])
 
     import torch
 
@@ -231,7 +281,7 @@ def main():
     runs = {}
     for i, name in enumerate(order):
         save = out_dir / f"k3_bench_outputs_{name}.pt"
-        proc = subprocess.run([*me, "--run", str(roots[name]), str(save)], stdout=subprocess.PIPE,
+        proc = subprocess.run([*me, "--run", str(roots[name]), str(save), *args.only], stdout=subprocess.PIPE,
                               text=True, check=True)
         runs.setdefault(name, []).append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(f"run {i + 1}/{len(order)} {name}: " + ", ".join(

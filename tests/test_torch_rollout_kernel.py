@@ -1,7 +1,8 @@
 """The whole-rollout pathwise loss op (gpflowpilco_torch/ops/rollout_cuda.py,
 K6) on the CPU, where it runs its plain versions: the plain forward against
 the JAX package's unfused composition and its kernel restatement, the hand
-adjoint against autograd, the frozen guard, ragged particle counts, and the
+adjoint against autograd, the CUDA backward's three phases restated in torch
+against the hand adjoint, the frozen guard, ragged particle counts, and the
 loop's ``use_fused_rollout`` path against the per-step one. Float64, the
 shapes of tests/test_rollout_pallas.py (S=64, B=32, M=24, Mp=12, T=7)."""
 import dataclasses
@@ -289,7 +290,6 @@ def test_torch_rollout_ragged_particle_count():
     """(e) S = 37, not a multiple of the kernel's 4-particle tile (and 3 x 13
     members): each particle's loss is its own, the same as in a call with
     more particles, and the hand adjoint holds there too."""
-    assert rc.num_blocks(37, 1) == 10 and rc.num_blocks(39, 3) == 12
     meta, x0, trainable, rest = _random_operands(1, S, 4, (1,), 1, 1, 4, B, M, MP, seed=37)
     full = _op_loss(meta, x0, trainable, rest, fused=True).detach()
     s = 37
@@ -301,6 +301,95 @@ def test_torch_rollout_ragged_particle_count():
     want = torch.autograd.grad(_op_loss(meta, x0[:s], trainable, cut, fused=False).sum(), trainable)
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 1e-10 * (1.0 + float(w.abs().max()))
+
+
+def _split_bwd(meta, traj, gl, zp, zp2, alpha, ilp, wp, mc_p, omega, phase, ild, zd, zd2, w, v, wd, mc_d,
+               target, precis):
+    """csrc/rollout.cu's backward restated in torch, phase by phase: (1)
+    every step's drift Jacobians J_l, state map A_t^T, policy-latent map
+    and cost term at once, from the trajectory alone; (2) the recurrence
+    g_t = A_t^T (g_{t+1} + c_{t+1}) per particle, writing each step's
+    policy-latent cotangent glat; (3) dalpha and dzp per slot of GRAD_ROWS
+    rows in the kernel's (step-major) row order, the slots added in order,
+    and dilp per particle summed over the particles."""
+    steps, (s, d) = meta.num_steps, traj.shape[1:]
+    k, de = omega.shape[0], meta.enc_dim
+    per = s // k
+
+    def rows(a):  # (T, S, ...) -> (K, T * per, ...)
+        return a.reshape(steps, k, per, *a.shape[2:]).transpose(0, 1).reshape(k, steps * per, *a.shape[2:])
+
+    def unrows(a):  # the inverse
+        return a.reshape(k, steps, per, *a.shape[2:]).transpose(0, 1).reshape(steps, s, *a.shape[2:])
+
+    x, x1 = rows(traj[:-1]), rows(traj[1:])
+    w4, v4 = (rows(a.expand(steps, *a.shape)) for a in (w, v))
+    # phase 1
+    e = rc._encode(meta, x)
+    es, kp, graw = rc._policy(e, zp, zp2, alpha, ilp, wp, mc_p)
+    xu = torch.cat([e, meta.squash_scale * (torch.special.ndtr(graw) - 0.5)], dim=-1)
+    proj, xs, kd = rc._drift_terms(xu, omega, phase, ild, zd, zd2)
+    kv = kd * v4
+    jac = (-torch.einsum("kplb,klbi->kpli", torch.sin(proj) * w4, omega)
+           + (torch.einsum("kplm,klmi->kpli", kv, zd) - kv.sum(-1, keepdim=True) * xs) * ild[:, None])
+    gmap = meta.dt * torch.einsum("kpli,dl->kpid", jac, wd)  # gxu = gmap y
+    pd = meta.squash_scale * rc._INV_SQRT_2PI * torch.exp(-0.5 * graw * graw)
+    mg = torch.einsum("kpud,kpu,ul->kpld", gmap[..., de:, :], pd, wp)  # glat = mg y
+    a = kp * alpha
+    h = torch.einsum("kplm,lmi->kpli", a, zp) - es * a.sum(-1, keepdim=True)  # ges = glat h
+    ge = gmap[..., :de, :] + torch.einsum("kpli,li,kpld->kpid", h, ilp, mg)
+    cols = rc._encode_bwd(meta, x[..., None, :].expand(*x.shape[:2], d, d), ge.transpose(-1, -2))
+    amat = cols.transpose(-1, -2) + torch.eye(d, dtype=x.dtype)
+    c, err = rc._cost(rc._encode(meta, x1), target, precis)
+    glr = rows(gl.expand(steps, s))
+    cterm = rc._encode_bwd(meta, x1, (glr * -c)[..., None] * (err @ (0.5 * (precis + precis.T))))
+    amat, mg, cterm, he = unrows(amat), unrows(mg), unrows(cterm), unrows(h * e[..., None, :])
+    # phase 2
+    g = torch.zeros(s, d, dtype=x.dtype)
+    glat = torch.empty(steps, s, alpha.shape[0], dtype=x.dtype)
+    dilp_p = torch.zeros(s, *ilp.shape, dtype=x.dtype)
+    for t in reversed(range(steps)):
+        y = g + cterm[t]
+        glat[t] = torch.einsum("sld,sd->sl", mg[t], y)
+        dilp_p = dilp_p + glat[t][..., None] * he[t]
+        g = torch.einsum("sij,sj->si", amat[t], y)
+    # phase 3
+    kp_r, es_r = (unrows(a).reshape(steps * s, *a.shape[2:]) for a in (kp, es))
+    glat_r = glat.reshape(steps * s, -1)
+    dzp, dal = [], []
+    for r0 in range(0, steps * s, rc.GRAD_ROWS):
+        sl = slice(r0, r0 + rc.GRAD_ROWS)
+        kg = kp_r[sl] * glat_r[sl][..., None]
+        p0, p1 = kg.sum(0), torch.einsum("rlm,rli->lmi", kg, es_r[sl])
+        dal.append(p0)
+        dzp.append(alpha[..., None] * (p1 - p0[..., None] * zp))
+    return torch.stack(dzp).sum(0), torch.stack(dal).sum(0), dilp_p.sum(0)
+
+
+@pytest.mark.parametrize("k, s, u, lp, ld, steps", [
+    (1, S, 1, 1, 4, NUM_STEPS),   # cartpole
+    (1, S, 2, 2, 3, NUM_STEPS),   # LCK
+    (1, 37, 1, 1, 4, NUM_STEPS),  # ragged: 259 rows, not a multiple of GRAD_ROWS
+    (8, S, 1, 1, 4, NUM_STEPS),   # 8 members of 8 particles
+    (1, S, 1, 1, 4, 1),           # one step
+])
+def test_torch_rollout_bwd_step_split_matches_reference(k, s, u, lp, ld, steps):
+    """The kernel's three-phase backward (_split_bwd) against the
+    reverse-time adjoint rollout_reference_bwd on the same trajectory, in
+    float64: dzp, dalpha and dilp to 1e-12 of each output's scale (the same
+    terms summed in another order)."""
+    meta, x0, trainable, rest = _random_operands(k, s, 4, (1,), u, lp, ld, B, M, MP, seed=s + 10 * k + steps)
+    meta = meta._replace(num_steps=steps)
+    zp, alpha, ilp = (a.detach() for a in trainable)
+    ops = (zp, (zp * zp).sum(-1), alpha, ilp, *rest)
+    with torch.no_grad():
+        traj = rc._rollout(meta, x0, *ops)[1]
+        gl = t(np.random.default_rng(s).uniform(size=s) / s)
+        got = _split_bwd(meta, traj, gl, *ops)
+        want = rc.rollout_reference_bwd(meta, traj, gl, *ops)
+    for name, a, b in zip(("dzp", "dalpha", "dilp"), got, want):
+        scale = float(b.abs().max())
+        assert scale > 0 and float((a - b).abs().max()) <= 1e-12 * scale, (name, float((a - b).abs().max()), scale)
 
 
 def _loop(batch_size, **kw):
