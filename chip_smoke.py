@@ -838,27 +838,28 @@ PTXAS_K3 = ("svgp_fwd_tiles", "svgp_fwd_combine", "svgp_bwd_tiles", "svgp_bwd_fi
             "bwd_groups", "svgp_bwd_slots")
 PTXAS_K3G = ("gpr_fwd_tiles", "fwd_combine", "gpr_bwd_tiles", "gpr_bwd_finish", "bwd_combine")
 PTXAS_K2 = ("fwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel", "bwd_frozen_tiles", "bwd_frozen_finish")
-PTXAS_K6 = ("fwd_kernel", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads")
+PTXAS_K6 = ("fwd_panels", "fwd_warp", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads")
 # (library, its kernels, the tile kernels that must not spill in float32 at
-# the main path's register capacity, that capacity): K3's and K3g's at D <= 8
-# (DM = 8), K2's frozen tiles at D2 <= 16 (DM = 16), K6's phase-1 Jacobian
-# kernel at Dxu <= 8 (DXU = 8)
-PTXAS_LIBS = (("mm_match", PTXAS_K3, ("svgp_fwd_tiles", "svgp_bwd_tiles"), 8),
-              ("gpr_match", PTXAS_K3G, ("gpr_fwd_tiles", "gpr_bwd_tiles"), 8),
-              ("kexp_pair", PTXAS_K2, ("bwd_frozen_tiles",), 16),
-              ("rollout", PTXAS_K6, ("bwd_jac",), 8))
+# the main path's register capacities, those capacities): K3's and K3g's at
+# D <= 8 (DM = 8), K2's frozen tiles at D2 <= 16 (DM = 16), K6's phase-1
+# Jacobian kernel at Dxu <= 8 (DXU = 8) and its forward, both routes, at
+# Dxu = 6 (the cartpole's) and Dxu <= 8
+PTXAS_LIBS = (("mm_match", PTXAS_K3, ("svgp_fwd_tiles", "svgp_bwd_tiles"), (8,)),
+              ("gpr_match", PTXAS_K3G, ("gpr_fwd_tiles", "gpr_bwd_tiles"), (8,)),
+              ("kexp_pair", PTXAS_K2, ("bwd_frozen_tiles",), (16,)),
+              ("rollout", PTXAS_K6, ("bwd_jac", "fwd_warp"), (6, 8)))
 
 
 def ptxas_report(text, kernels=PTXAS_K3):
-    """[(kernel, 'f' | 'd', its integer template arguments (the register
-    capacity DM first, then a tile side), registers, spill stores, spill
-    loads)] from nvcc's -Xptxas -v output."""
+    """[(kernel, 'f' | 'd', its integer and bool template arguments (the
+    register capacity DM first, then a tile side or a route), registers,
+    spill stores, spill loads)] from nvcc's -Xptxas -v output."""
     rows, name, spill = [], None, (0, 0)
-    pat = re.compile(r"\d+(" + "|".join(kernels) + r")I([fd])((?:Li\d+E)*)")
+    pat = re.compile(r"\d+(" + "|".join(kernels) + r")I([fd])((?:L[ib]\d+E)*)")
     for line in text.splitlines():
         if "Compiling entry function" in line:
             m = pat.search(line)
-            name = (m.group(1), m.group(2), tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(3)))) if m else None
+            name = (m.group(1), m.group(2), tuple(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3)))) if m else None
         elif name and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
             spill = (nums[1], nums[2])
@@ -1861,7 +1862,7 @@ def rollout_kernels_phase(rc, seed, device):
     float32 both against float64 on the same inputs, the kernel within 3x
     the plain version's error plus 1e-4 of the scale (match_kernels_phase's
     pattern: 30 float32 steps amplify rounding). Correctness only: S=1000
-    (not a multiple of the 4-particle tile), the LCK shape (U=2, Lp=2,
+    (ragged against the backward's row tiles), the LCK shape (U=2, Lp=2,
     Ld=3) and the member axis (ROLL_MEMBERS members: all five outputs
     against the plain version at the float64 bar, and each member's losses
     bit-identical to a one-member call). The plain versions launch ~1000
@@ -1884,6 +1885,10 @@ def rollout_kernels_phase(rc, seed, device):
 
     f64, f32 = torch.float64, torch.float32
     meta, ops = rollout_operands(rc, 1, S, 1, L, 1, HORIZON_STEPS, f64, device, seed + 4000)
+    for dtype in (f32, f64):
+        route, smem = rc.fwd_plan(meta, B, M, dtype)
+        print(f"rollout_fwd_{'f32' if dtype == f32 else 'f64'} at B={B} M={M}: the {route} route, {smem} bytes "
+              f"of dynamic shared memory a block")
     print(f"rollout S={S} Ld={L} B={B} M={M} Mp=30 T={HORIZON_STEPS} float64, bar {ROLL_F64_TOL:g} "
           f"of the scale:")
     got = rollout_outputs(rc, meta, ops, gl_of(S, f64), True)
@@ -2201,15 +2206,15 @@ def main():
     phase_s = {"build": time.perf_counter() - t0}
     # ptxas: every K2, K3, K3g and K6 kernel's registers and spills; a float32
     # tile kernel at the main path's register capacity must not spill
-    for lib, kernels, tiled, cap in PTXAS_LIBS:
+    for lib, kernels, tiled, caps in PTXAS_LIBS:
         regs = ptxas_report(_build.compiler_output.get(lib, ""), kernels)
         for kern, t, params, n_regs, st, ld in regs:
             targs = "".join(f", {v}" for v in params)
             print(f"ptxas {lib} {kern}<{'float' if t == 'f' else 'double'}{targs}>: {n_regs} registers, "
                   f"{st} bytes spill stores, {ld} bytes spill loads")
-        spills = [r for r in regs if r[0] in tiled and r[1] == "f" and r[2][:1] == (cap,) and r[4] + r[5]]
+        spills = [r for r in regs if r[0] in tiled and r[1] == "f" and r[2] and r[2][0] in caps and r[4] + r[5]]
         if built.get(lib) is not None and (not regs or spills):
-            raise AssertionError(f"{lib}'s float32 tile kernels at DM={cap} spill or were not reported: "
+            raise AssertionError(f"{lib}'s float32 tile kernels at DM in {caps} spill or were not reported: "
                                  f"{spills or regs}")
 
     def timed(name, fn, *fn_args):

@@ -5,7 +5,7 @@
 //   rollout_fwd_{f32,f64} <- _fwd_kernel (:195), launched by _fwd_impl (:420)
 //   rollout_bwd_{f32,f64} <- _bwd_kernel (:221), launched by _vjp_bwd (:499)
 //
-// Forward: for a tile of particles, all T steps of
+// Forward: for each particle, all T steps of
 //   e = encode(x); g_l = sum_m exp(-1/2 |e il_l - zp_lm|^2) alpha_lm;
 //   u = s (Phi(g Wp' + mc_p) - 1/2); xu = [e, u];
 //   f_l = sum_b cos(xu . omega_lb + phase_lb) w_slb
@@ -19,10 +19,8 @@
 // uses sym(P) err, exact for any P.
 //
 // The drift operands carry a member axis K in front (1 for an SVGP drift);
-// particle s rides member s / per. A forward block takes a tile of kTile
-// particles of one member, so every omega and zd row it reads from L2
-// serves kTile particles, as in csrc/path_eval.cu; a bwd_jac block takes
-// rows of one member.
+// particle s rides member s / per. A forward block takes kFwdParticles
+// particles of one member; a bwd_jac block takes rows of one member.
 //
 // Bound on an H100 (SXM): per particle and step the forward does
 // Ld (B + M) projections of Dxu terms with a cos or an exp each, about 85k
@@ -33,13 +31,33 @@
 // per particle and step (a sin and two Dxu-term passes per basis and
 // center, no cos or weight), about 1.7x the forward.
 // Forward design: the steps are sequential (x_{t+1} depends on x_t through
-// cos, exp and Phi), so a block runs its 30 steps one after another; one
-// 256-thread block per tile; the tile's states, encoded inputs and per-step
-// scalars live in shared memory across the steps; threads stride over the
-// bases B, the centers M and the policy centers Mp, each holding the tile's
-// xu rows in registers; per-step sums meet in a warp-shuffle plus
-// shared-memory block reduction; the small serial parts (encoder, squash,
-// Euler, cost) run on one thread per particle.
+// cos, exp and Phi), so a particle's 30 steps run one after another in its
+// own warps (two at Dxu <= 8), and a block holds kFwdParticles particles of
+// one member: 128 blocks of 16 warps at the slice's S=1024, one an SM. A
+// first launch (fwd_panels) writes each member's drift tables (omega,
+// phase, zd, zd2) transposed into panels, so that lanes on neighbouring
+// columns hit distinct banks. The forward stages them into shared memory by
+// 16-byte cp.async, once for all T steps where they fit (the resident
+// route: 142 KB at the slice's float32 widths), else every step in
+// double-buffered chunks of ring_cols columns with one block barrier a
+// chunk (the ring route: float64 at the slice's widths); the wrapper picks
+// the route by size. A particle's lane j takes the column groups j, j + 64,
+// ... of every table (a group is 16 bytes of columns: one shared-memory
+// load per table row), in order, its w and v groups arriving by cp.async
+// kStream groups ahead (WStream); the partials meet by __shfl_xor_sync
+// butterflies and then the two warps' totals through shared memory (one
+// 64-thread named barrier a step), so every lane holds every total and runs
+// the small serial parts (encoder, policy, squash, Euler) itself: no block
+// barrier inside the step loop on the resident route. The cost, which the
+// dynamics do not read, runs once after the loop, a step a lane. The bases'
+// cos is branch-free (cos_fast) wherever a bound on the latent's arguments
+// allows it, which lets a group's columns interleave. Both routes give each
+// lane the same columns in the same order, so their results are
+// bit-identical, and a particle's result does not depend on its block.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md, scripts/k3_bench.py): at
+// the slice's shape 0.38 ms in float32, 1.26 ms in float64, about 10x and
+// 16x the bound: per-latent work runs at about half the issue rate, and the
+// per-step serial parts, run by every warp in step, take about a fifth.
 // Backward design: every heavy term of a step is linear in the carried
 // adjoint, with coefficients that depend on the trajectory alone, so all
 // T x S steps' Jacobians are formed at once (bwd_jac: a thread per (row,
@@ -56,11 +74,14 @@
 
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 4;  // particles per block
+constexpr int kFwdParticles = 8;  // particles per forward block
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use (227 KB; FWD_SMEM_MAX)
+constexpr int kXchBytes = 3072;   // the forward's exchange area at the front of its shared memory
+constexpr int kStream = 4;        // weight groups a forward lane keeps in flight (WStream)
 // register / shared capacities; the wrapper (ops/rollout_cuda.py) checks them
 constexpr int kMaxD = 8, kMaxU = 4, kMaxLp = 4, kMaxLd = 8;
 
@@ -93,27 +114,6 @@ __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Sums vals[i] over the block; thread i < N gets the total of entry i.
-// `red` holds kWarps * N values of shared memory.
-template <typename T, int N>
-__device__ __forceinline__ T block_sum(const T (&vals)[N], T* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const T s = warp_sum(vals[i]);
-    if (lane == 0) red[warp * N + i] = s;
-  }
-  __syncthreads();
-  T total = T(0);
-  if (threadIdx.x < N) {
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) total += red[w * N + threadIdx.x];
-  }
-  __syncthreads();  // red is reused by the next call
-  return total;
 }
 
 template <typename T, int DM>
@@ -165,85 +165,6 @@ __device__ void encode_bwd(const Dims& n, const T* x, const T* ge, T* gx) {
     if (!is_active(n, dim)) gx[dim] += ge[i++];
 }
 
-// Shared state of a tile, common to both kernels.
-template <typename T, int DXU>
-struct Tile {
-  T x[kTile][kMaxD];          // the state x_t
-  T xu[kTile][DXU];           // [e, u], zero padded
-  T es[kTile][kMaxLp][DXU];   // e il_l, zero padded
-  T e2[kTile][kMaxLp];        // |e il_l|^2
-  T glat[kTile][kMaxLp];      // policy latents (backward: their cotangents)
-  T graw[kTile][kMaxU];       // the pre-squash action
-};
-
-// Encodes the tile's states into t.xu[:, :De] and the scaled policy
-// inputs; one thread per particle.
-template <typename T, int DXU>
-__device__ void encode_tile(const Dims& n, const Ops<T>& o, Tile<T, DXU>& t, int np) {
-  const int p = threadIdx.x;
-  if (p >= kTile) return;
-  T e[DXU];
-  if (p < np) encode<T, DXU>(n, t.x[p], e);
-  else for (int i = 0; i < DXU; ++i) e[i] = T(0);
-  for (int i = 0; i < DXU; ++i) t.xu[p][i] = e[i];
-  for (int l = 0; l < kMaxLp; ++l) {
-    T s2 = T(0);
-    for (int i = 0; i < DXU; ++i) {
-      const T v = (l < n.Lp && i < n.De) ? e[i] * o.ilp[l * n.De + i] : T(0);
-      t.es[p][l][i] = v;
-      s2 = fm(v, v, s2);
-    }
-    t.e2[p][l] = s2;
-  }
-}
-
-// The policy's latents at the encoded states (all threads), then the
-// squashed action into t.xu[:, De:] (one thread per particle).
-template <typename T, int DXU>
-__device__ void policy_tile(const Dims& n, const Ops<T>& o, Tile<T, DXU>& t, T* red, int np) {
-  for (int l = 0; l < n.Lp; ++l) {
-    T acc[kTile];
-#pragma unroll
-    for (int p = 0; p < kTile; ++p) acc[p] = T(0);
-    for (int m = threadIdx.x; m < n.Mp; m += kThreads) {
-      T zr[DXU];
-      load_row(zr, o.zp + ((size_t)l * n.Mp + m) * n.De, n.De);
-      const T z2 = o.zp2[l * n.Mp + m], al = o.alpha[l * n.Mp + m];
-#pragma unroll
-      for (int p = 0; p < kTile; ++p) {
-        if (p < np) {
-          T esr[DXU];
-#pragma unroll
-          for (int i = 0; i < DXU; ++i) esr[i] = t.es[p][l][i];
-          const T d2 = mx(t.e2[p][l] + z2 - T(2) * dot(esr, zr), T(0));
-          acc[p] = fm(ex(T(-0.5) * d2), al, acc[p]);
-        }
-      }
-    }
-    const T total = block_sum(acc, red);
-    if (threadIdx.x < np) t.glat[threadIdx.x][l] = total;
-  }
-  __syncthreads();
-  const int p = threadIdx.x;
-  if (p < np) {
-    for (int u = 0; u < n.U; ++u) {
-      T g = o.mcp[u];
-      for (int l = 0; l < n.Lp; ++l) g = fm(o.wp[u * n.Lp + l], t.glat[p][l], g);
-      t.graw[p][u] = g;
-      t.xu[p][n.De + u] = T(n.squash) * (ncdf(g) - T(0.5));
-    }
-  }
-  __syncthreads();
-}
-
-template <typename T, int DXU>
-__device__ __forceinline__ void load_xu(const Tile<T, DXU>& t, T (&xr)[kTile][DXU]) {
-#pragma unroll
-  for (int p = 0; p < kTile; ++p)
-#pragma unroll
-    for (int i = 0; i < DXU; ++i) xr[p][i] = t.xu[p][i];
-}
-
 // -err' P err / 2 and, when ge is given, ge = -c sym(P) err scaled by gscale
 template <typename T, int DXU>
 __device__ T cost(const Dims& n, const Ops<T>& o, const T* x, T* ge, T gscale) {
@@ -269,106 +190,15 @@ __device__ T cost(const Dims& n, const Ops<T>& o, const T* x, T* ge, T gscale) {
   return c;
 }
 
-template <typename T, int DXU>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(Ops<T> o, Dims n, T* __restrict__ loss,
-                                                       T* __restrict__ traj) {
-  __shared__ Tile<T, DXU> t;
-  __shared__ T flat[kTile][kMaxLd];
-  __shared__ T acc_loss[kTile];
-  __shared__ T red[kWarps * kTile];
-  const int k = blockIdx.x / n.tiles;
-  const int p0 = (blockIdx.x % n.tiles) * kTile;
-  const int np = min(kTile, n.per - p0);
-  const size_t s0 = (size_t)k * n.per + p0;
-  const int tid = threadIdx.x;
-
-  if (tid < kTile) {
-    for (int d = 0; d < kMaxD; ++d) {
-      const T xv = (tid < np && d < n.D) ? o.x0[(s0 + tid) * n.D + d] : T(0);
-      t.x[tid][d] = xv;
-      if (tid < np && d < n.D) traj[(s0 + tid) * n.D + d] = xv;
-    }
-    acc_loss[tid] = T(0);
-  }
-  __syncthreads();
-
-  for (int step = 0; step < n.T; ++step) {
-    encode_tile(n, o, t, np);
-    __syncthreads();
-    policy_tile(n, o, t, red, np);
-
-    // the drift latents at xu
-    T xr[kTile][DXU];
-    load_xu(t, xr);
-    for (int l = 0; l < n.Ld; ++l) {
-      const size_t kl = (size_t)k * n.Ld + l;
-      T acc[kTile];
+// graw_u = mc_p + Wp g
+template <typename T>
+__device__ __forceinline__ T graw_of(const Dims& n, const Ops<T>& o, const T (&g)[kMaxLp], int u) {
+  T a = o.mcp[u];
 #pragma unroll
-      for (int p = 0; p < kTile; ++p) acc[p] = T(0);
-      const T* om = o.omega + kl * n.B * n.Dxu;
-      for (int b = tid; b < n.B; b += kThreads) {
-        T orow[DXU];
-        load_row(orow, om + (size_t)b * n.Dxu, n.Dxu);
-        const T ph = o.phase[kl * n.B + b];
-#pragma unroll
-        for (int p = 0; p < kTile; ++p)
-          if (p < np)
-            acc[p] = fm(cs(dot(xr[p], orow) + ph), o.w[((s0 + p) * n.Ld + l) * n.B + b], acc[p]);
-      }
-      T il[DXU];
-      load_row(il, o.ild + kl * n.Dxu, n.Dxu);
-      T x2[kTile];
-#pragma unroll
-      for (int p = 0; p < kTile; ++p) {
-        T s2 = T(0);
-#pragma unroll
-        for (int i = 0; i < DXU; ++i) s2 = fm(xr[p][i] * il[i], xr[p][i] * il[i], s2);
-        x2[p] = s2;
-      }
-      for (int m = tid; m < n.M; m += kThreads) {
-        T zr[DXU];
-        load_row(zr, o.zd + (kl * n.M + m) * n.Dxu, n.Dxu);
-        const T zz = o.zd2[kl * n.M + m];
-#pragma unroll
-        for (int p = 0; p < kTile; ++p) {
-          if (p < np) {
-            T xz = T(0);
-#pragma unroll
-            for (int i = 0; i < DXU; ++i) xz = fm(xr[p][i] * il[i], zr[i], xz);
-            const T d2 = mx(x2[p] + zz - T(2) * xz, T(0));
-            acc[p] = fm(ex(T(-0.5) * d2), o.v[((s0 + p) * n.Ld + l) * n.M + m], acc[p]);
-          }
-        }
-      }
-      const T total = block_sum(acc, red);
-      if (tid < np) flat[tid][l] = total;
-    }
-    __syncthreads();
-
-    // Euler step and the cost, one thread per particle
-    if (tid < np) {
-      for (int d = 0; d < n.D; ++d) {
-        T f = o.mcd[k * n.D + d];
-        for (int l = 0; l < n.Ld; ++l) f = fm(o.wd[d * n.Ld + l], flat[tid][l], f);
-        const T xn = t.x[tid][d] + T(n.dt) * f;
-        t.x[tid][d] = xn;
-        traj[((size_t)(step + 1) * n.S + s0 + tid) * n.D + d] = xn;
-      }
-      acc_loss[tid] += cost<T, DXU>(n, o, t.x[tid], nullptr, T(0));
-    }
-    __syncthreads();
-  }
-  if (tid < np) loss[s0 + tid] = acc_loss[tid];
+  for (int l = 0; l < kMaxLp; ++l)
+    if (l < n.Lp) a = fm(o.wp[u * n.Lp + l], g[l], a);
+  return a;
 }
-
-// ---------------------------------------------------------------- backward
-// Every heavy term of a backward step is linear in the carried adjoint, with
-// coefficients fixed by the stored trajectory, so the backward runs as four
-// launches: bwd_jac (every step's drift Jacobians at once), bwd_maps (every
-// step's linear maps and cost term), bwd_adjoint (the small recurrence, a
-// thread per particle) and bwd_grads (the policy gradients over all rows).
-// A row is a (step t, particle s) pair. Scratch (ops/rollout_cuda.py sizes
-// it from the shapes): jac (T, S, Ld, Dxu), maps (T, NM, S), glat (T, Lp, S).
 
 // cp.async of one element into shared memory; zero-filled when !valid
 template <typename T>
@@ -393,6 +223,512 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 #endif
 }
+
+
+// ----------------------------------------------------------------- forward
+// A block: kFwdParticles particles of one member, fwd_wpp warps each. A
+// particle's lane j (of its 32 fwd_wpp lanes) takes the column groups g = j,
+// j + 32 fwd_wpp, ... of each drift latent's bases and then its centers,
+// into one partial; a group is group_of<T>() adjacent columns, 16 bytes: one
+// shared-memory load per table row, and one of the particle's w or v
+// (WStream). The partials meet by butterfly in each warp, then warp by warp
+// in order through the exchange area (one named barrier a step for the
+// particle's warps). Every warp evaluates the policy itself (lane j takes
+// centers j, j + 32, ...). The member's tables sit in shared memory as
+// panels: row i < DXU holds coordinate i of every column (zero for i >=
+// Dxu), row DXU the per-column scalar (phase or |z|^2).
+
+template <typename T>
+__host__ __device__ constexpr int group_of() { return 16 / (int)sizeof(T); }
+// columns of a ring chunk, a multiple of 32 groups (so a lane's groups and
+// their order are the resident route's); two chunks fit in shared memory
+template <typename T, int DXU>
+__host__ __device__ constexpr int ring_cols() { return sizeof(T) == 8 && DXU > 8 ? 512 : 1024; }
+__host__ __device__ constexpr int round_up(int a, int g) { return (a + g - 1) / g * g; }
+
+// warps per particle: two at Dxu <= 8 (16 warps an SM), one at DXU = 16,
+// whose 64 table values a group need the registers of a 256-thread block
+template <int DXU>
+__host__ __device__ constexpr int fwd_wpp() { return DXU <= 8 ? 2 : 1; }
+
+// the forward's shared memory: the exchange area, the weight streams'
+// rings (kStream 16-byte slots a thread), then the tables
+template <int DXU>
+__host__ __device__ constexpr size_t fwd_front_bytes() {
+  return kXchBytes + (size_t)kStream * 32 * kFwdParticles * fwd_wpp<DXU>() * 16;
+}
+
+template <typename T, int DXU>
+size_t fwd_smem_bytes(const Dims& n, bool ring) {
+  constexpr int G = group_of<T>();
+  if (ring) return fwd_front_bytes<DXU>() + 2 * (size_t)(DXU + 1) * ring_cols<T, DXU>() * sizeof(T);
+  return fwd_front_bytes<DXU>() + (size_t)n.Ld * (DXU + 1) * (round_up(n.B, G) + round_up(n.M, G)) * sizeof(T);
+}
+
+// cos(x) for |x| <= kCosFast without a branch. float32: x = 2 pi k + r
+// (Cody-Waite, FMA), r in [-pi, pi], then the SFU's cos (__cosf: absolute
+// error 2^-21.41 there, against cosf's ~7e-8; PERF.md measures both and
+// the Cephes-polynomial version, scripts/k6_fwd_cos_poly.patch, and the
+// float32 bars hold). float64: x = k pi/2 + r, then cos r or sin r on
+// [-pi/4, pi/4] by quadrant, Taylor to r^17 (1e-16). A latent whose bound
+// on the bases' arguments leaves the range takes cos() for the step
+// (fwd_warp).
+constexpr float kCosFastF = 105615.0f;
+constexpr double kCosFastD = 1048576.0;
+__device__ __forceinline__ float cos_fast(float x) {
+  const float k = rintf(x * 0.159154943f);
+  float r = fmaf(k, -6.28318548f, x);  // 2 pi in float32, then the rest
+  r = fmaf(k, 1.74845553e-7f, r);
+  return __cosf(r);
+}
+__device__ __forceinline__ double cos_fast(double x) {
+  const double k = rint(x * 0.63661977236758134);
+  const long long q = (long long)k;
+  double r = fma(k, -1.5707963267948966, x);
+  r = fma(k, -6.123233995736766e-17, r);
+  const double r2 = r * r;
+  const bool odd = q & 1;
+  // 1/(2i+1)! (sin) or 1/(2i)! (cos), alternating in sign
+  double p = odd ? 2.8114572543455206e-15 : 4.779477332387385e-14;
+  p = fma(p, r2, odd ? -7.647163731819816e-13 : -1.1470745597729725e-11);
+  p = fma(p, r2, odd ? 1.6059043836821613e-10 : 2.08767569878681e-09);
+  p = fma(p, r2, odd ? -2.505210838544172e-08 : -2.755731922398589e-07);
+  p = fma(p, r2, odd ? 2.7557319223985893e-06 : 2.48015873015873e-05);
+  p = fma(p, r2, odd ? -0.0001984126984126984 : -0.001388888888888889);
+  p = fma(p, r2, odd ? 0.008333333333333333 : 0.041666666666666664);
+  p = fma(p, r2, odd ? -0.16666666666666666 : -0.5);
+  p = fma(p, r2, 1.0);
+  const double v = odd ? r * p : p;
+  return (q + 1) & 2 ? -v : v;
+}
+template <typename T>
+__device__ __forceinline__ T cos_fast_range() { return sizeof(T) == 4 ? T(kCosFastF) : T(kCosFastD); }
+
+// bar.sync on `threads` threads (a particle's warps) at barrier `id`
+__device__ __forceinline__ void named_sync(int id, int threads) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+#endif
+}
+
+__device__ __forceinline__ void lds_group(float (&r)[4], const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
+}
+__device__ __forceinline__ void lds_group(double (&r)[2], const double* p) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  r[0] = v.x, r[1] = v.y;
+}
+// columns [c, c + G) of a particle's weight row of cnt columns, zero past
+// cnt (predicated single loads, no branch)
+template <typename T, int G>
+__device__ __forceinline__ void ldg_group(T (&r)[G], const T* row, int c, int cnt) {
+#pragma unroll
+  for (int q = 0; q < G; ++q) r[q] = c + q < cnt ? __ldg(row + c + q) : T(0);
+}
+
+// 16 bytes from global into shared memory, bypassing L1
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+#else
+  memcpy(dst, src, 16);
+#endif
+}
+
+extern __shared__ __align__(16) unsigned char fwd_smem[];  // the forward's dynamic shared memory
+
+// A lane's weights in the order its panel loops take them (per latent its
+// bases' groups, then its centers'; step after step), each group copied
+// kStream groups ahead by cp.async into the lane's own slot of a ring in
+// shared memory (after the exchange area; slot k of thread t at (k kThreads
+// + t) G: a warp's slots are adjacent). One commit group an item, so take()
+// waits for its item with cp.async.wait_group alone; the slot it read takes
+// the group kStream ahead. Used where w and v rows hold whole aligned
+// groups.
+template <typename T, int kLanes, int kThreads>
+struct WStream {
+  const T *w, *v;  // the particle's rows: Ld x B and Ld x M
+  int nbl, per, l, r, taken;  // the lane's groups a latent (bases, all; 0 without a stream); the next item
+
+  __device__ static T* slot(int k) {
+    return reinterpret_cast<T*>(fwd_smem + kXchBytes) + (k * kThreads + threadIdx.x) * group_of<T>();
+  }
+  // item `item` (the next in order) into slot k, while the T steps have one
+  __device__ void issue(const Dims& n, int k, int item) {
+    constexpr int G = group_of<T>();
+    if (item < n.T * n.Ld * per) {
+      const int pl = threadIdx.x % kLanes;
+      const T* src = r < nbl ? w + (size_t)l * n.B + (pl + kLanes * r) * G
+                             : v + (size_t)l * n.M + (pl + kLanes * (r - nbl)) * G;
+      cp_async16(slot(k), src);
+      if (++r == per) r = 0, l = l + 1 == n.Ld ? 0 : l + 1;
+    }
+    cp_async_commit();
+  }
+  template <int G>
+  __device__ int take(T (&out)[G]) {
+    cp_async_wait<kStream - 1>();
+    const int k = taken++ & (kStream - 1);
+    lds_group(out, slot(k));
+    return k;
+  }
+};
+
+// The member tables in the forward's panel layout, in global memory: per
+// (member, latent) the bases' panel (DXU + 1 rows of bw columns), then the
+// centers' (DXU + 1 rows of mw); row i < DXU holds coordinate i of every
+// column (zero for i >= Dxu), row DXU the per-column scalar (phase or
+// |z|^2), columns past B or M zero. So the forward stages whole rows by
+// 16-byte copies. After all panels, per (member, latent) the largest |.| of
+// each bases row, for fwd_warp's bound on the cos arguments. A block per
+// (member, latent, row).
+constexpr int kPanelThreads = 256;
+template <typename T, int DXU>
+__global__ void __launch_bounds__(kPanelThreads) fwd_panels(Ops<T> o, Dims n, T* __restrict__ panels) {
+  constexpr int G = group_of<T>();
+  __shared__ T red[kPanelThreads / 32];
+  const int bw = round_up(n.B, G), mw = round_up(n.M, G);
+  const size_t kl = blockIdx.x / (DXU + 1);  // member k, latent l: k Ld + l
+  const int i = blockIdx.x % (DXU + 1);
+  T* dst = panels + kl * (DXU + 1) * (bw + mw);
+  const T* rows[2] = {o.omega + kl * n.B * n.Dxu, o.zd + kl * n.M * n.Dxu};
+  const T* scal[2] = {o.phase + kl * n.B, o.zd2 + kl * n.M};
+  T top = T(0);
+  for (int c = 0; c < 2; ++c) {  // the bases' row i, then the centers'
+    const int wide = c ? mw : bw, cnt = c ? n.M : n.B;
+    T* row = dst + (c ? (DXU + 1) * bw + i * mw : i * bw);
+    for (int j = threadIdx.x; j < wide; j += kPanelThreads) {
+      T val = T(0);
+      if (j < cnt && i == DXU) val = scal[c][j];
+      else if (j < cnt && i < n.Dxu) val = rows[c][(size_t)j * n.Dxu + i];
+      row[j] = val;
+      if (c == 0) top = mx(top, val < T(0) ? -val : val);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) top = mx(top, __shfl_xor_sync(0xffffffffu, top, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = top;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kPanelThreads / 32; ++w) top = mx(top, red[w]);
+    panels[(size_t)n.K * n.Ld * (DXU + 1) * (bw + mw) + kl * (DXU + 1) + i] = top;
+  }
+}
+
+// rows 0..DXU, columns [j0, j0 + wide), of a panel in global memory (rows
+// gstride apart) into shared memory (rows sstride apart), 16 bytes a copy;
+// wide is a multiple of the group. The caller commits.
+template <typename T, int DXU, int kThreads>
+__device__ __forceinline__ void stage_rows(T* dst, int sstride, const T* src, int gstride, int j0, int wide) {
+  constexpr int G = group_of<T>();
+#pragma unroll
+  for (int i = 0; i <= DXU; ++i)
+    for (int j = threadIdx.x * G; j < wide; j += kThreads * G)
+      cp_async16(dst + i * sstride + j, src + (size_t)i * gstride + j0 + j);
+}
+
+// acc + sum over lane pl's groups g = pl, pl + kLanes, ... < ng of a panel
+// (the first group at column c0 of the particle's weight row of cnt
+// columns): kCenters false, the bases' cos(xu . omega_b + phase_b) w_b
+// (cos_fast, or with kExact cos()); true, the centers' exp(-1/2 |xs -
+// zd_m|^2) v_m (xs = the scaled input, x2 = |xs|^2). The weights from the
+// lane's stream (kStreamed) or by single loads; the group's columns in
+// order; no branch in the loop body.
+template <typename T, int DXU, int kLanes, bool kCenters, bool kStreamed, bool kExact, typename S>
+__device__ __forceinline__ T panel_loop(const Dims& n, const T* panel, int stride, int ng, int c0, int cnt,
+                                        const T* row, const T (&xin)[DXU], T x2, T acc, int pl, S& ws) {
+  constexpr int G = group_of<T>();
+  for (int g = pl; g < ng; g += kLanes) {
+    T wv[G], sc[G], tb[DXU][G];
+    int k = 0;
+    if (kStreamed) k = ws.take(wv);
+    else ldg_group(wv, row, c0 + g * G, cnt);
+    lds_group(sc, panel + DXU * stride + g * G);
+#pragma unroll
+    for (int i = 0; i < DXU; ++i) lds_group(tb[i], panel + i * stride + g * G);
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      T v;
+      if (kCenters) {
+        T xz = T(0);
+#pragma unroll
+        for (int i = 0; i < DXU; ++i) xz = fm(xin[i], tb[i][q], xz);
+        v = ex(T(-0.5) * mx(x2 + sc[q] - T(2) * xz, T(0)));
+      } else {
+        T pr = sc[q];
+#pragma unroll
+        for (int i = 0; i < DXU; ++i) pr = fm(xin[i], tb[i][q], pr);
+        v = kExact ? cs(pr) : cos_fast(pr);
+      }
+      acc = fm(v, wv[q], acc);
+    }
+    if (kStreamed) ws.issue(n, k, ws.taken + kStream - 1);  // the slot just read takes the group kStream ahead
+  }
+  return acc;
+}
+
+// panel_loop with its weights' feed, and for the bases cos() where exact
+template <typename T, int DXU, int kLanes, bool kCenters, typename S>
+__device__ __forceinline__ T panel_sum(const Dims& n, const T* panel, int stride, int ng, int c0, int cnt,
+                                       const T* row, bool stream, bool exact, const T (&xin)[DXU], T x2, T acc,
+                                       int pl, S& ws) {
+#define K6_PANEL(STREAMED, EXACT) \
+  panel_loop<T, DXU, kLanes, kCenters, STREAMED, EXACT>(n, panel, stride, ng, c0, cnt, row, xin, x2, acc, pl, ws)
+  if constexpr (!kCenters) {
+    if (exact) return stream ? K6_PANEL(true, true) : K6_PANEL(false, true);
+  }
+  return stream ? K6_PANEL(true, false) : K6_PANEL(false, false);
+#undef K6_PANEL
+}
+
+// The drift's input xu = [e, u] at state x, the same in every lane: the
+// encoder, the policy's latents (lane j takes centers j, j + 32, ...; the
+// partials meet by butterfly), the mixing Wp and the squash.
+template <typename T, int DXU>
+__device__ __forceinline__ void drift_input(const Dims& n, const Ops<T>& o, const T* x, T (&xu)[DXU]) {
+  const int lane = threadIdx.x & 31;
+  T e[DXU];
+  encode<T, DXU>(n, x, e);
+  T g[kMaxLp];
+#pragma unroll
+  for (int l = 0; l < kMaxLp; ++l) {
+    g[l] = T(0);
+    if (l < n.Lp) {
+      T es[DXU];
+      T s2 = T(0);
+#pragma unroll
+      for (int i = 0; i < DXU; ++i) {
+        es[i] = i < n.De ? e[i] * o.ilp[l * n.De + i] : T(0);
+        s2 = fm(es[i], es[i], s2);
+      }
+      T acc = T(0);
+      for (int m = lane; m < n.Mp; m += 32) {
+        T zr[DXU];
+        load_row(zr, o.zp + ((size_t)l * n.Mp + m) * n.De, n.De);
+        const T d2 = mx(s2 + o.zp2[l * n.Mp + m] - T(2) * dot(es, zr), T(0));
+        acc = fm(ex(T(-0.5) * d2), o.alpha[l * n.Mp + m], acc);
+      }
+      g[l] = warp_sum(acc);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < DXU; ++i) {
+    T val = T(0);
+    if (i < n.De) val = e[i];
+    else if (i < n.Dxu) val = T(n.squash) * (ncdf(graw_of(n, o, g, i - n.De)) - T(0.5));
+    xu[i] = val;
+  }
+}
+
+// All T steps of kFwdParticles particles of one member. kRing: the tables
+// stream through two chunk buffers every step (one block barrier a chunk);
+// else they are staged once (no block barrier inside the step loop). The
+// cost, which the dynamics do not read, runs after the step loop: the
+// particle's first warp takes the steps t = lane, lane + 32, ... from the
+// trajectory it wrote, and the lanes' sums meet by butterfly.
+template <typename T, int DXU, bool kRing>
+__global__ void __launch_bounds__(32 * kFwdParticles * fwd_wpp<DXU>())
+    fwd_warp(Ops<T> o, Dims n, const T* __restrict__ panels, T* __restrict__ loss, T* __restrict__ traj) {
+  constexpr int G = group_of<T>(), kCols = ring_cols<T, DXU>();
+  constexpr int kWpp = fwd_wpp<DXU>(), kLanes = 32 * kWpp, kThreads = kLanes * kFwdParticles;
+  T* xch = reinterpret_cast<T*>(fwd_smem);  // [particle][step & 1][warp][kMaxLd], then [particle][16]
+  T* tab = reinterpret_cast<T*>(fwd_smem + fwd_front_bytes<DXU>());
+  const int lane = threadIdx.x & 31;
+  const int slot = threadIdx.x / kLanes;  // the block's particle
+  const int wip = (threadIdx.x % kLanes) >> 5;  // the warp within the particle
+  const int pl = threadIdx.x % kLanes;  // the particle's lane
+  const int k = blockIdx.x / n.tiles;
+  const int p = (blockIdx.x % n.tiles) * kFwdParticles + slot;
+  const bool active = p < n.per;  // idle warps shadow the member's first particle and write nothing
+  const size_t s = (size_t)k * n.per + (active ? p : 0);
+  const int bw = round_up(n.B, G), mw = round_up(n.M, G);
+  const int lat = (DXU + 1) * (bw + mw);  // a latent's two panels
+  const int nbc = (n.B + kCols - 1) / kCols, nlc = nbc + (n.M + kCols - 1) / kCols;  // ring chunks
+
+  // ring chunk c of a step (per latent: the bases' chunks, then the
+  // centers') into buffer `buf` of the ring
+  auto stage_chunk = [&](int c, int buf) {
+    const int l = c / nlc, r = c % nlc;
+    const bool basis = r < nbc;
+    const int j0 = (basis ? r : r - nbc) * kCols;
+    T* dst = tab + (size_t)buf * (DXU + 1) * kCols;
+    const T* src = panels + ((size_t)k * n.Ld + l) * lat + (basis ? 0 : (DXU + 1) * bw);
+    const int wide = round_up(min(kCols, (basis ? n.B : n.M) - j0), G);
+    stage_rows<T, DXU, kThreads>(dst, kCols, src, basis ? bw : mw, j0, wide);
+    cp_async_commit();
+  };
+  if (kRing) {
+    stage_chunk(0, 0);
+  } else {
+    const T* member = panels + (size_t)k * n.Ld * lat;  // the member's panels
+    for (int q = threadIdx.x * G; q < n.Ld * lat; q += kThreads * G) cp_async16(tab + q, member + q);
+    cp_async_commit();
+  }
+
+  // the lane's weight stream, where the w and v rows hold whole aligned
+  // groups (else single loads)
+  const bool stream = n.B % G == 0 && n.M % G == 0 && (reinterpret_cast<size_t>(o.w) & 15) == 0 &&
+                      (reinterpret_cast<size_t>(o.v) & 15) == 0;
+  WStream<T, kLanes, kThreads> ws;
+  ws.w = o.w + s * n.Ld * n.B, ws.v = o.v + s * n.Ld * n.M;
+  ws.nbl = pl < bw / G ? (bw / G - pl + kLanes - 1) / kLanes : 0;
+  ws.per = stream && active ? ws.nbl + (pl < mw / G ? (mw / G - pl + kLanes - 1) / kLanes : 0) : 0;
+  ws.l = ws.r = ws.taken = 0;
+#pragma unroll
+  for (int j = 0; j < kStream; ++j) ws.issue(n, j, j);
+
+  // the state, the same in every lane; step 0's input overlaps the copies
+  T x[kMaxD];
+#pragma unroll
+  for (int d = 0; d < kMaxD; ++d) x[d] = d < n.D ? o.x0[s * n.D + d] : T(0);
+  if (active && pl < n.D) traj[s * n.D + pl] = o.x0[s * n.D + pl];
+  T xu[DXU];
+  drift_input<T, DXU>(n, o, x, xu);
+  if (!kRing) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (!active) return;
+  }
+
+  int q = 0;  // ring chunks consumed
+  for (int step = 0; step < n.T; ++step) {
+    T f[kMaxLd];
+#pragma unroll
+    for (int j = 0; j < kMaxLd; ++j) f[j] = T(0);
+    for (int l = 0; l < n.Ld; ++l) {
+      const size_t kl = (size_t)k * n.Ld + l;
+      const T* wrow = o.w + (s * n.Ld + l) * n.B;
+      const T* vrow = o.v + (s * n.Ld + l) * n.M;
+      // the centers' scaled input xs = xu ild and x2 = |xs|^2, formed where
+      // they are needed (not held through the bases)
+      T xs[DXU];
+      auto scaled = [&]() {
+        T x2 = T(0);
+#pragma unroll
+        for (int i = 0; i < DXU; ++i) {
+          xs[i] = i < n.Dxu ? xu[i] * o.ild[kl * n.Dxu + i] : T(0);
+          x2 = fm(xs[i], xs[i], x2);
+        }
+        return x2;
+      };
+      // cos_fast where every basis's argument stays in its range: |phase|
+      // + sum |xu_i| |omega_i| against the rows' largest magnitudes
+      const T* top = panels + (size_t)n.K * n.Ld * lat + kl * (DXU + 1);
+      T bound = top[DXU];
+#pragma unroll
+      for (int i = 0; i < DXU; ++i) bound = fm(xu[i] < T(0) ? -xu[i] : xu[i], top[i], bound);
+      const bool exact = !(bound <= cos_fast_range<T>());
+      T acc = T(0);
+      if (!kRing) {
+        const T* pb = tab + l * lat;
+        acc = panel_sum<T, DXU, kLanes, false>(n, pb, bw, bw / G, 0, n.B, wrow, stream, exact, xu, T(0), acc, pl,
+                                               ws);
+        const T x2 = scaled();
+        acc = panel_sum<T, DXU, kLanes, true>(n, pb + (DXU + 1) * bw, mw, mw / G, 0, n.M, vrow, stream, exact, xs, x2,
+                                              acc, pl, ws);
+      } else {
+        for (int r = 0; r < nlc; ++r, ++q) {
+          cp_async_wait<0>();
+          __syncthreads();  // chunk q is in for every thread; every warp is done with chunk q - 1
+          if (q + 1 < n.T * n.Ld * nlc) stage_chunk((q + 1) % (n.Ld * nlc), (q + 1) & 1);
+          if (!active) continue;
+          const T* buf = tab + (size_t)(q & 1) * (DXU + 1) * kCols;
+          const bool basis = r < nbc;
+          const int j0 = (basis ? r : r - nbc) * kCols;
+          const int ng = (min(kCols, (basis ? n.B : n.M) - j0) + G - 1) / G;
+          if (basis) {
+            acc = panel_sum<T, DXU, kLanes, false>(n, buf, kCols, ng, j0, n.B, wrow, stream, exact, xu, T(0), acc, pl,
+                                                   ws);
+          } else {
+            const T x2 = scaled();
+            acc = panel_sum<T, DXU, kLanes, true>(n, buf, kCols, ng, j0, n.M, vrow, stream, exact, xs, x2, acc, pl,
+                                                  ws);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kMaxLd; ++j)
+        if (j == l) f[j] = acc;
+    }
+    if (!active) continue;  // the ring's idle warps keep to its barriers
+    // the latents' partials meet by butterfly in each warp, then the
+    // particle's warps add their totals in warp order: every lane of the
+    // particle holds every total
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < kMaxLd; ++j)
+        if (j < n.Ld) f[j] += __shfl_xor_sync(0xffffffffu, f[j], off);
+    if (kWpp > 1) {
+      T* mine = xch + ((slot * 2 + (step & 1)) * kWpp) * kMaxLd;  // this step's slots, by parity
+      if (lane < kMaxLd) {
+#pragma unroll
+        for (int j = 0; j < kMaxLd; ++j)
+          if (j == lane) mine[wip * kMaxLd + j] = f[j];
+      }
+      named_sync(1 + slot, kLanes);
+#pragma unroll
+      for (int j = 0; j < kMaxLd; ++j) {
+        if (j < n.Ld) {
+          T t = mine[j];
+#pragma unroll
+          for (int w = 1; w < kWpp; ++w) t += mine[w * kMaxLd + j];
+          f[j] = t;
+        }
+      }
+    }
+    // the Euler step
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d) {
+      if (d < n.D) {
+        T fd = o.mcd[k * n.D + d];
+#pragma unroll
+        for (int j = 0; j < kMaxLd; ++j)
+          if (j < n.Ld) fd = fm(o.wd[d * n.Ld + j], f[j], fd);
+        x[d] = x[d] + T(n.dt) * fd;
+        if (pl == d) traj[((size_t)(step + 1) * n.S + s) * n.D + d] = x[d];
+      }
+    }
+    if (step + 1 < n.T) {
+      // the next input: the particle's first warp forms it, the others read it
+      if (wip == 0) drift_input<T, DXU>(n, o, x, xu);
+      if (kWpp > 1) {
+        T* next = xch + kFwdParticles * 2 * kWpp * kMaxLd + slot * 16;
+        if (wip == 0 && lane == 0) {
+#pragma unroll
+          for (int i = 0; i < DXU; ++i) next[i] = xu[i];
+        }
+        named_sync(1 + slot, kLanes);
+        if (wip != 0) {
+#pragma unroll
+          for (int i = 0; i < DXU; ++i) xu[i] = next[i];
+        }
+      }
+    }
+  }
+  if (!active || wip != 0) return;
+  __syncwarp();  // the states lanes 0..D-1 wrote
+  T c = T(0);
+  for (int t = lane; t < n.T; t += 32) {
+    T xt[kMaxD];
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d) xt[d] = d < n.D ? traj[((size_t)(t + 1) * n.S + s) * n.D + d] : T(0);
+    c += cost<T, DXU>(n, o, xt, nullptr, T(0));
+  }
+  c = warp_sum(c);
+  if (lane == 0) loss[s] = c;
+}
+
+// ---------------------------------------------------------------- backward
+// Every heavy term of a backward step is linear in the carried adjoint, with
+// coefficients fixed by the stored trajectory, so the backward runs as four
+// launches: bwd_jac (every step's drift Jacobians at once), bwd_maps (every
+// step's linear maps and cost term), bwd_adjoint (the small recurrence, a
+// thread per particle) and bwd_grads (the policy gradients over all rows).
+// A row is a (step t, particle s) pair. Scratch (ops/rollout_cuda.py sizes
+// it from the shapes): jac (T, S, Ld, Dxu), maps (T, NM, S), glat (T, Lp, S).
 
 constexpr int kJacThreads = 128;  // bwd_jac
 // adjacent rows per bwd_jac thread: two in float32 (128 registers, four
@@ -435,16 +771,6 @@ __device__ void policy_row(const Dims& n, const Ops<T>& o, const T (&e)[DXU], T 
     }
     g[l] = acc;
   }
-}
-
-// graw_u = mc_p + Wp g
-template <typename T>
-__device__ __forceinline__ T graw_of(const Dims& n, const Ops<T>& o, const T (&g)[kMaxLp], int u) {
-  T a = o.mcp[u];
-#pragma unroll
-  for (int l = 0; l < kMaxLp; ++l)
-    if (l < n.Lp) a = fm(o.wp[u * n.Lp + l], g[l], a);
-  return a;
 }
 
 // A staged row of DXU values from shared memory, 16 bytes a load
@@ -869,17 +1195,39 @@ inline bool bad_dims(const Dims& n) {
          n.B <= 0 || n.M <= 0 || n.Dxu != n.De + n.U || n.Dxu > 16;
 }
 
-template <typename T>
-int launch_fwd(const Ops<T>& o, Dims n, T* loss, T* traj, void* stream) {
-  if (bad_dims(n)) return (int)cudaErrorInvalidValue;
-  n.tiles = (n.per + kTile - 1) / kTile;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = n.K * n.tiles;
-  if (n.Dxu <= 8)
-    fwd_kernel<T, 8><<<blocks, kThreads, 0, st>>>(o, n, loss, traj);
-  else
-    fwd_kernel<T, 16><<<blocks, kThreads, 0, st>>>(o, n, loss, traj);
+template <typename T, int DXU, bool kRing>
+int launch_fwd_route(const Ops<T>& o, const Dims& n, T* panels, T* loss, T* traj, cudaStream_t st) {
+  const size_t smem = fwd_smem_bytes<T, DXU>(n, kRing);
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  int err;
+  if (smem > 48 * 1024 &&
+      (err = (int)cudaFuncSetAttribute(fwd_warp<T, DXU, kRing>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem)))
+    return err;
+  fwd_panels<T, DXU><<<n.K * n.Ld * (DXU + 1), kPanelThreads, 0, st>>>(o, n, panels);
+  if ((err = (int)cudaGetLastError())) return err;
+  fwd_warp<T, DXU, kRing><<<n.K * n.tiles, 32 * kFwdParticles * fwd_wpp<DXU>(), smem, st>>>(o, n, panels, loss,
+                                                                                          traj);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int DXU>
+int launch_fwd_width(const Ops<T>& o, const Dims& n, T* panels, T* loss, T* traj, int ring, cudaStream_t st) {
+  return ring ? launch_fwd_route<T, DXU, true>(o, n, panels, loss, traj, st)
+              : launch_fwd_route<T, DXU, false>(o, n, panels, loss, traj, st);
+}
+
+// ring: 0 the resident route, 1 the ring (ops/rollout_cuda.py:fwd_plan
+// picks); panels: scratch of K Ld (DXU + 1) (bw + mw + 1) elements
+// (fwd_panels)
+template <typename T>
+int launch_fwd(const Ops<T>& o, Dims n, T* panels, T* loss, T* traj, int ring, void* stream) {
+  if (bad_dims(n) || (ring != 0 && ring != 1)) return (int)cudaErrorInvalidValue;
+  n.tiles = (n.per + kFwdParticles - 1) / kFwdParticles;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n.Dxu <= 6) return launch_fwd_width<T, 6>(o, n, panels, loss, traj, ring, st);
+  if (n.Dxu <= 8) return launch_fwd_width<T, 8>(o, n, panels, loss, traj, ring, st);
+  return launch_fwd_width<T, 16>(o, n, panels, loss, traj, ring, st);
 }
 
 template <typename T, int DXU>
@@ -931,9 +1279,9 @@ int launch_bwd(const T* traj, const T* gl, const Ops<T>& o, Dims n, T* jac, T* m
 #define ROLLOUT_DIMS Dims{S, K, per, T_, D, De, U, Lp, Mp, Ld, B, M, De + U, code, na, 0, dt, squash}
 
 #define ROLLOUT_ENTRIES(T, SFX)                                                                  \
-  extern "C" int rollout_fwd_##SFX(const T* x0, ROLLOUT_OPERANDS(T), T* loss, T* traj,        \
-                                   ROLLOUT_SCALARS, void* stream) {                           \
-    return launch_fwd<T>(ROLLOUT_OPS(T, x0), ROLLOUT_DIMS, loss, traj, stream);                \
+  extern "C" int rollout_fwd_##SFX(const T* x0, ROLLOUT_OPERANDS(T), T* panels, T* loss,      \
+                                   T* traj, ROLLOUT_SCALARS, int ring, void* stream) {        \
+    return launch_fwd<T>(ROLLOUT_OPS(T, x0), ROLLOUT_DIMS, panels, loss, traj, ring, stream);  \
   }                                                                                            \
   extern "C" int rollout_bwd_##SFX(const T* traj, const T* gl, ROLLOUT_OPERANDS(T), T* jac,   \
                                    T* maps, T* glat, T* dzp, T* dal, T* dilp, ROLLOUT_SCALARS,  \

@@ -14,13 +14,16 @@ runs all T rollout steps and returns the per-particle loss (S,):
         x    = x + dt (f Wd' + mc_d)
         loss += -exp(-1/2 (encode(x) - target)' P (encode(x) - target))
 
-``FusedRolloutLoss`` saves only the (T+1, S, D) trajectory; its backward
-recomputes every step's internals and returns gradients for the policy
-operands (zp, alpha, ilp) alone, as the JAX ``custom_vjp`` does. On the card
-the backward is one entry of four launches: every step's drift Jacobians and
-linear maps at once, the adjoint recurrence per particle, then the policy
-gradients, with a scratch of ``bwd_scratch_sizes`` elements (a few MB at
-S=1024, T=30) allocated here.
+On the card the forward runs each particle's T steps in its own warps, with
+the member's drift tables in shared memory (``fwd_plan`` gives the route
+and its shared memory) and a scratch of ``fwd_panel_elems`` elements for
+them allocated here. ``FusedRolloutLoss`` saves only the (T+1, S,
+D) trajectory; its backward recomputes every step's internals and returns
+gradients for the policy operands (zp, alpha, ilp) alone, as the JAX
+``custom_vjp`` does. On the card the backward is one entry of four
+launches: every step's drift Jacobians and linear maps at once, the adjoint
+recurrence per particle, then the policy gradients, with a scratch of
+``bwd_scratch_sizes`` elements (a few MB at S=1024, T=30) allocated here.
 zp2 = sum(zp^2) gets no cotangent: the dzp formula is already the total
 derivative through it. Every other operand is frozen (policy optimization)
 and asking for its gradient raises.
@@ -59,6 +62,9 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # action, policy latents, drift latents; active dims travel as 4-bit fields
 MAX_D, MAX_DXU, MAX_U, MAX_LP, MAX_LD = 8, 16, 4, 4, 8
 GRAD_ROWS = 64  # (step, particle) rows per slot of the backward's dzp and dalpha (kGradRows)
+FWD_SMEM_MAX = 232448  # dynamic shared memory a forward block may use on an H100 (kSmemMax)
+FWD_XCH_BYTES = 3072  # the forward's exchange area between a particle's warps (kXchBytes)
+FWD_STREAM_SLOTS = 4  # 16-byte weight slots a forward thread keeps in flight (kStream)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 OPERANDS = ("x0", "zp", "zp2", "alpha", "ilp", "wp", "mc_p", "omega", "phase", "ild", "zd",
@@ -263,17 +269,65 @@ def _ints(meta: RolloutMeta, s, k, b, m, mp):
             ctypes.c_double(meta.squash_scale))
 
 
-def _fwd(meta: RolloutMeta, *ops):
-    """(loss (S,), trajectory (T+1, S, D))."""
+def _fwd_width(meta: RolloutMeta) -> int:
+    """The forward's table rows a latent (DXU >= De + U: 6, 8 or 16)."""
+    dxu = meta.enc_dim + meta.act_dim
+    return 6 if dxu <= 6 else 8 if dxu <= 8 else 16
+
+
+def _fwd_table_elems(meta: RolloutMeta, b: int, m: int, dtype) -> int:
+    """One member's drift tables in the forward's panel layout: per drift
+    latent DXU + 1 rows of the bases' and the centers' columns, each padded
+    to a 16-byte group (csrc/rollout.cu's fwd_panels)."""
+    group = 16 // (torch.finfo(dtype).bits // 8)
+    pad = lambda n: -(-n // group) * group  # noqa: E731
+    return meta.num_latent * (_fwd_width(meta) + 1) * (pad(b) + pad(m))
+
+
+def fwd_panel_elems(meta: RolloutMeta, k: int, b: int, m: int, dtype) -> int:
+    """Elements of the forward's panel scratch: the K members' tables, then
+    per member and latent the largest magnitude of each bases row."""
+    return k * (_fwd_table_elems(meta, b, m, dtype) + meta.num_latent * (_fwd_width(meta) + 1))
+
+
+def fwd_plan(meta: RolloutMeta, b: int, m: int, dtype) -> Tuple[str, int]:
+    """(route, dynamic shared memory in bytes) of the forward kernel: the
+    member's drift tables resident in shared memory for all T steps where
+    they fit in FWD_SMEM_MAX ("resident"), else streamed every step through
+    two chunk buffers ("ring"). Mirrors csrc/rollout.cu's fwd_smem_bytes:
+    one member's panels (_fwd_table_elems), or two chunks of 1024 columns
+    (512 in float64 at DXU = 16); both add the exchange area between a
+    particle's warps and the threads' weight streams (FWD_STREAM_SLOTS
+    16-byte slots each; 8 particles a block, two warps each at DXU <= 8, one
+    at 16). A block holds one member's tables, whatever the member count."""
+    size = torch.finfo(dtype).bits // 8
+    width = _fwd_width(meta)
+    front = FWD_XCH_BYTES + FWD_STREAM_SLOTS * 32 * 8 * (2 if width <= 8 else 1) * 16
+    resident = front + _fwd_table_elems(meta, b, m, dtype) * size
+    if resident <= FWD_SMEM_MAX:
+        return "resident", resident
+    cols = 512 if size == 8 and width > 8 else 1024
+    return "ring", front + 2 * (width + 1) * cols * size
+
+
+def _fwd(meta: RolloutMeta, *ops, route=None):
+    """(loss (S,), trajectory (T+1, S, D)). ``route`` ("resident" or "ring")
+    overrides fwd_plan's choice on the card (a resident route that does not
+    fit raises); both give bit-identical results."""
     shape = operand_check("rollout_fwd", meta, ops)
+    if route not in (None, "resident", "ring"):
+        raise ValueError(f"rollout_fwd: route must be 'resident' or 'ring', got {route!r}")
     x0 = ops[0]
     if x0.device.type == "cpu":
         return _rollout(meta, *ops)
-    s = shape[0]
-    loss = torch.empty((s,), dtype=x0.dtype, device=x0.device)
-    traj = torch.empty((meta.num_steps + 1, s, meta.state_dim), dtype=x0.dtype, device=x0.device)
+    s, k, b, m, _ = shape
+    route = route or fwd_plan(meta, b, m, x0.dtype)[0]
+    new = lambda *sh: torch.empty(sh, dtype=x0.dtype, device=x0.device)  # noqa: E731
+    panels = new(fwd_panel_elems(meta, k, b, m, x0.dtype))
+    loss, traj = new(s), new(meta.num_steps + 1, s, meta.state_dim)
     name = f"rollout_fwd_{_SUFFIX[x0.dtype]}"
-    _build.launch("rollout", name, (*ops, loss, traj), *_ints(meta, *shape))
+    _build.launch("rollout", name, (*ops, panels, loss, traj), *_ints(meta, *shape),
+                  ctypes.c_int(route == "ring"))
     launches[name] += 1
     return loss, traj
 

@@ -21,11 +21,12 @@ inputs, each other checkout's outputs are compared with this one's: K3g's
 forward at its bars (float64: 1e-9 of the scale; float32: within 3x the
 plain float32 version's error against float64, plus 1e-4 of the scale),
 K2's frozen backward at its own (rtol = atol = 1e-10 in float64, 1e-4 in
-float32), K6's backward at chip_smoke.py's (float64: 1e-10 of the scale;
-float32 over 30 steps: within 3x the plain float32 version's error against
-float64, plus 1e-4 of the scale), every other entry, K6's forward
-included, bit for bit. ``--only`` keeps the entries whose name starts with
-one of the prefixes (``k6_``: K6 alone). Each checkout's per-stage
+float32), K6's forward and backward at chip_smoke.py's (float64: 1e-10 of
+the scale; float32 over 30 steps: within 3x the plain float32 version's
+error against float64, plus 1e-4 of the scale), every other entry bit for
+bit. ``--only`` keeps the entries whose name starts with one of the
+prefixes (``k6_``: K6 alone, ``k6_fwd``: its forward alone), and builds
+only the libraries they need. Each checkout's per-stage
 device times (torch.profiler) and each library's ptxas registers and spills
 are printed. The last line is one JSON object of all the numbers, also
 written to --out.
@@ -61,6 +62,8 @@ CASES = (
       for kind in ("fwd", "bwd")),
 )
 LIBS = ("mm_match", "gpr_match", "kexp_pair", "rollout")
+# the library of each entry-name prefix; K3's entries ("fwd", "bwd", ...) are mm_match's
+PREFIX_LIBS = (("k6_", "rollout"), ("k2_", "kexp_pair"), ("gpr_", "gpr_match"))
 K6_MEMBERS = 8  # the HMC ensemble's members on K6's member axis
 K2_GPR = (1, 8, 14, 240, 4)  # (N, P, D2, M, R) of K2's GPR route
 
@@ -73,17 +76,26 @@ def _smoke():
     return mod
 
 
-def build(root):
+def libs_of(only):
+    """The libraries the entries kept by the ``--only`` prefixes need."""
+    if not only:
+        return LIBS
+    kinds = [kind for kind, _, _ in CASES if kind.startswith(tuple(only))]
+    return tuple(lib for lib in LIBS if any(
+        next((pl for pre, pl in PREFIX_LIBS if kind.startswith(pre)), "mm_match") == lib for kind in kinds))
+
+
+def build(root, libs):
     sys.path.insert(0, str(root))
     from gpflowpilco_torch.ops import _build
 
-    took = _build.build_all(LIBS)
+    took = _build.build_all(libs)
     cs, out = _smoke(), getattr(_build, "compiler_output", {})
-    # fwd_tiles: an older checkout's name of K3g's forward tile kernel
-    # bwd_kernel: an older checkout's K6 backward
+    # fwd_tiles: an older checkout's name of K3g's forward tile kernel;
+    # fwd_kernel and bwd_kernel: an older checkout's K6 forward and backward
     kernels = {"mm_match": cs.PTXAS_K3, "gpr_match": (*cs.PTXAS_K3G, "fwd_tiles"), "kexp_pair": cs.PTXAS_K2,
-               "rollout": (*getattr(cs, "PTXAS_K6", ("fwd_kernel",)), "bwd_kernel")}
-    ptxas = {lib: cs.ptxas_report(out.get(lib, ""), kernels[lib]) for lib in LIBS}
+               "rollout": (*cs.PTXAS_K6, "fwd_kernel", "bwd_kernel")}
+    ptxas = {lib: cs.ptxas_report(out.get(lib, ""), kernels[lib]) for lib in libs}
     print(json.dumps({"built": str(root), "seconds": took, "ptxas": ptxas}))
 
 
@@ -99,14 +111,17 @@ def _k2_case(cs, kc, kind, dtype, where, device):
 
 
 def _k6_case(cs, rc, kind, dtype, where, device, outs, key):
-    """(fn, bound) of a K6 entry on chip_smoke's rollout operands; for the
-    float32 backward also the plain float32 and float64 outputs (the bars)."""
+    """(fn, bound) of a K6 entry on chip_smoke's rollout operands; in
+    float32 also the plain float32 and float64 outputs (the bars)."""
     import torch
 
     k = K6_MEMBERS if where == "members" else 1
     meta, ops = cs.rollout_operands(rc, k, cs.S, 1, cs.L, 1, cs.HORIZON_STEPS, dtype, device, 4000 + k)
     bound, _ = cs.rollout_bound_ms(kind, meta, ops, dtype)
     if kind == "fwd":
+        if dtype == torch.float32:
+            outs[f"{key}/plain"] = [t.cpu() for t in rc._rollout(meta, *ops)]
+            outs[f"{key}/truth"] = [t.cpu() for t in rc._rollout(meta, *(o.double() for o in ops))]
         return (lambda: rc._fwd(meta, *ops)), bound
     gl = torch.full((cs.S,), 1.0 / cs.S, dtype=dtype, device=device)
     traj = rc._fwd(meta, *ops)[1]
@@ -203,7 +218,7 @@ def compare(a, b, cs):
         if "/" in k or k not in b:
             continue
         pairs = list(zip(a[k], b[k]))
-        if not k.startswith(("gpr_fwd_", "k2_bwd_frozen", "k6_bwd")):
+        if not k.startswith(("gpr_fwd_", "k2_bwd_frozen", "k6_")):
             diff = {i: float((x.double() - y.double()).abs().max()) for i, (x, y) in enumerate(pairs)
                     if not torch.equal(x, y)}
             out[k] = diff or True
@@ -215,7 +230,7 @@ def compare(a, b, cs):
                 ok = all(cs.scaled_err(x, t) <= 3.0 * cs.scaled_err(p, t) + 1e-4
                          for x, p, t in zip(a[k], plain, truth))
             out[k] = dict(scaled_vs_parent=max(cs.scaled_err(x, y) for x, y in pairs), bars_hold=ok)
-        elif k.startswith("k6_bwd"):
+        elif k.startswith("k6_"):
             if "_f64_" in k:
                 ok = all(cs.scaled_err(x, y) <= cs.ROLL_F64_TOL for x, y in pairs)
             else:
@@ -238,11 +253,11 @@ def main():
     p.add_argument("--only", action="append", default=[], metavar="PREFIX",
                    help="time only the entries whose name starts with PREFIX (k6_, k2_, gpr_, ...)")
     p.add_argument("--out", default=str(ROOT / "build" / "k3_bench" / "k3_bench.json"))
-    p.add_argument("--build", metavar="ROOT", help=argparse.SUPPRESS)
+    p.add_argument("--build", nargs="+", metavar="ROOT [LIB ...]", help=argparse.SUPPRESS)
     p.add_argument("--run", nargs="+", metavar="ROOT SAVE [PREFIX ...]", help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.build:
-        return build(Path(args.build))
+        return build(Path(args.build[0]), args.build[1:])
     if args.run:
         return run(Path(args.run[0]), args.run[1], args.run[2:])
 
@@ -261,7 +276,7 @@ def main():
         name, _, path = item.partition("=")
         roots[name] = Path(path).resolve()
     me = [sys.executable, str(Path(__file__).resolve())]
-    procs = [subprocess.Popen([*me, "--build", str(r)], stdout=subprocess.PIPE, text=True)
+    procs = [subprocess.Popen([*me, "--build", str(r), *libs_of(args.only)], stdout=subprocess.PIPE, text=True)
              for r in roots.values()]
     builds = {}
     for name, proc in zip(roots, procs):

@@ -485,6 +485,11 @@ def _rollout_operands(k, s, d, active, u, lp, ld, b, m, mp, steps, dtype, dev, s
     (1, 1024, 4, (1,), 1, 1, 4, 1024, 240, 30, 1),   # one step
     (1, 1024, 4, (1,), 1, 1, 4, 1024, 240, 30, 30),  # the slice's horizon
     (1, 333, 4, (1,), 1, 1, 4, 256, 240, 30, 45),    # 14985 rows: ragged against every row tile
+    (8, 1024, 4, (1,), 1, 1, 4, 1024, 240, 30, 5),   # the 8-member axis at the slice's widths
+    (4, 148, 4, (1,), 1, 1, 4, 1024, 240, 30, 5),    # 37 particles a member: ragged against the 8-warp block
+    (1, 1024, 4, (1,), 1, 1, 4, 1000, 236, 30, 5),   # B, M not multiples of 32 columns (a lane's last round)
+    (1, 1024, 4, (1,), 1, 1, 4, 1001, 237, 30, 5),   # B, M ragged against the 16-byte groups (single loads)
+    (1, 512, 4, (1,), 1, 1, 8, 1024, 240, 30, 5),    # Ld = 8: the tables outgrow shared memory (the ring)
 ])
 def test_torch_rollout_kernels_match_reference_on_gpu(dtype, k, s, d, active, u, lp, ld, b, m, mp, steps):
     """K6 forward (loss and trajectory) and backward (dzp, dalpha, dilp)
@@ -493,7 +498,9 @@ def test_torch_rollout_kernels_match_reference_on_gpu(dtype, k, s, d, active, u,
     in another order, a healthy rollout), and over more steps, where float32
     rounding grows along the rollout, kernel and plain float32 against
     float64 on the same inputs (_close_vs_truth, chip_smoke.py's 30-step
-    bar). Repeated backward runs are bit-identical (no atomics)."""
+    bar). Repeated forward and backward runs are bit-identical (no
+    atomics), and where the drift tables fit in shared memory the forward's
+    ring route gives the resident route's results bit for bit."""
     from gpflowpilco_torch.ops import rollout_cuda as rc
 
     dev = _gpu_or_skip()
@@ -517,9 +524,14 @@ def test_torch_rollout_kernels_match_reference_on_gpu(dtype, k, s, d, active, u,
             _close(a, w, tol, name)
     again = rc._bwd(meta, traj, gl, *ops[1:])
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+    repeats = [rc._fwd(meta, *ops)]
+    if rc.fwd_plan(meta, b, m, dtype)[0] == "resident":
+        repeats.append(rc._fwd(meta, *ops, route="ring"))
+    for rep in repeats:
+        assert torch.equal(rep[0], loss) and torch.equal(rep[1], traj)
     torch.cuda.synchronize()
     sfx = "f32" if dtype == torch.float32 else "f64"
-    assert rc.launches[f"rollout_fwd_{sfx}"] == before[f"rollout_fwd_{sfx}"] + 1
+    assert rc.launches[f"rollout_fwd_{sfx}"] == before[f"rollout_fwd_{sfx}"] + 1 + len(repeats)
     assert rc.launches[f"rollout_bwd_{sfx}"] == before[f"rollout_bwd_{sfx}"] + 2
     if k > 1:
         # the member axis: member j's particles against a one-member call

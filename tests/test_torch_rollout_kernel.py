@@ -392,6 +392,114 @@ def test_torch_rollout_bwd_step_split_matches_reference(k, s, u, lp, ld, steps):
         assert scale > 0 and float((a - b).abs().max()) <= 1e-12 * scale, (name, float((a - b).abs().max()), scale)
 
 
+def _lane_add(acc, terms, group):
+    """csrc/rollout.cu's forward partition of a sum over the last axis of
+    ``terms`` (..., n) into a particle's lanes' partials ``acc`` (..., L):
+    lane j takes the groups of ``group`` adjacent columns g = j, j + L, ...
+    in order, and within a group its columns in order. Columns past n are
+    zero terms (their weights load as zero)."""
+    n, lanes = terms.shape[-1], acc.shape[-1]
+    rounds = -(-n // (lanes * group))
+    cols = torch.nn.functional.pad(terms, (0, rounds * lanes * group - n))
+    cols = cols.reshape(*terms.shape[:-1], rounds, lanes, group)
+    for r in range(rounds):
+        for q in range(group):
+            acc = acc + cols[..., r, :, q]
+    return acc
+
+
+def _meet(acc):
+    """A particle's lanes' partials (..., 32 W) meet: by __shfl_xor_sync at
+    offsets 16, 8, 4, 2, 1 within each of its W warps (every lane ends with
+    its warp's total), then the warps' totals added in warp order."""
+    lane = torch.arange(32)
+    acc = acc.reshape(*acc.shape[:-1], -1, 32)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lane ^ off]
+    total = acc[..., 0, 0]
+    for w in range(1, acc.shape[-2]):
+        total = total + acc[..., w, 0]
+    return total
+
+
+def _warp_rollout(meta, group, wpp, x0, zp, zp2, alpha, ilp, wp, mc_p, omega, phase, ild, zd, zd2, w, v, wd,
+                  mc_d, target, precis):
+    """csrc/rollout.cu's forward restated in torch: ``wpp`` warps a particle;
+    the policy centers one a lane of each warp (m = j, j + 32, ...), each
+    drift latent's bases and then its centers in groups of ``group`` columns
+    into one partial a lane of the particle's 32 wpp lanes, the partials
+    meeting by butterfly and then warp by warp; then the Euler step and the
+    cost: after the steps, lane j takes steps j, j + 32, ... of the
+    trajectory, and the lanes' sums meet by butterfly. (loss (S,),
+    trajectory (T+1, S, D))."""
+    k, s = omega.shape[0], x0.shape[0]
+    x, w4, v4 = rc._by_member(k, x0, w, v)
+    traj = [x]
+    for _ in range(meta.num_steps):
+        e = rc._encode(meta, x)
+        _, kp, _ = rc._policy(e, zp, zp2, alpha, ilp, wp, mc_p)
+        glat = _meet(_lane_add(torch.zeros(*kp.shape[:-1], 32, dtype=x0.dtype), kp * alpha, 1))
+        xu = torch.cat([e, meta.squash_scale * (torch.special.ndtr(glat @ wp.T + mc_p) - 0.5)], dim=-1)
+        proj, _, kd = rc._drift_terms(xu, omega, phase, ild, zd, zd2)
+        acc = _lane_add(torch.zeros(*kd.shape[:-1], 32 * wpp, dtype=x0.dtype), torch.cos(proj) * w4, group)
+        f_lat = _meet(_lane_add(acc, kd * v4, group))
+        x = x + meta.dt * (f_lat @ wd.T + mc_d[:, None])
+        traj.append(x)
+    costs = torch.stack([rc._cost(rc._encode(meta, xt), target, precis)[0] for xt in traj[1:]], -1)
+    loss = _meet(_lane_add(torch.zeros(*costs.shape[:-1], 32, dtype=x0.dtype), costs, 1))
+    return loss.reshape(s), torch.stack(traj).reshape(meta.num_steps + 1, s, -1)
+
+
+@pytest.mark.parametrize("group", [4, 2])  # 16 bytes of float32 and of float64 columns
+@pytest.mark.parametrize("wpp", [2, 1])  # warps a particle: 2 at Dxu <= 8, 1 at DXU = 16
+@pytest.mark.parametrize("k, s, u, lp, ld, b, m, mp", [
+    (1, 16, 1, 1, 4, 70, 19, 40),      # cartpole; B, M ragged against groups and rounds; Mp > 32
+    (3, 21, 2, 2, 3, 257, 33, 65),     # LCK, 3 members; a lane's extra round at B, M and Mp
+    (2, 10, 1, 1, 4, 256, 128, 32),    # whole rounds everywhere
+])
+def test_torch_rollout_fwd_warp_partition_matches_reference(group, wpp, k, s, u, lp, ld, b, m, mp):
+    """The forward kernel's lane-to-column partition and the order in which
+    its partials meet (_warp_rollout), in float64, against the plain
+    rollout_cuda._rollout: loss and trajectory to 1e-12 of their scale (the
+    same terms summed in another order: every column is taken once; a
+    missed or doubled column moves them by ~1e-2). Over 3 steps: at B=257
+    these unscaled path weights make a drift that multiplies the rounding
+    gap by ~10 a step (3e-15 after one step, 2e-12 after seven)."""
+    meta, x0, trainable, rest = _random_operands(k, s, 4, (1,), u, lp, ld, b, m, mp, seed=b + m + mp)
+    meta = meta._replace(num_steps=3)
+    zp, alpha, ilp = (a.detach() for a in trainable)
+    ops = (x0, zp, (zp * zp).sum(-1), alpha, ilp, *rest)
+    with torch.no_grad():
+        got, want = _warp_rollout(meta, group, wpp, *ops), rc._rollout(meta, *ops)
+    for name, a, w in zip(("loss", "trajectory"), got, want):
+        scale = float(w.abs().max())
+        assert scale > 0 and float((a - w).abs().max()) <= 1e-12 * scale, (name, float((a - w).abs().max()), scale)
+
+
+def test_torch_rollout_fwd_plan():
+    """The forward's route and shared memory: the slice's float32 tables
+    (Ld=4, B=1024, M=240, Dxu=6) resident, 4 x 7 x 1264 x 4 bytes; float64
+    and Ld=8 in float32 through the ring of two 1024-column chunks; Dxu=10
+    pads to 16 rows (512-column chunks in float64); each adds the exchange
+    area between a particle's warps and the threads' weight streams. A
+    route other than resident or ring raises before any dispatch."""
+    x = rc.FWD_XCH_BYTES + rc.FWD_STREAM_SLOTS * 16 * 512  # 512 threads a block at Dxu <= 8
+    meta = rc.RolloutMeta(num_steps=30, dt=0.05, squash_scale=19.99999, active_dims=(1,), state_dim=4,
+                          enc_dim=5, act_dim=1, num_latent=4, pol_latent=1)
+    assert rc.fwd_plan(meta, 1024, 240, torch.float32) == ("resident", x + 4 * 7 * 1264 * 4)
+    assert rc.fwd_plan(meta, 1024, 240, torch.float64) == ("ring", x + 2 * 7 * 1024 * 8)
+    assert rc.fwd_plan(meta._replace(num_latent=8), 1024, 240, torch.float32) == ("ring", x + 2 * 7 * 1024 * 4)
+    assert rc.fwd_plan(meta, 1001, 237, torch.float32) == ("resident", x + 4 * 7 * (1004 + 240) * 4)
+    wide = meta._replace(state_dim=6, enc_dim=8, act_dim=2, active_dims=(4, 0))
+    x = rc.FWD_XCH_BYTES + rc.FWD_STREAM_SLOTS * 16 * 256  # 256 at DXU = 16
+    assert rc.fwd_plan(wide, 30, 20, torch.float64) == ("resident", x + 4 * 17 * (30 + 20) * 8)
+    assert rc.fwd_plan(wide, 1024, 240, torch.float64) == ("ring", x + 2 * 17 * 512 * 8)
+    _, x0, trainable, rest = _random_operands(1, 8, 4, (1,), 1, 1, 4, B, M, MP, seed=5)
+    zp, alpha, ilp = (a.detach() for a in trainable)
+    with pytest.raises(ValueError, match="route"):
+        rc._fwd(meta._replace(num_steps=2), x0, zp, (zp * zp).sum(-1), alpha, ilp, *rest, route="chunked")
+
+
 def _loop(batch_size, **kw):
     return run_torch.build_loop(
         0, CPU, torch.float64, horizon=0.5,  # 5 steps
