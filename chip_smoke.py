@@ -13,8 +13,8 @@
    - K2 (eKuffu pair contraction: forward, full and frozen backward) in
      float32 and float64 at the MM path's two shapes: the drift's N=1,
      P=10 latent pairs, D2=14, M=240 and the policy's N=1, P=1, D2=12, M=30;
-     the frozen backward's repeated runs bit-identical, and the device time
-     of its stages (tiles, finish) printed.
+     the forward's and the frozen backward's repeated runs bit-identical,
+     and the device time of their stages (tiles, finish) printed.
 4. Pathwise slice: pathwise PILCO on cartpole at full width (1024 particles x
    1024 bases, horizon 30, up to 240 inducing points), its SVGP paths through
    K1 (use_fused_paths, as run_torch.py --fused): 8 random episodes
@@ -46,9 +46,10 @@
    at N=8, must be bit-identical, and the device time of each stage of the
    tiled entries (tile sweep, finish, combine) and of the full backward
    (groups, slot sum, combine) is printed from one profiler session. The
-   build prints ptxas's registers and spills of K2's, K3's and K3g's
-   kernels and fails if a float32 tile kernel at the main path's register
-   capacity spills (K3's and K3g's at 8, K2's frozen tiles at 16).
+   build prints ptxas's registers and spills of K1's, K2's, K3's, K3g's
+   and K6's kernels and fails if a float32 tile kernel at the main path's
+   register capacity spills (K3's and K3g's at 8, K2's forward and frozen
+   tiles at 16, K1's and K6's forwards at 6 and 8, K6's Jacobians at 8).
 7. Whole-match slice: moment-matching PILCO on cartpole at full width with
    use_fused_match, float32 loop and loss: 8 random episodes, a drift fit,
    then one Adam policy update (counts zeroed just before, read just after;
@@ -68,9 +69,10 @@
    and float64 against their plain versions (K2's float64 GPR route also at
    the members' noise, GPR_NOISE), timed beside them and their bounds;
    K3g's repeated forward and backward runs must be bit-identical, and so
-   must K2's GPR-route frozen backward's; the device time
+   must K2's GPR-route forward's and frozen backward's; the device time
    of each of K3g's stages (forward tiles and combine; backward tile sweep,
-   finish, combine) and of K2's GPR-route frozen backward is printed.
+   finish, combine) and of K2's GPR-route forward and frozen backward
+   (tiles, finish) is printed.
 9. HMC-ensemble slice (slice B): cartpole at full width with an exact GPR
    drift: 8 random episodes (N=240), an L-BFGS MAP fit, HMC with 8 chains
    (warmup, samples and leapfrog cut to HMC_CUT) thinned to an 8-member
@@ -393,7 +395,7 @@ def pair_kernels_phase(kc, seed, device):
                 name = f"pair_contract_{kind}_{sfx}"
                 for out, g, w in triples:
                     errs[name] = max(errs[name], check(f"{name} {out}", g, w, tol))
-            frozen_repeats(kc, ops, cot, f"pair_contract_bwd_frozen_{sfx}")
+            pair_repeats(kc, ops, cot, sfx)
             if PAIR_MAIN[dtype] != where:
                 continue
             calls = {
@@ -413,20 +415,23 @@ def pair_kernels_phase(kc, seed, device):
                                      bound_ms=bound, bound_by=bound_by)
                 print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), "
                       f"plain torch {plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
-            # the frozen backward's stages (warm L2): tiles and finish
-            stages = stage_ms(calls["bwd_frozen"][0])
-            timings[f"pair_contract_bwd_frozen_{sfx}"]["stages"] = stages
-            print(f"  stages of pair_contract_bwd_frozen_{sfx}: "
-                  + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
+            # the forward's and the frozen backward's stages (warm L2): tiles and finish
+            for kind in ("fwd", "bwd_frozen"):
+                stages = stage_ms(calls[kind][0])
+                timings[f"pair_contract_{kind}_{sfx}"]["stages"] = stages
+                print(f"  stages of pair_contract_{kind}_{sfx}: "
+                      + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
     return errs, timings
 
 
-def frozen_repeats(kc, ops, cot, name):
-    """Two runs of K2's frozen backward must be bit-identical."""
-    runs = [kc._bwd(*ops, *cot, False)[:2] for _ in range(2)]
-    if not all(torch.equal(a, b) for a, b in zip(*runs)):
-        raise AssertionError(f"{name}: repeated runs differ")
-    print(f"  {name}: repeated runs bit-identical")
+def pair_repeats(kc, ops, cot, sfx, where=""):
+    """Two runs of K2's forward, and two of its frozen backward, must be
+    bit-identical."""
+    for kind, fn in (("fwd", lambda: kc._fwd(*ops)), ("bwd_frozen", lambda: kc._bwd(*ops, *cot, False)[:2])):
+        name = f"pair_contract_{kind}_{sfx}{where}"
+        if not all(torch.equal(a, b) for a, b in zip(fn(), fn())):
+            raise AssertionError(f"{name}: repeated runs differ")
+        print(f"  {name}: repeated runs bit-identical")
 
 
 def slice_phase(pe, seed, device, step_limit, lbfgs_iters):
@@ -832,34 +837,38 @@ def stage_ms(fn, reps=5):
 
 
 # kernels whose ptxas report chip_smoke prints: K3's (csrc/mm_match.cu),
-# K3g's (csrc/gpr_match.cu), K2's (csrc/kexp_pair.cu) and K6's
-# (csrc/rollout.cu)
+# K3g's (csrc/gpr_match.cu), K1's (csrc/path_eval.cu), K2's
+# (csrc/kexp_pair.cu) and K6's (csrc/rollout.cu)
 PTXAS_K3 = ("svgp_fwd_tiles", "svgp_fwd_combine", "svgp_bwd_tiles", "svgp_bwd_finish", "svgp_bwd_combine",
             "bwd_groups", "svgp_bwd_slots")
 PTXAS_K3G = ("gpr_fwd_tiles", "fwd_combine", "gpr_bwd_tiles", "gpr_bwd_finish", "bwd_combine")
-PTXAS_K2 = ("fwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel", "bwd_frozen_tiles", "bwd_frozen_finish")
+PTXAS_K1 = ("fwd_warp", "bwd_kernel")
+PTXAS_K2 = ("fwd_tiles", "fwd_finish", "bwd_cols_kernel", "bwd_rows_kernel", "bwd_frozen_tiles",
+            "bwd_frozen_finish")
 PTXAS_K6 = ("fwd_panels", "fwd_warp", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads")
 # (library, its kernels, the tile kernels that must not spill in float32 at
 # the main path's register capacities, those capacities): K3's and K3g's at
-# D <= 8 (DM = 8), K2's frozen tiles at D2 <= 16 (DM = 16), K6's phase-1
-# Jacobian kernel at Dxu <= 8 (DXU = 8) and its forward, both routes, at
-# Dxu = 6 (the cartpole's) and Dxu <= 8
+# D <= 8 (DM = 8), K2's forward and frozen tiles at D2 <= 16 (DM = 16), K1's
+# forward at D = 6 (the cartpole's) and D <= 8, K6's phase-1 Jacobian kernel
+# at Dxu <= 8 (DXU = 8) and its forward, both routes, at Dxu = 6 and <= 8
 PTXAS_LIBS = (("mm_match", PTXAS_K3, ("svgp_fwd_tiles", "svgp_bwd_tiles"), (8,)),
               ("gpr_match", PTXAS_K3G, ("gpr_fwd_tiles", "gpr_bwd_tiles"), (8,)),
-              ("kexp_pair", PTXAS_K2, ("bwd_frozen_tiles",), (16,)),
+              ("kexp_pair", PTXAS_K2, ("fwd_tiles", "bwd_frozen_tiles"), (16,)),
+              ("path_eval", PTXAS_K1, ("fwd_warp",), (6, 8)),
               ("rollout", PTXAS_K6, ("bwd_jac", "fwd_warp"), (6, 8)))
 
 
 def ptxas_report(text, kernels=PTXAS_K3):
     """[(kernel, 'f' | 'd', its integer and bool template arguments (the
     register capacity DM first, then a tile side or a route), registers,
-    spill stores, spill loads)] from nvcc's -Xptxas -v output."""
+    spill stores, spill loads)] from nvcc's -Xptxas -v output. A kernel
+    with no type parameter (K1's, float32 only) counts as 'f'."""
     rows, name, spill = [], None, (0, 0)
-    pat = re.compile(r"\d+(" + "|".join(kernels) + r")I([fd])((?:L[ib]\d+E)*)")
+    pat = re.compile(r"\d+(" + "|".join(kernels) + r")I([fd])?((?:L[ib]\d+E)*)")
     for line in text.splitlines():
         if "Compiling entry function" in line:
             m = pat.search(line)
-            name = (m.group(1), m.group(2), tuple(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3)))) if m else None
+            name = (m.group(1), m.group(2) or "f", tuple(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3)))) if m else None
         elif name and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
             spill = (nums[1], nums[2])
@@ -1512,7 +1521,7 @@ def gpr_kernels_phase(gm, kc, seed, device):
             name = f"pair_contract_{kind}_{sfx}/gpr"
             for what, a, b in zip(outs, gots, wants):
                 errs[name] = max(errs[name], check(f"{name} {what}", a, b, tol))
-        frozen_repeats(kc, ops, cot, f"pair_contract_bwd_frozen_{sfx}/gpr")
+        pair_repeats(kc, ops, cot, sfx, "/gpr")
         if dtype == torch.float64:
             # and on the main path's conditioning: the noise~GPR_NOISE model,
             # whose Kyy^-1 (qm) and alpha are large, at K3g's float64 bar
@@ -1540,11 +1549,11 @@ def gpr_kernels_phase(gm, kc, seed, device):
                              bound_ms=bound, bound_by=bound_by, library_ms=None)
         print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), plain torch "
               f"{plain_ms:.4f} ms ({plain_how}), bound {bound:.6f} ms ({bound_by})")
-    # the stages of K3g's entries (warm L2): the forward's tiles and combine,
-    # the frozen backward's tile sweep,
-    # finish and combine
+    # the stages (warm L2) of K3g's entries (the forward's tiles and combine,
+    # the frozen backward's tile sweep, finish and combine) and of K2's GPR
+    # route (tiles, finish)
     for name in ("gpr_match_fwd_f32", "gpr_match_fwd_f64", "gpr_match_bwd_frozen_f32", "gpr_match_bwd_frozen_f64",
-                 "pair_contract_bwd_frozen_f64/gpr"):
+                 "pair_contract_fwd_f64/gpr", "pair_contract_bwd_frozen_f64/gpr"):
         stages = stage_ms(calls[name][0])
         timings[name]["stages"] = stages
         print(f"  stages of {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
@@ -2074,8 +2083,8 @@ def fused_rollout_slice_phase(rc, pe, loop, seed, device, step_limit):
 
 # kernel-name fragments whose rows a profile prints on their own: this
 # repository's kernels and the eigenvalue solver behind psd_project's eigvalsh
-_WATCHED = ("fwd_kernel", "bwd_kernel", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads",
-            "bwd_cols_kernel", "bwd_rows_kernel", "bwd_finish",
+_WATCHED = ("fwd_warp", "bwd_kernel", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads",
+            "bwd_cols_kernel", "bwd_rows_kernel", "bwd_finish", "fwd_finish",
             "bwd_frozen_tiles", "bwd_frozen_finish", "bwd_groups", "bwd_slots", "fwd_tiles", "bwd_tiles",
             "combine", "enc_fwd", "enc_bwd", "psd_kernel", "euler_kernel", "syev", "eig")
 # host runtime calls that wait for the device or copy through it
@@ -2204,7 +2213,7 @@ def main():
           f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items()) or 'cached'})")
 
     phase_s = {"build": time.perf_counter() - t0}
-    # ptxas: every K2, K3, K3g and K6 kernel's registers and spills; a float32
+    # ptxas: every K1, K2, K3, K3g and K6 kernel's registers and spills; a float32
     # tile kernel at the main path's register capacity must not spill
     for lib, kernels, tiled, caps in PTXAS_LIBS:
         regs = ptxas_report(_build.compiler_output.get(lib, ""), kernels)

@@ -23,16 +23,26 @@
 // 0.6 us. A launch costs more than either, so the kernel is expected to sit
 // well above its bound at these sizes.
 //
-// Forward and full backward: E is recomputed per (i, j) in registers and
-// reduced on the fly. A block is 32 lanes x 4 warps. The forward and the
-// column pass of the full backward give each lane a column j (so qm, dqm and
-// every output row are read and written coalesced) and split the rows i
-// among the 4 warps; su (and alu) are staged in shared memory 32 rows at a
-// time and broadcast to the warp. The row pass gives each lane a row i and
-// splits the columns among the warps, staging sw, devc, dqcol and a
-// transposed tile of qm. The warps' partial sums meet in shared memory in a
-// fixed order. Grids are (column or row tiles of 32) x pairs, and x batch
-// for the forward: 80 blocks at the drift's shapes.
+// Full backward: E is recomputed per (i, j) in registers and reduced on the
+// fly, in two passes. A block is 32 lanes x 4 warps. The column pass gives
+// each lane a column j (so qm, dqm and every output row are read and
+// written coalesced) and splits the rows i among the 4 warps; su (and alu)
+// are staged in shared memory 32 rows at a time and broadcast to the warp.
+// The row pass gives each lane a row i and splits the columns among the
+// warps, staging sw, devc, dqcol and a transposed tile of qm. The warps'
+// partial sums meet in shared memory in a fixed order. Grids are (column or
+// row tiles of 32) x pairs: 80 blocks at the drift's shapes.
+//
+// Forward: each (n, p) grid is cut into kFT x kFT = 32 x 32 tiles on the
+// block grid, (ceil(M/32)^2, P, N) blocks of 256 threads: 640 at the
+// drift's shape, enough to fill the card. A block copies its tile's su rows, sw columns, alu rows and qm's tile into
+// shared memory by cp.async, forms the exponents S = su_tile^T sw_tile as
+// the frozen backward does (float64 on the tensor cores), evaluates E once
+// per cell, and takes the column partials sum_i alu[r][i] E[i][j] and
+// sum_i qm[i][j] E[i][j] over its 32 rows, a thread per (output row,
+// column), rows in order. The partials go to scratch per (n, p, row tile)
+// and a finish launch adds them over the row tiles in order; with one tile
+// the block writes evc and qcol itself and there is no finish.
 //
 // Frozen backward: each (n, p) grid is cut into kFT x kFT = 32 x 32 tiles
 // on the block grid, (ceil(M/32)^2, P, N) blocks of 256 threads: 640 at the
@@ -61,15 +71,15 @@
 
 namespace {
 
-constexpr int kLanes = 32;   // columns (forward, column pass) or rows (row pass) per block
+constexpr int kLanes = 32;   // columns (column pass) or rows (row pass) per block
 constexpr int kGroups = 4;   // warps per block
 constexpr int kThreads = kLanes * kGroups;
 constexpr int kChunk = 32;   // rows or columns staged in shared memory at a time
 constexpr int kMaxR = 4;     // alu rows (R=1 for the SVGP pair grid)
 constexpr int kMaxD2 = 32;
-constexpr int kTileThreads = 256;  // the frozen backward's tile blocks
+constexpr int kTileThreads = 256;  // the forward's and the frozen backward's tile blocks
 constexpr int kTileWarps = kTileThreads / 32;
-constexpr int kFT = 32;  // their tile side; ops/kexp_cuda.py's FROZEN_TILE
+constexpr int kFT = 32;  // their tile side; ops/kexp_cuda.py's TILE
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __device__ __forceinline__ float ex(float x) { return expf(x); }
@@ -100,59 +110,6 @@ __device__ __forceinline__ void stage(T (*dst)[kChunk], const T* src, int rows, 
     const int d = k / kChunk, ii = k % kChunk;
     dst[d][ii] = (d < rows && i0 + ii < M) ? src[(size_t)d * M + i0 + ii] : T(0);
   }
-}
-
-template <typename T, int DM>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(
-    const T* __restrict__ su, const T* __restrict__ sw, const T* __restrict__ alu,
-    const T* __restrict__ qm, T* __restrict__ evc, T* __restrict__ qcol,
-    int P, int D2, int M, int R) {
-  __shared__ T su_s[DM][kChunk];
-  __shared__ T alu_s[kMaxR][kChunk];
-  __shared__ T red[kGroups * kLanes];
-  const int p = blockIdx.y, n = blockIdx.z;
-  const int j = blockIdx.x * kLanes + threadIdx.x;
-  const bool col = j < M;
-  const size_t np = (size_t)n * P + p;
-  const T* su_np = su + np * D2 * M;
-  const T* sw_np = sw + np * D2 * M;
-  const T* qm_p = qm + (size_t)p * M * M;
-
-  T swj[DM];
-#pragma unroll
-  for (int d = 0; d < DM; ++d) swj[d] = (col && d < D2) ? sw_np[(size_t)d * M + j] : T(0);
-  T acc[kMaxR];
-#pragma unroll
-  for (int r = 0; r < kMaxR; ++r) acc[r] = T(0);
-  T q = T(0);
-
-  for (int i0 = 0; i0 < M; i0 += kChunk) {
-    __syncthreads();  // the previous chunk is consumed
-    stage<T, DM>(su_s, su_np, D2, M, i0);
-    stage<T, kMaxR>(alu_s, alu + (size_t)p * R * M, R, M, i0);
-    __syncthreads();
-    if (col) {
-      const int ni = min(kChunk, M - i0);
-      for (int ii = threadIdx.y; ii < ni; ii += kGroups) {
-        T s = T(0);
-#pragma unroll
-        for (int d = 0; d < DM; ++d) s = fm(su_s[d][ii], swj[d], s);
-        const T e = ex(-s);
-        q = fm(qm_p[(size_t)(i0 + ii) * M + j], e, q);
-#pragma unroll
-        for (int r = 0; r < kMaxR; ++r) acc[r] = fm(alu_s[r][ii], e, acc[r]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kMaxR; ++r) {
-    if (r < R) {  // uniform across the block
-      const T total = group_sum(acc[r], red);
-      if (threadIdx.y == 0 && col) evc[(np * R + r) * M + j] = total;
-    }
-  }
-  const T total = group_sum(q, red);
-  if (threadIdx.y == 0 && col) qcol[np * M + j] = total;
 }
 
 // Column pass of the full backward: dsw, and dqm summed over the batch.
@@ -297,7 +254,7 @@ __global__ void __launch_bounds__(kThreads) bwd_rows_kernel(
   }
 }
 
-// ------------------------------------------------------- frozen backward tiles
+// ------------------------------------------- tiles: forward and frozen backward
 // One element from global into shared memory by cp.async, zero-filled where
 // !valid (src is then not read). The #else branch is what a host compiler
 // sees.
@@ -350,17 +307,15 @@ __device__ __forceinline__ void dmma(double (&c)[2], double a, double b) {
 // Row stride of a tile's shared arrays: padded so that the tensor-core
 // fragment loads of float64 and the float32 row sweeps spread over banks.
 template <typename T>
-struct Pad {
-  static constexpr int v = sizeof(T) == 8 ? 4 : 1;
-};
+constexpr int kLD = kFT + (sizeof(T) == 8 ? 4 : 1);
 
-// A tile block's dynamic shared memory: g (kFT x LD; qm's tile until g
-// overwrites it), the rows' su and the columns' sw (DM x LD each, zero
-// beyond D2), the rows' alu and the columns' devc (kMaxR x kFT each, zero
-// beyond R) and the columns' dqcol.
+// A frozen-backward tile block's dynamic shared memory: g (kFT x LD; qm's
+// tile until g overwrites it), the rows' su and the columns' sw (DM x LD
+// each, zero beyond D2), the rows' alu and the columns' devc (kMaxR x kFT
+// each, zero beyond R) and the columns' dqcol.
 template <typename T, int DM>
 struct FrozenSmem {
-  static constexpr int LD = kFT + Pad<T>::v;
+  static constexpr int LD = kLD<T>;
   T *g, *su, *sw, *al, *dv, *dq;
   __device__ explicit FrozenSmem(T* base)
       : g(base), su(g + kFT * LD), sw(su + DM * LD), al(sw + DM * LD), dv(al + kMaxR * kFT),
@@ -368,12 +323,25 @@ struct FrozenSmem {
   static constexpr size_t elems() { return (size_t)(kFT + 2 * DM) * LD + (2 * kMaxR + 1) * kFT; }
 };
 
-// g = -E o (alu^T devc + qm o dqcol) over the tile, in place of qm's tile.
+// A forward tile block's: qm's tile (kFT x LD; qm o E once E is formed), E
+// (kFT x LD), the rows' su and the columns' sw (DM x LD each, zero beyond
+// D2) and the rows' alu (kMaxR x kFT, zero beyond R).
+template <typename T, int DM>
+struct FwdSmem {
+  static constexpr int LD = kLD<T>;
+  T *q, *e, *su, *sw, *al;
+  __device__ explicit FwdSmem(T* base)
+      : q(base), e(q + kFT * LD), su(e + kFT * LD), sw(su + DM * LD), al(sw + DM * LD) {}
+  static constexpr size_t elems() { return (size_t)(2 * kFT + 2 * DM) * LD + kMaxR * kFT; }
+};
+
+// The exponents S = su_tile^T sw_tile (depth D2; su and sw staged DM x LD,
+// zero beyond D2) over the tile, then f(i, j, S[i][j]) for every cell.
 // float32: 16 x 16 threads, each a (kFT/16) x (kFT/16) micro-tile (rows ty +
-// 16a, columns tx + 16b), the exponent by FMAs over d in order.
-template <int DM>
-__device__ __forceinline__ void grad_tile(const FrozenSmem<float, DM>& s, int D2) {
-  constexpr int U = kFT / 16, LD = FrozenSmem<float, DM>::LD;
+// 16a, columns tx + 16b), FMAs over d in order.
+template <typename F>
+__device__ __forceinline__ void exponent_tile(const float* su, const float* sw, int D2, F&& f) {
+  constexpr int U = kFT / 16, LD = kLD<float>;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float acc[U][U];
 #pragma unroll
@@ -383,9 +351,9 @@ __device__ __forceinline__ void grad_tile(const FrozenSmem<float, DM>& s, int D2
   for (int d = 0; d < D2; ++d) {
     float ru[U], cw[U];
 #pragma unroll
-    for (int a = 0; a < U; ++a) ru[a] = s.su[d * LD + ty + 16 * a];
+    for (int a = 0; a < U; ++a) ru[a] = su[d * LD + ty + 16 * a];
 #pragma unroll
-    for (int b = 0; b < U; ++b) cw[b] = s.sw[d * LD + tx + 16 * b];
+    for (int b = 0; b < U; ++b) cw[b] = sw[d * LD + tx + 16 * b];
 #pragma unroll
     for (int a = 0; a < U; ++a)
 #pragma unroll
@@ -394,20 +362,14 @@ __device__ __forceinline__ void grad_tile(const FrozenSmem<float, DM>& s, int D2
 #pragma unroll
   for (int a = 0; a < U; ++a)
 #pragma unroll
-    for (int b = 0; b < U; ++b) {
-      const int i = ty + 16 * a, j = tx + 16 * b;
-      float de = s.g[i * LD + j] * s.dq[j];
-#pragma unroll
-      for (int r = 0; r < kMaxR; ++r) de = fmaf(s.al[r * kFT + i], s.dv[r * kFT + j], de);
-      s.g[i * LD + j] = -expf(-acc[a][b]) * de;
-    }
+    for (int b = 0; b < U; ++b) f(ty + 16 * a, tx + 16 * b, acc[a][b]);
 }
 
-// float64: the exponents by DMMA, (kFT/8)^2 output tiles of 8 x 8 shared
-// out among the 8 warps, depth D2 in steps of 4 (the rows beyond D2 are 0).
-template <int DM>
-__device__ __forceinline__ void grad_tile(const FrozenSmem<double, DM>& s, int D2) {
-  constexpr int NT8 = kFT / 8, PER = NT8 * NT8 / kTileWarps, LD = FrozenSmem<double, DM>::LD;
+// float64: by DMMA, (kFT/8)^2 output tiles of 8 x 8 shared out among the 8
+// warps, depth D2 in steps of 4 (the rows beyond D2 are 0).
+template <typename F>
+__device__ __forceinline__ void exponent_tile(const double* su, const double* sw, int D2, F&& f) {
+  constexpr int NT8 = kFT / 8, PER = NT8 * NT8 / kTileWarps, LD = kLD<double>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
   double acc[PER][2];
 #pragma unroll
@@ -417,21 +379,27 @@ __device__ __forceinline__ void grad_tile(const FrozenSmem<double, DM>& s, int D
 #pragma unroll
     for (int q = 0; q < PER; ++q) {
       const int lin = warp * PER + q, mi = lin / NT8, ni = lin % NT8;
-      dmma(acc[q], s.su[d * LD + mi * 8 + gid], s.sw[d * LD + ni * 8 + gid]);
+      dmma(acc[q], su[d * LD + mi * 8 + gid], sw[d * LD + ni * 8 + gid]);
     }
   }
 #pragma unroll
   for (int q = 0; q < PER; ++q) {
     const int lin = warp * PER + q, mi = lin / NT8, ni = lin % NT8;
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int i = mi * 8 + gid, j = ni * 8 + 2 * tig + c;
-      double de = s.g[i * LD + j] * s.dq[j];
-#pragma unroll
-      for (int r = 0; r < kMaxR; ++r) de = fma(s.al[r * kFT + i], s.dv[r * kFT + j], de);
-      s.g[i * LD + j] = -exp(-acc[q][c]) * de;
-    }
+    for (int c = 0; c < 2; ++c) f(mi * 8 + gid, ni * 8 + 2 * tig + c, acc[q][c]);
   }
+}
+
+// g = -E o (alu^T devc + qm o dqcol) over the tile, in place of qm's tile.
+template <typename T, int DM>
+__device__ __forceinline__ void grad_tile(const FrozenSmem<T, DM>& s, int D2) {
+  constexpr int LD = FrozenSmem<T, DM>::LD;
+  exponent_tile(s.su, s.sw, D2, [&](int i, int j, T x) {
+    T de = s.g[i * LD + j] * s.dq[j];
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) de = fm(s.al[r * kFT + i], s.dv[r * kFT + j], de);
+    s.g[i * LD + j] = -ex(-x) * de;
+  });
 }
 
 // The tile's partials: dsu_part[d][i] = sum_j g[i][j] sw[d][j] into
@@ -523,53 +491,135 @@ __device__ __forceinline__ void partials(const FrozenSmem<double, DM>& s, int D2
   }
 }
 
-// Blocks (nt^2, P, N), nt = ceil(M / kFT): tile (ti, tj) of grid (n, p), rows
-// i in [kFT ti, kFT ti + kFT), columns j in [kFT tj, kFT tj + kFT). Its row
-// partial goes to dsu_p[n][p][tj] and its column partial to dsw_p[n][p][ti]
-// (each D2 x M; with nt = 1 these are dsu and dsw themselves).
+// Blocks (nt^2, P, N), nt = ceil(M / kFT): block (ti nt + tj, p, n) takes
+// tile (ti, tj) of grid (n, p), rows i in [kFT ti, kFT ti + kFT), columns j
+// in [kFT tj, kFT tj + kFT).
+struct TileAt {
+  int nt, ti, tj, i0, j0, p;
+  size_t np;
+  __device__ TileAt(int P, int M)
+      : nt(cdiv(M, kFT)), ti(blockIdx.x / nt), tj(blockIdx.x % nt), i0(ti * kFT), j0(tj * kFT),
+        p(blockIdx.y), np((size_t)blockIdx.z * P + blockIdx.y) {}
+};
+
+// Issue the cp.async copies (not waited for) of a tile's operands: qm's
+// tile in row order into q (row stride LD), the rows' su and the columns'
+// sw into su_s and sw_s (DM x LD, zero beyond D2), the rows' alu into al_s
+// (kMaxR x kFT, zero beyond R). Out-of-range cells are zero-filled.
+template <typename T, int DM>
+__device__ __forceinline__ void stage_tile(const TileAt& t, const T* su, const T* sw, const T* alu,
+                                           const T* qm, T* q, T* su_s, T* sw_s, T* al_s, int D2, int M,
+                                           int R) {
+  constexpr int LD = kLD<T>;
+  const int tid = threadIdx.x;
+  const T* qm_p = qm + (size_t)t.p * M * M;
+  const T* su_np = su + t.np * D2 * M;
+  const T* sw_np = sw + t.np * D2 * M;
+  for (int c = tid; c < kFT * kFT; c += kTileThreads) {
+    const int a = c / kFT, b = c % kFT;
+    const bool ok = t.i0 + a < M && t.j0 + b < M;
+    cp_async_elem(q + a * LD + b, ok ? qm_p + (size_t)(t.i0 + a) * M + t.j0 + b : qm_p, ok);
+  }
+  for (int c = tid; c < DM * kFT; c += kTileThreads) {
+    const int d = c / kFT, b = c % kFT;
+    const bool row = d < D2 && t.i0 + b < M, col = d < D2 && t.j0 + b < M;
+    cp_async_elem(su_s + d * LD + b, row ? su_np + (size_t)d * M + t.i0 + b : su_np, row);
+    cp_async_elem(sw_s + d * LD + b, col ? sw_np + (size_t)d * M + t.j0 + b : sw_np, col);
+  }
+  for (int c = tid; c < kMaxR * kFT; c += kTileThreads) {
+    const int r = c / kFT, b = c % kFT;
+    const bool row = r < R && t.i0 + b < M;
+    cp_async_elem(al_s + c, row ? alu + ((size_t)t.p * R + r) * M + t.i0 + b : alu, row);
+  }
+}
+
+// The forward's tiles. Thread (r, c) = (tid / kFT, tid % kFT), r <= R, sums
+// over the tile's rows in order alu[r][i] E[i][c] (r < R) or qm[i][c]
+// E[i][c] (r = R) into row r of its column slab: part[n][p][ti] ((R + 1) x
+// M: evc's rows, then qcol's), or evc and qcol themselves when nt = 1.
+template <typename T, int DM>
+__global__ void __launch_bounds__(kTileThreads) fwd_tiles(
+    const T* __restrict__ su, const T* __restrict__ sw, const T* __restrict__ alu,
+    const T* __restrict__ qm, T* __restrict__ evc, T* __restrict__ qcol, T* __restrict__ part,
+    int P, int D2, int M, int R) {
+  extern __shared__ __align__(16) unsigned char dyn_raw[];
+  using Smem = FwdSmem<T, DM>;
+  constexpr int LD = Smem::LD;
+  const Smem s(reinterpret_cast<T*>(dyn_raw));
+  const TileAt t(P, M);
+  stage_tile<T, DM>(t, su, sw, alu, qm, s.q, s.su, s.sw, s.al, D2, M, R);
+  cp_async_wait_all();
+  __syncthreads();
+  exponent_tile(s.su, s.sw, D2, [&](int i, int j, T x) {
+    const T e = ex(-x);
+    s.e[i * LD + j] = e;
+    s.q[i * LD + j] *= e;
+  });
+  __syncthreads();
+  const int c = threadIdx.x % kFT, r = threadIdx.x / kFT, j = t.j0 + c;
+  if (r > R || j >= M) return;
+  T acc = T(0);
+  if (r < R) {
+#pragma unroll 8
+    for (int i = 0; i < kFT; ++i) acc = fm(s.al[r * kFT + i], s.e[i * LD + c], acc);
+  } else {
+#pragma unroll 8
+    for (int i = 0; i < kFT; ++i) acc += s.q[i * LD + c];
+  }
+  if (t.nt > 1)
+    part[((t.np * t.nt + t.ti) * (R + 1) + r) * M + j] = acc;
+  else if (r < R)
+    evc[(t.np * R + r) * M + j] = acc;
+  else
+    qcol[t.np * M + j] = acc;
+}
+
+// A thread per output value: evc and qcol from their partials (part:
+// (N P, nt, R + 1, M)), the row tiles added in order.
+template <typename T>
+__global__ void __launch_bounds__(256) fwd_finish(const T* __restrict__ part, T* __restrict__ evc,
+                                                   T* __restrict__ qcol, int NP, int M, int R, int nt) {
+  const size_t slab = (size_t)(R + 1) * M;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)NP * slab) return;
+  const size_t np = idx / slab, rj = idx % slab;
+  const T* a = part + np * nt * slab + rj;
+  T x = T(0);
+  for (int k = 0; k < nt; ++k) x += a[k * slab];
+  if (rj < (size_t)R * M)
+    evc[np * R * M + rj] = x;
+  else
+    qcol[np * M + rj - (size_t)R * M] = x;
+}
+
+// The frozen backward's tiles. A tile's row partial goes to
+// dsu_p[n][p][tj] and its column partial to dsw_p[n][p][ti] (each D2 x M;
+// with nt = 1 these are dsu and dsw themselves).
 template <typename T, int DM>
 __global__ void __launch_bounds__(kTileThreads) bwd_frozen_tiles(
     const T* __restrict__ su, const T* __restrict__ sw, const T* __restrict__ alu,
     const T* __restrict__ qm, const T* __restrict__ devc, const T* __restrict__ dqcol,
     T* __restrict__ dsu_p, T* __restrict__ dsw_p, int P, int D2, int M, int R) {
   extern __shared__ __align__(16) unsigned char dyn_raw[];
-  using Smem = FrozenSmem<T, DM>;
-  constexpr int LD = Smem::LD;
-  const Smem s(reinterpret_cast<T*>(dyn_raw));
-  const int nt = cdiv(M, kFT);
-  const int ti = blockIdx.x / nt, tj = blockIdx.x % nt, p = blockIdx.y, n = blockIdx.z;
-  const int i0 = ti * kFT, j0 = tj * kFT, tid = threadIdx.x;
-  const size_t np = (size_t)n * P + p;
-  const T* qm_p = qm + (size_t)p * M * M;
-  const T* su_np = su + np * D2 * M;
-  const T* sw_np = sw + np * D2 * M;
-  for (int c = tid; c < kFT * kFT; c += kTileThreads) {
-    const int a = c / kFT, b = c % kFT;
-    const bool ok = i0 + a < M && j0 + b < M;
-    cp_async_elem(s.g + a * LD + b, ok ? qm_p + (size_t)(i0 + a) * M + j0 + b : qm_p, ok);
-  }
-  for (int c = tid; c < DM * kFT; c += kTileThreads) {
-    const int d = c / kFT, b = c % kFT;
-    const bool row = d < D2 && i0 + b < M, col = d < D2 && j0 + b < M;
-    cp_async_elem(s.su + d * LD + b, row ? su_np + (size_t)d * M + i0 + b : su_np, row);
-    cp_async_elem(s.sw + d * LD + b, col ? sw_np + (size_t)d * M + j0 + b : sw_np, col);
-  }
+  const FrozenSmem<T, DM> s(reinterpret_cast<T*>(dyn_raw));
+  const TileAt t(P, M);
+  const int tid = threadIdx.x;
+  stage_tile<T, DM>(t, su, sw, alu, qm, s.g, s.su, s.sw, s.al, D2, M, R);
   for (int c = tid; c < kMaxR * kFT; c += kTileThreads) {
     const int r = c / kFT, b = c % kFT;
-    const bool row = r < R && i0 + b < M, col = r < R && j0 + b < M;
-    cp_async_elem(s.al + c, row ? alu + ((size_t)p * R + r) * M + i0 + b : alu, row);
-    cp_async_elem(s.dv + c, col ? devc + (np * R + r) * M + j0 + b : devc, col);
+    const bool col = r < R && t.j0 + b < M;
+    cp_async_elem(s.dv + c, col ? devc + (t.np * R + r) * M + t.j0 + b : devc, col);
   }
   for (int c = tid; c < kFT; c += kTileThreads) {
-    const bool col = j0 + c < M;
-    cp_async_elem(s.dq + c, col ? dqcol + np * M + j0 + c : dqcol, col);
+    const bool col = t.j0 + c < M;
+    cp_async_elem(s.dq + c, col ? dqcol + t.np * M + t.j0 + c : dqcol, col);
   }
   cp_async_wait_all();
   __syncthreads();
   grad_tile(s, D2);
   __syncthreads();
   const size_t slab = (size_t)D2 * M;
-  partials(s, D2, M, i0, j0, dsu_p + (np * nt + tj) * slab, dsw_p + (np * nt + ti) * slab);
+  partials(s, D2, M, t.i0, t.j0, dsu_p + (t.np * t.nt + t.tj) * slab, dsw_p + (t.np * t.nt + t.ti) * slab);
 }
 
 // A thread per output value: dsu and dsw from their partials (part holds
@@ -598,17 +648,35 @@ inline bool bad_shape(int N, int P, int D2, int M, int R) {
 
 inline int tiles(int M) { return (M + kLanes - 1) / kLanes; }
 
+// The tile blocks' dynamic shared memory, set as the kernel's limit first.
+template <typename K>
+int smem_limit(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int DM>
+int fwd_tiled(const T* su, const T* sw, const T* alu, const T* qm, T* evc, T* qcol, T* part,
+              int N, int P, int D2, int M, int R, cudaStream_t st) {
+  const int nt = cdiv(M, kFT);
+  const size_t bytes = FwdSmem<T, DM>::elems() * sizeof(T);
+  int err = smem_limit(fwd_tiles<T, DM>, bytes);
+  if (err) return err;
+  fwd_tiles<T, DM><<<dim3(nt * nt, P, N), kTileThreads, bytes, st>>>(su, sw, alu, qm, evc, qcol, part,
+                                                                      P, D2, M, R);
+  err = (int)cudaGetLastError();
+  if (err || nt == 1) return err;
+  const size_t total = (size_t)N * P * (R + 1) * M;
+  fwd_finish<T><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, evc, qcol, N * P, M, R, nt);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
-int launch_fwd(const T* su, const T* sw, const T* alu, const T* qm, T* evc, T* qcol,
+int launch_fwd(const T* su, const T* sw, const T* alu, const T* qm, T* evc, T* qcol, T* part,
                int N, int P, int D2, int M, int R, void* stream) {
   if (bad_shape(N, P, D2, M, R)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(tiles(M), P, N), block(kLanes, kGroups);
   cudaStream_t st = (cudaStream_t)stream;
-  if (D2 <= 16)
-    fwd_kernel<T, 16><<<grid, block, 0, st>>>(su, sw, alu, qm, evc, qcol, P, D2, M, R);
-  else
-    fwd_kernel<T, 32><<<grid, block, 0, st>>>(su, sw, alu, qm, evc, qcol, P, D2, M, R);
-  return (int)cudaGetLastError();
+  if (D2 <= 16) return fwd_tiled<T, 16>(su, sw, alu, qm, evc, qcol, part, N, P, D2, M, R, st);
+  return fwd_tiled<T, 32>(su, sw, alu, qm, evc, qcol, part, N, P, D2, M, R, st);
 }
 
 template <typename T, int DM>
@@ -638,15 +706,14 @@ int frozen_tiles(const T* su, const T* sw, const T* alu, const T* qm, const T* d
                  T* dsu, T* dsw, T* part, int N, int P, int D2, int M, int R, cudaStream_t st) {
   const int nt = cdiv(M, kFT);
   const size_t bytes = FrozenSmem<T, DM>::elems() * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(bwd_frozen_tiles<T, DM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
+  int err = smem_limit(bwd_frozen_tiles<T, DM>, bytes);
+  if (err) return err;
   T* dsu_p = nt == 1 ? dsu : part;
   T* dsw_p = nt == 1 ? dsw : part + (size_t)N * P * nt * D2 * M;
   bwd_frozen_tiles<T, DM><<<dim3(nt * nt, P, N), kTileThreads, bytes, st>>>(
       su, sw, alu, qm, devc, dqcol, dsu_p, dsw_p, P, D2, M, R);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || nt == 1) return (int)err;
+  err = (int)cudaGetLastError();
+  if (err || nt == 1) return err;
   const size_t total = (size_t)N * P * D2 * M;
   bwd_frozen_finish<T><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, dsu, dsw, N * P, D2, M, nt);
   return (int)cudaGetLastError();
@@ -664,14 +731,15 @@ int launch_bwd_frozen(const T* su, const T* sw, const T* alu, const T* qm, const
 
 }  // namespace
 
-// The frozen entry's `part` is the partials' scratch, 2 x N x P x
-// ceil(M / 32) x D2 x M values (ops/kexp_cuda.py:frozen_partials; unused
-// when one tile covers M).
+// The forward's `part` is its partials' scratch, N x P x ceil(M / 32) x
+// (R + 1) x M values (ops/kexp_cuda.py:forward_partials), the frozen
+// entry's 2 x N x P x ceil(M / 32) x D2 x M values (frozen_partials); each
+// is unused when one tile covers M.
 #define PAIR_CONTRACT_ENTRIES(T, SFX)                                                        \
   extern "C" int pair_contract_fwd_##SFX(const T* su, const T* sw, const T* alu,          \
-                                         const T* qm, T* evc, T* qcol, int N, int P,      \
-                                         int D2, int M, int R, void* stream) {            \
-    return launch_fwd<T>(su, sw, alu, qm, evc, qcol, N, P, D2, M, R, stream);             \
+                                         const T* qm, T* evc, T* qcol, T* part, int N,    \
+                                         int P, int D2, int M, int R, void* stream) {     \
+    return launch_fwd<T>(su, sw, alu, qm, evc, qcol, part, N, P, D2, M, R, stream);       \
   }                                                                                        \
   extern "C" int pair_contract_bwd_##SFX(const T* su, const T* sw, const T* alu,          \
                                          const T* qm, const T* devc, const T* dqcol,      \

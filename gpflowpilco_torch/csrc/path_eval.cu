@@ -17,20 +17,41 @@
 // Bound on an H100 (SXM, 3.35 TB/s): every launch must read w (S,L,B) and
 // v (S,L,M) once; at S=B=1024, L=4, M=240 that is 20.7 MB, about 6.2 us.
 // The arithmetic (S*L*(B+M) ~ 5.2 M transcendentals and ~76 MFLOP) is far
-// below that. The design therefore streams w and v exactly once, in their
-// native (S,L,*) layout with neighbouring threads on neighbouring b or m:
-// one block takes a tile of kTile particles and loops over the latents;
-// its threads stride over B and then over M, so each omega and z row read
-// from L2 serves kTile particles. D <= 16 is held in registers (the
-// template DM pads it with zeros, which add exact zeros to every dot
-// product). Per-thread partial sums meet in a warp-shuffle plus
-// shared-memory block reduction. The |x|^2+|z|^2-2x.z cancellation stays in
-// full float32 (no fast math), as the JAX kernel pins HIGHEST precision.
+// below that.
+//
+// Forward (fwd_warp): latents on the block grid, (ceil(S/kTP), L) blocks
+// of kTP particles, a warp a particle (128 blocks at S=1024, L=4, so each
+// latent's tables are read from L2 by S/kTP blocks only). A block stages
+// its latent's tables once into shared memory by cp.async as panels: row
+// d < D holds coordinate d of every column (omega_lb, or z~_lm for the
+// centers), row D the per-column scalar (phase_lb or z2_lm); the bases
+// fill columns [0, bw), the centers [bw, bw + mw) (B and M rounded up to
+// 4, the pads zero). Lane j takes the groups of 4 columns j, j + 32, ...
+// in order; each group's w or v values arrive by cp.async kRing groups
+// ahead into the lane's own shared-memory slots, 16 bytes a copy where the
+// rows are 16-byte aligned. The lane's partial sums meet by a butterfly:
+// no block barrier after staging. Columns that outgrow shared memory are
+// staged in chunks of cw (a multiple of 128, so every lane has the same
+// groups in each chunk), a block barrier around each. The bases' cos is
+// cos_fast (range reduction, then the SFU's __cosf) for a group whose
+// arguments are within kCosFast, else cosf().
+//
+// Backward (bwd_kernel): one block takes a tile of kTile particles and
+// loops over the latents; its threads stride over B and then over M, so
+// each omega and z row read from L2 serves kTile particles. D <= 16 is
+// held in registers (the template DM pads it with zeros, which add exact
+// zeros to every dot product). Per-thread partial sums meet in a
+// warp-shuffle plus shared-memory block reduction.
+//
+// The |x|^2+|z|^2-2x.z cancellation stays in full float32 (no fast math),
+// as the JAX kernel pins HIGHEST precision.
 //
 // Each entry returns cudaGetLastError() as an int; the caller raises on
 // nonzero. Entries launch on the given stream and do not synchronise.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -79,72 +100,216 @@ __device__ __forceinline__ float dot(const float (&a)[DM], const float (&b)[DM])
   return s;
 }
 
+// ------------------------------------------------------------ forward (K1a)
+constexpr int kTP = 32;    // particles a block, a warp each
+constexpr int kRing = 4;   // a lane's weight groups in flight (path_eval_cuda.FWD_RING_BYTES)
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may take (FWD_SMEM_MAX)
+constexpr float kCosFast = 105615.0f;
+
+// cos(x) for |x| <= kCosFast: x = 2 pi k + r (Cody-Waite, FMA), r in
+// [-pi, pi], then the SFU's cos (absolute error 2^-21.41 there)
+__device__ __forceinline__ float cos_fast(float x) {
+  const float k = rintf(x * 0.159154943f);
+  float r = fmaf(k, -6.28318548f, x);  // 2 pi in float32, then the rest
+  r = fmaf(k, 1.74845553e-7f, r);
+  return __cosf(r);
+}
+
+__device__ __forceinline__ void lds4(float (&r)[4], const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
+}
+
+// cp.async from global into shared memory: 16 bytes (both 16-byte
+// aligned, bypassing L1), or one float zero-filled where !valid (src is
+// then not read). The #else branches are what a host compiler sees.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+#else
+  for (int q = 0; q < 4; ++q) dst[q] = src[q];
+#endif
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+#else
+  *dst = valid ? *src : 0.f;
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+struct FwdArgs {
+  const float *x, *w, *v, *omega, *phase, *z, *z2, *il;
+  float* out;
+  int S, L, B, M, D;
+  int bw, mw, cw;      // B and M rounded up to 4; the panels' chunk width
+  bool vec_w, vec_v;   // w's and v's rows are 16-byte aligned
+};
+
+// Issue the cp.async copies of columns [c0, c0 + cw) of latent l's panels
+// (rows 0..D of a.cw floats), reading each table in its own order, as one
+// commit group; zero the pads.
+__device__ __forceinline__ void stage_panels(float* pan, const FwdArgs& a, int l, int c0) {
+  const int tid = threadIdx.x, nth = blockDim.x, D = a.D, cw = a.cw;
+  // i / D as umulhi(i, ceil(2^32 / D)) for D > 1: exact for i < 2^16 (a
+  // chunk holds fewer than 2^16 / D columns: fwd_plan)
+  const unsigned inv_d = (unsigned)((0x100000000ull + D - 1) / D);
+  const auto div_d = [&](int i) { return D == 1 ? i : (int)__umulhi(i, inv_d); };
+  const int b0 = c0, b1 = min(c0 + cw, a.B);
+  if (b0 < b1) {
+    const float* src = a.omega + ((size_t)l * a.B + b0) * D;
+    for (int i = tid; i < (b1 - b0) * D; i += nth) {
+      const int c = div_d(i);
+      cp_async4(pan + (i - c * D) * cw + c, src + i, true);
+    }
+    for (int c = b0 + tid; c < b1; c += nth) cp_async4(pan + D * cw + c - c0, a.phase + (size_t)l * a.B + c, true);
+  }
+  const int m0 = max(c0 - a.bw, 0), m1 = min(c0 + cw - a.bw, a.M);
+  if (m0 < m1) {
+    const int j0 = a.bw + m0 - c0;
+    const float* src = a.z + ((size_t)l * a.M + m0) * D;
+    for (int i = tid; i < (m1 - m0) * D; i += nth) {
+      const int c = div_d(i);
+      cp_async4(pan + (i - c * D) * cw + j0 + c, src + i, true);
+    }
+    for (int c = m0 + tid; c < m1; c += nth) cp_async4(pan + D * cw + j0 + c - m0, a.z2 + (size_t)l * a.M + c, true);
+  }
+  cp_async_commit();
+  // the pads: bases columns [B, bw), centers columns bw + [M, mw)
+  for (int i = tid; i < (D + 1) * 8; i += nth) {
+    const int r = i / 8, c = i % 8;
+    const int col = c < 4 ? a.B + c : a.bw + a.M + c - 4;
+    if (col < (c < 4 ? a.bw : a.bw + a.mw) && col >= c0 && col < c0 + cw) pan[r * cw + col - c0] = 0.f;
+  }
+}
+
+// A lane's weights: its groups (columns 4 g, g = lane + 32 item, of the
+// concatenated [w | v] row of its warp's particle), each copied kRing items
+// ahead by cp.async into the lane's own slots of the ring (one commit group
+// an item, empty past the row), then read from there.
+struct WStream {
+  const float *w, *v;  // the particle's rows of w and v
+  float* slot;         // the lane's slot of item 0; the next are 4 blockDim.x floats on
+
+  __device__ WStream(const FwdArgs& a, float* ring, int s, int l)
+      : w(a.w + ((size_t)s * a.L + l) * a.B), v(a.v + ((size_t)s * a.L + l) * a.M),
+        slot(ring + 4 * threadIdx.x) {}
+  __device__ float* at(int item) const { return slot + (item & (kRing - 1)) * 4 * blockDim.x; }
+  __device__ void issue(const FwdArgs& a, int item) {
+    const int c = 4 * ((threadIdx.x & 31) + 32 * item);
+    if (c < a.bw + a.mw) {
+      const bool base = c < a.bw;
+      const float* src = base ? w + c : v + (c - a.bw);
+      const int left = base ? a.B - c : a.M - (c - a.bw);  // the row's columns from src on
+      if (base ? a.vec_w : a.vec_v) {
+        cp_async16(at(item), src);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) cp_async4(at(item) + q, src + min(q, left - 1), q < left);
+      }
+    }
+    cp_async_commit();
+  }
+  // item's weights, once its copy has landed; then the copy kRing ahead
+  __device__ void take(const FwdArgs& a, float (&wv)[4], int item) {
+    cp_async_wait<kRing - 1>();
+    lds4(wv, at(item));
+    issue(a, item + kRing);
+  }
+};
+
+// Blocks (ceil(S / kTP), L) of kTP warps; warp u takes particle kTP
+// blockIdx.x + u. Dynamic shared memory: the ring (kRing slots of 4 floats
+// a thread), then the panels ((D + 1) x cw floats). x is scaled by il_l in
+// place at the lane's first centers group.
 template <int DM>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ v, const float* __restrict__ omega,
-    const float* __restrict__ phase, const float* __restrict__ z,
-    const float* __restrict__ z2, const float* __restrict__ il,
-    float* __restrict__ out, int S, int L, int B, int M, int D) {
-  __shared__ float red[kWarps * kTile];
-  const int s0 = blockIdx.x * kTile;
-  const int np = min(kTile, S - s0);
+__global__ void __launch_bounds__(kTP * 32, 1) fwd_warp(const FwdArgs a) {
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  float* ring = reinterpret_cast<float*>(fwd_smem);
+  float* pan = ring + (size_t)kRing * 4 * blockDim.x;
+  const int l = blockIdx.y, lane = threadIdx.x & 31, D = a.D;
+  const int s = blockIdx.x * kTP + (threadIdx.x >> 5);
+  const int cols = a.bw + a.mw;
+  const int items = s < a.S ? (cols / 4 - lane + 31) / 32 : 0;  // this lane's groups
+  WStream ws(a, ring, s, l);
+  for (int k = 0; k < kRing && s < a.S; ++k) ws.issue(a, k);
 
-  float xr[kTile][DM];
+  // x (zero past D) and |x il_l|^2
+  float x[DM], x2 = 0.f, acc = 0.f;
 #pragma unroll
-  for (int p = 0; p < kTile; ++p) {
-    if (p < np) load_row(xr[p], x + (size_t)(s0 + p) * D, D);
-    else load_row(xr[p], x, 0);
+  for (int d = 0; d < DM; ++d) {
+    x[d] = (d < D && s < a.S) ? a.x[(size_t)s * D + d] : 0.f;
+    const float xs = d < D ? x[d] * a.il[(size_t)l * D + d] : 0.f;
+    x2 = fmaf(xs, xs, x2);
   }
 
-  for (int l = 0; l < L; ++l) {
-    float acc[kTile];
+  int k = 0;
+  bool scaled = false;
+  for (int c0 = 0; c0 < cols; c0 += a.cw) {
+    if (c0) __syncthreads();  // the previous chunk is consumed
+    stage_panels(pan, a, l, c0);
+    cp_async_wait<0>();
+    __syncthreads();
+    const int kend = min(k + a.cw / 128, items);
+    for (; k < kend; ++k) {
+      float wv[4];
+      ws.take(a, wv, k);
+      const int c = 4 * (lane + 32 * k), j = c - c0;
+      if (c >= a.bw && !scaled) {  // from here on x~ = x il_l
+        scaled = true;
 #pragma unroll
-    for (int p = 0; p < kTile; ++p) acc[p] = 0.f;
-
-    // RFF prior: sum_b cos(x . omega_lb + phase_lb) w[s,l,b]
-    const float* om_l = omega + (size_t)l * B * D;
-    for (int b = threadIdx.x; b < B; b += kThreads) {
-      float o[DM];
-      load_row(o, om_l + (size_t)b * D, D);
-      const float ph = phase[(size_t)l * B + b];
+        for (int d = 0; d < DM; ++d) x[d] *= d < D ? a.il[(size_t)l * D + d] : 0.f;
+      }
+      float sc[4], dt[4] = {0.f, 0.f, 0.f, 0.f};
+      lds4(sc, pan + D * a.cw + j);
 #pragma unroll
-      for (int p = 0; p < kTile; ++p) {
-        if (p < np) {
-          const float proj = dot(xr[p], o) + ph;
-          acc[p] = fmaf(cosf(proj), w[((size_t)(s0 + p) * L + l) * B + b], acc[p]);
+      for (int d = 0; d < DM; ++d) {
+        if (d < D) {
+          float o[4];
+          lds4(o, pan + d * a.cw + j);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) dt[q] = fmaf(x[d], o[q], dt[q]);
+        }
+      }
+      if (c < a.bw) {  // bases: sum_q cos(x . omega + phase) w
+        float big = 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          dt[q] += sc[q];
+          big = fmaxf(big, fabsf(dt[q]));
+        }
+        if (big <= kCosFast) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc = fmaf(cos_fast(dt[q]), wv[q], acc);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc = fmaf(cosf(dt[q]), wv[q], acc);
+        }
+      } else {  // centers: sum_q exp(-|x~ - z~|^2 / 2) v
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float d2 = fmaxf(x2 + sc[q] - 2.f * dt[q], 0.f);
+          acc = fmaf(expf(-0.5f * d2), wv[q], acc);
         }
       }
     }
-
-    // canonical update: sum_m exp(-1/2 |x~ - z~_lm|^2) v[s,l,m]
-    float ilr[DM];
-    load_row(ilr, il + (size_t)l * D, D);
-    float xs[kTile][DM];
-    float x2[kTile];
-#pragma unroll
-    for (int p = 0; p < kTile; ++p) {
-#pragma unroll
-      for (int d = 0; d < DM; ++d) xs[p][d] = xr[p][d] * ilr[d];
-      x2[p] = dot(xs[p], xs[p]);
-    }
-    const float* z_l = z + (size_t)l * M * D;
-    for (int m = threadIdx.x; m < M; m += kThreads) {
-      float zr[DM];
-      load_row(zr, z_l + (size_t)m * D, D);
-      const float zz = z2[(size_t)l * M + m];
-#pragma unroll
-      for (int p = 0; p < kTile; ++p) {
-        if (p < np) {
-          const float d2 = fmaxf(x2[p] + zz - 2.f * dot(xs[p], zr), 0.f);
-          acc[p] = fmaf(expf(-0.5f * d2), v[((size_t)(s0 + p) * L + l) * M + m], acc[p]);
-        }
-      }
-    }
-
-    const float total = block_sum(acc, red);
-    if (threadIdx.x < np) out[(size_t)(s0 + threadIdx.x) * L + l] = total;
   }
+  const float total = warp_sum(acc);
+  if (lane == 0 && s < a.S) a.out[(size_t)s * a.L + l] = total;
 }
 
 template <int DM, bool WANT_WV>
@@ -251,20 +416,34 @@ inline bool bad_shape(int S, int L, int B, int M, int D) {
   return S <= 0 || L <= 0 || B <= 0 || M <= 0 || D <= 0 || D > kMaxD;
 }
 
+template <int DM>
+int launch_fwd_warp(const FwdArgs& a, cudaStream_t st) {
+  constexpr int threads = kTP * 32;
+  const size_t bytes = ((size_t)kRing * 4 * threads + (size_t)(a.D + 1) * a.cw) * sizeof(float);
+  if (bytes > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  const int err = (int)cudaFuncSetAttribute(fwd_warp<DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                            (int)bytes);
+  if (err) return err;
+  fwd_warp<DM><<<dim3((a.S + kTP - 1) / kTP, a.L), threads, bytes, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// cw: the panels' chunk width, a multiple of 128 (ops/path_eval_cuda.py:fwd_plan)
 extern "C" int path_eval_fwd(const float* x, const float* w, const float* v,
                              const float* omega, const float* phase,
                              const float* z, const float* z2, const float* il,
-                             float* out, int S, int L, int B, int M, int D,
+                             float* out, int S, int L, int B, int M, int D, int cw,
                              void* stream) {
-  if (bad_shape(S, L, B, M, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(S, L, B, M, D) || cw <= 0 || cw % 128) return (int)cudaErrorInvalidValue;
+  const FwdArgs a{x, w, v, omega, phase, z, z2, il, out, S, L, B, M, D, (B + 3) / 4 * 4, (M + 3) / 4 * 4, cw,
+                  B % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0,
+                  M % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0};
   cudaStream_t st = (cudaStream_t)stream;
-  if (D <= 8)
-    fwd_kernel<8><<<grid_for(S), kThreads, 0, st>>>(x, w, v, omega, phase, z, z2, il, out, S, L, B, M, D);
-  else
-    fwd_kernel<16><<<grid_for(S), kThreads, 0, st>>>(x, w, v, omega, phase, z, z2, il, out, S, L, B, M, D);
-  return (int)cudaGetLastError();
+  if (D <= 6) return launch_fwd_warp<6>(a, st);
+  if (D <= 8) return launch_fwd_warp<8>(a, st);
+  return launch_fwd_warp<16>(a, st);
 }
 
 extern "C" int path_eval_bwd_dx(const float* x, const float* w, const float* v,

@@ -20,10 +20,11 @@ Dispatch is by the device of the tensors: CUDA tensors go to the kernels of
 ``csrc/kexp_pair.cu`` (float32 or float64, contiguous, else the wrapper
 raises), CPU tensors to ``pair_contract_reference`` and its backward
 formulas. There is no fallback from one to the other. ``launches`` counts
-kernel launches only (a call of the frozen backward's tiles and finish
-counts once). The frozen backward cuts each (n, p) grid into
-FROZEN_TILE x FROZEN_TILE tiles on the block grid; the wrapper allocates
-their row and column partials (``frozen_partials``).
+kernel launches only (a call of the forward's or the frozen backward's
+tiles and finish counts once). The forward and the frozen backward cut each
+(n, p) grid into TILE x TILE tiles on the block grid; the wrapper allocates
+the forward's column partials (``forward_partials``) and the frozen
+backward's row and column partials (``frozen_partials``).
 
 The GPR match (``build_fused_gpr_grid``, ``ekuffu_contract_gpr``) uses
 the same kernels with one symmetric (X, X) pair per model, the training
@@ -52,7 +53,7 @@ launches = {
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _MAX_D2, _MAX_R = 32, 4  # kMaxD2, kMaxR in csrc/kexp_pair.cu
-FROZEN_TILE = 32  # the frozen backward's tile side, kFT in csrc/kexp_pair.cu
+TILE = 32  # the forward's and the frozen backward's tile side, kFT in csrc/kexp_pair.cu
 
 
 def reset_launches():
@@ -92,12 +93,26 @@ def _launch(kind: str, inputs, outputs, shape):
     launches[name] += 1
 
 
+def _tiles(m):
+    return -(-m // TILE)
+
+
+def forward_partials(n, p, m, r, like):
+    """The forward's scratch: evc's and qcol's column partials (N, P,
+    ceil(M / TILE), R + 1, M), one slab per row tile (evc's R rows, then
+    qcol's); empty when one tile covers M (the kernel then writes evc and
+    qcol itself)."""
+    nt = _tiles(m)
+    shape = (n, p, nt, r + 1, m) if nt > 1 else (0,)
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
 def frozen_partials(n, p, d2, m, like):
     """The frozen backward's scratch: dsu's row partials (N, P, ceil(M /
-    FROZEN_TILE), D2, M), one slab per column tile, then dsw's column
-    partials, one per row tile; empty when one tile covers M (the kernel
-    then writes dsu and dsw itself)."""
-    nt = -(-m // FROZEN_TILE)
+    TILE), D2, M), one slab per column tile, then dsw's column partials, one
+    per row tile; empty when one tile covers M (the kernel then writes dsu
+    and dsw itself)."""
+    nt = _tiles(m)
     shape = (2, n, p, nt, d2, m) if nt > 1 else (0,)
     return torch.empty(shape, dtype=like.dtype, device=like.device)
 
@@ -137,7 +152,7 @@ def _fwd(su, sw, alu, qm):
     n, p, _, m, r = shape
     evc = torch.empty((n, p, r, m), dtype=su.dtype, device=su.device)
     qcol = torch.empty((n, p, m), dtype=su.dtype, device=su.device)
-    _launch("fwd", (su, sw, alu, qm), (evc, qcol), shape)
+    _launch("fwd", (su, sw, alu, qm), (evc, qcol, forward_partials(n, p, m, r, su)), shape)
     return evc, qcol
 
 

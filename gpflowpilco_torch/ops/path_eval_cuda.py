@@ -18,6 +18,8 @@ Dispatch is by the device of the tensors: CUDA tensors go to the kernels of
 ``csrc/path_eval.cu`` (float32, contiguous, else the wrapper raises), CPU
 tensors to ``path_eval_reference`` and its backward formulas. There is no
 fallback from one to the other. ``launches`` counts kernel launches only.
+The forward stages each latent's tables in shared memory in chunks of
+columns that ``fwd_plan`` sizes (one chunk at the pathwise path's widths).
 """
 from __future__ import annotations
 
@@ -31,6 +33,11 @@ from . import _build
 launches = {"path_eval_fwd": 0, "path_eval_bwd_dx": 0, "path_eval_bwd_full": 0}
 
 _MAX_D = 16  # kMaxD in csrc/path_eval.cu: x rows are held in registers
+# the forward's shared memory (csrc/path_eval.cu): a block's weight ring
+# (kRing = 4 groups of 4 floats for each of its 1024 threads), then the
+# panels; at most FWD_SMEM_MAX bytes a block
+FWD_RING_BYTES = 4 * 4 * 4 * 1024
+FWD_SMEM_MAX = 232448
 
 
 def reset_launches():
@@ -38,14 +45,28 @@ def reset_launches():
         launches[k] = 0
 
 
-def _launch(name: str, inputs, outputs):
-    """Check the operands and launch ``name`` on the current stream."""
+def _launch(name: str, inputs, outputs, *extra):
+    """Check the operands and launch ``name`` on the current stream, with
+    the shape's ints and then ``extra``'s."""
     shape = operand_shape(*inputs)
     for t in (*inputs, *outputs):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: the CUDA kernel takes float32 tensors, got {t.dtype}")
-    _build.launch("path_eval", name, (*inputs, *outputs), *(ctypes.c_int(v) for v in shape))
+    _build.launch("path_eval", name, (*inputs, *outputs), *(ctypes.c_int(v) for v in (*shape, *extra)))
     launches[name] += 1
+
+
+def fwd_plan(b: int, m: int, d: int):
+    """(cw, bytes) of the forward: the width of the chunks of columns in
+    which a block stages its latent's panels (D + 1 rows over the bases,
+    then the centers, each rounded up to 4 columns), a multiple of 128 (so
+    each lane has as many groups of 4 in every chunk), as wide as all the
+    columns where they fit beside the ring; and the dynamic shared memory
+    that takes."""
+    cols = -(-b // 4) * 4 + -(-m // 4) * 4
+    fit = (FWD_SMEM_MAX - FWD_RING_BYTES) // (4 * (d + 1)) // 128 * 128
+    cw = min(-(-cols // 128) * 128, fit)
+    return cw, FWD_RING_BYTES + 4 * (d + 1) * cw
 
 
 def operand_shape(x, w, v, omega, phase, z_scaled, z2, inv_ls, g=None):
@@ -107,7 +128,8 @@ def _fwd(x, w, v, omega, phase, z_scaled, z2, inv_ls):
     if x.device.type == "cpu":
         return path_eval_reference(x, w, v, omega, phase, z_scaled, z2, inv_ls)
     out = torch.empty(w.shape[:2], dtype=x.dtype, device=x.device)
-    _launch("path_eval_fwd", (x, w, v, omega, phase, z_scaled, z2, inv_ls), (out,))
+    _launch("path_eval_fwd", (x, w, v, omega, phase, z_scaled, z2, inv_ls), (out,),
+            fwd_plan(w.shape[2], v.shape[2], x.shape[1])[0])
     return out
 
 

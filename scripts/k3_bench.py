@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time K2 (the eKuffu pair contraction, csrc/kexp_pair.cu), K3 (the whole
-SVGP match, csrc/mm_match.cu), K3g (the whole GPR match,
-csrc/gpr_match.cu) and K6 (the whole pathwise rollout loss,
-csrc/rollout.cu) on one NVIDIA GPU: this checkout against others (a
-parent commit's ``git archive``, a variant), in one run on one card.
+"""Time K1 (the pathwise drift's path evaluation, csrc/path_eval.cu), K2
+(the eKuffu pair contraction, csrc/kexp_pair.cu), K3 (the whole SVGP match,
+csrc/mm_match.cu), K3g (the whole GPR match, csrc/gpr_match.cu) and K6 (the
+whole pathwise rollout loss, csrc/rollout.cu) on one NVIDIA GPU: this
+checkout against others (a parent commit's ``git archive``, a variant), in
+one run on one card.
 
     python scripts/k3_bench.py [--parent DIR] [--other NAME=DIR ...] [--only PREFIX ...] [--out FILE]
 
@@ -12,7 +13,8 @@ runs in a process of its own, in turns (parent, this, others, then the same
 in reverse), and times every K3 entry at the whole-match path's shapes,
 K3g's at the HMC ensemble's, and K2's six entries at the MM drift's and
 policy's shapes and its forward and frozen backward on the GPR route (P=8
-members, R=4), and K6's forward and backward at the fused-rollout slice's
+members, R=4), K1's three entries at the pathwise slice's shape (S=1024,
+L=4, B=1024, M=240, D=6), and K6's forward and backward at the fused-rollout slice's
 shape (S=1024, B=1024, M=240, Mp=30, T=30) and on the 8-member axis (K=8,
 128 particles each), with chip_smoke.py's method (median device time over 30
 calls, L2 flushed, and warm; chip_smoke's *_bound_ms for the bounds).
@@ -20,8 +22,8 @@ Each checkout is reported by the smaller of its medians. On the same
 inputs, each other checkout's outputs are compared with this one's: K3g's
 forward at its bars (float64: 1e-9 of the scale; float32: within 3x the
 plain float32 version's error against float64, plus 1e-4 of the scale),
-K2's frozen backward at its own (rtol = atol = 1e-10 in float64, 1e-4 in
-float32), K6's forward and backward at chip_smoke.py's (float64: 1e-10 of
+K2's forward and frozen backward and K1's forward at their own (rtol = atol
+= 1e-10 in float64, 1e-4 in float32), K6's forward and backward at chip_smoke.py's (float64: 1e-10 of
 the scale; float32 over 30 steps: within 3x the plain float32 version's
 error against float64, plus 1e-4 of the scale), every other entry bit for
 bit. ``--only`` keeps the entries whose name starts with one of the
@@ -48,7 +50,8 @@ ROOT = Path(__file__).resolve().parents[1]
 # forward and frozen backward at the ensemble's shape (K=8, N=240, D=6,
 # R=4); K2's six entries at the MM drift's (N=1, P=10, D2=14, M=240) and
 # policy's (N=1, P=1, D2=12, M=30) shapes, and the GPR route's forward and
-# frozen backward (N=1, P=8, D2=14, M=240, R=4)
+# frozen backward (N=1, P=8, D2=14, M=240, R=4); K1's three entries at the
+# pathwise slice's shape
 CASES = (
     ("fwd", "f32", "drift"), ("fwd", "f32", "policy"), ("bwd_frozen", "f32", "drift"),
     ("bwd", "f32", "policy"), ("bwd", "f32", "ensemble policy"), ("fwd", "f64", "drift"),
@@ -60,10 +63,11 @@ CASES = (
     *((f"k2_{kind}", sfx, "gpr") for sfx in ("f64", "f32") for kind in ("fwd", "bwd_frozen")),
     *((f"k6_{kind}", sfx, where) for where in ("slice", "members") for sfx in ("f32", "f64")
       for kind in ("fwd", "bwd")),
+    *((f"k1_{kind}", "f32", "pathwise") for kind in ("fwd", "bwd_dx", "bwd_full")),
 )
-LIBS = ("mm_match", "gpr_match", "kexp_pair", "rollout")
+LIBS = ("mm_match", "gpr_match", "kexp_pair", "rollout", "path_eval")
 # the library of each entry-name prefix; K3's entries ("fwd", "bwd", ...) are mm_match's
-PREFIX_LIBS = (("k6_", "rollout"), ("k2_", "kexp_pair"), ("gpr_", "gpr_match"))
+PREFIX_LIBS = (("k6_", "rollout"), ("k2_", "kexp_pair"), ("gpr_", "gpr_match"), ("k1_", "path_eval"))
 K6_MEMBERS = 8  # the HMC ensemble's members on K6's member axis
 K2_GPR = (1, 8, 14, 240, 4)  # (N, P, D2, M, R) of K2's GPR route
 
@@ -92,9 +96,11 @@ def build(root, libs):
     took = _build.build_all(libs)
     cs, out = _smoke(), getattr(_build, "compiler_output", {})
     # fwd_tiles: an older checkout's name of K3g's forward tile kernel;
-    # fwd_kernel and bwd_kernel: an older checkout's K6 forward and backward
-    kernels = {"mm_match": cs.PTXAS_K3, "gpr_match": (*cs.PTXAS_K3G, "fwd_tiles"), "kexp_pair": cs.PTXAS_K2,
-               "rollout": (*cs.PTXAS_K6, "fwd_kernel", "bwd_kernel")}
+    # fwd_kernel and bwd_kernel: an older checkout's K6 forward and backward,
+    # and its K2 and K1 forwards
+    kernels = {"mm_match": cs.PTXAS_K3, "gpr_match": (*cs.PTXAS_K3G, "fwd_tiles"),
+               "kexp_pair": (*cs.PTXAS_K2, "fwd_kernel"), "rollout": (*cs.PTXAS_K6, "fwd_kernel", "bwd_kernel"),
+               "path_eval": (*cs.PTXAS_K1, "fwd_kernel")}
     ptxas = {lib: cs.ptxas_report(out.get(lib, ""), kernels[lib]) for lib in libs}
     print(json.dumps({"built": str(root), "seconds": took, "ptxas": ptxas}))
 
@@ -108,6 +114,18 @@ def _k2_case(cs, kc, kind, dtype, where, device):
     if kind == "fwd":
         return (lambda: kc._fwd(*ops)), bound
     return (lambda: kc._bwd(*ops, *cot, kind == "bwd")[:2 if kind == "bwd_frozen" else 4]), bound
+
+
+def _k1_case(cs, pe, kind, device):
+    """(fn, bound) of a K1 entry on chip_smoke's kernel inputs."""
+    t = cs.kernel_inputs(11, device)
+    ops = tuple(t[k] for k in ("x", "w", "v", "omega", "phase", "z_scaled", "z2", "inv_ls"))
+    bound, _ = cs.bound_ms({"fwd": "fwd", "bwd_dx": "dx", "bwd_full": "full"}[kind])
+    if kind == "fwd":
+        return (lambda: (pe._fwd(*ops),)), bound
+    if kind == "bwd_dx":
+        return (lambda: (pe._bwd_dx(*ops, t["g"]),)), bound
+    return (lambda: pe._bwd_full(*ops, t["g"])), bound
 
 
 def _k6_case(cs, rc, kind, dtype, where, device, outs, key):
@@ -140,6 +158,7 @@ def run(root, save, only=()):
     from gpflowpilco_torch.ops import gpr_match_cuda as gm
     from gpflowpilco_torch.ops import kexp_cuda as kc
     from gpflowpilco_torch.ops import mm_match_cuda as mc
+    from gpflowpilco_torch.ops import path_eval_cuda as pe
     from gpflowpilco_torch.ops import rollout_cuda as rc
 
     cs = _smoke()
@@ -163,8 +182,9 @@ def run(root, save, only=()):
             outs[key] = [t.cpu() for t in fn()]
             timed(key, fn, bound)
             continue
-        if kind.startswith("k2_"):
-            fn, bound = _k2_case(cs, kc, kind[3:], dtype, where, device)
+        if kind.startswith(("k1_", "k2_")):
+            fn, bound = (_k1_case(cs, pe, kind[3:], device) if kind.startswith("k1_")
+                         else _k2_case(cs, kc, kind[3:], dtype, where, device))
             outs[key] = [t.cpu() for t in fn()]
             timed(key, fn, bound)
             continue
@@ -218,7 +238,7 @@ def compare(a, b, cs):
         if "/" in k or k not in b:
             continue
         pairs = list(zip(a[k], b[k]))
-        if not k.startswith(("gpr_fwd_", "k2_bwd_frozen", "k6_")):
+        if not k.startswith(("gpr_fwd_", "k2_fwd", "k2_bwd_frozen", "k1_fwd", "k6_")):
             diff = {i: float((x.double() - y.double()).abs().max()) for i, (x, y) in enumerate(pairs)
                     if not torch.equal(x, y)}
             out[k] = diff or True
@@ -238,7 +258,7 @@ def compare(a, b, cs):
                 ok = all(cs.scaled_err(x, t) <= 3.0 * cs.scaled_err(p, t) + 1e-4
                          for side in (a[k], b[k]) for x, p, t in zip(side, plain, truth))
             out[k] = dict(scaled_vs_parent=max(cs.scaled_err(x, y) for x, y in pairs), bars_hold=ok)
-        elif k.startswith("k2_bwd_frozen"):
+        else:  # K2's forward and frozen backward, K1's forward
             tol = 1e-10 if "_f64_" in k else 1e-4
             out[k] = dict(max_abs_vs_parent=max(float((x.double() - y.double()).abs().max()) for x, y in pairs),
                           bars_hold=all(torch.allclose(x, y, rtol=tol, atol=tol) for x, y in pairs))

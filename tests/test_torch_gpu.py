@@ -43,6 +43,74 @@ def test_torch_path_eval_kernels_match_reference_on_gpu(d):
         pe._fwd(ops[0], *ops[1:4], ops[4][:, :1], *ops[5:])
 
 
+def _path_eval_ops(rng, s, num_latent, b, m, d, dev):
+    """K1's operands at the pathwise path's scales (w and v pre-scaled)."""
+    f = lambda *shape: torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)  # noqa: E731
+    z = f(num_latent, m, d)
+    return (f(s, d), 0.05 * f(s, num_latent, b), 0.1 * f(s, num_latent, m), f(num_latent, b, d),
+            f(num_latent, b), z, (z * z).sum(-1), f(num_latent, d).abs() + 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1024, 1000, 33])
+@pytest.mark.parametrize("d", [6, 8, 12, 16])
+@pytest.mark.parametrize("num_latent", [1, 4])
+def test_torch_path_eval_forward_matches_reference_on_gpu(s, d, num_latent):
+    """K1a (a block per 32 particles and one latent, a warp per particle)
+    against the plain version: at S = 1024 with the pathwise path's B =
+    1024, M = 240 (16-byte weight copies), and at S = 1000 and 33 with B =
+    1000, M = 239 (M not a multiple of 4: element copies, padded groups;
+    a part-filled last block); every register width of the kernel (D <= 6,
+    <= 8, <= 16). rtol = atol = 1e-4, chip_smoke.py's bar. Two runs are
+    bit-identical (no atomics)."""
+    dev = _gpu_or_skip()
+    b, m = (1024, 240) if s == 1024 else (1000, 239)
+    ops = _path_eval_ops(np.random.default_rng(s + d + num_latent), s, num_latent, b, m, d, dev)
+    got = pe._fwd(*ops)
+    torch.testing.assert_close(got, pe.path_eval_reference(*ops), rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, pe._fwd(*ops))
+
+
+@pytest.mark.gpu
+def test_torch_path_eval_forward_cos_branches_on_gpu():
+    """K1a's bases take cos_fast where a group's arguments are within its
+    range and cosf() where they are not: |x . omega + phase| crosses 105615
+    in some groups and not in others. x, omega and phase are multiples of
+    1/16 small enough that every partial sum is exact in float32, so the
+    kernel and the plain version take cos of the same arguments (at 1e5 one
+    rounding of the argument moves cos by ~1e-2). Then weight rows that are
+    not 16-byte aligned (a view at an offset of one float) take the element
+    copies. rtol = atol = 1e-4."""
+    dev = _gpu_or_skip()
+    rng = np.random.default_rng(5)
+    s, num_latent, b, m, d = 64, 2, 256, 40, 6
+    ops = _path_eval_ops(rng, s, num_latent, b, m, d, dev)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    x = f(rng.integers(-3, 4, size=(s, d)))
+    omega = f(rng.integers(-2**19, 2**19, size=(num_latent, b, d)) / 16)
+    phase = f(rng.integers(0, 100, size=(num_latent, b)) / 16)
+    ops = (x, *ops[1:3], omega, phase, *ops[5:])
+    proj = torch.einsum("sd,lbd->slb", x.double(), omega.double()) + phase.double()
+    assert (proj.abs() > 105615).any() and (proj.abs() < 105615).any()
+    torch.testing.assert_close(pe._fwd(*ops), pe.path_eval_reference(*ops), rtol=1e-4, atol=1e-4)
+    w = torch.cat([ops[1].new_zeros(1), ops[1].flatten()])[1:].view(ops[1].shape)
+    assert w.is_contiguous() and w.data_ptr() % 16 != 0
+    ops = (ops[0], w, *ops[2:])
+    torch.testing.assert_close(pe._fwd(*ops), pe.path_eval_reference(*ops), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_torch_path_eval_backward_repeats_on_gpu():
+    """K1b and K1c at the pathwise path's shape: two runs bit-identical (no
+    atomics). Their outputs against the parent commit's, bit for bit, are
+    scripts/k3_bench.py --parent --only k1_'s check."""
+    dev = _gpu_or_skip()
+    ops = _path_eval_ops(np.random.default_rng(7), 1024, 4, 1024, 240, 6, dev)
+    g = torch.as_tensor(np.random.default_rng(8).normal(size=(1024, 4)), dtype=torch.float32, device=dev)
+    assert torch.equal(pe._bwd_dx(*ops, g), pe._bwd_dx(*ops, g))
+    assert all(torch.equal(a, b) for a, b in zip(pe._bwd_full(*ops, g), pe._bwd_full(*ops, g)))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n, p, d2, m, r", [(1, 10, 14, 240, 1), (3, 3, 14, 17, 1), (1, 1, 12, 30, 1),
@@ -55,8 +123,8 @@ def test_torch_pair_contract_kernels_match_reference_on_gpu(dtype, n, p, d2, m, 
     or of the frozen backward's 32-wide tiles: 17, 30, 45, 65, 129; M = 64
     exact tiles; a batch N > 1, D2 > 16). Each output is a sum of at most M
     terms taken in another order: rtol = atol = 1e-4 in float32, 1e-10 in
-    float64. Repeated full and frozen backward runs are bit-identical (no
-    atomics)."""
+    float64. Repeated forward, full and frozen backward runs are
+    bit-identical (no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from gpflowpilco_torch.ops import kexp_cuda as kc
@@ -91,6 +159,7 @@ def test_torch_pair_contract_kernels_match_reference_on_gpu(dtype, n, p, d2, m, 
     with pytest.raises(TypeError):  # mixed dtypes
         kc._fwd(su, sw, alu, qm.to(torch.float32 if dtype == torch.float64 else torch.float64))
     # repeated runs are bit-identical: no atomics
+    assert all(torch.equal(x, y) for x, y in zip(kc._fwd(su, sw, alu, qm), kc._fwd(su, sw, alu, qm)))
     for model in (True, False):
         a = kc._bwd(su, sw, alu, qm, devc, dqcol, model)
         b = kc._bwd(su, sw, alu, qm, devc, dqcol, model)

@@ -214,7 +214,7 @@ def test_torch_pair_contract_frozen_tile_split_matches_reference(n, p, d2, m, r)
     float64, to 1e-12 of each output's scale."""
     o = _operands(np.random.default_rng(1000 + m + r), n, p, d2, m, r=r)
     args = [t(o[k]) for k in ("su", "sw", "alu", "qm", "devc", "dqcol")]
-    got = _frozen_tile_split(*args, kc.FROZEN_TILE)
+    got = _frozen_tile_split(*args, kc.TILE)
     want = kc.pair_contract_reference_bwd(*args, False)
     for what, x, w in zip(("dsu", "dsw"), got, want[:2]):
         err = float((x - w).abs().max()) / float(w.abs().max())
@@ -223,10 +223,65 @@ def test_torch_pair_contract_frozen_tile_split_matches_reference(n, p, d2, m, r)
 
 def test_torch_pair_contract_frozen_partials_layout():
     """The frozen backward's scratch: two partial slabs per tile of M, (2,
-    N, P, ceil(M / FROZEN_TILE), D2, M), and none when one tile covers M
-    (the policy's M = 30 and a tile side of 32)."""
-    assert kc.FROZEN_TILE == 32
+    N, P, ceil(M / TILE), D2, M), and none when one tile covers M (the
+    policy's M = 30 and a tile side of 32)."""
+    assert kc.TILE == 32
     like = torch.zeros(1, dtype=torch.float64)
     assert kc.frozen_partials(1, 10, 14, 240, like).shape == (2, 1, 10, 8, 14, 240)
     assert kc.frozen_partials(3, 3, 14, 33, like).shape == (2, 3, 3, 2, 14, 33)
     assert kc.frozen_partials(1, 1, 12, 30, like).numel() == 0
+
+
+def _forward_tile_split(su, sw, alu, qm, tile):
+    """The stages of csrc/kexp_pair.cu's forward, in float64 torch: each
+    (n, p) grid cut into tile x tile cells; per tile, E evaluated once and
+    the column partials alu_tile E and colsum(qm_tile o E) over the tile's
+    rows into the slab of its row tile; then the slabs added in tile order
+    (with one tile, that slab is the result). Returns (evc, qcol)."""
+    m = su.shape[-1]
+    spans = [(i, min(i + tile, m)) for i in range(0, m, tile)]
+    n, p, r = su.shape[0], su.shape[1], alu.shape[1]
+    part = torch.zeros((len(spans), n, p, r + 1, m), dtype=su.dtype)
+    for ti, (i0, i1) in enumerate(spans):
+        for j0, j1 in spans:
+            e = torch.exp(-(su[..., i0:i1].mT @ sw[..., j0:j1]))
+            part[ti, :, :, :r, j0:j1] = alu[:, :, i0:i1] @ e
+            part[ti, :, :, r, j0:j1] = torch.sum(qm[:, i0:i1, j0:j1] * e, dim=-2)
+    total = part[0]
+    for slab in part[1:]:
+        total = total + slab
+    return total[:, :, :r], total[:, :, r]
+
+
+@pytest.mark.parametrize("n, p, d2, m, r", [
+    (1, 10, 14, 240, 1),  # the MM drift's shape
+    (3, 3, 14, 17, 1),    # below one tile, a batch N = 3
+    (2, 2, 20, 45, 1),    # D2 above 16
+    (1, 1, 12, 30, 1),    # the policy's shape
+    (1, 8, 14, 240, 4),   # the GPR route: 8 members on P, R = 4 rows of alpha^T
+])
+def test_torch_pair_contract_forward_tile_split_matches_reference(n, p, d2, m, r):
+    """The tile decomposition of K2's forward (E once per tile of the
+    kernel's side, evc's and qcol's column partials over the tile's rows,
+    added in row-tile order) against pair_contract_reference, in float64,
+    to 1e-12 of each output's scale."""
+    o = _operands(np.random.default_rng(2000 + m + r), n, p, d2, m, r=r)
+    args = [t(o[k]) for k in ("su", "sw", "alu", "qm")]
+    got = _forward_tile_split(*args, kc.TILE)
+    want = kc.pair_contract_reference(*args)
+    for what, x, w in zip(("evc", "qcol"), got, want):
+        assert x.shape == w.shape, what
+        err = float((x - w).abs().max()) / float(w.abs().max())
+        assert err <= 1e-12, (what, err)
+
+
+def test_torch_pair_contract_forward_partials_layout():
+    """The forward's scratch: one slab of R + 1 rows (evc's R, then qcol's)
+    per row tile, (N, P, ceil(M / TILE), R + 1, M), and none when one tile
+    covers M (the policy's M = 30 and a tile side of 32)."""
+    like = torch.zeros(1, dtype=torch.float64)
+    assert kc.forward_partials(1, 10, 240, 1, like).shape == (1, 10, 8, 2, 240)
+    assert kc.forward_partials(1, 8, 240, 4, like).shape == (1, 8, 8, 5, 240)
+    assert kc.forward_partials(3, 3, 33, 1, like).shape == (3, 3, 2, 2, 33)
+    assert kc.forward_partials(1, 1, 30, 1, like).numel() == 0
+    assert kc.forward_partials(2, 2, 32, 4, like).numel() == 0

@@ -140,3 +140,62 @@ def test_torch_path_eval_launch_counts_stay_zero_on_cpu():
     x = x.requires_grad_(True)
     pe.eval_paths_svgp_fused(model, paths, x).sum().backward()
     assert pe.launches == {"path_eval_fwd": 0, "path_eval_bwd_dx": 0, "path_eval_bwd_full": 0}
+
+
+def _forward_warp_split(x, w, v, omega, phase, z_scaled, z2, inv_ls):
+    """The order of csrc/path_eval.cu's forward, in torch: per (particle,
+    latent) the bases' terms cos(x . omega + phase) w and the centers'
+    exp(-|x~ - z~|^2 / 2) v, each row zero-padded to a multiple of 4 and
+    concatenated, cut into groups of 4 columns; lane j adds the groups j, j
+    + 32, ... in order (a group's 4 terms in order), and the 32 lane sums
+    meet by the butterfly (xor 16, 8, 4, 2, 1), read at lane 0. Returns f
+    (S, L)."""
+    proj, _, k = pe._proj_and_k(x, omega, phase, z_scaled, z2, inv_ls)
+    pad = lambda a: torch.nn.functional.pad(a, (0, -a.shape[-1] % 4))  # noqa: E731
+    terms = torch.cat([pad(torch.cos(proj) * w), pad(k * v)], dim=-1)
+    s, num_latent, cols = terms.shape
+    groups = torch.nn.functional.pad(terms.reshape(s, num_latent, cols // 4, 4), (0, 0, 0, -(cols // 4) % 32))
+    groups = groups.reshape(s, num_latent, -1, 32, 4)  # (..., item, lane, 4)
+    acc = torch.zeros((s, num_latent, 32), dtype=terms.dtype)
+    for item in range(groups.shape[2]):
+        for q in range(4):
+            acc = acc + groups[:, :, item, :, q]
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ off]
+    return acc[..., 0]
+
+
+@pytest.mark.parametrize("b, m, d", [(1024, 240, 6), (1000, 239, 6), (70, 19, 12), (9, 3, 16)])
+def test_torch_path_eval_forward_warp_split_matches_reference(b, m, d):
+    """K1a's lane-to-column partition and the order its sums meet (every
+    column once, the pads adding zeros) against path_eval_reference in
+    float64, to 1e-12 of the output's scale: at the pathwise path's B =
+    1024, M = 240, at B and M that are not multiples of 4 and 32, and below
+    one round of 32 groups."""
+    rng = np.random.default_rng(b + m + d)
+    s, num_latent = 8, 3
+    f = lambda *shape: torch.as_tensor(rng.normal(size=shape), dtype=torch.float64)  # noqa: E731
+    z = f(num_latent, m, d)
+    ops = (f(s, d), 0.05 * f(s, num_latent, b), 0.1 * f(s, num_latent, m), f(num_latent, b, d),
+           f(num_latent, b), z, (z * z).sum(-1), f(num_latent, d).abs() + 0.5)
+    got = _forward_warp_split(*ops)
+    want = pe.path_eval_reference(*ops)
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+
+
+def test_torch_path_eval_forward_plan():
+    """fwd_plan: the panels' chunk width is a multiple of 128 and covers all
+    columns in one chunk at the pathwise path's widths (1024 + 240 columns,
+    D = 6: 1280 wide, 101,376 bytes with the ring); where the columns
+    outgrow shared memory (D = 16, 2500 + 12 columns) it is the widest
+    multiple of 128 that fits, and the forward stages two chunks."""
+    assert pe.fwd_plan(1024, 240, 6) == (1280, pe.FWD_RING_BYTES + 7 * 4 * 1280)
+    assert pe.fwd_plan(1000, 239, 6)[0] == 1280
+    assert pe.fwd_plan(9, 3, 16)[0] == 128
+    cw, nbytes = pe.fwd_plan(2500, 10, 16)
+    assert cw == 2432 and -(-2512 // cw) == 2
+    for b, m, d in ((1024, 240, 6), (1000, 239, 12), (2500, 10, 16), (100000, 240, 6)):
+        cw, nbytes = pe.fwd_plan(b, m, d)
+        assert cw % 128 == 0 and 0 < nbytes <= pe.FWD_SMEM_MAX
+        assert nbytes + 4 * (d + 1) * 128 > pe.FWD_SMEM_MAX or cw >= b + m
