@@ -45,11 +45,15 @@
    grid), repeated forward and frozen-backward runs, and full-backward runs
    at N=8, must be bit-identical, and the device time of each stage of the
    tiled entries (tile sweep, finish, combine) and of the full backward
-   (groups, slot sum, combine) is printed from one profiler session. The
-   build prints ptxas's registers and spills of K1's, K2's, K3's, K3g's
-   and K6's kernels and fails if a float32 tile kernel at the main path's
-   register capacity spills (K3's and K3g's at 8, K2's forward and frozen
-   tiles at 16, K1's and K6's forwards at 6 and 8, K6's Jacobians at 8).
+   (groups, slot sum, combine) is printed from one profiler session. K5's
+   kernels sweep D <= 8 in the round-robin order, the plain version in the
+   cyclic one: where five cyclic sweeps have not converged, K5 is held
+   against eigvalsh's lambda_min at the same bar
+   (mm_glue_cuda.boosted_reference). The build prints ptxas's registers and
+   spills of K1's, K2's, K3's, K3g's, K5's and K6's kernels and fails if a
+   float32 tile kernel at the main path's register capacity spills (K3's
+   and K3g's at 8, K2's forward and frozen tiles at 16, K1's forward and
+   dx-only backward and K6's forward at 6 and 8, K6's Jacobians at 8).
 7. Whole-match slice: moment-matching PILCO on cartpole at full width with
    use_fused_match, float32 loop and loss: 8 random episodes, a drift fit,
    then one Adam policy update (counts zeroed just before, read just after;
@@ -838,23 +842,26 @@ def stage_ms(fn, reps=5):
 
 # kernels whose ptxas report chip_smoke prints: K3's (csrc/mm_match.cu),
 # K3g's (csrc/gpr_match.cu), K1's (csrc/path_eval.cu), K2's
-# (csrc/kexp_pair.cu) and K6's (csrc/rollout.cu)
+# (csrc/kexp_pair.cu), K5's (csrc/mm_glue.cu) and K6's (csrc/rollout.cu)
 PTXAS_K3 = ("svgp_fwd_tiles", "svgp_fwd_combine", "svgp_bwd_tiles", "svgp_bwd_finish", "svgp_bwd_combine",
             "bwd_groups", "svgp_bwd_slots")
 PTXAS_K3G = ("gpr_fwd_tiles", "fwd_combine", "gpr_bwd_tiles", "gpr_bwd_finish", "bwd_combine")
-PTXAS_K1 = ("fwd_warp", "bwd_kernel")
+PTXAS_K1 = ("fwd_warp", "bwd_warp", "bwd_finish", "bwd_kernel")
 PTXAS_K2 = ("fwd_tiles", "fwd_finish", "bwd_cols_kernel", "bwd_rows_kernel", "bwd_frozen_tiles",
             "bwd_frozen_finish")
+PTXAS_K5 = ("psd_kernel", "euler_kernel")
 PTXAS_K6 = ("fwd_panels", "fwd_warp", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads")
 # (library, its kernels, the tile kernels that must not spill in float32 at
 # the main path's register capacities, those capacities): K3's and K3g's at
 # D <= 8 (DM = 8), K2's forward and frozen tiles at D2 <= 16 (DM = 16), K1's
-# forward at D = 6 (the cartpole's) and D <= 8, K6's phase-1 Jacobian kernel
+# forward and dx-only backward at D = 6 (the cartpole's) and D <= 8, K5's
+# kernels printed only (one thread a matrix), K6's phase-1 Jacobian kernel
 # at Dxu <= 8 (DXU = 8) and its forward, both routes, at Dxu = 6 and <= 8
 PTXAS_LIBS = (("mm_match", PTXAS_K3, ("svgp_fwd_tiles", "svgp_bwd_tiles"), (8,)),
               ("gpr_match", PTXAS_K3G, ("gpr_fwd_tiles", "gpr_bwd_tiles"), (8,)),
               ("kexp_pair", PTXAS_K2, ("fwd_tiles", "bwd_frozen_tiles"), (16,)),
-              ("path_eval", PTXAS_K1, ("fwd_warp",), (6, 8)),
+              ("path_eval", PTXAS_K1, ("fwd_warp", "bwd_warp"), (6, 8)),
+              ("mm_glue", PTXAS_K5, (), ()),
               ("rollout", PTXAS_K6, ("bwd_jac", "fwd_warp"), (6, 8)))
 
 
@@ -862,13 +869,15 @@ def ptxas_report(text, kernels=PTXAS_K3):
     """[(kernel, 'f' | 'd', its integer and bool template arguments (the
     register capacity DM first, then a tile side or a route), registers,
     spill stores, spill loads)] from nvcc's -Xptxas -v output. A kernel
-    with no type parameter (K1's, float32 only) counts as 'f'."""
+    with no type parameter (K1's, float32 only) counts as 'f'; one with no
+    template arguments has none."""
     rows, name, spill = [], None, (0, 0)
-    pat = re.compile(r"\d+(" + "|".join(kernels) + r")I([fd])?((?:L[ib]\d+E)*)")
+    pat = re.compile(r"\d+(" + "|".join(kernels) + r")(?:I([fd])?((?:L[ib]\d+E)*)|E)")
     for line in text.splitlines():
         if "Compiling entry function" in line:
             m = pat.search(line)
-            name = (m.group(1), m.group(2) or "f", tuple(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3)))) if m else None
+            name = (m.group(1), m.group(2) or "f",
+                    tuple(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3) or ""))) if m else None
         elif name and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
             spill = (nums[1], nums[2])
@@ -889,9 +898,10 @@ def match_kernels_phase(mc, ec, gc, seed, device):
     version, its bound and (K5) torch.linalg.eigvalsh on the same batch.
 
     Bars: float64, 1e-9 (K3) and 1e-12 (K4, K5) of each output's scale.
-    float32 K4 and K5, 1e-5 of the scale (the same scalar graph, the same
-    Jacobi sweeps). float32 K3 is held, with its plain version, against the
-    float64 plain version of the same inputs: the kernel may miss that truth
+    float32 K4 and K5, 1e-5 of the scale (the same scalar graph, five
+    Jacobi sweeps; mm_glue_cuda.boosted_reference). float32 K3 is held,
+    with its plain version, against the float64 plain version of the same
+    inputs: the kernel may miss that truth
     by 3x what the plain float32 version does plus 1e-4 of the scale. At
     M=240 the Q o E contraction cancels digits (Q's entries reach 1e3-1e5),
     so a fixed float32 bar there would test the conditioning, not the
@@ -1048,12 +1058,13 @@ def match_kernels_phase(mc, ec, gc, seed, device):
         sxf4 = torch.as_tensor(0.1 * rng.normal(size=(1, 4, 4)), dtype=dtype, device=device)
         jitter = 1e-6 if dtype == torch.float32 else 0.0  # the solver's cov_jitter
         print(f"glue: psd boost N=1 D={GLUE_JOINT_D}, euler update N=1 D=4 {sfx}, bar {tol:g}:")
-        checks = [("psd_boost", "out", gc._psd(s6, 0.0), gc.psd_boost_reference(s6, 0.0))]
+        checks = [("psd_boost", "out", gc._psd(s6, 0.0), gc.boosted_reference(0.5 * (s6 + s6.mT), 0.0, tol))]
         for jit in (0.0, 1e-6):
             got = gc._euler(m4, s4, f14, sff4, sxf4, 1.0, jit)
-            want = gc.euler_update_reference(m4, s4, f14, sff4, sxf4, 1.0, jit)
+            want = gc.euler_update_reference(m4, s4, f14, sff4, sxf4, 1.0, 0.0)
             checks += [("euler_update", f"mean (jitter {jit:g})", got[0], want[0]),
-                       ("euler_update", f"cov (jitter {jit:g})", got[1], want[1])]
+                       ("euler_update", f"cov (jitter {jit:g})", got[1],
+                        gc.boosted_reference(want[1], jit, tol) if jit else want[1])]
         sync()
         for kind, what, a, b in checks:
             err = record(f"{kind}_{sfx}", a, b, what)
@@ -2083,7 +2094,7 @@ def fused_rollout_slice_phase(rc, pe, loop, seed, device, step_limit):
 
 # kernel-name fragments whose rows a profile prints on their own: this
 # repository's kernels and the eigenvalue solver behind psd_project's eigvalsh
-_WATCHED = ("fwd_warp", "bwd_kernel", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads",
+_WATCHED = ("fwd_warp", "bwd_warp", "bwd_kernel", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads",
             "bwd_cols_kernel", "bwd_rows_kernel", "bwd_finish", "fwd_finish",
             "bwd_frozen_tiles", "bwd_frozen_finish", "bwd_groups", "bwd_slots", "fwd_tiles", "bwd_tiles",
             "combine", "enc_fwd", "enc_bwd", "psd_kernel", "euler_kernel", "syev", "eig")
@@ -2213,7 +2224,7 @@ def main():
           f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items()) or 'cached'})")
 
     phase_s = {"build": time.perf_counter() - t0}
-    # ptxas: every K1, K2, K3, K3g and K6 kernel's registers and spills; a float32
+    # ptxas: every K1, K2, K3, K3g, K5 and K6 kernel's registers and spills; a float32
     # tile kernel at the main path's register capacity must not spill
     for lib, kernels, tiled, caps in PTXAS_LIBS:
         regs = ptxas_report(_build.compiler_output.get(lib, ""), kernels)

@@ -9,20 +9,28 @@
 // euler_update: new_m = m + dt f1
 //               C = sym(S + (dt (Sxf + Sxf^T) + dt^2 Sff)), then the same boost
 //               when `project` (jitter != 0); symmetrize only otherwise.
-// lambda_min comes from five cyclic Jacobi sweeps in the order and with the
-// Golub-Van Loan tangent of mm_glue_pallas._jacobi_min_eig (:33-68), so the
-// plain torch version (ops/mm_glue_cuda.py) and this kernel agree to
-// rounding. The boost is stop-gradient: the backwards are plain torch.
+// lambda_min comes from five Jacobi sweeps, each rotating every pair (p, q)
+// once, with the Golub-Van Loan tangent of mm_glue_pallas._jacobi_min_eig
+// (:33-68). The boost is stop-gradient: the backwards are plain torch.
 //
 // Bound on an H100: a 6 x 6 matrix is 288 bytes in float64 and ~5 x 15
 // rotations of ~40 operations, far below one launch's cost, so both kernels
-// are launch- and latency-bound. Design: one thread per batch entry; the
-// D x D matrix sits in registers, with every loop over a capacity DM in
-// {4, 8, 16} guarded by the runtime D and, at DM = 4 and 8, unrolled, so all
-// indices are compile-time constants. At DM = 16 (D in 9..16, on no path)
-// the loops stay loops and the matrix lives in local memory: unrolled, that
-// instantiation made most of the build time. The sweep loop is not
-// unrolled, which keeps the code small.
+// are latency-bound: at N = 1 the time is the chain of dependent rotations,
+// each angle an sqrt, a divide and an rsqrt in sequence. Design: one thread
+// per batch entry, the matrix in registers. For D <= 8 the kernels are
+// instantiated on the exact D (DM = D, no runtime guards) and a sweep runs
+// in the round-robin order (jacobi_rounds): D - 1 rounds (D rounds for odd
+// D) of disjoint pairs, whose angles read disjoint entries and so are
+// computed together as independent instruction streams, then applied one
+// after the other. A sweep's chain is then one angle a round: 5 at D = 6,
+// against 15 in the cyclic order. Float32 takes the angle's square root and
+// divide from the SFU (sqrt.approx, __fdividef); float64 stays IEEE. The
+// order differs from the JAX kernel's row-cyclic one, so the two agree to
+// rounding once the sweeps have converged (ops/mm_glue_cuda.py:
+// jacobi_rounds; tests/test_torch_mm_glue.py restates it). D in 9..16 (on
+// no path) keeps the cyclic order in loops over the capacity DM = 16
+// guarded by the runtime D; its matrix lives in local memory. The sweep
+// loop is not unrolled, which keeps the code small.
 //
 // Each entry returns cudaGetLastError() as an int; the caller raises on
 // nonzero. Entries launch on the given stream and do not synchronise.
@@ -38,14 +46,97 @@ constexpr int kSweeps = 5;
 // unroll up to DM = 8, a runtime loop at DM = 16.
 #define UNROLL_DM _Pragma("unroll (DM <= 8 ? DM : 1)")
 
-__device__ __forceinline__ float rs(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double rs(double x) { return rsqrt(x); }
-__device__ __forceinline__ float sq(float x) { return sqrtf(x); }
-__device__ __forceinline__ double sq(double x) { return sqrt(x); }
+// The rotation (c, s) that zeroes a[p][q] (Golub-Van Loan tangent); float32
+// with the SFU's square root and divide (the #else branch is what a host
+// compiler sees), float64 IEEE.
+__device__ __forceinline__ void angle(float app, float aqq, float apq, float& c, float& s) {
+  const float h = aqq - app;
+  const float sgn = h < 0.f ? -1.f : 1.f;
+  float root = h * h + 4.f * apq * apq;
+#ifdef __CUDA_ARCH__
+  asm("sqrt.approx.f32 %0, %0;" : "+f"(root));
+#else
+  root = sqrtf(root);
+#endif
+  const float t = __fdividef(2.f * apq * sgn, fabsf(h) + root + 1e-37f);
+  c = rsqrtf(1.f + t * t);
+  s = t * c;
+}
+__device__ __forceinline__ void angle(double app, double aqq, double apq, double& c, double& s) {
+  const double h = aqq - app;
+  const double sgn = h < 0.0 ? -1.0 : 1.0;
+  const double t = 2.0 * apq * sgn / (fabs(h) + sqrt(h * h + 4.0 * apq * apq) + 1e-37);
+  c = rsqrt(1.0 + t * t);
+  s = t * c;
+}
 
-// Smallest eigenvalue of the symmetric d x d block of a (destroyed).
+// The round-robin (circle) order of the pairs of 0..D-1: n = D rounded up
+// to even; round r < n - 1 pairs r with n - 1 and (r + k) mod (n - 1) with
+// (r - k) mod (n - 1) for k = 1 .. n/2 - 1; a pair holding n - 1 = D (odd
+// D) is skipped. rr_p < rr_q are slot k's pair (mm_glue_cuda.jacobi_rounds).
+__host__ __device__ constexpr int rr_a(int d, int r, int k) {
+  return k == 0 ? r : (r + k) % (d + (d & 1) - 1);
+}
+__host__ __device__ constexpr int rr_b(int d, int r, int k) {
+  return k == 0 ? d + (d & 1) - 1 : (r - k + d + (d & 1) - 1) % (d + (d & 1) - 1);
+}
+__host__ __device__ constexpr int rr_p(int d, int r, int k) {
+  return rr_a(d, r, k) < rr_b(d, r, k) ? rr_a(d, r, k) : rr_b(d, r, k);
+}
+__host__ __device__ constexpr int rr_q(int d, int r, int k) {
+  return rr_a(d, r, k) < rr_b(d, r, k) ? rr_b(d, r, k) : rr_a(d, r, k);
+}
+
+// a <- J^T a J for the rotation (c, s) in the (p, q) plane, a[p][q] set to 0
+template <typename T, int D>
+__device__ __forceinline__ void rotate(T (&a)[D][D], int p, int q, T c, T s) {
+  const T apq = a[p][q], app = a[p][p], aqq = a[q][q];
+  a[p][p] = c * c * app - T(2) * s * c * apq + s * s * aqq;
+  a[q][q] = s * s * app + T(2) * s * c * apq + c * c * aqq;
+  a[p][q] = T(0);
+  a[q][p] = T(0);
+#pragma unroll
+  for (int r = 0; r < D; ++r) {
+    if (r != p && r != q) {
+      const T arp = a[r][p], arq = a[r][q];
+      a[r][p] = c * arp - s * arq;
+      a[p][r] = a[r][p];
+      a[r][q] = s * arp + c * arq;
+      a[q][r] = a[r][q];
+    }
+  }
+}
+
+// Smallest eigenvalue of the symmetric D x D matrix a (destroyed), D <= 8:
+// five sweeps of round-robin rounds.
+template <typename T, int D>
+__device__ __forceinline__ T jacobi_rounds(T (&a)[D][D]) {
+  constexpr int n = D + (D & 1), K = n / 2;
+#pragma unroll 1
+  for (int sweep = 0; sweep < kSweeps; ++sweep) {
+#pragma unroll
+    for (int r = 0; r < n - 1; ++r) {
+      T c[K], s[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k)  // the round's angles: disjoint entries, independent
+        if (rr_q(D, r, k) < D) angle(a[rr_p(D, r, k)][rr_p(D, r, k)], a[rr_q(D, r, k)][rr_q(D, r, k)],
+                                     a[rr_p(D, r, k)][rr_q(D, r, k)], c[k], s[k]);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (rr_q(D, r, k) < D) rotate(a, rr_p(D, r, k), rr_q(D, r, k), c[k], s[k]);
+    }
+  }
+  T lam = a[0][0];
+#pragma unroll
+  for (int i = 1; i < D; ++i) lam = fmin(lam, a[i][i]);
+  return lam;
+}
+
+// Smallest eigenvalue of the symmetric d x d block of a (destroyed), d <=
+// DM: five cyclic sweeps in the JAX kernel's order over the capacity DM
+// (rows and columns past d are zero and stay zero)
 template <typename T, int DM>
-__device__ __forceinline__ T jacobi_min_eig(T (&a)[DM][DM], int d) {
+__device__ __forceinline__ T jacobi_cyclic(T (&a)[DM][DM], int d) {
 #pragma unroll 1
   for (int sweep = 0; sweep < kSweeps; ++sweep) {
 UNROLL_DM
@@ -53,27 +144,9 @@ UNROLL_DM
 UNROLL_DM
       for (int q = 0; q < DM; ++q) {
         if (q > p && q < d) {
-          const T apq = a[p][q], app = a[p][p], aqq = a[q][q];
-          const T h = aqq - app;
-          const T sgn = h < T(0) ? T(-1) : T(1);
-          const T denom = fabs(h) + sq(h * h + T(4) * apq * apq) + T(1e-37);
-          const T t = T(2) * apq * sgn / denom;
-          const T c = rs(T(1) + t * t);
-          const T s = t * c;
-          a[p][p] = c * c * app - T(2) * s * c * apq + s * s * aqq;
-          a[q][q] = s * s * app + T(2) * s * c * apq + c * c * aqq;
-          a[p][q] = T(0);
-          a[q][p] = T(0);
-UNROLL_DM
-          for (int r = 0; r < DM; ++r) {
-            if (r < d && r != p && r != q) {
-              const T arp = a[r][p], arq = a[r][q];
-              a[r][p] = c * arp - s * arq;
-              a[p][r] = a[r][p];
-              a[r][q] = s * arp + c * arq;
-              a[q][r] = a[r][q];
-            }
-          }
+          T c, s;
+          angle(a[p][p], a[q][q], a[p][q], c, s);
+          rotate(a, p, q, c, s);
         }
       }
     }
@@ -83,6 +156,16 @@ UNROLL_DM
   for (int i = 1; i < DM; ++i)
     if (i < d) lam = fmin(lam, a[i][i]);
   return lam;
+}
+
+// lambda_min of the symmetric d x d block of a (destroyed): the exact-D
+// round-robin sweeps for DM <= 8 (then d == DM), else the cyclic ones
+template <typename T, int DM>
+__device__ __forceinline__ T jacobi_min_eig(T (&a)[DM][DM], int d) {
+  if constexpr (DM <= 8)
+    return jacobi_rounds<T, DM>(a);
+  else
+    return jacobi_cyclic<T, DM>(a, d);
 }
 
 // sym (d x d, registers) -> out + boost on the diagonal.
@@ -102,9 +185,11 @@ UNROLL_DM
       if (i < d && j < d) out[i * d + j] = i == j ? sym[i][j] + boost : sym[i][j];
 }
 
+// DM: the exact D for D <= 8 (d_arg is then DM), else the capacity 16
 template <typename T, int DM>
 __global__ void __launch_bounds__(kThreads) psd_kernel(const T* __restrict__ s, T* __restrict__ out,
-                                                      int N, int d, T jitter) {
+                                                      int N, int d_arg, T jitter) {
+  const int d = DM <= 8 ? DM : d_arg;
   const int n = blockIdx.x * kThreads + threadIdx.x;
   if (n >= N) return;
   const T* sn = s + (size_t)n * d * d;
@@ -121,7 +206,8 @@ template <typename T, int DM>
 __global__ void __launch_bounds__(kThreads) euler_kernel(
     const T* __restrict__ m, const T* __restrict__ s, const T* __restrict__ f1,
     const T* __restrict__ sff, const T* __restrict__ sxf, T* __restrict__ nm, T* __restrict__ nc,
-    int N, int d, T dt, T jitter, bool project) {
+    int N, int d_arg, T dt, T jitter, bool project) {
+  const int d = DM <= 8 ? DM : d_arg;
   const int n = blockIdx.x * kThreads + threadIdx.x;
   if (n >= N) return;
   const size_t v = (size_t)n * d, mat = (size_t)n * d * d;
@@ -158,16 +244,25 @@ UNROLL_DM
 
 inline int blocks(int N) { return (N + kThreads - 1) / kThreads; }
 
+// kernel<T, D> for D <= 8, kernel<T, 16> beyond: the exact-D instantiation
+#define MM_GLUE_DISPATCH(KERNEL, T, ...)                                                  \
+  switch (d) {                                                                           \
+    case 1: KERNEL<T, 1><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
+    case 2: KERNEL<T, 2><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
+    case 3: KERNEL<T, 3><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
+    case 4: KERNEL<T, 4><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
+    case 5: KERNEL<T, 5><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
+    case 6: KERNEL<T, 6><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
+    case 7: KERNEL<T, 7><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
+    case 8: KERNEL<T, 8><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
+    default: KERNEL<T, 16><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__);                \
+  }
+
 template <typename T>
 int launch_psd(const T* s, T* out, int N, int d, double jitter, void* stream) {
   if (N <= 0 || d <= 0 || d > 16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (d <= 4)
-    psd_kernel<T, 4><<<blocks(N), kThreads, 0, st>>>(s, out, N, d, (T)jitter);
-  else if (d <= 8)
-    psd_kernel<T, 8><<<blocks(N), kThreads, 0, st>>>(s, out, N, d, (T)jitter);
-  else
-    psd_kernel<T, 16><<<blocks(N), kThreads, 0, st>>>(s, out, N, d, (T)jitter);
+  MM_GLUE_DISPATCH(psd_kernel, T, s, out, N, d, (T)jitter)
   return (int)cudaGetLastError();
 }
 
@@ -177,15 +272,7 @@ int launch_euler(const T* m, const T* s, const T* f1, const T* sff, const T* sxf
   if (N <= 0 || d <= 0 || d > 16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const bool project = jitter != 0.0;
-  if (d <= 4)
-    euler_kernel<T, 4><<<blocks(N), kThreads, 0, st>>>(m, s, f1, sff, sxf, nm, nc, N, d, (T)dt,
-                                                       (T)jitter, project);
-  else if (d <= 8)
-    euler_kernel<T, 8><<<blocks(N), kThreads, 0, st>>>(m, s, f1, sff, sxf, nm, nc, N, d, (T)dt,
-                                                       (T)jitter, project);
-  else
-    euler_kernel<T, 16><<<blocks(N), kThreads, 0, st>>>(m, s, f1, sff, sxf, nm, nc, N, d, (T)dt,
-                                                        (T)jitter, project);
+  MM_GLUE_DISPATCH(euler_kernel, T, m, s, f1, sff, sxf, nm, nc, N, d, (T)dt, (T)jitter, project)
   return (int)cudaGetLastError();
 }
 

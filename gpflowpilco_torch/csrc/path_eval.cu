@@ -36,11 +36,25 @@
 // cos_fast (range reduction, then the SFU's __cosf) for a group whose
 // arguments are within kCosFast, else cosf().
 //
-// Backward (bwd_kernel): one block takes a tile of kTile particles and
-// loops over the latents; its threads stride over B and then over M, so
-// each omega and z row read from L2 serves kTile particles. D <= 16 is
-// held in registers (the template DM pads it with zeros, which add exact
-// zeros to every dot product). Per-thread partial sums meet in a
+// dx-only backward (bwd_warp, K1b): the forward's grid, staging, weight
+// stream and lane-to-column partition. Once staged, the centers' rows are
+// scaled by il_l in place, so that one sum per coordinate takes both kinds
+// of column. Per group of 4 columns a lane recomputes the dots from the
+// panels, then adds c_q times the group's rows: the bases' c = -sin(proj) w
+// (sin_fast: the forward's range reduction and the SFU's __sinf, under the
+// same kCosFast test, else sinf()), the centers' kv = exp(-d2 / 2) v, also
+// summed alone. At D <= 6 four of the rows stay in registers from the
+// dots. The lane sums meet by butterfly and lane 0 forms g[s,l] (acc - sum
+// kv x~ il_l): g is a per-(s, l) scalar, applied once. With L > 1 each
+// block writes its latent's partial dx_l into a (L, S, D) scratch and
+// bwd_finish adds l = 0 .. L-1 in order (no float atomics); with L = 1 the
+// block writes dx itself.
+//
+// Full backward (bwd_kernel, K1c): one block takes a tile of kTile
+// particles and loops over the latents; its threads stride over B and then
+// over M, so each omega and z row read from L2 serves kTile particles. D <=
+// 16 is held in registers (the template DM pads it with zeros, which add
+// exact zeros to every dot product). Per-thread partial sums meet in a
 // warp-shuffle plus shared-memory block reduction.
 //
 // The |x|^2+|z|^2-2x.z cancellation stays in full float32 (no fast math),
@@ -106,14 +120,16 @@ constexpr int kRing = 4;   // a lane's weight groups in flight (path_eval_cuda.F
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block may take (FWD_SMEM_MAX)
 constexpr float kCosFast = 105615.0f;
 
-// cos(x) for |x| <= kCosFast: x = 2 pi k + r (Cody-Waite, FMA), r in
-// [-pi, pi], then the SFU's cos (absolute error 2^-21.41 there)
-__device__ __forceinline__ float cos_fast(float x) {
+// x - 2 pi k in [-pi, pi] for |x| <= kCosFast (Cody-Waite, FMA)
+__device__ __forceinline__ float reduce_2pi(float x) {
   const float k = rintf(x * 0.159154943f);
-  float r = fmaf(k, -6.28318548f, x);  // 2 pi in float32, then the rest
-  r = fmaf(k, 1.74845553e-7f, r);
-  return __cosf(r);
+  const float r = fmaf(k, -6.28318548f, x);  // 2 pi in float32, then the rest
+  return fmaf(k, 1.74845553e-7f, r);
 }
+// cos(x) and sin(x) for |x| <= kCosFast: the reduced argument, then the
+// SFU's cos or sin (absolute error about 2^-21 on [-pi, pi])
+__device__ __forceinline__ float cos_fast(float x) { return __cosf(reduce_2pi(x)); }
+__device__ __forceinline__ float sin_fast(float x) { return __sinf(reduce_2pi(x)); }
 
 __device__ __forceinline__ void lds4(float (&r)[4], const float* p) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -152,9 +168,10 @@ __device__ __forceinline__ void cp_async_wait() {
 #endif
 }
 
-struct FwdArgs {
+struct Args {
   const float *x, *w, *v, *omega, *phase, *z, *z2, *il;
-  float* out;
+  const float* g;      // the backward's cotangent (S, L)
+  float* out;          // f (S, L); the backward's dx (S, D) at L = 1, else its partials (L, S, D)
   int S, L, B, M, D;
   int bw, mw, cw;      // B and M rounded up to 4; the panels' chunk width
   bool vec_w, vec_v;   // w's and v's rows are 16-byte aligned
@@ -163,7 +180,7 @@ struct FwdArgs {
 // Issue the cp.async copies of columns [c0, c0 + cw) of latent l's panels
 // (rows 0..D of a.cw floats), reading each table in its own order, as one
 // commit group; zero the pads.
-__device__ __forceinline__ void stage_panels(float* pan, const FwdArgs& a, int l, int c0) {
+__device__ __forceinline__ void stage_panels(float* pan, const Args& a, int l, int c0) {
   const int tid = threadIdx.x, nth = blockDim.x, D = a.D, cw = a.cw;
   // i / D as umulhi(i, ceil(2^32 / D)) for D > 1: exact for i < 2^16 (a
   // chunk holds fewer than 2^16 / D columns: fwd_plan)
@@ -205,11 +222,11 @@ struct WStream {
   const float *w, *v;  // the particle's rows of w and v
   float* slot;         // the lane's slot of item 0; the next are 4 blockDim.x floats on
 
-  __device__ WStream(const FwdArgs& a, float* ring, int s, int l)
+  __device__ WStream(const Args& a, float* ring, int s, int l)
       : w(a.w + ((size_t)s * a.L + l) * a.B), v(a.v + ((size_t)s * a.L + l) * a.M),
         slot(ring + 4 * threadIdx.x) {}
   __device__ float* at(int item) const { return slot + (item & (kRing - 1)) * 4 * blockDim.x; }
-  __device__ void issue(const FwdArgs& a, int item) {
+  __device__ void issue(const Args& a, int item) {
     const int c = 4 * ((threadIdx.x & 31) + 32 * item);
     if (c < a.bw + a.mw) {
       const bool base = c < a.bw;
@@ -225,7 +242,7 @@ struct WStream {
     cp_async_commit();
   }
   // item's weights, once its copy has landed; then the copy kRing ahead
-  __device__ void take(const FwdArgs& a, float (&wv)[4], int item) {
+  __device__ void take(const Args& a, float (&wv)[4], int item) {
     cp_async_wait<kRing - 1>();
     lds4(wv, at(item));
     issue(a, item + kRing);
@@ -237,7 +254,7 @@ struct WStream {
 // a thread), then the panels ((D + 1) x cw floats). x is scaled by il_l in
 // place at the lane's first centers group.
 template <int DM>
-__global__ void __launch_bounds__(kTP * 32, 1) fwd_warp(const FwdArgs a) {
+__global__ void __launch_bounds__(kTP * 32, 1) fwd_warp(const Args a) {
   extern __shared__ __align__(16) unsigned char fwd_smem[];
   float* ring = reinterpret_cast<float*>(fwd_smem);
   float* pan = ring + (size_t)kRing * 4 * blockDim.x;
@@ -312,7 +329,145 @@ __global__ void __launch_bounds__(kTP * 32, 1) fwd_warp(const FwdArgs a) {
   if (lane == 0 && s < a.S) a.out[(size_t)s * a.L + l] = total;
 }
 
-template <int DM, bool WANT_WV>
+// The dx-only backward on the forward's grid and staging: warp u takes
+// particle kTP blockIdx.x + u of latent blockIdx.y; dynamic shared memory
+// as fwd_warp's. Once staged, the centers' coordinate rows are scaled by
+// il_l in place, so that x . (z~ il) = x~ . z~ and kv (z~ il) is the
+// centers' term of dx before the x~ part: x stays unscaled and one sum acc
+// takes -sin(proj) w omega over the bases and kv z~ il over the centers,
+// kvsum the centers' kv. At DM <= 6 the first kHeld = 4 panel rows of a
+// group stay in registers from the dots to the update and the others are
+// read again; wider, all are read again (more held rows spill at 64
+// registers a thread). A group past kCosFast reads them all again, so
+// that sinf() finds its registers free.
+template <int DM>
+__global__ void __launch_bounds__(kTP * 32, 1) bwd_warp(const Args a) {
+  constexpr int kHeld = DM <= 6 ? 4 : 0;  // rows kept in registers from the dots
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  float* ring = reinterpret_cast<float*>(bwd_smem);
+  float* pan = ring + (size_t)kRing * 4 * blockDim.x;
+  const int l = blockIdx.y, lane = threadIdx.x & 31, D = a.D;
+  const int s = blockIdx.x * kTP + (threadIdx.x >> 5);
+  const int cols = a.bw + a.mw;
+  const int items = s < a.S ? (cols / 4 - lane + 31) / 32 : 0;  // this lane's groups
+  WStream ws(a, ring, s, l);
+  for (int k = 0; k < kRing && s < a.S; ++k) ws.issue(a, k);
+
+  float x[DM], x2 = 0.f, acc[DM], kvsum = 0.f;
+#pragma unroll
+  for (int d = 0; d < DM; ++d) {
+    x[d] = (d < D && s < a.S) ? a.x[(size_t)s * D + d] : 0.f;
+    const float xs = d < D ? x[d] * a.il[(size_t)l * D + d] : 0.f;
+    x2 = fmaf(xs, xs, x2);
+    acc[d] = 0.f;
+  }
+
+  int k = 0;
+  for (int c0 = 0; c0 < cols; c0 += a.cw) {
+    if (c0) __syncthreads();  // the previous chunk is consumed
+    stage_panels(pan, a, l, c0);
+    cp_async_wait<0>();
+    __syncthreads();
+    const int j0 = max(a.bw - c0, 0), j1 = min(a.bw + a.mw - c0, a.cw);  // the chunk's centers
+    if (j0 < j1) {
+      for (int i = threadIdx.x; i < D * (j1 - j0); i += blockDim.x) {
+        const int d = i / (j1 - j0);
+        pan[d * a.cw + j0 + i - d * (j1 - j0)] *= a.il[(size_t)l * D + d];
+      }
+      __syncthreads();
+    }
+    const int kend = min(k + a.cw / 128, items);
+    for (; k < kend; ++k) {
+      float wv[4];
+      ws.take(a, wv, k);
+      const int c = 4 * (lane + 32 * k), j = c - c0;
+      const bool base = c < a.bw;
+      // dt: the bases' x . omega + phase, the centers' x~ . z~ - (|x~|^2 +
+      // |z~|^2) / 2 = -|x~ - z~|^2 / 2; o: the first kHeld rows
+      float dt[4], cq[4], o[kHeld ? kHeld : 1][4];
+      lds4(dt, pan + D * a.cw + j);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dt[q] = base ? dt[q] : -0.5f * (x2 + dt[q]);
+#pragma unroll
+      for (int d = 0; d < DM; ++d) {
+        if (d < D) {
+          float row[4];
+          lds4(row, pan + d * a.cw + j);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            dt[q] = fmaf(x[d], row[q], dt[q]);
+            if (d < kHeld) o[d < kHeld ? d : 0][q] = row[q];
+          }
+        }
+      }
+      // acc += c_q times the group's rows, held or read again
+      const auto add_rows = [&](bool held) {
+#pragma unroll
+        for (int d = 0; d < DM; ++d) {
+          if (d < D) {
+            float row[4];
+            if (held && d < kHeld) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) row[q] = o[d < kHeld ? d : 0][q];
+            } else {
+              lds4(row, pan + d * a.cw + j);
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[d] = fmaf(cq[q], row[q], acc[d]);
+          }
+        }
+      };
+      if (base) {  // bases: c_q = -sin(x . omega + phase) w
+        float big = 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) big = fmaxf(big, fabsf(dt[q]));
+        if (big <= kCosFast) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) cq[q] = -sin_fast(dt[q]) * wv[q];
+          add_rows(true);
+        } else {  // rows read again, so that sinf() finds its registers free
+#pragma unroll
+          for (int q = 0; q < 4; ++q) cq[q] = -sinf(dt[q]) * wv[q];
+          add_rows(false);
+        }
+      } else {  // centers: kv_q = exp(-|x~ - z~|^2 / 2) v
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          cq[q] = expf(fminf(dt[q], 0.f)) * wv[q];
+          kvsum += cq[q];
+        }
+        add_rows(true);
+      }
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < DM; ++d)
+    if (d < D) acc[d] = warp_sum(acc[d]);
+  kvsum = warp_sum(kvsum);
+  if (lane == 0 && s < a.S) {  // g (acc - kvsum x~ il)
+    const float gl = a.g[(size_t)s * a.L + l];
+    float* out = a.out + ((a.L == 1 ? 0 : (size_t)l * a.S) + s) * D;
+#pragma unroll
+    for (int d = 0; d < DM; ++d) {
+      if (d < D) {
+        const float il = a.il[(size_t)l * D + d];
+        out[d] = gl * fmaf(-kvsum * (x[d] * il), il, acc[d]);
+      }
+    }
+  }
+}
+
+// dx[i] = sum_l part[l, i] over l = 0 .. L-1 in order, i over S x D
+__global__ void bwd_finish(const float* __restrict__ part, float* __restrict__ dx, int n, int L) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float t = part[i];
+  for (int l = 1; l < L; ++l) t += part[(size_t)l * n + i];
+  dx[i] = t;
+}
+
+// The full backward (K1c): dx, dw and dv
+template <int DM>
 __global__ void __launch_bounds__(kThreads) bwd_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ v, const float* __restrict__ omega,
@@ -357,7 +512,7 @@ __global__ void __launch_bounds__(kThreads) bwd_kernel(
           const float c = gl[p] * (sn * w[i]);
 #pragma unroll
           for (int d = 0; d < DM; ++d) acc[p * DM + d] = fmaf(-c, o[d], acc[p * DM + d]);
-          if (WANT_WV) dw[i] = cs * gl[p];
+          dw[i] = cs * gl[p];
         }
       }
     }
@@ -390,7 +545,7 @@ __global__ void __launch_bounds__(kThreads) bwd_kernel(
           kvsum[p] += kv;
 #pragma unroll
           for (int d = 0; d < DM; ++d) acc[p * DM + d] = fmaf(kv * ilr[d], zr[d], acc[p * DM + d]);
-          if (WANT_WV) dv[i] = k * gl[p];
+          dv[i] = k * gl[p];
         }
       }
     }
@@ -416,16 +571,23 @@ inline bool bad_shape(int S, int L, int B, int M, int D) {
   return S <= 0 || L <= 0 || B <= 0 || M <= 0 || D <= 0 || D > kMaxD;
 }
 
-template <int DM>
-int launch_fwd_warp(const FwdArgs& a, cudaStream_t st) {
+// fwd_warp or bwd_warp on (ceil(S / kTP), L) blocks
+int launch_warp(void (*kernel)(Args), const Args& a, cudaStream_t st) {
   constexpr int threads = kTP * 32;
   const size_t bytes = ((size_t)kRing * 4 * threads + (size_t)(a.D + 1) * a.cw) * sizeof(float);
   if (bytes > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  const int err = (int)cudaFuncSetAttribute(fwd_warp<DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                            (int)bytes);
+  const int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err) return err;
-  fwd_warp<DM><<<dim3((a.S + kTP - 1) / kTP, a.L), threads, bytes, st>>>(a);
+  kernel<<<dim3((a.S + kTP - 1) / kTP, a.L), threads, bytes, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+Args make_args(const float* x, const float* w, const float* v, const float* omega, const float* phase,
+               const float* z, const float* z2, const float* il, const float* g, float* out,
+               int S, int L, int B, int M, int D, int cw) {
+  return Args{x, w, v, omega, phase, z, z2, il, g, out, S, L, B, M, D, (B + 3) / 4 * 4, (M + 3) / 4 * 4, cw,
+              B % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0,
+              M % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0};
 }
 
 }  // namespace
@@ -437,28 +599,29 @@ extern "C" int path_eval_fwd(const float* x, const float* w, const float* v,
                              float* out, int S, int L, int B, int M, int D, int cw,
                              void* stream) {
   if (bad_shape(S, L, B, M, D) || cw <= 0 || cw % 128) return (int)cudaErrorInvalidValue;
-  const FwdArgs a{x, w, v, omega, phase, z, z2, il, out, S, L, B, M, D, (B + 3) / 4 * 4, (M + 3) / 4 * 4, cw,
-                  B % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0,
-                  M % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0};
+  const Args a = make_args(x, w, v, omega, phase, z, z2, il, nullptr, out, S, L, B, M, D, cw);
   cudaStream_t st = (cudaStream_t)stream;
-  if (D <= 6) return launch_fwd_warp<6>(a, st);
-  if (D <= 8) return launch_fwd_warp<8>(a, st);
-  return launch_fwd_warp<16>(a, st);
+  if (D <= 6) return launch_warp(fwd_warp<6>, a, st);
+  if (D <= 8) return launch_warp(fwd_warp<8>, a, st);
+  return launch_warp(fwd_warp<16>, a, st);
 }
 
+// part: the (L, S, D) scratch of the per-latent partials (unused at L = 1);
+// cw as path_eval_fwd's
 extern "C" int path_eval_bwd_dx(const float* x, const float* w, const float* v,
                                 const float* omega, const float* phase,
                                 const float* z, const float* z2, const float* il,
-                                const float* g, float* dx,
-                                int S, int L, int B, int M, int D, void* stream) {
-  if (bad_shape(S, L, B, M, D)) return (int)cudaErrorInvalidValue;
+                                const float* g, float* dx, float* part,
+                                int S, int L, int B, int M, int D, int cw, void* stream) {
+  if (bad_shape(S, L, B, M, D) || cw <= 0 || cw % 128) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(x, w, v, omega, phase, z, z2, il, g, L == 1 ? dx : part, S, L, B, M, D, cw);
   cudaStream_t st = (cudaStream_t)stream;
-  if (D <= 8)
-    bwd_kernel<8, false><<<grid_for(S), kThreads, 0, st>>>(
-        x, w, v, omega, phase, z, z2, il, g, dx, nullptr, nullptr, S, L, B, M, D);
-  else
-    bwd_kernel<16, false><<<grid_for(S), kThreads, 0, st>>>(
-        x, w, v, omega, phase, z, z2, il, g, dx, nullptr, nullptr, S, L, B, M, D);
+  const int err = D <= 6 ? launch_warp(bwd_warp<6>, a, st)
+                  : D <= 8 ? launch_warp(bwd_warp<8>, a, st)
+                           : launch_warp(bwd_warp<16>, a, st);
+  if (err || L == 1) return err;
+  const int n = S * D;
+  bwd_finish<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(part, dx, n, L);
   return (int)cudaGetLastError();
 }
 
@@ -470,10 +633,10 @@ extern "C" int path_eval_bwd_full(const float* x, const float* w, const float* v
   if (bad_shape(S, L, B, M, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (D <= 8)
-    bwd_kernel<8, true><<<grid_for(S), kThreads, 0, st>>>(
+    bwd_kernel<8><<<grid_for(S), kThreads, 0, st>>>(
         x, w, v, omega, phase, z, z2, il, g, dx, dw, dv, S, L, B, M, D);
   else
-    bwd_kernel<16, true><<<grid_for(S), kThreads, 0, st>>>(
+    bwd_kernel<16><<<grid_for(S), kThreads, 0, st>>>(
         x, w, v, omega, phase, z, z2, il, g, dx, dw, dv, S, L, B, M, D);
   return (int)cudaGetLastError();
 }

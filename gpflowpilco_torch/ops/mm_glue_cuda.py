@@ -7,7 +7,10 @@ ops (counterpart of gpflowpilco_tpu/ops/mm_glue_pallas.py).
 
 lambda_min comes from five cyclic Jacobi sweeps (``jacobi_min_eig``), in
 place of ``eigvalsh``; ``jitter == 0`` in the Euler update symmetrizes
-only, the float64 semantics of the solver. The boost is stop-gradient, so
+only, the float64 semantics of the solver. The kernels sweep the pairs in
+the round-robin order of ``jacobi_rounds`` for D <= 8 (rounds of disjoint
+pairs, whose angles are independent), so kernel and plain version agree to
+rounding once five sweeps have converged. The boost is stop-gradient, so
 the backwards are the plain formulas of the JAX package's custom VJPs: the
 symmetrization passthrough and the linear Euler adjoints.
 
@@ -57,6 +60,20 @@ def operand_dim(name: str, mats, vecs=()) -> int:
 
 
 # ----------------------------------------------------------------- plain torch
+def jacobi_rounds(d: int):
+    """The kernels' order of a Jacobi sweep for D <= 8 (csrc/mm_glue.cu,
+    rr_p and rr_q): the round-robin (circle) schedule of n = D rounded up to
+    even players, round r < n - 1 pairing r with n - 1 and (r + k) mod (n -
+    1) with (r - k) mod (n - 1) for k = 1 .. n/2 - 1, a pair holding player
+    D (odd D) skipped. A list of rounds, each a list of (p, q), p < q."""
+    n = d + d % 2
+    rounds = []
+    for r in range(n - 1):
+        pairs = [(r, n - 1)] + [((r + k) % (n - 1), (r - k) % (n - 1)) for k in range(1, n // 2)]
+        rounds.append([(min(a, b), max(a, b)) for a, b in pairs if max(a, b) < d])
+    return rounds
+
+
 def jacobi_min_eig(sym: torch.Tensor) -> torch.Tensor:
     """Smallest eigenvalue of each symmetric (N, D, D) matrix by five cyclic
     Jacobi sweeps with the Golub-Van Loan tangent, in the kernel's order
@@ -99,6 +116,22 @@ def _boost(sym, jitter):
 def psd_boost_reference(s, jitter: float):
     """Plain torch: sym(S) + (max(0, -lambda_min) + jitter) I, (N, D, D)."""
     return _boost(0.5 * (s + s.mT), jitter)
+
+
+def boosted_reference(sym, jitter: float, tol: float):
+    """What the kernels give for symmetric (N, D, D) ``sym``, to rounding:
+    sym + (max(0, -lambda_min) + jitter) I, lambda_min from
+    ``jacobi_min_eig`` where its five cyclic sweeps have converged (within
+    tol / 2 of each matrix's scale, 1 + max |sym|, from eigvalsh) or D > 8,
+    else from eigvalsh. The kernels sweep D <= 8 in ``jacobi_rounds``'
+    order, so they agree with the cyclic sweeps only where both have
+    converged. For holding the kernels at a bar ``tol`` of the scale."""
+    cyclic = jacobi_min_eig(sym)
+    truth = torch.linalg.eigvalsh(sym.double())[:, 0].to(sym.dtype)
+    converged = (cyclic - truth).abs() <= 0.5 * tol * (1.0 + sym.abs().amax(dim=(-2, -1)))
+    lam = torch.where(converged | (sym.shape[-1] > 8), cyclic, truth)
+    eye = torch.eye(sym.shape[-1], dtype=sym.dtype, device=sym.device)
+    return sym + (torch.clamp(-lam, min=0.0) + jitter)[:, None, None] * eye
 
 
 def euler_update_reference(m, s, f1, sff, sxf, dt: float, jitter: float):

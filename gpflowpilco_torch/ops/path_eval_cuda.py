@@ -18,8 +18,11 @@ Dispatch is by the device of the tensors: CUDA tensors go to the kernels of
 ``csrc/path_eval.cu`` (float32, contiguous, else the wrapper raises), CPU
 tensors to ``path_eval_reference`` and its backward formulas. There is no
 fallback from one to the other. ``launches`` counts kernel launches only.
-The forward stages each latent's tables in shared memory in chunks of
-columns that ``fwd_plan`` sizes (one chunk at the pathwise path's widths).
+The forward and the dx-only backward stage each latent's tables in shared
+memory in chunks of columns that ``fwd_plan`` sizes (one chunk at the
+pathwise path's widths); the dx-only backward writes per-latent partials
+(L, S, D) into a scratch the wrapper allocates, and a second launch adds
+them in latent order.
 """
 from __future__ import annotations
 
@@ -29,11 +32,12 @@ import torch
 
 from . import _build
 
-# kernel launches per entry; reset with reset_launches()
+# calls that launched each entry's kernels (the dx-only backward's one
+# call is two launches at L > 1); reset with reset_launches()
 launches = {"path_eval_fwd": 0, "path_eval_bwd_dx": 0, "path_eval_bwd_full": 0}
 
 _MAX_D = 16  # kMaxD in csrc/path_eval.cu: x rows are held in registers
-# the forward's shared memory (csrc/path_eval.cu): a block's weight ring
+# the forward's and the dx-only backward's shared memory (csrc/path_eval.cu): a block's weight ring
 # (kRing = 4 groups of 4 floats for each of its 1024 threads), then the
 # panels; at most FWD_SMEM_MAX bytes a block
 FWD_RING_BYTES = 4 * 4 * 4 * 1024
@@ -57,7 +61,7 @@ def _launch(name: str, inputs, outputs, *extra):
 
 
 def fwd_plan(b: int, m: int, d: int):
-    """(cw, bytes) of the forward: the width of the chunks of columns in
+    """(cw, bytes) of the forward and the dx-only backward: the width of the chunks of columns in
     which a block stages its latent's panels (D + 1 rows over the bases,
     then the centers, each rounded up to 4 columns), a multiple of 128 (so
     each lane has as many groups of 4 in every chunk), as wide as all the
@@ -138,8 +142,11 @@ def _bwd_dx(x, w, v, omega, phase, z_scaled, z2, inv_ls, g):
         return path_eval_reference_bwd(
             x, w, v, omega, phase, z_scaled, z2, inv_ls, g, want_wv=False
         )[0]
-    dx = torch.empty_like(x)
-    _launch("path_eval_bwd_dx", (x, w, v, omega, phase, z_scaled, z2, inv_ls, g), (dx,))
+    # the kernel's per-latent partials, which a second launch adds in order
+    # (the kernel writes dx itself at L = 1)
+    dx, part = torch.empty_like(x), torch.empty((w.shape[1], *x.shape), dtype=x.dtype, device=x.device)
+    _launch("path_eval_bwd_dx", (x, w, v, omega, phase, z_scaled, z2, inv_ls, g), (dx, part),
+            fwd_plan(w.shape[2], v.shape[2], x.shape[1])[0])
     return dx
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time K1 (the pathwise drift's path evaluation, csrc/path_eval.cu), K2
 (the eKuffu pair contraction, csrc/kexp_pair.cu), K3 (the whole SVGP match,
-csrc/mm_match.cu), K3g (the whole GPR match, csrc/gpr_match.cu) and K6 (the
-whole pathwise rollout loss, csrc/rollout.cu) on one NVIDIA GPU: this
+csrc/mm_match.cu), K3g (the whole GPR match, csrc/gpr_match.cu), K5 (the MM
+step's PSD boost and Euler update, csrc/mm_glue.cu) and K6 (the whole
+pathwise rollout loss, csrc/rollout.cu) on one NVIDIA GPU: this
 checkout against others (a parent commit's ``git archive``, a variant), in
 one run on one card.
 
@@ -14,7 +15,9 @@ in reverse), and times every K3 entry at the whole-match path's shapes,
 K3g's at the HMC ensemble's, and K2's six entries at the MM drift's and
 policy's shapes and its forward and frozen backward on the GPR route (P=8
 members, R=4), K1's three entries at the pathwise slice's shape (S=1024,
-L=4, B=1024, M=240, D=6), and K6's forward and backward at the fused-rollout slice's
+L=4, B=1024, M=240, D=6), K5a in float32 and float64 at the policy
+joint's shape (N=1, D=6) and K5b in float32 with the boost at the state's
+(N=1, D=4), and K6's forward and backward at the fused-rollout slice's
 shape (S=1024, B=1024, M=240, Mp=30, T=30) and on the 8-member axis (K=8,
 128 particles each), with chip_smoke.py's method (median device time over 30
 calls, L2 flushed, and warm; chip_smoke's *_bound_ms for the bounds).
@@ -22,11 +25,13 @@ Each checkout is reported by the smaller of its medians. On the same
 inputs, each other checkout's outputs are compared with this one's: K3g's
 forward at its bars (float64: 1e-9 of the scale; float32: within 3x the
 plain float32 version's error against float64, plus 1e-4 of the scale),
-K2's forward and frozen backward and K1's forward at their own (rtol = atol
-= 1e-10 in float64, 1e-4 in float32), K6's forward and backward at chip_smoke.py's (float64: 1e-10 of
-the scale; float32 over 30 steps: within 3x the plain float32 version's
-error against float64, plus 1e-4 of the scale), every other entry bit for
-bit. ``--only`` keeps the entries whose name starts with one of the
+K2's forward and frozen backward and K1's dx-only backward at their own
+(rtol = atol = 1e-10 in float64, 1e-4 in float32), K5's at chip_smoke.py's
+(1e-12 of the scale in float64, 1e-5 in float32), K6's forward and
+backward at chip_smoke.py's (float64: 1e-10 of the scale; float32 over 30
+steps: within 3x the plain float32 version's error against float64, plus
+1e-4 of the scale), every other entry (K1's forward and full backward
+among them) bit for bit. ``--only`` keeps the entries whose name starts with one of the
 prefixes (``k6_``: K6 alone, ``k6_fwd``: its forward alone), and builds
 only the libraries they need. Each checkout's per-stage
 device times (torch.profiler) and each library's ptxas registers and spills
@@ -51,7 +56,7 @@ ROOT = Path(__file__).resolve().parents[1]
 # R=4); K2's six entries at the MM drift's (N=1, P=10, D2=14, M=240) and
 # policy's (N=1, P=1, D2=12, M=30) shapes, and the GPR route's forward and
 # frozen backward (N=1, P=8, D2=14, M=240, R=4); K1's three entries at the
-# pathwise slice's shape
+# pathwise slice's shape; K5a at the policy joint's, K5b at the state's
 CASES = (
     ("fwd", "f32", "drift"), ("fwd", "f32", "policy"), ("bwd_frozen", "f32", "drift"),
     ("bwd", "f32", "policy"), ("bwd", "f32", "ensemble policy"), ("fwd", "f64", "drift"),
@@ -64,10 +69,12 @@ CASES = (
     *((f"k6_{kind}", sfx, where) for where in ("slice", "members") for sfx in ("f32", "f64")
       for kind in ("fwd", "bwd")),
     *((f"k1_{kind}", "f32", "pathwise") for kind in ("fwd", "bwd_dx", "bwd_full")),
+    ("k5_psd", "f32", "joint"), ("k5_psd", "f64", "joint"), ("k5_euler", "f32", "state"),
 )
-LIBS = ("mm_match", "gpr_match", "kexp_pair", "rollout", "path_eval")
+LIBS = ("mm_match", "gpr_match", "kexp_pair", "rollout", "path_eval", "mm_glue")
 # the library of each entry-name prefix; K3's entries ("fwd", "bwd", ...) are mm_match's
-PREFIX_LIBS = (("k6_", "rollout"), ("k2_", "kexp_pair"), ("gpr_", "gpr_match"), ("k1_", "path_eval"))
+PREFIX_LIBS = (("k6_", "rollout"), ("k2_", "kexp_pair"), ("gpr_", "gpr_match"), ("k1_", "path_eval"),
+               ("k5_", "mm_glue"))
 K6_MEMBERS = 8  # the HMC ensemble's members on K6's member axis
 K2_GPR = (1, 8, 14, 240, 4)  # (N, P, D2, M, R) of K2's GPR route
 
@@ -100,7 +107,7 @@ def build(root, libs):
     # and its K2 and K1 forwards
     kernels = {"mm_match": cs.PTXAS_K3, "gpr_match": (*cs.PTXAS_K3G, "fwd_tiles"),
                "kexp_pair": (*cs.PTXAS_K2, "fwd_kernel"), "rollout": (*cs.PTXAS_K6, "fwd_kernel", "bwd_kernel"),
-               "path_eval": (*cs.PTXAS_K1, "fwd_kernel")}
+               "path_eval": (*cs.PTXAS_K1, "fwd_kernel"), "mm_glue": cs.PTXAS_K5}
     ptxas = {lib: cs.ptxas_report(out.get(lib, ""), kernels[lib]) for lib in libs}
     print(json.dumps({"built": str(root), "seconds": took, "ptxas": ptxas}))
 
@@ -126,6 +133,21 @@ def _k1_case(cs, pe, kind, device):
     if kind == "bwd_dx":
         return (lambda: (pe._bwd_dx(*ops, t["g"]),)), bound
     return (lambda: pe._bwd_full(*ops, t["g"])), bound
+
+
+def _k5_case(cs, gc, kind, dtype, device):
+    """(fn, bound) of a K5 entry on chip_smoke's glue inputs: K5a on an
+    indefinite policy joint, K5b with the float32 solver's boost."""
+    import torch
+
+    rng = cs.np.random.default_rng(13)
+    if kind == "psd":
+        s6 = cs.state_moments(rng, 1, cs.GLUE_JOINT_D, dtype, device, shift=-0.3)[1]
+        return (lambda: (gc._psd(s6, 0.0),)), cs.glue_bound_ms("psd", 1, cs.GLUE_JOINT_D, dtype)[0]
+    m4, s4 = cs.state_moments(rng, 1, 4, dtype, device, shift=-0.3)
+    f14, sff4 = cs.state_moments(rng, 1, 4, dtype, device)
+    sxf4 = torch.as_tensor(0.1 * rng.normal(size=(1, 4, 4)), dtype=dtype, device=device)
+    return (lambda: gc._euler(m4, s4, f14, sff4, sxf4, 1.0, 1e-6)), cs.glue_bound_ms("euler", 1, 4, dtype)[0]
 
 
 def _k6_case(cs, rc, kind, dtype, where, device, outs, key):
@@ -157,6 +179,7 @@ def run(root, save, only=()):
     sys.path.insert(0, str(root))
     from gpflowpilco_torch.ops import gpr_match_cuda as gm
     from gpflowpilco_torch.ops import kexp_cuda as kc
+    from gpflowpilco_torch.ops import mm_glue_cuda as gc
     from gpflowpilco_torch.ops import mm_match_cuda as mc
     from gpflowpilco_torch.ops import path_eval_cuda as pe
     from gpflowpilco_torch.ops import rollout_cuda as rc
@@ -182,8 +205,9 @@ def run(root, save, only=()):
             outs[key] = [t.cpu() for t in fn()]
             timed(key, fn, bound)
             continue
-        if kind.startswith(("k1_", "k2_")):
+        if kind.startswith(("k1_", "k2_", "k5_")):
             fn, bound = (_k1_case(cs, pe, kind[3:], device) if kind.startswith("k1_")
+                         else _k5_case(cs, gc, kind[3:], dtype, device) if kind.startswith("k5_")
                          else _k2_case(cs, kc, kind[3:], dtype, where, device))
             outs[key] = [t.cpu() for t in fn()]
             timed(key, fn, bound)
@@ -238,7 +262,7 @@ def compare(a, b, cs):
         if "/" in k or k not in b:
             continue
         pairs = list(zip(a[k], b[k]))
-        if not k.startswith(("gpr_fwd_", "k2_fwd", "k2_bwd_frozen", "k1_fwd", "k6_")):
+        if not k.startswith(("gpr_fwd_", "k2_fwd", "k2_bwd_frozen", "k1_bwd_dx", "k5_", "k6_")):
             diff = {i: float((x.double() - y.double()).abs().max()) for i, (x, y) in enumerate(pairs)
                     if not torch.equal(x, y)}
             out[k] = diff or True
@@ -258,7 +282,11 @@ def compare(a, b, cs):
                 ok = all(cs.scaled_err(x, t) <= 3.0 * cs.scaled_err(p, t) + 1e-4
                          for side in (a[k], b[k]) for x, p, t in zip(side, plain, truth))
             out[k] = dict(scaled_vs_parent=max(cs.scaled_err(x, y) for x, y in pairs), bars_hold=ok)
-        else:  # K2's forward and frozen backward, K1's forward
+        elif k.startswith("k5_"):
+            tol = cs.SMALL_TOL[torch.float64 if "_f64_" in k else torch.float32]
+            err = max(cs.scaled_err(x, y) for x, y in pairs)
+            out[k] = dict(scaled_vs_parent=err, bars_hold=err <= tol)
+        else:  # K2's forward and frozen backward, K1's dx-only backward
             tol = 1e-10 if "_f64_" in k else 1e-4
             out[k] = dict(max_abs_vs_parent=max(float((x.double() - y.double()).abs().max()) for x, y in pairs),
                           bars_hold=all(torch.allclose(x, y, rtol=tol, atol=tol) for x, y in pairs))

@@ -100,10 +100,57 @@ def test_torch_path_eval_forward_cos_branches_on_gpu():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("s", [1024, 1000, 33])
+@pytest.mark.parametrize("d", [6, 8, 12, 16])
+@pytest.mark.parametrize("num_latent", [1, 4])
+def test_torch_path_eval_backward_matches_reference_on_gpu(s, d, num_latent):
+    """K1b (the forward's grid and staging, a warp per particle; at L = 4 the
+    per-latent partials added in order by a second launch, at L = 1 written
+    by the block) against the plain version, at the forward test's shapes:
+    S = 1024 with B = 1024, M = 240, S = 1000 and 33 with B = 1000, M = 239,
+    every register width. rtol = atol = 1e-4, chip_smoke.py's bar. Two runs
+    are bit-identical (no atomics)."""
+    dev = _gpu_or_skip()
+    b, m = (1024, 240) if s == 1024 else (1000, 239)
+    rng = np.random.default_rng(s + d + num_latent + 1)
+    ops = _path_eval_ops(rng, s, num_latent, b, m, d, dev)
+    g = torch.as_tensor(rng.normal(size=(s, num_latent)), dtype=torch.float32, device=dev)
+    got = pe._bwd_dx(*ops, g)
+    want = pe.path_eval_reference_bwd(*ops, g, want_wv=False)[0]
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, pe._bwd_dx(*ops, g))
+
+
+@pytest.mark.gpu
+def test_torch_path_eval_backward_sin_branches_on_gpu():
+    """K1b's bases take sin_fast where a group's arguments are within
+    105615 and sinf() where they are not: the phases run to 131072, so
+    some groups cross that bound and others do not. x, omega and phase are
+    multiples of 1/16 small enough that every partial sum is exact in
+    float32, so the kernel and the plain version take sin of the same
+    arguments; omega stays within 2, so dx's terms stay of order one.
+    rtol = atol = 1e-4."""
+    dev = _gpu_or_skip()
+    rng = np.random.default_rng(6)
+    s, num_latent, b, m, d = 64, 2, 256, 40, 6
+    ops = _path_eval_ops(rng, s, num_latent, b, m, d, dev)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    x = f(rng.integers(-3, 4, size=(s, d)))
+    omega = f(rng.integers(-32, 33, size=(num_latent, b, d)) / 16)
+    phase = f(rng.integers(0, 2**21, size=(num_latent, b)) / 16)
+    ops = (x, *ops[1:3], omega, phase, *ops[5:])
+    g = f(rng.normal(size=(s, num_latent)))
+    proj = torch.einsum("sd,lbd->slb", x.double(), omega.double()) + phase.double()
+    assert (proj.abs() > 105615).any() and (proj.abs() < 105615).any()
+    torch.testing.assert_close(pe._bwd_dx(*ops, g), pe.path_eval_reference_bwd(*ops, g, want_wv=False)[0],
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 def test_torch_path_eval_backward_repeats_on_gpu():
     """K1b and K1c at the pathwise path's shape: two runs bit-identical (no
-    atomics). Their outputs against the parent commit's, bit for bit, are
-    scripts/k3_bench.py --parent --only k1_'s check."""
+    atomics). scripts/k3_bench.py --parent --only k1_ holds K1c's outputs
+    against the parent commit's bit for bit, and K1b's at its bar."""
     dev = _gpu_or_skip()
     ops = _path_eval_ops(np.random.default_rng(7), 1024, 4, 1024, 240, 6, dev)
     g = torch.as_tensor(np.random.default_rng(8).normal(size=(1024, 4)), dtype=torch.float32, device=dev)
@@ -345,15 +392,30 @@ def test_torch_enc_match_kernels_match_reference_on_gpu(dtype, n, d, active):
         ec._fwd(wide, f(np.zeros((1, 17))), f(np.eye(17)[None]))
 
 
+def _hold_glue(gc, s, m, f1, sff, sxf, tol):
+    """K5a and K5b (with and without the boost) against the plain version
+    at tol of the scale (gc.boosted_reference's lambda_min)."""
+    _close(gc._psd(s, 0.0), gc.boosted_reference(0.5 * (s + s.mT), 0.0, tol), tol, "psd")
+    for jitter in (0.0, 1e-6):
+        got = gc._euler(m, s, f1, sff, sxf, 1.0, jitter)
+        want = gc.euler_update_reference(m, s, f1, sff, sxf, 1.0, 0.0)
+        _close(got[0], want[0], tol, "mean")
+        _close(got[1], gc.boosted_reference(want[1], jitter, tol) if jitter else want[1], tol, "cov")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n, d", [(1, 6), (1, 4), (3, 10), (200, 4)])
+@pytest.mark.parametrize("n, d", [(n, d) for d in (2, 3, 4, 5, 6, 8, 10) for n in (1, 8, 200)] + [(3, 10)])
 def test_torch_mm_glue_kernels_match_reference_on_gpu(dtype, n, d):
     """K5a and K5b (with and without the boost) against the plain version
-    on indefinite matrices, at the path's shapes, a batch beyond one block
-    and D = 10; bars 1e-5 in float32, 1e-12 in float64 (the same Jacobi
-    sweeps in the same order). Raises on D > 16, a wrong dtype and a
-    non-contiguous operand."""
+    on indefinite matrices, at the path's shapes (N = 1, D = 6 and 4), a
+    batch beyond one block, every exact-D instantiation on the path's side
+    (D <= 8, round-robin sweeps) and D = 10 (the cyclic loops); bars 1e-5
+    in float32, 1e-12 in float64 of the scale. Where five cyclic sweeps
+    have not converged (two of the 200 8 x 8 matrices in float64, 4e-11 of
+    their scale from eigvalsh), the kernels are held against eigvalsh's
+    lambda_min at the same bar (gc.boosted_reference). Raises on D > 16, a wrong dtype
+    and a non-contiguous operand."""
     from gpflowpilco_torch.ops import mm_glue_cuda as gc
 
     dev = _gpu_or_skip()
@@ -365,12 +427,7 @@ def test_torch_mm_glue_kernels_match_reference_on_gpu(dtype, n, d):
     m, f1 = f(rng.normal(size=(n, d))), f(rng.normal(size=(n, d)))
     sff, sxf = f(0.1 * np.abs(rng.normal(size=(n, d, d)))), f(0.1 * rng.normal(size=(n, d, d)))
     before = dict(gc.launches)
-    _close(gc._psd(s, 0.0), gc.psd_boost_reference(s, 0.0), tol, "psd")
-    for jitter in (0.0, 1e-6):
-        got = gc._euler(m, s, f1, sff, sxf, 1.0, jitter)
-        want = gc.euler_update_reference(m, s, f1, sff, sxf, 1.0, jitter)
-        _close(got[0], want[0], tol, "mean")
-        _close(got[1], want[1], tol, "cov")
+    _hold_glue(gc, s, m, f1, sff, sxf, tol)
     torch.cuda.synchronize()
     sfx = "f32" if dtype == torch.float32 else "f64"
     assert gc.launches[f"psd_boost_{sfx}"] == before[f"psd_boost_{sfx}"] + 1
@@ -381,6 +438,30 @@ def test_torch_mm_glue_kernels_match_reference_on_gpu(dtype, n, d):
         gc._euler(m, s, f1.to(torch.float16), sff, sxf, 1.0, 0.0)
     with pytest.raises(ValueError, match="D <= 16"):
         gc._psd(torch.zeros((1, 17, 17), dtype=dtype, device=dev), 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [4, 6, 8])
+def test_torch_mm_glue_repeated_eigenvalue_on_gpu(dtype, d):
+    """K5a and K5b on matrices whose smallest eigenvalue (negative) is
+    repeated, and on ones with a repeated eigenvalue in the middle, at the
+    bars of test_torch_mm_glue_kernels_match_reference_on_gpu."""
+    from gpflowpilco_torch.ops import mm_glue_cuda as gc
+
+    dev = _gpu_or_skip()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    rng = np.random.default_rng(50 + d)
+    n = 8
+    basis = np.linalg.qr(rng.normal(size=(n, d, d)))[0]
+    eigs = rng.normal(size=(n, d))
+    eigs[:4, 1] = eigs[:4, 0] = -np.abs(eigs[:4, 0])
+    eigs[4:, -1] = eigs[4:, d // 2]
+    rep = basis @ (eigs[..., None] * basis.transpose(0, 2, 1))
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev).contiguous()  # noqa: E731
+    s = f(0.5 * (rep + rep.transpose(0, 2, 1)))
+    m, f1 = f(rng.normal(size=(n, d))), f(rng.normal(size=(n, d)))
+    _hold_glue(gc, s, m, f1, f(np.zeros((n, d, d))), f(np.zeros((n, d, d))), tol)
 
 
 def _stacked_gpr(k, n, d, r, dev, seed, noise=0.05):

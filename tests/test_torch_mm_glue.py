@@ -125,3 +125,88 @@ def test_torch_mm_glue_checks_operands():
         gc.fused_euler_update(m, s, m.float(), s, s, 1.0, 1e-6)
     with pytest.raises(ValueError):
         gc._euler(m, s, m[:, :3], s, s, 1.0, 1e-6)
+
+
+def _round_robin_min_eig(sym):
+    """lambda_min as csrc/mm_glue.cu's kernels take it for D <= 8, in torch:
+    five sweeps of gc.jacobi_rounds(D); in each round every pair's angle
+    from the matrix as the round found it (the pairs are disjoint), then
+    the rotations one after the other in the round's order."""
+    d = sym.shape[-1]
+    a = [[sym[:, i, j] for j in range(d)] for i in range(d)]
+    for _ in range(5):
+        for rnd in gc.jacobi_rounds(d):
+            angles = []
+            for p, q in rnd:
+                apq, app, aqq = a[p][q], a[p][p], a[q][q]
+                h = aqq - app
+                t = 2.0 * apq * torch.where(h < 0, -1.0, 1.0) / (h.abs() + torch.sqrt(h * h + 4.0 * apq * apq) + 1e-37)
+                c = torch.rsqrt(1.0 + t * t)
+                angles.append((c, t * c))
+            for (p, q), (c, s) in zip(rnd, angles):
+                apq, app, aqq = a[p][q], a[p][p], a[q][q]
+                a[p][p] = c * c * app - 2.0 * s * c * apq + s * s * aqq
+                a[q][q] = s * s * app + 2.0 * s * c * apq + c * c * aqq
+                a[p][q] = a[q][p] = torch.zeros_like(apq)
+                for r in range(d):
+                    if r not in (p, q):
+                        arp, arq = a[r][p], a[r][q]
+                        a[r][p] = a[p][r] = c * arp - s * arq
+                        a[r][q] = a[q][r] = s * arp + c * arq
+    return torch.stack([a[i][i] for i in range(d)], -1).amin(-1)
+
+
+@pytest.mark.parametrize("d", [2, 3, 4, 5, 6, 8])
+def test_torch_jacobi_round_robin_matches_cyclic(d):
+    """The kernels' round-robin sweep order (gc.jacobi_rounds): each round's
+    pairs are disjoint and a sweep takes every pair p < q once; five sweeps
+    in that order give lambda_min to 1e-12 of the matrix's scale against
+    eigvalsh, and against the cyclic order of the JAX kernel
+    (gc.jacobi_min_eig) wherever five cyclic sweeps have converged (within
+    half that bar of eigvalsh), in float64, on indefinite matrices and on
+    matrices with a repeated eigenvalue (the smallest, and one in the
+    middle). At D = 8 five cyclic sweeps leave one of these indefinite
+    matrices 1.3e-12 of its scale from eigvalsh, where the round-robin
+    order is within 2e-16."""
+    rounds = gc.jacobi_rounds(d)
+    assert len(rounds) == d - 1 + d % 2
+    for rnd in rounds:
+        assert len({i for pair in rnd for i in pair}) == 2 * len(rnd)
+    assert sorted(pair for rnd in rounds for pair in rnd) == [(p, q) for p in range(d) for q in range(p + 1, d)]
+
+    rng = np.random.default_rng(40 + d)
+    basis = np.linalg.qr(rng.normal(size=(8, d, d)))[0]
+    eigs = rng.normal(size=(8, d))
+    eigs[:4, 1] = eigs[:4, 0]  # a repeated eigenvalue; the smallest one where it is the minimum
+    eigs[4:, -1] = eigs[4:, d // 2]
+    repeated = basis @ (eigs[..., None] * np.swapaxes(basis, -1, -2))
+    for mats in (_mats(30 + d, d, n=8)[1], 0.5 * (repeated + np.swapaxes(repeated, -1, -2))):
+        sym = t(mats)
+        got = _round_robin_min_eig(sym)
+        scale = 1.0 + sym.abs().amax(dim=(-2, -1))
+        truth, cyclic = torch.linalg.eigvalsh(sym)[:, 0], gc.jacobi_min_eig(sym)
+        converged = (cyclic - truth).abs() / scale <= 0.5e-12
+        assert float(((got - truth).abs() / scale).max()) <= 1e-12
+        assert float(((got - cyclic).abs() / scale)[converged].max()) <= 1e-12
+
+
+def test_torch_boosted_reference_takes_eigvalsh_where_cyclic_lags():
+    """gc.boosted_reference, the card checks' reference for the kernels:
+    psd_boost_reference's result exactly where five cyclic sweeps have
+    converged (within half the bar of eigvalsh), eigvalsh's lambda_min
+    where they have not (one of these 8 x 8 indefinite matrices, 1.3e-12
+    of its scale from eigvalsh), and the cyclic sweeps always beyond D = 8,
+    which the kernels sweep in the cyclic order too."""
+    s = t(_mats(38, 8, n=8)[1])
+    sym = 0.5 * (s + s.mT)
+    cyclic, truth = gc.jacobi_min_eig(sym), torch.linalg.eigvalsh(sym)[:, 0]
+    lagging = (cyclic - truth).abs() / (1.0 + sym.abs().amax(dim=(-2, -1))) > 0.5e-12
+    assert int(lagging.sum()) == 1
+    got = gc.boosted_reference(sym, 1e-6, 1e-12)
+    plain = gc.psd_boost_reference(sym, 1e-6)
+    assert torch.equal(got[~lagging], plain[~lagging])
+    eye = torch.eye(8, dtype=sym.dtype)
+    assert torch.equal(got[lagging], (sym + (torch.clamp(-truth, min=0.0) + 1e-6)[:, None, None] * eye)[lagging])
+    wide = t(_mats(39, 10, n=4)[1])
+    wide = 0.5 * (wide + wide.mT)
+    assert torch.equal(gc.boosted_reference(wide, 0.0, 1e-12), gc.psd_boost_reference(wide, 0.0))

@@ -199,3 +199,61 @@ def test_torch_path_eval_forward_plan():
         cw, nbytes = pe.fwd_plan(b, m, d)
         assert cw % 128 == 0 and 0 < nbytes <= pe.FWD_SMEM_MAX
         assert nbytes + 4 * (d + 1) * 128 > pe.FWD_SMEM_MAX or cw >= b + m
+
+
+def _backward_warp_split(x, w, v, omega, phase, z_scaled, z2, inv_ls, g):
+    """The order of csrc/path_eval.cu's dx-only backward, in torch: per
+    (particle, latent) the columns of the bases (c = -sin(x . omega + phase)
+    w, with omega's row) and of the centers (kv = exp(-|x~ - z~|^2 / 2) v,
+    with z~'s row scaled by il), each zero-padded to a multiple of 4 and
+    concatenated, cut into groups of 4; lane j takes the groups j, j + 32,
+    ... in order (a group's 4 columns in order) and adds acc += c row, and
+    kvsum += kv for the centers. Both sums meet by the butterfly (xor 16,
+    8, 4, 2, 1); lane 0 forms g (acc - kvsum x~ il), and the latents'
+    partials are added l = 0, 1, ... in order. Returns dx (S, D)."""
+    proj, xs, k = pe._proj_and_k(x, omega, phase, z_scaled, z2, inv_ls)
+    pad = lambda a, dim=-1: torch.nn.functional.pad(  # noqa: E731
+        a, (0, 0) * (-1 - dim) + (0, -a.shape[dim] % 4))
+    coef = torch.cat([pad(-torch.sin(proj) * w), pad(k * v)], dim=-1)  # (S, L, cols)
+    rows = torch.cat([pad(omega, -2), pad(z_scaled * inv_ls[:, None, :], -2)], dim=-2)  # (L, cols, D)
+    bw = coef.shape[-1] - pad(v).shape[-1]
+    s, num_latent, cols = coef.shape
+    d = x.shape[1]
+    items = -(-cols // 128)
+    lanes = torch.arange(32)
+    acc, kvsum = torch.zeros((s, num_latent, 32, d), dtype=x.dtype), torch.zeros((s, num_latent, 32), dtype=x.dtype)
+    for item in range(items):
+        for q in range(4):
+            col = 4 * (lanes + 32 * item) + q
+            live = col < cols
+            col = torch.where(live, col, 0)
+            c = torch.where(live, coef[..., col], 0.0)  # (S, L, 32)
+            acc = acc + c[..., None] * rows[:, col, :]
+            kvsum = torch.where(col < bw, kvsum, kvsum + c)
+    for off in (16, 8, 4, 2, 1):
+        acc, kvsum = acc + acc[:, :, lanes ^ off], kvsum + kvsum[..., lanes ^ off]
+    part = g[..., None] * (acc[:, :, 0] - kvsum[..., 0, None] * xs * inv_ls)  # (S, L, D)
+    dx = part[:, 0]
+    for l in range(1, num_latent):
+        dx = dx + part[:, l]
+    return dx
+
+
+@pytest.mark.parametrize("b, m, d", [(1024, 240, 6), (1000, 239, 6), (70, 19, 12), (9, 3, 16)])
+def test_torch_path_eval_backward_warp_split_matches_reference(b, m, d):
+    """K1b's lane-to-column partition (the forward's), the centers' rows
+    scaled by il into the bases' sum, its butterfly, g applied once at the
+    end and the latents added in order, against
+    path_eval_reference_bwd in float64, to 1e-12 of dx's scale: at the
+    pathwise path's B = 1024, M = 240, at B and M that are not multiples of
+    4 and 32, and below one round of 32 groups."""
+    rng = np.random.default_rng(b + m + d)
+    s, num_latent = 8, 4
+    f = lambda *shape: torch.as_tensor(rng.normal(size=shape), dtype=torch.float64)  # noqa: E731
+    z = f(num_latent, m, d)
+    ops = (f(s, d), 0.05 * f(s, num_latent, b), 0.1 * f(s, num_latent, m), f(num_latent, b, d),
+           f(num_latent, b), z, (z * z).sum(-1), f(num_latent, d).abs() + 0.5)
+    g = f(s, num_latent)
+    got = _backward_warp_split(*ops, g)
+    want = pe.path_eval_reference_bwd(*ops, g, want_wv=False)[0]
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
