@@ -13,8 +13,8 @@
    - K2 (eKuffu pair contraction: forward, full and frozen backward) in
      float32 and float64 at the MM path's two shapes: the drift's N=1,
      P=10 latent pairs, D2=14, M=240 and the policy's N=1, P=1, D2=12, M=30;
-     the forward's and the frozen backward's repeated runs bit-identical,
-     and the device time of their stages (tiles, finish) printed.
+     each entry's repeated runs bit-identical, and the device time of its
+     stages (tiles and, above one tile, finish) printed.
 4. Pathwise slice: pathwise PILCO on cartpole at full width (1024 particles x
    1024 bases, horizon 30, up to 240 inducing points), its SVGP paths through
    K1 (use_fused_paths, as run_torch.py --fused): 8 random episodes
@@ -35,9 +35,10 @@
 6. Whole-match kernels: K3 (the whole SVGP match: forward, frozen and full
    backward) at the drift's (N=1, L=4, D=6, M=240, with model uncertainty),
    the policy's (N=1, L=1, D=5, M=30) and the HMC ensemble policy's (the
-   policy's with the 8 members as its batch, N=8) shapes, K4 (the encoder match) at
-   N=1 and N=30, K5a (the PSD boost) at D=6 and K5b (the Euler update) at
-   D=4, each in float32 and float64 against its plain version, timed beside
+   policy's with the 8 members as its batch, N=8) shapes, K4 (the encoder
+   match; its backward's repeated runs bit-identical) at N=1 and N=30, K5a
+   (the PSD boost) at D=6 and K5b (the Euler update) at D=4, each in
+   float32 and float64 against its plain version, timed beside
    it, its bound and, for K5a and K5b, torch.linalg.eigvalsh. Float32 K3 is
    held twice: at a random model's grid against float64, and at a
    well-conditioned grid of the same shape against plain float32 at a fixed
@@ -45,15 +46,17 @@
    grid), repeated forward and frozen-backward runs, and full-backward runs
    at N=8, must be bit-identical, and the device time of each stage of the
    tiled entries (tile sweep, finish, combine) and of the full backward
-   (groups, slot sum, combine) is printed from one profiler session. K5's
-   kernels sweep D <= 8 in the round-robin order, the plain version in the
-   cyclic one: where five cyclic sweeps have not converged, K5 is held
+   (groups, slot sum, combine), and of K4's backward, is printed from one
+   profiler session. K5's kernels sweep D <= 8 in the round-robin order,
+   the plain version in the cyclic one: where five cyclic sweeps have not
+   converged, K5 is held
    against eigvalsh's lambda_min at the same bar
-   (mm_glue_cuda.boosted_reference). The build prints ptxas's registers and
-   spills of K1's, K2's, K3's, K3g's, K5's and K6's kernels and fails if a
-   float32 tile kernel at the main path's register capacity spills (K3's
-   and K3g's at 8, K2's forward and frozen tiles at 16, K1's forward and
-   dx-only backward and K6's forward at 6 and 8, K6's Jacobians at 8).
+   (mm_glue_cuda.boosted_reference). The build prints ptxas's registers,
+   spills and stack frames of every kernel and fails if a float32 tile
+   kernel at the main path's register capacity spills (K3's and K3g's at 8,
+   K2's forward and backward tiles at 16, K1's forward and dx-only backward
+   and K6's forward at 6 and 8, K6's Jacobians at 8), or if K4's backward
+   at the path's D = 4 spills or has a stack frame.
 7. Whole-match slice: moment-matching PILCO on cartpole at full width with
    use_fused_match, float32 loop and loss: 8 random episodes, a drift fit,
    then one Adam policy update (counts zeroed just before, read just after;
@@ -73,7 +76,7 @@
    and float64 against their plain versions (K2's float64 GPR route also at
    the members' noise, GPR_NOISE), timed beside them and their bounds;
    K3g's repeated forward and backward runs must be bit-identical, and so
-   must K2's GPR-route forward's and frozen backward's; the device time
+   must K2's GPR-route forward's, full and frozen backward's; the device time
    of each of K3g's stages (forward tiles and combine; backward tile sweep,
    finish, combine) and of K2's GPR-route forward and frozen backward
    (tiles, finish) is printed.
@@ -419,8 +422,8 @@ def pair_kernels_phase(kc, seed, device):
                                      bound_ms=bound, bound_by=bound_by)
                 print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), "
                       f"plain torch {plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
-            # the forward's and the frozen backward's stages (warm L2): tiles and finish
-            for kind in ("fwd", "bwd_frozen"):
+            # each entry's stages (warm L2): tiles and, above one tile, finish
+            for kind in ("fwd", "bwd", "bwd_frozen"):
                 stages = stage_ms(calls[kind][0])
                 timings[f"pair_contract_{kind}_{sfx}"]["stages"] = stages
                 print(f"  stages of pair_contract_{kind}_{sfx}: "
@@ -429,9 +432,10 @@ def pair_kernels_phase(kc, seed, device):
 
 
 def pair_repeats(kc, ops, cot, sfx, where=""):
-    """Two runs of K2's forward, and two of its frozen backward, must be
+    """Two runs of each of K2's forward, full and frozen backward must be
     bit-identical."""
-    for kind, fn in (("fwd", lambda: kc._fwd(*ops)), ("bwd_frozen", lambda: kc._bwd(*ops, *cot, False)[:2])):
+    for kind, fn in (("fwd", lambda: kc._fwd(*ops)), ("bwd", lambda: kc._bwd(*ops, *cot, True)),
+                     ("bwd_frozen", lambda: kc._bwd(*ops, *cot, False)[:2])):
         name = f"pair_contract_{kind}_{sfx}{where}"
         if not all(torch.equal(a, b) for a, b in zip(fn(), fn())):
             raise AssertionError(f"{name}: repeated runs differ")
@@ -815,63 +819,74 @@ def glue_bound_ms(kind, n, d, dtype):
     return _bound(n * (3 * d + 4 * d * d) * size, n * (jacobi + 2 * d + 6 * d * d), dtype)
 
 
-def stage_ms(fn, reps=5):
+def stage_ms(fn, reps=5, sessions=4):
     """Device ms per launch of each kernel ``fn`` launches, by kernel name:
     the mean over the launches that one torch.profiler session over
     ``reps`` calls after a warm-up recorded (a session can drop some of
-    its calls' events, so the total over ``reps`` would undercount)."""
+    its calls' events, so the total over ``reps`` would undercount). A
+    session can also record none of a tiny kernel's launches (K4's, late in
+    a long process, intermittently); then another session is taken, up to
+    ``sessions``, and {} means that none recorded any."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        sync()
     total = {}
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-        name = re.search(r"(\w+)<", e.key)
-        name = name.group(1) if name else e.key[:40]
-        t_us, n = total.get(name, (0.0, 0))
-        total[name] = (t_us + us, n + e.count)
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+            name = re.search(r"(\w+)<", e.key)
+            name = name.group(1) if name else e.key[:40]
+            t_us, n = total.get(name, (0.0, 0))
+            total[name] = (t_us + us, n + e.count)
+        if total:
+            break
     return {name: t_us / 1e3 / n for name, (t_us, n) in total.items() if n}
 
 
 # kernels whose ptxas report chip_smoke prints: K3's (csrc/mm_match.cu),
 # K3g's (csrc/gpr_match.cu), K1's (csrc/path_eval.cu), K2's
-# (csrc/kexp_pair.cu), K5's (csrc/mm_glue.cu) and K6's (csrc/rollout.cu)
+# (csrc/kexp_pair.cu), K4's (csrc/enc_match.cu), K5's (csrc/mm_glue.cu) and
+# K6's (csrc/rollout.cu)
 PTXAS_K3 = ("svgp_fwd_tiles", "svgp_fwd_combine", "svgp_bwd_tiles", "svgp_bwd_finish", "svgp_bwd_combine",
             "bwd_groups", "svgp_bwd_slots")
 PTXAS_K3G = ("gpr_fwd_tiles", "fwd_combine", "gpr_bwd_tiles", "gpr_bwd_finish", "bwd_combine")
 PTXAS_K1 = ("fwd_warp", "bwd_warp", "bwd_finish", "bwd_kernel")
-PTXAS_K2 = ("fwd_tiles", "fwd_finish", "bwd_cols_kernel", "bwd_rows_kernel", "bwd_frozen_tiles",
-            "bwd_frozen_finish")
+PTXAS_K2 = ("fwd_tiles", "fwd_finish", "bwd_tiles", "bwd_finish")
+PTXAS_K4 = ("enc_fwd_kernel", "enc_bwd_warp")
 PTXAS_K5 = ("psd_kernel", "euler_kernel")
 PTXAS_K6 = ("fwd_panels", "fwd_warp", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads")
-# (library, its kernels, the tile kernels that must not spill in float32 at
-# the main path's register capacities, those capacities): K3's and K3g's at
-# D <= 8 (DM = 8), K2's forward and frozen tiles at D2 <= 16 (DM = 16), K1's
-# forward and dx-only backward at D = 6 (the cartpole's) and D <= 8, K5's
-# kernels printed only (one thread a matrix), K6's phase-1 Jacobian kernel
-# at Dxu <= 8 (DXU = 8) and its forward, both routes, at Dxu = 6 and <= 8
-PTXAS_LIBS = (("mm_match", PTXAS_K3, ("svgp_fwd_tiles", "svgp_bwd_tiles"), (8,)),
-              ("gpr_match", PTXAS_K3G, ("gpr_fwd_tiles", "gpr_bwd_tiles"), (8,)),
-              ("kexp_pair", PTXAS_K2, ("fwd_tiles", "bwd_frozen_tiles"), (16,)),
-              ("path_eval", PTXAS_K1, ("fwd_warp", "bwd_warp"), (6, 8)),
-              ("mm_glue", PTXAS_K5, (), ()),
-              ("rollout", PTXAS_K6, ("bwd_jac", "fwd_warp"), (6, 8)))
+# (library, its kernels, the kernels that must not spill in float32 at the
+# main path's register capacities or shapes (their first template integer),
+# those, and whether those must also have no stack frame): K3's and K3g's
+# tiles at D <= 8 (DM = 8), K2's forward and backward tiles (frozen and
+# full) at D2 <= 16 (DM = 16), K1's forward and dx-only backward at D = 6
+# (the cartpole's) and D <= 8, K4's backward at the path's D = 4 (no stack
+# frame either: no local memory), K5's kernels printed only (one thread a
+# matrix), K6's phase-1 Jacobian kernel at Dxu <= 8 (DXU = 8) and its
+# forward, both routes, at Dxu = 6 and <= 8
+PTXAS_LIBS = (("mm_match", PTXAS_K3, ("svgp_fwd_tiles", "svgp_bwd_tiles"), (8,), False),
+              ("gpr_match", PTXAS_K3G, ("gpr_fwd_tiles", "gpr_bwd_tiles"), (8,), False),
+              ("kexp_pair", PTXAS_K2, ("fwd_tiles", "bwd_tiles"), (16,), False),
+              ("enc_match", PTXAS_K4, ("enc_bwd_warp",), (4,), True),
+              ("path_eval", PTXAS_K1, ("fwd_warp", "bwd_warp"), (6, 8), False),
+              ("mm_glue", PTXAS_K5, (), (), False),
+              ("rollout", PTXAS_K6, ("bwd_jac", "fwd_warp"), (6, 8), False))
 
 
 def ptxas_report(text, kernels=PTXAS_K3):
     """[(kernel, 'f' | 'd', its integer and bool template arguments (the
-    register capacity DM first, then a tile side or a route), registers,
-    spill stores, spill loads)] from nvcc's -Xptxas -v output. A kernel
-    with no type parameter (K1's, float32 only) counts as 'f'; one with no
-    template arguments has none."""
-    rows, name, spill = [], None, (0, 0)
+    register capacity DM or the exact shape first, then a tile side or a
+    route), registers, spill stores, spill loads, stack frame)] in bytes
+    from nvcc's -Xptxas -v output. A kernel with no type parameter (K1's,
+    float32 only) counts as 'f'; one with no template arguments has none."""
+    rows, name, spill = [], None, (0, 0, 0)
     pat = re.compile(r"\d+(" + "|".join(kernels) + r")(?:I([fd])?((?:L[ib]\d+E)*)|E)")
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -880,7 +895,7 @@ def ptxas_report(text, kernels=PTXAS_K3):
                     tuple(int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3) or ""))) if m else None
         elif name and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
-            spill = (nums[1], nums[2])
+            spill = (nums[1], nums[2], nums[0])
         elif name and "Used" in line and "registers" in line:
             rows.append((*name, int(re.search(r"Used (\d+) registers", line).group(1)), *spill))
             name = None
@@ -1041,6 +1056,10 @@ def match_kernels_phase(mc, ec, gc, seed, device):
                     err = record(f"enc_match_{kind}_{sfx}", a, b, what)
                     if not (torch.isfinite(a).all() and err <= tol):
                         raise AssertionError(f"enc_match_{kind}_{sfx} {what}: kernel disagrees")
+            again = ec._bwd(meta, mx, sxx, *cots)
+            if not all(torch.equal(a, b) for a, b in zip(pairs[1][2], again)):
+                raise AssertionError(f"enc_match_bwd_{sfx}: repeated runs differ")
+            print(f"  enc_match_bwd_{sfx}: repeated runs bit-identical")
             if n == 1:
                 calls[f"enc_match_fwd_{sfx}"] = (
                     lambda a=(meta, mx, sxx): ec._fwd(*a),
@@ -1096,10 +1115,10 @@ def match_kernels_phase(mc, ec, gc, seed, device):
               f"{plain_ms:.4f} ms ({plain_how}), bound {bound:.6f} ms ({bound_by})"
               + ("" if lib_ms is None else f", eigvalsh {lib_ms:.4f} ms ({lib_how})"))
     # the stages of K3's entries (warm L2): tile sweep, finish, combine; the
-    # full backward's groups, slot sum (N > 1) and combine
+    # full backward's groups, slot sum (N > 1) and combine; K4's backward
     for name in ("svgp_match_fwd_f32", "svgp_match_bwd_frozen_f32", "svgp_match_fwd_f64",
                  "svgp_match_bwd_frozen_f64", "svgp_match_fwd_f32 (policy)", "svgp_match_bwd_f32",
-                 "svgp_match_bwd_f32 (ensemble policy)"):
+                 "svgp_match_bwd_f32 (ensemble policy)", "enc_match_bwd_f32", "enc_match_bwd_f64"):
         stages = stage_ms(calls[name][0])
         timings[name]["stages"] = stages
         print(f"  stages of {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
@@ -2095,8 +2114,7 @@ def fused_rollout_slice_phase(rc, pe, loop, seed, device, step_limit):
 # kernel-name fragments whose rows a profile prints on their own: this
 # repository's kernels and the eigenvalue solver behind psd_project's eigvalsh
 _WATCHED = ("fwd_warp", "bwd_warp", "bwd_kernel", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads",
-            "bwd_cols_kernel", "bwd_rows_kernel", "bwd_finish", "fwd_finish",
-            "bwd_frozen_tiles", "bwd_frozen_finish", "bwd_groups", "bwd_slots", "fwd_tiles", "bwd_tiles",
+            "bwd_finish", "fwd_finish", "bwd_groups", "bwd_slots", "fwd_tiles", "bwd_tiles",
             "combine", "enc_fwd", "enc_bwd", "psd_kernel", "euler_kernel", "syev", "eig")
 # host runtime calls that wait for the device or copy through it
 _SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
@@ -2224,18 +2242,21 @@ def main():
           f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items()) or 'cached'})")
 
     phase_s = {"build": time.perf_counter() - t0}
-    # ptxas: every K1, K2, K3, K3g, K5 and K6 kernel's registers and spills; a float32
-    # tile kernel at the main path's register capacity must not spill
-    for lib, kernels, tiled, caps in PTXAS_LIBS:
+    # ptxas: every kernel's registers, spills and stack frame; a gated float32
+    # kernel at the main path's register capacity or shape must not spill
+    # (K4's backward must not touch local memory at all)
+    for lib, kernels, gated, caps, no_stack in PTXAS_LIBS:
         regs = ptxas_report(_build.compiler_output.get(lib, ""), kernels)
-        for kern, t, params, n_regs, st, ld in regs:
+        for kern, t, params, n_regs, st, ld, stack in regs:
             targs = "".join(f", {v}" for v in params)
             print(f"ptxas {lib} {kern}<{'float' if t == 'f' else 'double'}{targs}>: {n_regs} registers, "
-                  f"{st} bytes spill stores, {ld} bytes spill loads")
-        spills = [r for r in regs if r[0] in tiled and r[1] == "f" and r[2] and r[2][0] in caps and r[4] + r[5]]
-        if built.get(lib) is not None and (not regs or spills):
-            raise AssertionError(f"{lib}'s float32 tile kernels at DM in {caps} spill or were not reported: "
-                                 f"{spills or regs}")
+                  f"{st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
+        bad = [r for r in regs if r[0] in gated and r[1] == "f" and r[2] and r[2][0] in caps
+               and r[4] + r[5] + (r[6] if no_stack else 0)]
+        if built.get(lib) is not None and (not regs or bad):
+            raise AssertionError(f"{lib}'s gated float32 kernels at {caps} spill"
+                                 f"{' or use a stack frame' if no_stack else ''}, or were not reported: "
+                                 f"{bad or regs}")
 
     def timed(name, fn, *fn_args):
         t_phase = time.perf_counter()

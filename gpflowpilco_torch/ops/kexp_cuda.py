@@ -20,11 +20,15 @@ Dispatch is by the device of the tensors: CUDA tensors go to the kernels of
 ``csrc/kexp_pair.cu`` (float32 or float64, contiguous, else the wrapper
 raises), CPU tensors to ``pair_contract_reference`` and its backward
 formulas. There is no fallback from one to the other. ``launches`` counts
-kernel launches only (a call of the forward's or the frozen backward's
-tiles and finish counts once). The forward and the frozen backward cut each
-(n, p) grid into TILE x TILE tiles on the block grid; the wrapper allocates
-the forward's column partials (``forward_partials``) and the frozen
-backward's row and column partials (``frozen_partials``).
+calls of an entry (its tiles and, above one tile, its finish count once).
+Every entry cuts each (n, p) grid into TILE x TILE tiles on the block grid
+and evaluates E once per cell; the full backward's blocks take the batch
+in order, since dalu and dqm sum over it. At the policy's M = 30 one tile
+covers M and each entry is one launch; above it a finish launch adds the
+tiles' partials in order, from scratch the wrapper allocates: the
+forward's column partials (``forward_partials``), the frozen backward's
+row and column partials (``frozen_partials``), the full backward's those
+and dalu's row partials (``full_partials``).
 
 The GPR match (``build_fused_gpr_grid``, ``ekuffu_contract_gpr``) uses
 the same kernels with one symmetric (X, X) pair per model, the training
@@ -53,7 +57,7 @@ launches = {
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _MAX_D2, _MAX_R = 32, 4  # kMaxD2, kMaxR in csrc/kexp_pair.cu
-TILE = 32  # the forward's and the frozen backward's tile side, kFT in csrc/kexp_pair.cu
+TILE = 32  # every entry's tile side, kFT in csrc/kexp_pair.cu
 
 
 def reset_launches():
@@ -117,6 +121,16 @@ def frozen_partials(n, p, d2, m, like):
     return torch.empty(shape, dtype=like.dtype, device=like.device)
 
 
+def full_partials(n, p, d2, m, r, like):
+    """The full backward's scratch, flat: the frozen backward's
+    (``frozen_partials``), then dalu's row partials (P, ceil(M / TILE), R,
+    M), one slab per column tile, each summed over the batch; empty when one
+    tile covers M (the kernel then writes every output itself)."""
+    nt = _tiles(m)
+    size = (2 * n * p * nt * d2 * m + p * nt * r * m) if nt > 1 else 0
+    return torch.empty((size,), dtype=like.dtype, device=like.device)
+
+
 # ----------------------------------------------------------------- plain torch
 def _exp_grid(su, sw):
     """E (N, P, M, M) = exp(-su^T sw)."""
@@ -166,7 +180,8 @@ def _bwd(su, sw, alu, qm, devc, dqcol, want_model):
         _launch("bwd_frozen", (su, sw, alu, qm, devc, dqcol), (dsu, dsw, part), shape)
         return dsu, dsw, None, None
     dalu, dqm = torch.empty_like(alu), torch.empty_like(qm)
-    _launch("bwd", (su, sw, alu, qm, devc, dqcol), (dsu, dsw, dalu, dqm), shape)
+    part = full_partials(*shape[:4], shape[4], su)
+    _launch("bwd", (su, sw, alu, qm, devc, dqcol), (dsu, dsw, dalu, dqm, part), shape)
     return dsu, dsw, dalu, dqm
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time K1 (the pathwise drift's path evaluation, csrc/path_eval.cu), K2
 (the eKuffu pair contraction, csrc/kexp_pair.cu), K3 (the whole SVGP match,
-csrc/mm_match.cu), K3g (the whole GPR match, csrc/gpr_match.cu), K5 (the MM
-step's PSD boost and Euler update, csrc/mm_glue.cu) and K6 (the whole
-pathwise rollout loss, csrc/rollout.cu) on one NVIDIA GPU: this
+csrc/mm_match.cu), K3g (the whole GPR match, csrc/gpr_match.cu), K4 (the
+encoder match, csrc/enc_match.cu), K5 (the MM step's PSD boost and Euler
+update, csrc/mm_glue.cu) and K6 (the whole pathwise rollout loss,
+csrc/rollout.cu) on one NVIDIA GPU: this
 checkout against others (a parent commit's ``git archive``, a variant), in
 one run on one card.
 
@@ -17,26 +18,30 @@ policy's shapes and its forward and frozen backward on the GPR route (P=8
 members, R=4), K1's three entries at the pathwise slice's shape (S=1024,
 L=4, B=1024, M=240, D=6), K5a in float32 and float64 at the policy
 joint's shape (N=1, D=6) and K5b in float32 with the boost at the state's
-(N=1, D=4), and K6's forward and backward at the fused-rollout slice's
-shape (S=1024, B=1024, M=240, Mp=30, T=30) and on the 8-member axis (K=8,
-128 particles each), with chip_smoke.py's method (median device time over 30
-calls, L2 flushed, and warm; chip_smoke's *_bound_ms for the bounds).
-Each checkout is reported by the smaller of its medians. On the same
-inputs, each other checkout's outputs are compared with this one's: K3g's
-forward at its bars (float64: 1e-9 of the scale; float32: within 3x the
-plain float32 version's error against float64, plus 1e-4 of the scale),
-K2's forward and frozen backward and K1's dx-only backward at their own
-(rtol = atol = 1e-10 in float64, 1e-4 in float32), K5's at chip_smoke.py's
-(1e-12 of the scale in float64, 1e-5 in float32), K6's forward and
-backward at chip_smoke.py's (float64: 1e-10 of the scale; float32 over 30
-steps: within 3x the plain float32 version's error against float64, plus
-1e-4 of the scale), every other entry (K1's forward and full backward
-among them) bit for bit. ``--only`` keeps the entries whose name starts with one of the
-prefixes (``k6_``: K6 alone, ``k6_fwd``: its forward alone), and builds
-only the libraries they need. Each checkout's per-stage
-device times (torch.profiler) and each library's ptxas registers and spills
-are printed. The last line is one JSON object of all the numbers, also
-written to --out.
+(N=1, D=4), K4's forward and backward in float32 and float64 at the
+rollout's N=1 and the post-rollout cost's N=30 (D=4, active (1,)), and
+K6's forward and backward at the fused-rollout slice's shape (S=1024,
+B=1024, M=240, Mp=30, T=30) and on the 8-member axis (K=8, 128 particles
+each), with chip_smoke.py's method (median device time over 30 calls, L2
+flushed, and warm; chip_smoke's *_bound_ms for the bounds). Each checkout
+is reported by the smaller of its medians. On the same inputs, each other
+checkout's outputs are compared with this one's: K3g's forward at its bars
+(float64: 1e-9 of the scale; float32: within 3x the plain float32
+version's error against float64, plus 1e-4 of the scale), K2's forward and
+full backward and K1's dx-only backward at their own (rtol = atol = 1e-10
+in float64, 1e-4 in float32), K4's backward and K5's at chip_smoke.py's
+(1e-12 of the scale in float64, 1e-5 in float32; these entries also report
+whether they are bit-identical), K6's forward and backward at
+chip_smoke.py's (float64: 1e-10 of the scale; float32 over 30 steps:
+within 3x the plain float32 version's error against float64, plus 1e-4 of
+the scale), every other entry (K1's forward and full backward, K2's frozen
+backward and K4's forward among them) bit for bit. ``--only`` keeps the
+entries whose name starts with one of the prefixes (``k6_``: K6 alone,
+``k6_fwd``: its forward alone, ``k4_``: K4 alone), and builds only the
+libraries they need. Each checkout's per-stage device times
+(torch.profiler) and each library's ptxas registers, spills and stack
+frames are printed. The last line is one JSON object of all the numbers,
+also written to --out.
 """
 from __future__ import annotations
 
@@ -70,13 +75,16 @@ CASES = (
       for kind in ("fwd", "bwd")),
     *((f"k1_{kind}", "f32", "pathwise") for kind in ("fwd", "bwd_dx", "bwd_full")),
     ("k5_psd", "f32", "joint"), ("k5_psd", "f64", "joint"), ("k5_euler", "f32", "state"),
+    *((f"k4_{kind}", sfx, where) for sfx in ("f32", "f64") for where in ("rollout", "cost")
+      for kind in ("fwd", "bwd")),
 )
-LIBS = ("mm_match", "gpr_match", "kexp_pair", "rollout", "path_eval", "mm_glue")
+LIBS = ("mm_match", "gpr_match", "kexp_pair", "rollout", "path_eval", "mm_glue", "enc_match")
 # the library of each entry-name prefix; K3's entries ("fwd", "bwd", ...) are mm_match's
 PREFIX_LIBS = (("k6_", "rollout"), ("k2_", "kexp_pair"), ("gpr_", "gpr_match"), ("k1_", "path_eval"),
-               ("k5_", "mm_glue"))
+               ("k5_", "mm_glue"), ("k4_", "enc_match"))
 K6_MEMBERS = 8  # the HMC ensemble's members on K6's member axis
 K2_GPR = (1, 8, 14, 240, 4)  # (N, P, D2, M, R) of K2's GPR route
+K4_N = {"rollout": 1, "cost": 30}  # K4's batch in the rollout and on the post-rollout cost
 
 
 def _smoke():
@@ -102,12 +110,16 @@ def build(root, libs):
 
     took = _build.build_all(libs)
     cs, out = _smoke(), getattr(_build, "compiler_output", {})
-    # fwd_tiles: an older checkout's name of K3g's forward tile kernel;
-    # fwd_kernel and bwd_kernel: an older checkout's K6 forward and backward,
-    # and its K2 and K1 forwards
+    # older checkouts' names: fwd_tiles, K3g's forward tile kernel;
+    # fwd_kernel and bwd_kernel, K6's forward and backward and K2's and K1's
+    # forwards; K2's two-pass full backward and frozen tiles; K4's
+    # one-thread backward
     kernels = {"mm_match": cs.PTXAS_K3, "gpr_match": (*cs.PTXAS_K3G, "fwd_tiles"),
-               "kexp_pair": (*cs.PTXAS_K2, "fwd_kernel"), "rollout": (*cs.PTXAS_K6, "fwd_kernel", "bwd_kernel"),
-               "path_eval": (*cs.PTXAS_K1, "fwd_kernel"), "mm_glue": cs.PTXAS_K5}
+               "kexp_pair": (*cs.PTXAS_K2, "fwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel",
+                             "bwd_frozen_tiles", "bwd_frozen_finish"),
+               "rollout": (*cs.PTXAS_K6, "fwd_kernel", "bwd_kernel"),
+               "path_eval": (*cs.PTXAS_K1, "fwd_kernel"), "mm_glue": cs.PTXAS_K5,
+               "enc_match": (*cs.PTXAS_K4, "enc_bwd_kernel")}
     ptxas = {lib: cs.ptxas_report(out.get(lib, ""), kernels[lib]) for lib in libs}
     print(json.dumps({"built": str(root), "seconds": took, "ptxas": ptxas}))
 
@@ -121,6 +133,23 @@ def _k2_case(cs, kc, kind, dtype, where, device):
     if kind == "fwd":
         return (lambda: kc._fwd(*ops)), bound
     return (lambda: kc._bwd(*ops, *cot, kind == "bwd")[:2 if kind == "bwd_frozen" else 4]), bound
+
+
+def _k4_case(cs, ec, kind, dtype, where, device):
+    """(fn, bound) of a K4 entry on chip_smoke.py's encoder inputs."""
+    import torch
+
+    n = K4_N[where]
+    rng = cs.np.random.default_rng(17 + n)
+    meta = ec.make_enc_meta(cs.ENC_ACTIVE, cs.ENC_D)
+    mx, sxx = cs.state_moments(rng, n, cs.ENC_D, dtype, device)
+    bound = cs.enc_bound_ms(kind, n, cs.ENC_D, len(cs.ENC_ACTIVE), dtype)[0]
+    if kind == "fwd":
+        return (lambda: ec._fwd(meta, mx, sxx)), bound
+    f = lambda *sh: torch.as_tensor(rng.normal(size=sh), dtype=dtype, device=device)  # noqa: E731
+    de = meta.num_out
+    cots = (f(n, de), f(n, de, de), f(n, cs.ENC_D, de))
+    return (lambda: ec._bwd(meta, mx, sxx, *cots)), bound
 
 
 def _k1_case(cs, pe, kind, device):
@@ -177,6 +206,7 @@ def run(root, save, only=()):
     import torch
 
     sys.path.insert(0, str(root))
+    from gpflowpilco_torch.ops import enc_match_cuda as ec
     from gpflowpilco_torch.ops import gpr_match_cuda as gm
     from gpflowpilco_torch.ops import kexp_cuda as kc
     from gpflowpilco_torch.ops import mm_glue_cuda as gc
@@ -205,9 +235,10 @@ def run(root, save, only=()):
             outs[key] = [t.cpu() for t in fn()]
             timed(key, fn, bound)
             continue
-        if kind.startswith(("k1_", "k2_", "k5_")):
+        if kind.startswith(("k1_", "k2_", "k4_", "k5_")):
             fn, bound = (_k1_case(cs, pe, kind[3:], device) if kind.startswith("k1_")
                          else _k5_case(cs, gc, kind[3:], dtype, device) if kind.startswith("k5_")
+                         else _k4_case(cs, ec, kind[3:], dtype, where, device) if kind.startswith("k4_")
                          else _k2_case(cs, kc, kind[3:], dtype, where, device))
             outs[key] = [t.cpu() for t in fn()]
             timed(key, fn, bound)
@@ -262,7 +293,8 @@ def compare(a, b, cs):
         if "/" in k or k not in b:
             continue
         pairs = list(zip(a[k], b[k]))
-        if not k.startswith(("gpr_fwd_", "k2_fwd", "k2_bwd_frozen", "k1_bwd_dx", "k5_", "k6_")):
+        if not k.startswith(("gpr_fwd_", "k2_fwd", "k2_bwd_f32", "k2_bwd_f64", "k1_bwd_dx", "k4_bwd", "k5_",
+                             "k6_")):
             diff = {i: float((x.double() - y.double()).abs().max()) for i, (x, y) in enumerate(pairs)
                     if not torch.equal(x, y)}
             out[k] = diff or True
@@ -282,14 +314,16 @@ def compare(a, b, cs):
                 ok = all(cs.scaled_err(x, t) <= 3.0 * cs.scaled_err(p, t) + 1e-4
                          for side in (a[k], b[k]) for x, p, t in zip(side, plain, truth))
             out[k] = dict(scaled_vs_parent=max(cs.scaled_err(x, y) for x, y in pairs), bars_hold=ok)
-        elif k.startswith("k5_"):
+        elif k.startswith(("k4_", "k5_")):
             tol = cs.SMALL_TOL[torch.float64 if "_f64_" in k else torch.float32]
             err = max(cs.scaled_err(x, y) for x, y in pairs)
-            out[k] = dict(scaled_vs_parent=err, bars_hold=err <= tol)
-        else:  # K2's forward and frozen backward, K1's dx-only backward
-            tol = 1e-10 if "_f64_" in k else 1e-4
+            out[k] = dict(scaled_vs_parent=err, bars_hold=err <= tol,
+                          bit_identical=all(torch.equal(x, y) for x, y in pairs))
+        else:  # K2's forward and full backward, K1's dx-only backward
+            tol = cs.PAIR_TOL[torch.float64 if "_f64_" in k else torch.float32]
             out[k] = dict(max_abs_vs_parent=max(float((x.double() - y.double()).abs().max()) for x, y in pairs),
-                          bars_hold=all(torch.allclose(x, y, rtol=tol, atol=tol) for x, y in pairs))
+                          bars_hold=all(torch.allclose(x, y, rtol=tol, atol=tol) for x, y in pairs),
+                          bit_identical=all(torch.equal(x, y) for x, y in pairs))
     return out
 
 
@@ -335,9 +369,9 @@ def main():
         builds[name] = json.loads(lines[-1])
     for name, b in builds.items():
         for lib, rows in b["ptxas"].items():
-            for kern, t, params, regs, st, ld in rows:
+            for kern, t, params, regs, st, ld, stack in rows:
                 print(f"ptxas {name} {lib} {kern}<{t}{''.join(f', {v}' for v in params)}>: {regs} registers, "
-                      f"spill {st} / {ld} bytes")
+                      f"spill {st} / {ld} bytes, stack frame {stack} bytes")
     order = [*roots, *reversed(roots)]
     out_dir = Path(args.out).parent
     out_dir.mkdir(parents=True, exist_ok=True)

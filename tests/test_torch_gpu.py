@@ -166,9 +166,9 @@ def test_torch_path_eval_backward_repeats_on_gpu():
 def test_torch_pair_contract_kernels_match_reference_on_gpu(dtype, n, p, d2, m, r):
     """K2 forward, full and frozen backward against the plain version, at the
     drift's and the policy's shapes, the GPR route's (8 members on P, R = 4
-    rows of alpha^T) and ragged ones (M not a multiple of the 32-wide passes
-    or of the frozen backward's 32-wide tiles: 17, 30, 45, 65, 129; M = 64
-    exact tiles; a batch N > 1, D2 > 16). Each output is a sum of at most M
+    rows of alpha^T) and ragged ones (M not a multiple of the kernels'
+    32-wide tiles: 17, 30, 45, 65, 129; M = 64 exact tiles; a batch N > 1,
+    D2 > 16). Each output is a sum of at most M
     terms taken in another order: rtol = atol = 1e-4 in float32, 1e-10 in
     float64. Repeated forward, full and frozen backward runs are
     bit-identical (no atomics)."""
@@ -390,6 +390,75 @@ def test_torch_enc_match_kernels_match_reference_on_gpu(dtype, n, d, active):
     wide = ec.make_enc_meta((1,), 17)
     with pytest.raises(ValueError, match="D <= 16"):
         ec._fwd(wide, f(np.zeros((1, 17))), f(np.eye(17)[None]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_torch_pair_contract_full_backward_multi_tile_on_gpu(dtype):
+    """K2's full backward where M = 33 spans two tiles and N = 3: the tile
+    launch and the finish launch, dalu and dqm summed over the batch,
+    against the plain version at rtol = atol = 1e-4 (float32), 1e-10
+    (float64); one call counts one launch."""
+    from gpflowpilco_torch.ops import kexp_cuda as kc
+
+    dev = _gpu_or_skip()
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    ops, cot = _pair_operands(np.random.default_rng(33), 3, 2, 14, 33, 1, dtype, dev)
+    name = f"pair_contract_bwd_{'f32' if dtype == torch.float32 else 'f64'}"
+    before = kc.launches[name]
+    got = kc._bwd(*ops, *cot, True)
+    want = kc.pair_contract_reference_bwd(*ops, *cot, True)
+    torch.cuda.synchronize()
+    assert kc.launches[name] == before + 1
+    for what, g, w in zip(("dsu", "dsw", "dalu", "dqm"), got, want):
+        assert g.shape == w.shape, what
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol, msg=what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, n, p, d2, m, r", [(torch.float32, 1, 1, 12, 30, 1),
+                                                   (torch.float64, 1, 10, 14, 240, 1),
+                                                   (torch.float32, 3, 2, 14, 33, 1)])
+def test_torch_pair_contract_full_backward_repeats_on_gpu(dtype, n, p, d2, m, r):
+    """K2's full backward at the policy's shape (one tile, one launch), the
+    drift's and a multi-tile batch: two runs bit-identical (no atomics)."""
+    from gpflowpilco_torch.ops import kexp_cuda as kc
+
+    dev = _gpu_or_skip()
+    ops, cot = _pair_operands(np.random.default_rng(m + n), n, p, d2, m, r, dtype, dev)
+    a, b = kc._bwd(*ops, *cot, True), kc._bwd(*ops, *cot, True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _pair_operands(rng, n, p, d2, m, r, dtype, dev):
+    """K2's (su, sw, alu, qm) and (devc, dqcol), with su^T sw >= 0 as in the
+    pair grid."""
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev).contiguous()  # noqa: E731
+    su = f(np.abs(rng.normal(size=(n, p, d2, m))) / d2)
+    sw = f(np.abs(rng.normal(size=(n, p, d2, m))) / d2)
+    ops = (su, sw, f(rng.normal(size=(p, r, m))), f(rng.normal(size=(p, m, m))))
+    return ops, (f(rng.normal(size=(n, p, r, m))), f(rng.normal(size=(n, p, m))))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, d, active", [(1, 4, (1,)), (30, 4, (1,)), (3, 10, (9, 2, 5))])
+def test_torch_enc_match_backward_repeats_on_gpu(dtype, n, d, active):
+    """K4's backward (a warp per batch entry, each dS and dm entry written
+    by one lane) at the path's shape, the post-rollout cost's N = 30 and the
+    generic instantiation: two runs bit-identical."""
+    from gpflowpilco_torch.ops import enc_match_cuda as ec
+
+    dev = _gpu_or_skip()
+    meta = ec.make_enc_meta(active, d)
+    rng = np.random.default_rng(n + d)
+    a = rng.normal(size=(n, d, d))
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev).contiguous()  # noqa: E731
+    mx, sxx = f(rng.normal(size=(n, d))), f(0.3 * a @ a.transpose(0, 2, 1) + 0.1 * np.eye(d))
+    de = meta.num_out
+    cots = (f(rng.normal(size=(n, de))), f(rng.normal(size=(n, de, de))), f(rng.normal(size=(n, d, de))))
+    x, y = ec._bwd(meta, mx, sxx, *cots), ec._bwd(meta, mx, sxx, *cots)
+    assert all(torch.equal(u, w) for u, w in zip(x, y))
 
 
 def _hold_glue(gc, s, m, f1, sff, sxf, tol):

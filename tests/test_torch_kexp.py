@@ -285,3 +285,70 @@ def test_torch_pair_contract_forward_partials_layout():
     assert kc.forward_partials(3, 3, 33, 1, like).shape == (3, 3, 2, 2, 33)
     assert kc.forward_partials(1, 1, 30, 1, like).numel() == 0
     assert kc.forward_partials(2, 2, 32, 4, like).numel() == 0
+
+
+def _full_tile_split(su, sw, alu, qm, devc, dqcol, tile):
+    """The stages of csrc/kexp_pair.cu's full backward, in float64 torch:
+    each pair's grid cut into tile x tile cells, a tile's block taking the
+    batch entries in order; per (tile, entry), E evaluated once, g = -E o
+    (alu^T devc + qm o dqcol), the row partial g sw_tile^T into dsu's slab
+    of the column tile and the column partial su_tile g into dsw's slab of
+    the row tile; dalu's row partial devc_tile E^T into dalu's slab of the
+    column tile and E o dqcol into dqm's cells, both summed over the batch
+    in order; then each slab list added in tile order. Returns (dsu, dsw,
+    dalu, dqm)."""
+    n, m = su.shape[0], su.shape[-1]
+    spans = [(i, min(i + tile, m)) for i in range(0, m, tile)]
+    dsu_p = torch.zeros((len(spans),) + su.shape, dtype=su.dtype)
+    dsw_p = torch.zeros((len(spans),) + sw.shape, dtype=sw.dtype)
+    dalu_p = torch.zeros((len(spans),) + alu.shape, dtype=alu.dtype)
+    dqm = torch.zeros_like(qm)
+    for ti, (i0, i1) in enumerate(spans):
+        for tj, (j0, j1) in enumerate(spans):
+            for b in range(n):
+                e = torch.exp(-(su[b, :, :, i0:i1].mT @ sw[b, :, :, j0:j1]))  # (P, rows, columns)
+                g = -e * (alu[:, :, i0:i1].mT @ devc[b, :, :, j0:j1]
+                          + qm[:, i0:i1, j0:j1] * dqcol[b, :, None, j0:j1])
+                dsu_p[tj][b, :, :, i0:i1] = sw[b, :, :, j0:j1] @ g.mT
+                dsw_p[ti][b, :, :, j0:j1] = su[b, :, :, i0:i1] @ g
+                dalu_p[tj][:, :, i0:i1] += devc[b, :, :, j0:j1] @ e.mT
+                dqm[:, i0:i1, j0:j1] += e * dqcol[b, :, None, j0:j1]
+    outs = [dsu_p[0], dsw_p[0], dalu_p[0]]
+    for slabs in zip(dsu_p[1:], dsw_p[1:], dalu_p[1:]):
+        outs = [x + s for x, s in zip(outs, slabs)]
+    return (*outs, dqm)
+
+
+@pytest.mark.parametrize("n, p, d2, m, r", [
+    (1, 10, 14, 240, 1),  # the MM drift's shape
+    (3, 3, 14, 17, 1),    # below one tile, a batch N = 3
+    (2, 2, 20, 45, 1),    # D2 above 16
+    (1, 1, 12, 30, 1),    # the policy's shape
+    (1, 8, 14, 240, 4),   # the GPR route: 8 members on P, R = 4 rows of alpha^T
+])
+def test_torch_pair_contract_full_tile_split_matches_reference(n, p, d2, m, r):
+    """The tile decomposition of K2's full backward (E once per cell, the
+    batch in order inside a tile, dsu's, dsw's and dalu's partials per tile
+    added in tile order, dqm per cell summed over the batch) against
+    pair_contract_reference_bwd(..., True), in float64, to 1e-12 of each
+    output's scale."""
+    o = _operands(np.random.default_rng(3000 + m + r), n, p, d2, m, r=r)
+    args = [t(o[k]) for k in ("su", "sw", "alu", "qm", "devc", "dqcol")]
+    got = _full_tile_split(*args, kc.TILE)
+    want = kc.pair_contract_reference_bwd(*args, True)
+    for what, x, w in zip(("dsu", "dsw", "dalu", "dqm"), got, want):
+        assert x.shape == w.shape, what
+        err = float((x - w).abs().max()) / float(w.abs().max())
+        assert err <= 1e-12, (what, err)
+
+
+def test_torch_pair_contract_full_partials_layout():
+    """The full backward's scratch, flat: the frozen backward's two partial
+    slabs per tile of M, then dalu's (P, ceil(M / TILE), R, M); none when one
+    tile covers M (the policy's M = 30, whose full backward is one launch)."""
+    like = torch.zeros(1, dtype=torch.float64)
+    assert kc.full_partials(1, 10, 14, 240, 1, like).shape == (2 * 10 * 8 * 14 * 240 + 10 * 8 * 240,)
+    assert kc.full_partials(3, 2, 14, 33, 1, like).shape == (2 * 3 * 2 * 2 * 14 * 33 + 2 * 2 * 33,)
+    assert kc.full_partials(1, 8, 14, 240, 4, like).shape == (2 * 8 * 8 * 14 * 240 + 8 * 8 * 4 * 240,)
+    assert kc.full_partials(1, 1, 12, 30, 1, like).numel() == 0
+    assert kc.full_partials(2, 2, 32, 32, 4, like).numel() == 0
