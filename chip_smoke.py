@@ -36,8 +36,9 @@
    backward) at the drift's (N=1, L=4, D=6, M=240, with model uncertainty),
    the policy's (N=1, L=1, D=5, M=30) and the HMC ensemble policy's (the
    policy's with the 8 members as its batch, N=8) shapes, K4 (the encoder
-   match; its backward's repeated runs bit-identical) at N=1 and N=30, K5a
-   (the PSD boost) at D=6 and K5b (the Euler update) at D=4, each in
+   match; its forward's and backward's repeated runs bit-identical) at N=1
+   and N=30, K5a (the PSD boost) at D=6 and K5b (the Euler update; its
+   repeated runs bit-identical) at D=4, each in
    float32 and float64 against its plain version, timed beside
    it, its bound and, for K5a and K5b, torch.linalg.eigvalsh. Float32 K3 is
    held twice: at a random model's grid against float64, and at a
@@ -46,8 +47,8 @@
    grid), repeated forward and frozen-backward runs, and full-backward runs
    at N=8, must be bit-identical, and the device time of each stage of the
    tiled entries (tile sweep, finish, combine) and of the full backward
-   (groups, slot sum, combine), and of K4's backward, is printed from one
-   profiler session. K5's kernels sweep D <= 8 in the round-robin order,
+   (groups, slot sum, combine), and of K4's and K5b's entries, is printed
+   from one profiler session. K5's kernels sweep D <= 8 in the round-robin order,
    the plain version in the cyclic one: where five cyclic sweeps have not
    converged, K5 is held
    against eigvalsh's lambda_min at the same bar
@@ -55,8 +56,9 @@
    spills and stack frames of every kernel and fails if a float32 tile
    kernel at the main path's register capacity spills (K3's and K3g's at 8,
    K2's forward and backward tiles at 16, K1's forward and dx-only backward
-   and K6's forward at 6 and 8, K6's Jacobians at 8), or if K4's backward
-   at the path's D = 4 spills or has a stack frame.
+   and K6's forward at 6 and 8, K6's Jacobians at 8), or if K4's forward
+   or backward or K5b's kernel at the path's D = 4 spills or has a stack
+   frame.
 7. Whole-match slice: moment-matching PILCO on cartpole at full width with
    use_fused_match, float32 loop and loss: 8 random episodes, a drift fit,
    then one Adam policy update (counts zeroed just before, read just after;
@@ -825,16 +827,17 @@ def stage_ms(fn, reps=5, sessions=4):
     ``reps`` calls after a warm-up recorded (a session can drop some of
     its calls' events, so the total over ``reps`` would undercount). A
     session can also record none of a tiny kernel's launches (K4's, late in
-    a long process, intermittently); then another session is taken, up to
-    ``sessions``, and {} means that none recorded any."""
+    a long process, intermittently); then another session is taken over ten
+    times as many calls, up to ``sessions`` in all, and says so; {} means
+    that none recorded any."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     sync()
     total = {}
-    for _ in range(sessions):
+    for attempt in range(sessions):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(reps * 10**attempt):
                 fn()
             sync()
         for e in prof.key_averages():
@@ -847,6 +850,9 @@ def stage_ms(fn, reps=5, sessions=4):
             total[name] = (t_us + us, n + e.count)
         if total:
             break
+    if attempt:
+        print(f"  stage_ms: {attempt} profiler session(s) recorded no device activity"
+              + (f"; session {attempt + 1}, over {reps * 10**attempt} calls, did" if total else ""))
     return {name: t_us / 1e3 / n for name, (t_us, n) in total.items() if n}
 
 
@@ -859,24 +865,24 @@ PTXAS_K3 = ("svgp_fwd_tiles", "svgp_fwd_combine", "svgp_bwd_tiles", "svgp_bwd_fi
 PTXAS_K3G = ("gpr_fwd_tiles", "fwd_combine", "gpr_bwd_tiles", "gpr_bwd_finish", "bwd_combine")
 PTXAS_K1 = ("fwd_warp", "bwd_warp", "bwd_finish", "bwd_kernel")
 PTXAS_K2 = ("fwd_tiles", "fwd_finish", "bwd_tiles", "bwd_finish")
-PTXAS_K4 = ("enc_fwd_kernel", "enc_bwd_warp")
-PTXAS_K5 = ("psd_kernel", "euler_kernel")
+PTXAS_K4 = ("enc_fwd_warp", "enc_bwd_warp")
+PTXAS_K5 = ("psd_kernel", "euler_warp", "euler_kernel")
 PTXAS_K6 = ("fwd_panels", "fwd_warp", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads")
 # (library, its kernels, the kernels that must not spill in float32 at the
 # main path's register capacities or shapes (their first template integer),
 # those, and whether those must also have no stack frame): K3's and K3g's
 # tiles at D <= 8 (DM = 8), K2's forward and backward tiles (frozen and
 # full) at D2 <= 16 (DM = 16), K1's forward and dx-only backward at D = 6
-# (the cartpole's) and D <= 8, K4's backward at the path's D = 4 (no stack
-# frame either: no local memory), K5's kernels printed only (one thread a
-# matrix), K6's phase-1 Jacobian kernel at Dxu <= 8 (DXU = 8) and its
-# forward, both routes, at Dxu = 6 and <= 8
+# (the cartpole's) and D <= 8, K4's forward and backward and K5b's warp
+# kernel at the path's D = 4 (no stack frame either: no local memory),
+# K6's phase-1 Jacobian kernel at Dxu <= 8 (DXU = 8) and its forward, both
+# routes, at Dxu = 6 and <= 8
 PTXAS_LIBS = (("mm_match", PTXAS_K3, ("svgp_fwd_tiles", "svgp_bwd_tiles"), (8,), False),
               ("gpr_match", PTXAS_K3G, ("gpr_fwd_tiles", "gpr_bwd_tiles"), (8,), False),
               ("kexp_pair", PTXAS_K2, ("fwd_tiles", "bwd_tiles"), (16,), False),
-              ("enc_match", PTXAS_K4, ("enc_bwd_warp",), (4,), True),
+              ("enc_match", PTXAS_K4, ("enc_fwd_warp", "enc_bwd_warp"), (4,), True),
               ("path_eval", PTXAS_K1, ("fwd_warp", "bwd_warp"), (6, 8), False),
-              ("mm_glue", PTXAS_K5, (), (), False),
+              ("mm_glue", PTXAS_K5, ("euler_warp",), (4,), True),
               ("rollout", PTXAS_K6, ("bwd_jac", "fwd_warp"), (6, 8), False))
 
 
@@ -1056,10 +1062,10 @@ def match_kernels_phase(mc, ec, gc, seed, device):
                     err = record(f"enc_match_{kind}_{sfx}", a, b, what)
                     if not (torch.isfinite(a).all() and err <= tol):
                         raise AssertionError(f"enc_match_{kind}_{sfx} {what}: kernel disagrees")
-            again = ec._bwd(meta, mx, sxx, *cots)
-            if not all(torch.equal(a, b) for a, b in zip(pairs[1][2], again)):
-                raise AssertionError(f"enc_match_bwd_{sfx}: repeated runs differ")
-            print(f"  enc_match_bwd_{sfx}: repeated runs bit-identical")
+            for (kind, _, first, _), again in zip(pairs, (ec._fwd(meta, mx, sxx), ec._bwd(meta, mx, sxx, *cots))):
+                if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                    raise AssertionError(f"enc_match_{kind}_{sfx}: repeated runs differ")
+                print(f"  enc_match_{kind}_{sfx}: repeated runs bit-identical")
             if n == 1:
                 calls[f"enc_match_fwd_{sfx}"] = (
                     lambda a=(meta, mx, sxx): ec._fwd(*a),
@@ -1089,6 +1095,11 @@ def match_kernels_phase(mc, ec, gc, seed, device):
             err = record(f"{kind}_{sfx}", a, b, what)
             if not (torch.isfinite(a).all() and err <= tol):
                 raise AssertionError(f"{kind}_{sfx} {what}: kernel disagrees with its plain version")
+        for jit in (0.0, 1e-6):
+            first, again = (gc._euler(m4, s4, f14, sff4, sxf4, 1.0, jit) for _ in range(2))
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(f"euler_update_{sfx} (jitter {jit:g}): repeated runs differ")
+        print(f"  euler_update_{sfx}: repeated runs bit-identical")
         # Jacobi's lambda_min against eigvalsh's where the boost is active:
         # K5a against psd_project on the same indefinite joints
         boosted = gc._psd(s6, 0.0)
@@ -1115,10 +1126,12 @@ def match_kernels_phase(mc, ec, gc, seed, device):
               f"{plain_ms:.4f} ms ({plain_how}), bound {bound:.6f} ms ({bound_by})"
               + ("" if lib_ms is None else f", eigvalsh {lib_ms:.4f} ms ({lib_how})"))
     # the stages of K3's entries (warm L2): tile sweep, finish, combine; the
-    # full backward's groups, slot sum (N > 1) and combine; K4's backward
+    # full backward's groups, slot sum (N > 1) and combine; K4's and K5b's
+    # one kernel each, its time alone
     for name in ("svgp_match_fwd_f32", "svgp_match_bwd_frozen_f32", "svgp_match_fwd_f64",
                  "svgp_match_bwd_frozen_f64", "svgp_match_fwd_f32 (policy)", "svgp_match_bwd_f32",
-                 "svgp_match_bwd_f32 (ensemble policy)", "enc_match_bwd_f32", "enc_match_bwd_f64"):
+                 "svgp_match_bwd_f32 (ensemble policy)", "enc_match_fwd_f32", "enc_match_fwd_f64",
+                 "enc_match_bwd_f32", "enc_match_bwd_f64", "euler_update_f32", "euler_update_f64"):
         stages = stage_ms(calls[name][0])
         timings[name]["stages"] = stages
         print(f"  stages of {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
@@ -2115,7 +2128,7 @@ def fused_rollout_slice_phase(rc, pe, loop, seed, device, step_limit):
 # repository's kernels and the eigenvalue solver behind psd_project's eigvalsh
 _WATCHED = ("fwd_warp", "bwd_warp", "bwd_kernel", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads",
             "bwd_finish", "fwd_finish", "bwd_groups", "bwd_slots", "fwd_tiles", "bwd_tiles",
-            "combine", "enc_fwd", "enc_bwd", "psd_kernel", "euler_kernel", "syev", "eig")
+            "combine", "enc_fwd", "enc_bwd", "psd_kernel", "euler_warp", "euler_kernel", "syev", "eig")
 # host runtime calls that wait for the device or copy through it
 _SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
 
@@ -2244,7 +2257,7 @@ def main():
     phase_s = {"build": time.perf_counter() - t0}
     # ptxas: every kernel's registers, spills and stack frame; a gated float32
     # kernel at the main path's register capacity or shape must not spill
-    # (K4's backward must not touch local memory at all)
+    # (K4's kernels and K5b's must not touch local memory at all)
     for lib, kernels, gated, caps, no_stack in PTXAS_LIBS:
         regs = ptxas_report(_build.compiler_output.get(lib, ""), kernels)
         for kern, t, params, n_regs, st, ld, stack in regs:

@@ -15,14 +15,14 @@
 // Bound on an H100: a few hundred bytes and a few hundred operations per
 // batch entry; at the rollout's N = 1 (and N = 30 for the post-rollout cost)
 // the kernel is launch- and latency-bound. The active dims come as 4-bit
-// fields of one 64-bit argument (D <= 16), the inactive ones follow. The
-// forward runs one thread per batch entry, walking the scalar graph of the
-// JAX kernel. The backward runs a warp per batch entry (enc_bwd_warp): the
-// operands in shared memory after one wave of loads, the adjoint's
-// independent pieces (the trig pairs, the cross rows, the trig means'
-// cotangents) spread over the lanes, and each entry of dm and dS summed by
-// one lane in a fixed order and written once, so that the dependent chain
-// is a few phases deep and no runtime-indexed array sits in local memory.
+// fields of one 64-bit argument (D <= 16), the inactive ones follow. Both
+// entries run a warp per batch entry (enc_fwd_warp, enc_bwd_warp): the
+// operands in shared memory after one wave of loads, the independent pieces
+// (the active dims' terms and the trig pairs, computed once each; in the
+// backward also the cross rows and the trig means' cotangents) spread over
+// the lanes, and each output entry formed by one lane in a fixed order and
+// written once, so that the dependent chain is a few phases deep and no
+// runtime-indexed array sits in local memory.
 //
 // Each entry returns cudaGetLastError() as an int; the caller raises on
 // nonzero. Entries launch on the given stream and do not synchronise.
@@ -31,140 +31,12 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // the forward's block
 constexpr int kMaxD = 16;
 
 __device__ __forceinline__ float ex(float x) { return expf(x); }
 __device__ __forceinline__ double ex(double x) { return exp(x); }
 __device__ __forceinline__ float fm(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fm(double a, double b, double c) { return fma(a, b, c); }
-__device__ __forceinline__ float sn(float x) { return sinf(x); }
-__device__ __forceinline__ double sn(double x) { return sin(x); }
-__device__ __forceinline__ float cs(float x) { return cosf(x); }
-__device__ __forceinline__ double cs(double x) { return cos(x); }
-
-struct Parts {
-  int na, nb, nt, de;
-  int act[kMaxD];
-  int inact[kMaxD];
-};
-
-__device__ __forceinline__ Parts decode(int d, int na, unsigned long long packed) {
-  Parts p;
-  p.na = na;
-  unsigned mask = 0;
-  for (int i = 0; i < na; ++i) {
-    p.act[i] = (int)((packed >> (4 * i)) & 0xF);
-    mask |= 1u << p.act[i];
-  }
-  p.nb = 0;
-  for (int i = 0; i < d; ++i)
-    if (!(mask & (1u << i))) p.inact[p.nb++] = i;
-  p.nt = 2 * na;
-  p.de = p.nt + p.nb;
-  return p;
-}
-
-// Per-active-dim terms of the forward.
-template <typename T>
-struct Terms {
-  T m[kMaxD], v[kMaxD], ev[kMaxD], s1[kMaxD], c1[kMaxD];
-};
-
-template <typename T>
-__device__ __forceinline__ void terms(const Parts& p, const T* mx, const T* S, int d, Terms<T>& t) {
-  for (int i = 0; i < p.na; ++i) {
-    const int a = p.act[i];
-    t.m[i] = mx[a];
-    t.v[i] = fmax(S[a * d + a], T(0));
-    t.ev[i] = ex(T(-0.5) * t.v[i]);
-    t.s1[i] = t.ev[i] * sn(t.m[i]);
-    t.c1[i] = t.ev[i] * cs(t.m[i]);
-  }
-}
-
-// Raw trig second moments of active pair (i, j): a, b and the sums.
-template <typename T>
-struct Pair {
-  T a, b, madd, msub;
-};
-
-template <typename T>
-__device__ __forceinline__ Pair<T> pair(const Parts& p, const T* S, int d, const Terms<T>& t, int i,
-                                        int j) {
-  const T sij = S[p.act[i] * d + p.act[j]], sji = S[p.act[j] * d + p.act[i]];
-  Pair<T> r;
-  r.a = ex(T(-0.5) * (t.v[i] + t.v[j] + sij + sji));
-  r.b = ex(T(-0.5) * (t.v[i] + t.v[j] - sij - sji));
-  r.madd = t.m[i] + t.m[j];
-  r.msub = t.m[i] - t.m[j];
-  return r;
-}
-
-// raw2(ki, kj) over the 2 na trig dims: ss, sc, sc^T or cc.
-template <typename T>
-__device__ __forceinline__ T raw2(const Parts& p, const T* S, int d, const Terms<T>& t, int ki,
-                                  int kj) {
-  const int na = p.na, i = ki % na, j = kj % na;
-  if (kj < na && na <= ki) {  // sc[j][i]
-    const Pair<T> q = pair(p, S, d, t, j, i);
-    return T(0.5) * (q.b * sn(q.msub) + q.a * sn(q.madd));
-  }
-  const Pair<T> q = pair(p, S, d, t, i, j);
-  if (ki < na && kj < na) return T(0.5) * (q.b * cs(q.msub) - q.a * cs(q.madd));
-  if (ki < na) return T(0.5) * (q.b * sn(q.msub) + q.a * sn(q.madd));
-  return T(0.5) * (q.b * cs(q.msub) + q.a * cs(q.madd));
-}
-
-template <typename T>
-__device__ __forceinline__ T y1(const Parts& p, const T* mx, const Terms<T>& t, int k) {
-  if (k < p.na) return t.s1[k];
-  if (k < p.nt) return t.c1[k - p.na];
-  return mx[p.inact[k - p.nt]];
-}
-
-// Cov(x_dd, T_k) = S[dd, a_i] * (c1_i for k < na, else -s1_i)
-template <typename T>
-__device__ __forceinline__ T sxy_t(const Parts& p, const T* S, int d, const Terms<T>& t, int dd,
-                                   int k) {
-  const int i = k % p.na;
-  return S[dd * d + p.act[i]] * (k < p.na ? t.c1[i] : -t.s1[i]);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) enc_fwd_kernel(
-    const T* __restrict__ mx_, const T* __restrict__ sxx, T* __restrict__ ym, T* __restrict__ yc,
-    T* __restrict__ cr, int N, int d, int na, unsigned long long packed) {
-  const int n = blockIdx.x * kThreads + threadIdx.x;
-  if (n >= N) return;
-  const Parts p = decode(d, na, packed);
-  const int de = p.de, nt = p.nt;
-  const T* mx = mx_ + (size_t)n * d;
-  const T* S = sxx + (size_t)n * d * d;
-  T* yme = ym + (size_t)n * de;
-  T* yce = yc + (size_t)n * de * de;
-  T* cre = cr + (size_t)n * d * de;
-  Terms<T> t;
-  terms(p, mx, S, d, t);
-
-  for (int k = 0; k < de; ++k) yme[k] = y1(p, mx, t, k);
-  for (int ki = 0; ki < nt; ++ki)
-    for (int kj = 0; kj < nt; ++kj)
-      yce[ki * de + kj] = raw2(p, S, d, t, ki, kj) - y1(p, mx, t, ki) * y1(p, mx, t, kj);
-  for (int bi = 0; bi < p.nb; ++bi) {
-    for (int kj = 0; kj < nt; ++kj) {
-      const T c = sxy_t(p, S, d, t, p.inact[bi], kj);
-      yce[(nt + bi) * de + kj] = c;
-      yce[kj * de + nt + bi] = c;
-    }
-    for (int bj = 0; bj < p.nb; ++bj)
-      yce[(nt + bi) * de + nt + bj] = S[p.inact[bi] * d + p.inact[bj]];
-  }
-  for (int dd = 0; dd < d; ++dd) {
-    for (int k = 0; k < nt; ++k) cre[dd * de + k] = sxy_t(p, S, d, t, dd, k);
-    for (int bi = 0; bi < p.nb; ++bi) cre[dd * de + nt + bi] = S[dd * d + p.inact[bi]];
-  }
-}
 
 // sin and cos of one argument over the whole range, without fast math.
 // float: sincosf's slow path (Payne-Hanek reduction above |x| = 105615)
@@ -276,6 +148,109 @@ __device__ __forceinline__ void sin_cos(float x, float* s, float* c) {
 }
 __device__ __forceinline__ void sin_cos(double x, double* s, double* c) { sincos(x, s, c); }
 
+// Lane dd < d: pos[dd], dd's index among the active dims (in the given
+// order), or -1 - its index among the inactive ones (ascending); lane i <
+// na also act[i]. Returns the lane's pos (0 for lanes >= d).
+__device__ __forceinline__ int dim_roles(int lane, int d, int na, unsigned long long packed, int* act,
+                                         int* pos) {
+  if (lane >= d) return 0;
+  unsigned mask = 0;
+  int p = -1;
+  for (int i = 0; i < na; ++i) {
+    const int a = (int)((packed >> (4 * i)) & 0xF);
+    mask |= 1u << a;
+    if (a == lane) p = i;
+  }
+  p = p >= 0 ? p : -1 - __popc(~mask & ((1u << lane) - 1));
+  pos[lane] = p;
+  if (lane < na) act[lane] = (int)((packed >> (4 * lane)) & 0xF);
+  return p;
+}
+
+// The forward: a warp per batch entry (a block is one warp, the grid the
+// batch), on the exact shape (D, NA) where the path runs it ((4, 1)) and on
+// any D <= 16 with D = NA = 0, as the backward. The lanes copy mx and S
+// into shared memory in one wave, then (1) compute the terms once, spread
+// over the lanes: a lane per active dim (m, v, ev, sin m, cos m: s1, c1)
+// and a lane per active pair (i, j) (a, b and the sin and cos of m_i + m_j
+// and m_i - m_j: the pair's raw ss, cc and sc); then (2) every entry of
+// y_mean, y_cov and cross from its one lane, neighbouring lanes on
+// neighbouring addresses, each written once. Every runtime index is into
+// shared memory.
+template <typename T, int D, int NA>
+__global__ void __launch_bounds__(32) enc_fwd_warp(
+    const T* __restrict__ mx_, const T* __restrict__ sxx, T* __restrict__ ym, T* __restrict__ yc,
+    T* __restrict__ cr, int d_rt, int na_rt, unsigned long long packed) {
+  constexpr int kD = D ? D : kMaxD, kNA = D ? NA : kMaxD;
+  const int d = D ? D : d_rt, na = D ? NA : na_rt, nt = 2 * na, de = d + na;
+  const int lane = threadIdx.x;
+  const size_t n = blockIdx.x;
+  __shared__ T mx[kD], S[kD * kD], y1s[2 * kNA], ss[kNA * kNA], cc[kNA * kNA], sc[kNA * kNA];
+  __shared__ int act[kNA], pos[kD], inact[kD];
+
+  // (0) the operands, and the dims' roles
+  for (int k = lane; k < d; k += 32) mx[k] = mx_[n * d + k];
+  for (int k = lane; k < d * d; k += 32) S[k] = sxx[n * d * d + k];
+  const int p = dim_roles(lane, d, na, packed, act, pos);
+  if (p < 0) inact[-1 - p] = lane;
+  __syncwarp();
+
+  // (1) item i < na: active dim i's trig means; item na + i na + j: pair
+  // (i, j)'s raw second moments
+  for (int q = lane; q < na + na * na; q += 32) {
+    if (q < na) {
+      const int a = act[q];
+      const T e = ex(T(-0.5) * fmax(S[a * d + a], T(0)));
+      T s, c;
+      sin_cos(mx[a], &s, &c);
+      y1s[q] = e * s;
+      y1s[na + q] = e * c;
+    } else {
+      const int ij = q - na, ai = act[ij / na], aj = act[ij % na];
+      const T vi = fmax(S[ai * d + ai], T(0)), vj = fmax(S[aj * d + aj], T(0));
+      const T sij = S[ai * d + aj], sji = S[aj * d + ai];
+      const T pa = ex(T(-0.5) * (vi + vj + sij + sji)), pb = ex(T(-0.5) * (vi + vj - sij - sji));
+      T sa, ca, sb, cb;
+      sin_cos(mx[ai] + mx[aj], &sa, &ca);
+      sin_cos(mx[ai] - mx[aj], &sb, &cb);
+      ss[ij] = T(0.5) * (pb * cb - pa * ca);
+      cc[ij] = T(0.5) * (pb * cb + pa * ca);
+      sc[ij] = T(0.5) * (pb * sb + pa * sa);
+    }
+  }
+  __syncwarp();
+
+  // (2) y_mean (de), y_cov (de x de), cross (d x de), one entry a lane.
+  // Trig index k < nt is sin (k < na) or cos of active dim k % na; k >= nt
+  // is inactive dim inact[k - nt]. Cov(x_dd, trig k) = S[dd, a] c1 (sin)
+  // or -S[dd, a] s1 (cos), a = act[k % na].
+  const int n_ym = de, n_yc = n_ym + de * de, n_items = n_yc + d * de;
+  for (int q = lane; q < n_items; q += 32) {
+    if (q < n_ym) {
+      ym[n * de + q] = q < nt ? y1s[q] : mx[inact[q - nt]];
+      continue;
+    }
+    const bool cov = q < n_yc;
+    const int e = cov ? q - n_ym : q - n_yc, r = e / de, k = e % de;
+    T x;
+    if (cov && r < nt && k < nt) {  // raw2 - y1 y1^T
+      const int i = r % na, j = k % na;
+      const T raw = r < na ? (k < na ? ss[i * na + j] : sc[i * na + j])
+                           : (k < na ? sc[j * na + i] : cc[i * na + j]);
+      x = raw - y1s[r] * y1s[k];
+    } else if (cov && r >= nt && k >= nt) {
+      x = S[inact[r - nt] * d + inact[k - nt]];
+    } else if (!cov && k >= nt) {
+      x = S[r * d + inact[k - nt]];
+    } else {  // cross's trig columns, and y_cov's blocks Cov(x_b, trig) and its transpose
+      const int dd = !cov ? r : r >= nt ? inact[r - nt] : inact[k - nt], kk = !cov || r >= nt ? k : r;
+      const int i = kk % na;
+      x = S[dd * d + act[i]] * (kk < na ? y1s[na + i] : -y1s[i]);
+    }
+    (cov ? yc + n * de * de : cr + n * d * de)[e] = x;
+  }
+}
+
 // The backward: a warp per batch entry (a block is one warp, the grid the
 // batch), on the exact shape (D, NA) where the path runs it ((4, 1): the
 // cartpole's angle) and on any D <= 16 with D = NA = 0. The lanes copy the
@@ -309,17 +284,7 @@ __global__ void __launch_bounds__(32) enc_bwd_warp(
   for (int k = lane; k < de; k += 32) dym[k] = dym_[n * de + k];
   for (int k = lane; k < de * de; k += 32) dyc[k] = dyc_[n * de * de + k];
   for (int k = lane; k < d * de; k += 32) dcr[k] = dcr_[n * d * de + k];
-  if (lane < d) {
-    unsigned mask = 0;
-    int p = -1;
-    for (int i = 0; i < na; ++i) {
-      const int a = (int)((packed >> (4 * i)) & 0xF);
-      mask |= 1u << a;
-      if (a == lane) p = i;
-    }
-    pos[lane] = p >= 0 ? p : -1 - __popc(~mask & ((1u << lane) - 1));
-    if (lane < na) act[lane] = (int)((packed >> (4 * lane)) & 0xF);
-  }
+  dim_roles(lane, d, na, packed, act, pos);
   __syncwarp();
 
   // (1) the active dims' terms
@@ -418,16 +383,17 @@ __global__ void __launch_bounds__(32) enc_bwd_warp(
   }
 }
 
-inline int blocks(int N) { return (N + kThreads - 1) / kThreads; }
-
 inline bool bad(int N, int d, int na) { return N <= 0 || d <= 0 || d > kMaxD || na <= 0 || na > d; }
 
 template <typename T>
 int launch_fwd(const T* mx, const T* sxx, T* ym, T* yc, T* cr, int N, int d, int na,
                unsigned long long packed, void* stream) {
   if (bad(N, d, na)) return (int)cudaErrorInvalidValue;
-  enc_fwd_kernel<T><<<blocks(N), kThreads, 0, (cudaStream_t)stream>>>(mx, sxx, ym, yc, cr, N, d,
-                                                                      na, packed);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d == 4 && na == 1)
+    enc_fwd_warp<T, 4, 1><<<N, 32, 0, st>>>(mx, sxx, ym, yc, cr, d, na, packed);
+  else
+    enc_fwd_warp<T, 0, 0><<<N, 32, 0, st>>>(mx, sxx, ym, yc, cr, d, na, packed);
   return (int)cudaGetLastError();
 }
 

@@ -16,8 +16,12 @@
 // Bound on an H100: a 6 x 6 matrix is 288 bytes in float64 and ~5 x 15
 // rotations of ~40 operations, far below one launch's cost, so both kernels
 // are latency-bound: at N = 1 the time is the chain of dependent rotations,
-// each angle an sqrt, a divide and an rsqrt in sequence. Design: one thread
-// per batch entry, the matrix in registers. For D <= 8 the kernels are
+// each angle an sqrt, a divide and an rsqrt in sequence. Design: the
+// PSD boost (psd_kernel) runs one thread per batch entry, the matrix in
+// registers; the Euler update (euler_warp) a warp per batch entry, whose
+// lanes load the operands in one wave, form one entry each, gather the
+// matrix by shuffles and run that thread's chain, each lane redundantly,
+// then write one entry each. For D <= 8 the kernels are
 // instantiated on the exact D (DM = D, no runtime guards) and a sweep runs
 // in the round-robin order (jacobi_rounds): D - 1 rounds (D rounds for odd
 // D) of disjoint pairs, whose angles read disjoint entries and so are
@@ -28,9 +32,9 @@
 // order differs from the JAX kernel's row-cyclic one, so the two agree to
 // rounding once the sweeps have converged (ops/mm_glue_cuda.py:
 // jacobi_rounds; tests/test_torch_mm_glue.py restates it). D in 9..16 (on
-// no path) keeps the cyclic order in loops over the capacity DM = 16
-// guarded by the runtime D; its matrix lives in local memory. The sweep
-// loop is not unrolled, which keeps the code small.
+// no path) keeps one thread a matrix and the cyclic order in loops over the
+// capacity DM = 16 guarded by the runtime D; its matrix lives in local
+// memory. The sweep loop is not unrolled, which keeps the code small.
 //
 // Each entry returns cudaGetLastError() as an int; the caller raises on
 // nonzero. Entries launch on the given stream and do not synchronise.
@@ -202,12 +206,14 @@ UNROLL_DM
   write_boosted<T, DM>(sym, out + (size_t)n * d * d, d, jitter);
 }
 
-template <typename T, int DM>
+// K5b for D in 9..16 (on no path): one thread a matrix, over the capacity
+// DM = 16 guarded by the runtime d (the cyclic sweeps)
+template <typename T>
 __global__ void __launch_bounds__(kThreads) euler_kernel(
     const T* __restrict__ m, const T* __restrict__ s, const T* __restrict__ f1,
     const T* __restrict__ sff, const T* __restrict__ sxf, T* __restrict__ nm, T* __restrict__ nc,
-    int N, int d_arg, T dt, T jitter, bool project) {
-  const int d = DM <= 8 ? DM : d_arg;
+    int N, int d, T dt, T jitter, bool project) {
+  constexpr int DM = 16;
   const int n = blockIdx.x * kThreads + threadIdx.x;
   if (n >= N) return;
   const size_t v = (size_t)n * d, mat = (size_t)n * d * d;
@@ -242,27 +248,75 @@ UNROLL_DM
   }
 }
 
+// K5b for D <= 8: a warp per batch entry (a block is one warp, the grid the
+// batch). Lane e takes entry e = i D + j of the matrix (and e + 32 for D >
+// 5): it loads s, sff and sxf at (i, j) and (j, i) in one wave with the
+// mean's operands (lanes below D), and forms sym_ij, the same value as lane
+// (j, i)'s. With the boost, every lane gathers the upper triangle by
+// __shfl_sync and runs jacobi_rounds on it in registers, the one-thread
+// chain of psd_kernel, redundantly and with no communication inside it
+// (a round's rotations split over the lanes wait for two shuffles a round,
+// and measured slower); then each lane writes its entries once, coalesced.
+template <typename T, int D>
+__global__ void __launch_bounds__(32) euler_warp(
+    const T* __restrict__ m, const T* __restrict__ s, const T* __restrict__ f1,
+    const T* __restrict__ sff, const T* __restrict__ sxf, T* __restrict__ nm, T* __restrict__ nc,
+    T dt, T jitter, bool project) {
+  constexpr int kE = (D * D + 31) / 32;  // entries a lane
+  const int lane = threadIdx.x;
+  const size_t v = (size_t)blockIdx.x * D, mat = (size_t)blockIdx.x * D * D;
+  if (lane < D) nm[v + lane] = m[v + lane] + dt * f1[v + lane];
+  T sym[kE];
+#pragma unroll
+  for (int r = 0; r < kE; ++r) {
+    const int e = lane + 32 * r;
+    sym[r] = T(0);
+    if (e < D * D) {
+      const size_t ij = mat + e, ji = mat + e % D * D + e / D;
+      const T full_ij = s[ij] + (dt * (sxf[ij] + sxf[ji]) + (dt * dt) * sff[ij]);
+      const T full_ji = s[ji] + (dt * (sxf[ji] + sxf[ij]) + (dt * dt) * sff[ji]);
+      sym[r] = T(0.5) * (full_ij + full_ji);
+    }
+  }
+  T boost = T(0);
+  if (project) {
+    T a[D][D];
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = i; j < D; ++j)
+        a[i][j] = a[j][i] = __shfl_sync(0xffffffffu, sym[(i * D + j) / 32], (i * D + j) % 32);
+    boost = fmax(-jacobi_rounds<T, D>(a), T(0)) + jitter;
+  }
+#pragma unroll
+  for (int r = 0; r < kE; ++r) {
+    const int e = lane + 32 * r;
+    if (e < D * D) nc[mat + e] = project && e / D == e % D ? sym[r] + boost : sym[r];
+  }
+}
+
 inline int blocks(int N) { return (N + kThreads - 1) / kThreads; }
 
-// kernel<T, D> for D <= 8, kernel<T, 16> beyond: the exact-D instantiation
-#define MM_GLUE_DISPATCH(KERNEL, T, ...)                                                  \
-  switch (d) {                                                                           \
-    case 1: KERNEL<T, 1><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
-    case 2: KERNEL<T, 2><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
-    case 3: KERNEL<T, 3><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
-    case 4: KERNEL<T, 4><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
-    case 5: KERNEL<T, 5><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
-    case 6: KERNEL<T, 6><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
-    case 7: KERNEL<T, 7><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
-    case 8: KERNEL<T, 8><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__); break;            \
-    default: KERNEL<T, 16><<<blocks(N), kThreads, 0, st>>>(__VA_ARGS__);                \
-  }
+// KERNEL<T, D> launched as <<<GRID, BLOCK>>> for d = D <= 8, the exact-D
+// instantiations
+#define MM_GLUE_EXACT_D(KERNEL, T, GRID, BLOCK, ...)                                \
+  case 1: KERNEL<T, 1><<<GRID, BLOCK, 0, st>>>(__VA_ARGS__); break;                 \
+  case 2: KERNEL<T, 2><<<GRID, BLOCK, 0, st>>>(__VA_ARGS__); break;                 \
+  case 3: KERNEL<T, 3><<<GRID, BLOCK, 0, st>>>(__VA_ARGS__); break;                 \
+  case 4: KERNEL<T, 4><<<GRID, BLOCK, 0, st>>>(__VA_ARGS__); break;                 \
+  case 5: KERNEL<T, 5><<<GRID, BLOCK, 0, st>>>(__VA_ARGS__); break;                 \
+  case 6: KERNEL<T, 6><<<GRID, BLOCK, 0, st>>>(__VA_ARGS__); break;                 \
+  case 7: KERNEL<T, 7><<<GRID, BLOCK, 0, st>>>(__VA_ARGS__); break;                 \
+  case 8: KERNEL<T, 8><<<GRID, BLOCK, 0, st>>>(__VA_ARGS__); break;
 
 template <typename T>
 int launch_psd(const T* s, T* out, int N, int d, double jitter, void* stream) {
   if (N <= 0 || d <= 0 || d > 16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  MM_GLUE_DISPATCH(psd_kernel, T, s, out, N, d, (T)jitter)
+  switch (d) {
+    MM_GLUE_EXACT_D(psd_kernel, T, blocks(N), kThreads, s, out, N, d, (T)jitter)
+    default: psd_kernel<T, 16><<<blocks(N), kThreads, 0, st>>>(s, out, N, d, (T)jitter);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -272,7 +326,11 @@ int launch_euler(const T* m, const T* s, const T* f1, const T* sff, const T* sxf
   if (N <= 0 || d <= 0 || d > 16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const bool project = jitter != 0.0;
-  MM_GLUE_DISPATCH(euler_kernel, T, m, s, f1, sff, sxf, nm, nc, N, d, (T)dt, (T)jitter, project)
+  switch (d) {
+    MM_GLUE_EXACT_D(euler_warp, T, N, 32, m, s, f1, sff, sxf, nm, nc, (T)dt, (T)jitter, project)
+    default:
+      euler_kernel<T><<<blocks(N), kThreads, 0, st>>>(m, s, f1, sff, sxf, nm, nc, N, d, (T)dt, (T)jitter, project);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -17,10 +17,12 @@ K3g's at the HMC ensemble's, and K2's six entries at the MM drift's and
 policy's shapes and its forward and frozen backward on the GPR route (P=8
 members, R=4), K1's three entries at the pathwise slice's shape (S=1024,
 L=4, B=1024, M=240, D=6), K5a in float32 and float64 at the policy
-joint's shape (N=1, D=6) and K5b in float32 with the boost at the state's
-(N=1, D=4), K4's forward and backward in float32 and float64 at the
-rollout's N=1 and the post-rollout cost's N=30 (D=4, active (1,)), and
-K6's forward and backward at the fused-rollout slice's shape (S=1024,
+joint's shape (N=1, D=6) and K5b at the state's (N=1, D=4): float32 with
+the boost (the path's) and without it (no Jacobi sweeps: the loads and
+stores alone), float64 without it (the solver's float64 semantics), K4's
+forward and backward in float32 and float64 at the rollout's N=1 and the
+post-rollout cost's N=30 (D=4, active (1,)), and K6's forward and
+backward at the fused-rollout slice's shape (S=1024,
 B=1024, M=240, Mp=30, T=30) and on the 8-member axis (K=8, 128 particles
 each), with chip_smoke.py's method (median device time over 30 calls, L2
 flushed, and warm; chip_smoke's *_bound_ms for the bounds). Each checkout
@@ -35,7 +37,7 @@ whether they are bit-identical), K6's forward and backward at
 chip_smoke.py's (float64: 1e-10 of the scale; float32 over 30 steps:
 within 3x the plain float32 version's error against float64, plus 1e-4 of
 the scale), every other entry (K1's forward and full backward, K2's frozen
-backward and K4's forward among them) bit for bit. ``--only`` keeps the
+backward among them) bit for bit. ``--only`` keeps the
 entries whose name starts with one of the prefixes (``k6_``: K6 alone,
 ``k6_fwd``: its forward alone, ``k4_``: K4 alone), and builds only the
 libraries they need. Each checkout's per-stage device times
@@ -62,6 +64,7 @@ ROOT = Path(__file__).resolve().parents[1]
 # policy's (N=1, P=1, D2=12, M=30) shapes, and the GPR route's forward and
 # frozen backward (N=1, P=8, D2=14, M=240, R=4); K1's three entries at the
 # pathwise slice's shape; K5a at the policy joint's, K5b at the state's
+# with the boost ("state") and without ("sym")
 CASES = (
     ("fwd", "f32", "drift"), ("fwd", "f32", "policy"), ("bwd_frozen", "f32", "drift"),
     ("bwd", "f32", "policy"), ("bwd", "f32", "ensemble policy"), ("fwd", "f64", "drift"),
@@ -75,6 +78,7 @@ CASES = (
       for kind in ("fwd", "bwd")),
     *((f"k1_{kind}", "f32", "pathwise") for kind in ("fwd", "bwd_dx", "bwd_full")),
     ("k5_psd", "f32", "joint"), ("k5_psd", "f64", "joint"), ("k5_euler", "f32", "state"),
+    ("k5_euler", "f32", "sym"), ("k5_euler", "f64", "sym"),
     *((f"k4_{kind}", sfx, where) for sfx in ("f32", "f64") for where in ("rollout", "cost")
       for kind in ("fwd", "bwd")),
 )
@@ -113,13 +117,13 @@ def build(root, libs):
     # older checkouts' names: fwd_tiles, K3g's forward tile kernel;
     # fwd_kernel and bwd_kernel, K6's forward and backward and K2's and K1's
     # forwards; K2's two-pass full backward and frozen tiles; K4's
-    # one-thread backward
+    # one-thread forward and backward
     kernels = {"mm_match": cs.PTXAS_K3, "gpr_match": (*cs.PTXAS_K3G, "fwd_tiles"),
                "kexp_pair": (*cs.PTXAS_K2, "fwd_kernel", "bwd_cols_kernel", "bwd_rows_kernel",
                              "bwd_frozen_tiles", "bwd_frozen_finish"),
                "rollout": (*cs.PTXAS_K6, "fwd_kernel", "bwd_kernel"),
                "path_eval": (*cs.PTXAS_K1, "fwd_kernel"), "mm_glue": cs.PTXAS_K5,
-               "enc_match": (*cs.PTXAS_K4, "enc_bwd_kernel")}
+               "enc_match": (*cs.PTXAS_K4, "enc_fwd_kernel", "enc_bwd_kernel")}
     ptxas = {lib: cs.ptxas_report(out.get(lib, ""), kernels[lib]) for lib in libs}
     print(json.dumps({"built": str(root), "seconds": took, "ptxas": ptxas}))
 
@@ -164,9 +168,10 @@ def _k1_case(cs, pe, kind, device):
     return (lambda: pe._bwd_full(*ops, t["g"])), bound
 
 
-def _k5_case(cs, gc, kind, dtype, device):
+def _k5_case(cs, gc, kind, dtype, where, device):
     """(fn, bound) of a K5 entry on chip_smoke's glue inputs: K5a on an
-    indefinite policy joint, K5b with the float32 solver's boost."""
+    indefinite policy joint, K5b with the float32 solver's boost ("state")
+    or without it ("sym")."""
     import torch
 
     rng = cs.np.random.default_rng(13)
@@ -176,7 +181,8 @@ def _k5_case(cs, gc, kind, dtype, device):
     m4, s4 = cs.state_moments(rng, 1, 4, dtype, device, shift=-0.3)
     f14, sff4 = cs.state_moments(rng, 1, 4, dtype, device)
     sxf4 = torch.as_tensor(0.1 * rng.normal(size=(1, 4, 4)), dtype=dtype, device=device)
-    return (lambda: gc._euler(m4, s4, f14, sff4, sxf4, 1.0, 1e-6)), cs.glue_bound_ms("euler", 1, 4, dtype)[0]
+    jitter = 1e-6 if where == "state" else 0.0
+    return (lambda: gc._euler(m4, s4, f14, sff4, sxf4, 1.0, jitter)), cs.glue_bound_ms("euler", 1, 4, dtype)[0]
 
 
 def _k6_case(cs, rc, kind, dtype, where, device, outs, key):
@@ -237,7 +243,7 @@ def run(root, save, only=()):
             continue
         if kind.startswith(("k1_", "k2_", "k4_", "k5_")):
             fn, bound = (_k1_case(cs, pe, kind[3:], device) if kind.startswith("k1_")
-                         else _k5_case(cs, gc, kind[3:], dtype, device) if kind.startswith("k5_")
+                         else _k5_case(cs, gc, kind[3:], dtype, where, device) if kind.startswith("k5_")
                          else _k4_case(cs, ec, kind[3:], dtype, where, device) if kind.startswith("k4_")
                          else _k2_case(cs, kc, kind[3:], dtype, where, device))
             outs[key] = [t.cpu() for t in fn()]
@@ -293,8 +299,7 @@ def compare(a, b, cs):
         if "/" in k or k not in b:
             continue
         pairs = list(zip(a[k], b[k]))
-        if not k.startswith(("gpr_fwd_", "k2_fwd", "k2_bwd_f32", "k2_bwd_f64", "k1_bwd_dx", "k4_bwd", "k5_",
-                             "k6_")):
+        if not k.startswith(("gpr_fwd_", "k2_fwd", "k2_bwd_f32", "k2_bwd_f64", "k1_bwd_dx", "k4_", "k5_", "k6_")):
             diff = {i: float((x.double() - y.double()).abs().max()) for i, (x, y) in enumerate(pairs)
                     if not torch.equal(x, y)}
             out[k] = diff or True

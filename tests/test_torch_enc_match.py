@@ -206,6 +206,87 @@ def test_torch_enc_match_warp_adjoint_matches_reference(d, active):
             assert err <= 1e-12, (what, err)
 
 
+def _warp_forward(meta, mx, sxx):
+    """csrc/enc_match.cu's forward (a warp per batch entry) restated in
+    float64 torch: (1) item i < na, active dim i's trig means; item na + i
+    na + j, pair (i, j)'s raw ss, cc and sc; (2) item q over the outputs,
+    y_mean's de entries, then y_cov's de^2, then cross's D de, each formed
+    by its one lane (q % 32) and written once. Returns (y_mean, y_cov,
+    cross) and, per output, how many items wrote each entry."""
+    d, act = meta.num_dim, meta.active
+    na, nt, de = len(act), 2 * len(act), meta.num_out
+    inact = meta.inactive
+    n = mx.shape[0]
+    outs = [torch.full((n, de), float("nan"), dtype=mx.dtype), torch.full((n, de, de), float("nan"), dtype=mx.dtype),
+            torch.full((n, d, de), float("nan"), dtype=mx.dtype)]
+    writes = [torch.zeros(o.shape[1:], dtype=torch.long) for o in outs]
+    for b in range(n):
+        x, s = mx[b], sxx[b]
+        y1s, ss, cc, sc = [None] * nt, [None] * (na * na), [None] * (na * na), [None] * (na * na)
+        for q in range(na + na * na):  # (1)
+            if q < na:
+                a = act[q]
+                e = torch.exp(-0.5 * torch.clamp(s[a, a], min=0.0))
+                y1s[q], y1s[na + q] = e * torch.sin(x[a]), e * torch.cos(x[a])
+            else:
+                ij = q - na
+                ai, aj = act[ij // na], act[ij % na]
+                vi, vj = torch.clamp(s[ai, ai], min=0.0), torch.clamp(s[aj, aj], min=0.0)
+                pa = torch.exp(-0.5 * (vi + vj + s[ai, aj] + s[aj, ai]))
+                pb = torch.exp(-0.5 * (vi + vj - s[ai, aj] - s[aj, ai]))
+                madd, msub = x[ai] + x[aj], x[ai] - x[aj]
+                ss[ij] = 0.5 * (pb * torch.cos(msub) - pa * torch.cos(madd))
+                cc[ij] = 0.5 * (pb * torch.cos(msub) + pa * torch.cos(madd))
+                sc[ij] = 0.5 * (pb * torch.sin(msub) + pa * torch.sin(madd))
+        n_ym, n_yc = de, de + de * de
+        for q in range(n_yc + d * de):  # (2)
+            if q < n_ym:
+                outs[0][b, q] = y1s[q] if q < nt else x[inact[q - nt]]
+                writes[0][q] += b == 0
+                continue
+            cov = q < n_yc
+            e = q - n_ym if cov else q - n_yc
+            r, k = divmod(e, de)
+            if cov and r < nt and k < nt:
+                i, j = r % na, k % na
+                raw = (ss[i * na + j] if k < na else sc[i * na + j]) if r < na else \
+                    (sc[j * na + i] if k < na else cc[i * na + j])
+                val = raw - y1s[r] * y1s[k]
+            elif cov and r >= nt and k >= nt:
+                val = s[inact[r - nt], inact[k - nt]]
+            elif not cov and k >= nt:
+                val = s[r, inact[k - nt]]
+            else:
+                dd = r if not cov else inact[r - nt] if r >= nt else inact[k - nt]
+                kk = k if not cov or r >= nt else r
+                i = kk % na
+                val = s[dd, act[i]] * (y1s[na + i] if kk < na else -y1s[i])
+            outs[1 if cov else 2][b, r, k] = val
+            writes[1 if cov else 2][r, k] += b == 0
+    return outs, writes
+
+
+@pytest.mark.parametrize("d, active", [(4, (1,)), (6, (4, 0)), (10, (9, 2, 5)), (5, (4, 3, 2, 1, 0))])
+def test_torch_enc_match_warp_forward_matches_reference(d, active):
+    """The item split and lane ownership of K4's forward (the terms once
+    each, every output entry formed by one item and written once) against
+    enc_match_reference and against the JAX Pallas kernel in interpret
+    mode, in float64, to 1e-12 of each output's scale; one state has a
+    negative active variance (max(S_ii, 0))."""
+    meta = ec.make_enc_meta(active, d)
+    mx, sxx = _state(60 + d, d=d, batch=(3,))
+    sxx[1, active[0], active[0]] = -0.05
+    got, writes = _warp_forward(meta, t(mx), t(sxx))
+    assert all(bool((w == 1).all()) for w in writes)
+    plain = ec.enc_match_reference(meta, t(mx), t(sxx))
+    with pltpu.force_tpu_interpret_mode():
+        jouts = jenc.fused_encoder_match(jenc.make_enc_meta(active, d), jnp.asarray(mx), jnp.asarray(sxx))
+    for what, x, p, j in zip(("ym", "yc", "cr"), got, plain, jouts):
+        for want in (p, torch.as_tensor(np.array(j))):
+            err = float((x - want).abs().max()) / (1.0 + float(want.abs().max()))
+            assert err <= 1e-12, (what, err)
+
+
 def _fma32(a, b, c):
     """float32 a * b + c with one rounding (the product is exact in float64)."""
     return (a.astype(np.float64) * b + c).astype(np.float32)

@@ -355,13 +355,17 @@ def test_torch_svgp_match_wrapper_raises_on_gpu():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n, d, active", [(1, 4, (1,)), (30, 4, (1,)), (3, 6, (4, 0)), (3, 10, (9, 2, 5))])
+@pytest.mark.parametrize("n, d, active", [(1, 4, (1,)), (30, 4, (1,)), (3, 6, (4, 0)), (3, 10, (9, 2, 5)),
+                                          (33, 4, (1,)), (1, 8, (1,)), (30, 8, (7, 2, 5)),
+                                          (33, 8, tuple(range(8))), (30, 8, (0, 6))])
 def test_torch_enc_match_kernels_match_reference_on_gpu(dtype, n, d, active):
     """K4 forward and backward against the plain version, at the rollout's
-    N = 1 and the post-rollout cost's N = 30, and at D = 6 and 10 with active
-    dims out of order; bars 1e-5 in float32, 1e-12 in float64 (a few dozen
-    terms per output). Raises on D > 16, a wrong dtype and a non-contiguous
-    operand."""
+    N = 1 and the post-rollout cost's N = 30 (the path's exact
+    instantiation, D = 4 with active (1,)), N = 33, and the generic one at
+    D = 6, 8 and 10 with active dims out of order, with and without
+    inactive dims; bars 1e-5 in float32, 1e-12 in float64 (a few dozen
+    terms per output); the forward's repeated runs bit-identical. Raises on
+    D > 16, a wrong dtype and a non-contiguous operand."""
     from gpflowpilco_torch.ops import enc_match_cuda as ec
 
     dev = _gpu_or_skip()
@@ -383,6 +387,7 @@ def test_torch_enc_match_kernels_match_reference_on_gpu(dtype, n, d, active):
     sfx = "f32" if dtype == torch.float32 else "f64"
     assert ec.launches[f"enc_match_fwd_{sfx}"] == before[f"enc_match_fwd_{sfx}"] + 1
     assert ec.launches[f"enc_match_bwd_{sfx}"] == before[f"enc_match_bwd_{sfx}"] + 1
+    assert all(torch.equal(x, y) for x, y in zip(ec._fwd(meta, mx, sxx), ec._fwd(meta, mx, sxx)))
     with pytest.raises(TypeError):
         ec._fwd(meta, mx, sxx.transpose(1, 2))
     with pytest.raises(TypeError):
@@ -463,28 +468,31 @@ def test_torch_enc_match_backward_repeats_on_gpu(dtype, n, d, active):
 
 def _hold_glue(gc, s, m, f1, sff, sxf, tol):
     """K5a and K5b (with and without the boost) against the plain version
-    at tol of the scale (gc.boosted_reference's lambda_min)."""
+    at tol of the scale (gc.boosted_reference's lambda_min); K5b's repeated
+    runs bit-identical."""
     _close(gc._psd(s, 0.0), gc.boosted_reference(0.5 * (s + s.mT), 0.0, tol), tol, "psd")
     for jitter in (0.0, 1e-6):
         got = gc._euler(m, s, f1, sff, sxf, 1.0, jitter)
         want = gc.euler_update_reference(m, s, f1, sff, sxf, 1.0, 0.0)
         _close(got[0], want[0], tol, "mean")
         _close(got[1], gc.boosted_reference(want[1], jitter, tol) if jitter else want[1], tol, "cov")
+        assert all(torch.equal(x, y) for x, y in zip(got, gc._euler(m, s, f1, sff, sxf, 1.0, jitter)))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n, d", [(n, d) for d in (2, 3, 4, 5, 6, 8, 10) for n in (1, 8, 200)] + [(3, 10)])
+@pytest.mark.parametrize("n, d", [(n, d) for d in range(1, 17) for n in (1, 8, 130, 200)] + [(3, 10)])
 def test_torch_mm_glue_kernels_match_reference_on_gpu(dtype, n, d):
     """K5a and K5b (with and without the boost) against the plain version
     on indefinite matrices, at the path's shapes (N = 1, D = 6 and 4), a
-    batch beyond one block, every exact-D instantiation on the path's side
-    (D <= 8, round-robin sweeps) and D = 10 (the cyclic loops); bars 1e-5
+    batch beyond one block (K5b: a warp an entry for D <= 8), every exact-D
+    instantiation on the path's side (D <= 8, round-robin sweeps) and D in
+    9..16 (one thread a matrix, the cyclic loops); bars 1e-5
     in float32, 1e-12 in float64 of the scale. Where five cyclic sweeps
     have not converged (two of the 200 8 x 8 matrices in float64, 4e-11 of
     their scale from eigvalsh), the kernels are held against eigvalsh's
     lambda_min at the same bar (gc.boosted_reference). Raises on D > 16, a wrong dtype
-    and a non-contiguous operand."""
+    and a non-contiguous operand (D > 1)."""
     from gpflowpilco_torch.ops import mm_glue_cuda as gc
 
     dev = _gpu_or_skip()
@@ -500,9 +508,10 @@ def test_torch_mm_glue_kernels_match_reference_on_gpu(dtype, n, d):
     torch.cuda.synchronize()
     sfx = "f32" if dtype == torch.float32 else "f64"
     assert gc.launches[f"psd_boost_{sfx}"] == before[f"psd_boost_{sfx}"] + 1
-    assert gc.launches[f"euler_update_{sfx}"] == before[f"euler_update_{sfx}"] + 2
-    with pytest.raises(TypeError):
-        gc._psd(s.transpose(1, 2), 0.0)
+    assert gc.launches[f"euler_update_{sfx}"] == before[f"euler_update_{sfx}"] + 4
+    if d > 1:  # a 1 x 1 matrix's transpose is contiguous
+        with pytest.raises(TypeError):
+            gc._psd(s.transpose(1, 2), 0.0)
     with pytest.raises(TypeError):
         gc._euler(m, s, f1.to(torch.float16), sff, sxf, 1.0, 0.0)
     with pytest.raises(ValueError, match="D <= 16"):

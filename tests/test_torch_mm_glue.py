@@ -190,6 +190,47 @@ def test_torch_jacobi_round_robin_matches_cyclic(d):
         assert float(((got - cyclic).abs() / scale)[converged].max()) <= 1e-12
 
 
+def _euler_warp(m, s, f1, sff, sxf, dt, jitter):
+    """csrc/mm_glue.cu's K5b for D <= 8 (a warp per batch entry) restated
+    in torch: lane e's entry (i, j) = divmod(e, D) of sym from its loads at
+    (i, j) and (j, i); the matrix every lane gathers (the upper triangle,
+    mirrored); its round-robin lambda_min; the boost on the diagonal
+    entries. Returns (new mean, new cov, sym)."""
+    n, d = m.shape
+    sym = torch.empty_like(s)
+    for e in range(d * d):
+        i, j = divmod(e, d)
+        full_ij = s[:, i, j] + (dt * (sxf[:, i, j] + sxf[:, j, i]) + (dt * dt) * sff[:, i, j])
+        full_ji = s[:, j, i] + (dt * (sxf[:, j, i] + sxf[:, i, j]) + (dt * dt) * sff[:, j, i])
+        sym[:, i, j] = 0.5 * (full_ij + full_ji)
+    gathered = torch.triu(sym) + torch.triu(sym, 1).mT
+    out = sym.clone()
+    if jitter:
+        boost = torch.clamp(-_round_robin_min_eig(gathered), min=0.0) + jitter
+        out = out + boost[:, None, None] * torch.eye(d, dtype=s.dtype)
+    return m + dt * f1, out, sym
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_torch_euler_warp_entries_match_reference(d):
+    """K5b's warp restated (gathered matrix, round-robin lambda_min, one
+    entry a lane): sym exactly symmetric and bit for bit the plain
+    version's; with and without the boost, within 1e-12 of the scale of
+    euler_update_reference (gc.boosted_reference's lambda_min), in float64,
+    on indefinite covariances."""
+    rng = np.random.default_rng(70 + d)
+    spd, indef = _mats(71 + d, d, n=6)
+    args = (t(rng.normal(size=(6, d))), t(indef), t(rng.normal(size=(6, d))), t(0.3 * spd),
+            t(0.1 * rng.normal(size=(6, d, d))))
+    for jitter in (0.0, 1e-6):
+        nm, nc, sym = _euler_warp(*args, 0.7, jitter)
+        want = gc.euler_update_reference(*args, 0.7, 0.0)
+        assert torch.equal(sym, sym.mT) and torch.equal(sym, want[1])
+        assert torch.equal(nm, want[0])
+        ref = gc.boosted_reference(want[1], jitter, 1e-12) if jitter else want[1]
+        assert float((nc - ref).abs().max()) <= 1e-12 * (1.0 + float(ref.abs().max()))
+
+
 def test_torch_boosted_reference_takes_eigvalsh_where_cyclic_lags():
     """gc.boosted_reference, the card checks' reference for the kernels:
     psd_boost_reference's result exactly where five cyclic sweeps have
