@@ -111,7 +111,16 @@
    through K6 against the unfused float64 path at the same paths and x0
    (bar max(1e-9, 10x the loss's rounding noise), cosine >= 0.9999), and,
    printed, the float32 gradients' cosines.
-11. Prints the kernels' JSON line, then {"ok": true, "device": {...}} as the
+11. Policy loop (policy_loop_phase), on the fused-rollout slice's loop at
+   full width: (a) a K=4 multistart update through K6 with the
+   best-validated snapshot as candidate 1 (4 x --step-limit K6 forwards
+   and backwards, no K1; the snapshot bit-identical afterwards), (b) a K=2
+   x 5-step multistart through K1 (2 x 5 x 30 K1a forwards and as many K1b
+   dx-only backwards, no K1c or K6), (c) 100-rollout validation with the
+   cartpole success mask, 3 rollouts held against serial ones (1e-5
+   relative, float32), (d) a checkpoint saved and restored into a fresh
+   loop (episodes and q_mu bit-identical, one K6 loss equal bit for bit).
+12. Prints the kernels' JSON line, then {"ok": true, "device": {...}} as the
    last line. Any failed check raises, so the exit code is non-zero.
 
 Tolerances of the kernel checks, rtol = atol:
@@ -2124,6 +2133,137 @@ def fused_rollout_slice_phase(rc, pe, loop, seed, device, step_limit):
                           f64_grad_cos=cos64)
 
 
+def policy_loop_phase(rc, pe, loop, seed, device, step_limit):
+    """The policy loop on the fused-rollout slice's fitted loop, at full
+    width: (a) a K=4 multistart update through K6 with the best-validated
+    snapshot as candidate 1 (4 x step_limit K6 forwards and backwards, no
+    K1; the snapshot bit-identical afterwards); (b) a K=2 x 5-step
+    multistart through K1 (2 x 5 x 30 K1a forwards and K1b dx-only
+    backwards, no K1c, no K6); (c) 100-rollout validation of the deployed
+    policy with the cartpole success mask, 3 of its rewards held against
+    serial rollouts of the same x0 (1e-5 relative, float32); (d) a
+    checkpoint round trip into a fresh loop: episodes and q_mu
+    bit-identical, and one K6 loss at the restored state equal to the
+    original's bit for bit. Counts are zeroed just before each update and
+    read just after."""
+    import tempfile
+
+    from metrics_torch import success_mask
+    from run_torch import build_loop
+
+    from gpflowpilco_torch.envs.base import rollout as env_rollout
+    from gpflowpilco_torch.loops.metrics import deployed_policy, make_validation_metrics, validation_rollouts
+    from gpflowpilco_torch.loops.pilco import _VALIDATION
+
+    def reset():
+        rc.reset_launches()
+        pe.reset_launches()
+
+    def counts():
+        return {**rc.launches, **pe.launches}
+
+    spec0 = loop.policy_spec
+    out = {}
+
+    # ---- (a) K=4 multistart through K6, the snapshot as candidate 1
+    assert loop.use_fused_rollout and loop.best_policy_model is not None
+    loop.policy_spec = dataclasses.replace(spec0, num_restarts=4, retain_best_policy=True,
+                                           step_limit=step_limit)
+    snapshot = loop.best_policy_model
+    snap0 = {n: p.detach().clone() for n, p in snapshot.named_parameters()}
+    reset()
+    t0 = time.perf_counter()
+    info = loop.update_policy()
+    sync()
+    t_a = time.perf_counter() - t0
+    delta = counts()
+    out["multistart_k6_ms_per_candidate_step"] = 1e3 * t_a / (4 * step_limit)
+    print(f"policy loop (a): K=4 x {step_limit} steps through K6 in {1e3 * t_a:.1f} ms = "
+          f"{out['multistart_k6_ms_per_candidate_step']:.2f} ms per candidate step; best_restart "
+          f"{info['best_restart']}, restart_losses {info['restart_losses']}, skipped "
+          f"{info['skipped_steps']}; launches {delta}")
+    want = dict.fromkeys(delta, 0)
+    want.update(rollout_fwd_f32=4 * step_limit, rollout_bwd_f32=4 * step_limit)
+    assert delta == want, f"(a) launches {delta}, expected {want}"
+    assert info["best_restart"] == int(np.argmin(info["restart_losses"])), "(a) the winner is not the argmin"
+    assert math.isfinite(info["loss"]), "(a) the best loss is not finite"
+    assert loop.best_policy_model is snapshot and all(
+        torch.equal(p, snap0[n]) for n, p in snapshot.named_parameters()), "(a) the snapshot moved"
+    launches = dict(rc.launches)
+
+    # ---- (b) K=2 x 5 steps through K1 (the per-step path, use_fused_paths)
+    loop.use_fused_rollout = False
+    loop.policy_spec = dataclasses.replace(loop.policy_spec, num_restarts=2, step_limit=5)
+    reset()
+    t0 = time.perf_counter()
+    info_b = loop.update_policy()
+    sync()
+    t_b = time.perf_counter() - t0
+    delta = counts()
+    want = dict.fromkeys(delta, 0)
+    want.update(path_eval_fwd=2 * 5 * HORIZON_STEPS, path_eval_bwd_dx=2 * 5 * HORIZON_STEPS)
+    outside = {k: delta[k] - want[k] for k in delta}
+    print(f"policy loop (b): K=2 x 5 steps through K1 in {1e3 * t_b:.1f} ms = {1e3 * t_b / 10:.2f} ms per "
+          f"candidate step; best_restart {info_b['best_restart']}; launches {delta}; outside the Adam "
+          f"steps {outside}")
+    assert delta == want, f"(b) launches {delta}, expected {want}"
+    assert math.isfinite(info_b["loss"]), "(b) the best loss is not finite"
+    loop.use_fused_rollout = True
+    loop.policy_spec = spec0
+
+    # ---- (c) 100-rollout validation, 3 rollouts held against serial ones
+    validation = make_validation_metrics(lambda lp, st: success_mask(lp.env, st), 100)
+    t0 = time.perf_counter()
+    v = validation(loop, None, None)
+    sync()
+    t_c = time.perf_counter() - t0
+    out["validation_s"] = t_c
+    print(f"policy loop (c): validation of 100 rollouts in {t_c:.3f} s: vReward {v['vReward']:.6f}, "
+          f"vSuccess {v['vSuccess']:.2f}")
+    assert math.isfinite(v["vReward"]) and 0.0 <= v["vSuccess"] <= 1.0, f"(c) validation {v}"
+    spec = loop.episode_spec
+    model = deployed_policy(loop)
+    x0 = spec.sample(loop.iteration_generator(_VALIDATION), (100,), dtype=loop.dtype, device=device)
+    rewards, _ = validation_rollouts(loop, model, x0)
+    assert abs(float(rewards.mean()) - v["vReward"]) <= 1e-6 * abs(v["vReward"]), "(c) validation reruns differ"
+    for i in (0, 50, 99):
+        with torch.no_grad():
+            states, _ = env_rollout(loop.env, loop.policy_fn(model), x0[i], spec.step_size, spec.num_steps,
+                                    loop.env_substeps)
+            serial = float(-torch.sum(loop.objective(loop.encode(states))))
+        rel = abs(float(rewards[i]) - serial) / abs(serial)
+        print(f"policy loop (c): rollout {i}: batched reward {float(rewards[i]):.7f}, serial {serial:.7f}, "
+              f"relative gap {rel:.3e}")
+        assert rel <= 1e-5, f"(c) rollout {i}: batched and serial rewards disagree"
+
+    # ---- (d) checkpoint round trip into a fresh loop on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        loop.directory = Path(tmp)
+        path = loop.save()
+        loop.directory = None
+        fresh = build_loop(seed, device, torch.float32, policy_spec=loop.policy_spec, directory=tmp)
+        print(f"policy loop (d): {path.name}, {path.stat().st_size} bytes; restored "
+              f"{len(fresh.episodes)} episodes")
+    assert len(fresh.episodes) == len(loop.episodes) and all(
+        np.array_equal(a.states, b.states) and np.array_equal(a.actions, b.actions)
+        for a, b in zip(fresh.episodes, loop.episodes)), "(d) the episodes differ"
+    assert torch.equal(fresh.drift_model.q_mu, loop.drift_model.q_mu), "(d) the drift q_mu differs"
+    assert torch.equal(fresh.policy_model.q_mu, loop.policy_model.q_mu), "(d) the policy q_mu differs"
+    fresh.use_fused_rollout = True
+    reset()
+    with torch.no_grad():
+        losses = [
+            float(lp.policy_loss_fn(lp.policy_model, torch.Generator(device=device).manual_seed(seed + 3),
+                                    drift=lp.policy_loss_drift()))
+            for lp in (loop, fresh)
+        ]
+    print(f"policy loop (d): K6 loss at the original {losses[0]!r}, at the restored {losses[1]!r}; "
+          f"launches {counts()}")
+    assert rc.launches["rollout_fwd_f32"] == 2, "(d) the losses did not run through K6"
+    assert losses[0] == losses[1], "(d) the restored loss differs"
+    return launches, out
+
+
 # kernel-name fragments whose rows a profile prints on their own: this
 # repository's kernels and the eigenvalue solver behind psd_project's eigvalsh
 _WATCHED = ("fwd_warp", "bwd_warp", "bwd_kernel", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads",
@@ -2286,6 +2426,8 @@ def main():
                                      args.lbfgs_iters)
     roll_launches, fused_ms = timed("fused rollout", fused_rollout_slice_phase, rc, pe, loop, args.seed,
                                     device, args.step_limit)
+    _, policy_loop_ms = timed("policy loop", policy_loop_phase, rc, pe, loop, args.seed, device,
+                              args.step_limit)
     mm_loop, pair_launches, mm_ms = timed("mm", mm_slice_phase, kc, args.seed, device, args.step_limit,
                                           args.lbfgs_iters)
     counters = (pe, kc, mc, ec, gc, rc)
@@ -2376,6 +2518,7 @@ def main():
     print(f"pathwise slice ms: {json.dumps(slice_ms)}")
     print(f"fused-rollout slice: {json.dumps(fused_ms)} (K1 path {slice_ms['policy_step_ms']:.2f} ms "
           f"per policy step in this call)")
+    print(f"policy loop: {json.dumps(policy_loop_ms)}")
     print(f"mm slice ms: {json.dumps(mm_ms)}")
     print(f"whole-match slice ms: {json.dumps(match_ms)}")
     print(f"ensemble slice: {json.dumps(ens_ms)}")

@@ -18,9 +18,16 @@ of --hmc-ensemble draws; both variants and every MM option take it.
 ``--variant pathwise --fused-rollout`` runs the whole 30-step particle
 rollout loss as one CUDA kernel op per Adam step, forward and backward (the
 twin of ``run_tpu_full.py --fused-rollout``), under an SVGP drift or the HMC
-ensemble. Validation rollouts, multistart and checkpoints are not ported yet.
+ensemble. Each policy update runs --restarts candidates (best-seen, lowest
+loss wins); each episode is validated by --validation-samples rollouts of
+the deployed policy (vReward, vSuccess); ``--per-output-noise``,
+``--optimism-tol`` and ``--optimism-noise-mult`` set the drift's noise
+options as in ``run_tpu_full.py``; with ``--dest`` the run restores from the
+newest checkpoint there and checkpoints every episode.
 
     python examples/cartpole_swingup/run_torch.py --fused --episodes 10
+    python examples/cartpole_swingup/run_torch.py --fused-rollout --seed 3 --episodes 10 \
+        --restarts 4 --step-limit 5000 --validation-samples 100 --dest DIR
     python examples/cartpole_swingup/run_torch.py --variant mm --fused --mm-loss-f64
     python examples/cartpole_swingup/run_torch.py --variant mm --fused-match
     python examples/cartpole_swingup/run_torch.py --device cpu --episodes 3 \\
@@ -46,13 +53,13 @@ import sys
 import numpy as np
 import torch
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
+HERE = pathlib.Path(__file__).resolve().parent
+sys.path[:0] = [str(HERE.parents[1]), str(HERE)]
 
 from gpflowpilco_torch.components import GaussianObjective, trigonometric_encoder  # noqa: E402
 from gpflowpilco_torch.envs.cartpole import CartPole  # noqa: E402
 from gpflowpilco_torch.loops.core import EpisodeSpec  # noqa: E402
 from gpflowpilco_torch.loops.driver import outer_loop  # noqa: E402
-from gpflowpilco_torch.loops.metrics import metric_expected_reward, metric_rewards  # noqa: E402
 from gpflowpilco_torch.loops.pilco import (  # noqa: E402
     DriftSpec,
     MomentMatchingPILCO,
@@ -60,6 +67,7 @@ from gpflowpilco_torch.loops.pilco import (  # noqa: E402
     PILCOBase,
     PolicySpec,
 )
+from metrics_torch import episode_metrics  # noqa: E402
 
 
 def build_task(device, dtype, step_size: float = 0.1, horizon: float = 3.0):
@@ -90,20 +98,25 @@ def build_task(device, dtype, step_size: float = 0.1, horizon: float = 3.0):
 
 def build_loop(seed, device, dtype, drift_spec=DriftSpec(), policy_spec=PolicySpec(),
                step_size: float = 0.1, horizon: float = 3.0,
-               loop_cls=PathwisePILCO) -> PILCOBase:
+               loop_cls=PathwisePILCO, directory=None, validation_samples: int = 0) -> PILCOBase:
+    """The swing-up loop; with ``directory`` it restores from the newest
+    checkpoint there, and ``validation_samples`` > 0 adds validation."""
     env, encoder, objective, spec = build_task(device, dtype, step_size, horizon)
-    return loop_cls(
+    loop = loop_cls(
         env=env,
         episode_spec=spec,
         objective=objective,
         encoder=encoder,
+        directory=directory,
         seed=seed,
         device=device,
         dtype=dtype,
         drift_spec=drift_spec,
         policy_spec=policy_spec,
-        metrics={"rewards": metric_rewards, "eReward": metric_expected_reward},
+        metrics=episode_metrics(validation_samples),
     )
+    loop.restore_or_initialize()
+    return loop
 
 
 def main():
@@ -145,6 +158,21 @@ def main():
     p.add_argument("--batch-size", type=int, default=1024)
     p.add_argument("--num-bases", type=int, default=1024)
     p.add_argument("--lbfgs-iters", type=int, default=1000)
+    p.add_argument("--restarts", type=int, default=4,
+                   help="multistart candidates per policy update (PolicySpec.num_restarts)")
+    p.add_argument("--validation-samples", type=int, default=100,
+                   help="validation rollouts of the deployed policy per episode (0: none)")
+    p.add_argument("--per-output-noise", action="store_true",
+                   help="per-output (P,) likelihood noise on the drift SVGP "
+                        "(DriftSpec.per_output_noise)")
+    p.add_argument("--optimism-tol", type=float, default=0.0,
+                   help="the pessimistic refit: when the last episode's eReward exceeded its "
+                        "realized reward by more than this, floor the refit noise at the "
+                        "incumbent's held-out episode MSE (DriftSpec.optimism_tolerance; 0 disables)")
+    p.add_argument("--optimism-noise-mult", type=float, default=1.0,
+                   help="scale on the held-out-MSE noise floor (DriftSpec.optimism_noise_mult)")
+    p.add_argument("--dest", default=None,
+                   help="checkpoint directory: restore from it at the start, save every episode")
     args = p.parse_args()
 
     logging.basicConfig(
@@ -171,23 +199,31 @@ def main():
             hmc_samples=args.hmc_samples,
             hmc_leapfrog=args.hmc_leapfrog,
             hmc_ensemble=args.hmc_ensemble,
+            per_output_noise=args.per_output_noise,
+            optimism_tolerance=args.optimism_tol,
+            optimism_noise_mult=args.optimism_noise_mult,
         ),
         policy_spec=PolicySpec(
             step_limit=args.step_limit,
             batch_size=args.batch_size,
             num_bases=args.num_bases,
-            num_restarts=1,
+            num_restarts=args.restarts,
             loss_dtype=torch.float64 if args.mm_loss_f64 and not args.mm_loss_dd else None,
             loss_compensated=args.mm_loss_dd,
             loss_policy_f32=not args.mm_loss_dd,
         ),
         loop_cls=MomentMatchingPILCO if args.variant == "mm" else PathwisePILCO,
+        directory=args.dest,
+        validation_samples=args.validation_samples,
     )
+    if loop.episodes:
+        logging.info("restored %d episodes from %s", len(loop.episodes), args.dest)
     loop.use_fused_paths = args.fused
     loop.use_fused_mm = args.fused
     loop.use_fused_match = args.fused_match
     loop.use_fused_rollout = args.fused_rollout
-    outer_loop(loop, num_episodes=args.episodes, num_episodes_init=args.episodes_init)
+    outer_loop(loop, num_episodes=args.episodes, num_episodes_init=args.episodes_init,
+               save=args.dest is not None)
 
 
 if __name__ == "__main__":

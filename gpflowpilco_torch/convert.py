@@ -1,11 +1,12 @@
-"""Carry weights across from numpy dicts named after the JAX package's fields.
+"""Carry weights across from numpy dicts named after the JAX package's
+fields, and back (the loop's checkpoints hold models as such dicts).
 
 Raw (unconstrained) parameters are taken as they are, so gradients in raw
 space compare one to one with the JAX package.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -77,3 +78,69 @@ def gpr_ensemble_from_numpy(d: Mapping, device, dtype) -> GPREnsemble:
     ``gpr_from_numpy``)."""
     members = gpr_from_numpy(d, device, dtype)
     return GPREnsemble(members, num_members=members.raw_noise.shape[0])
+
+
+def _n(a: torch.Tensor) -> np.ndarray:
+    return a.detach().cpu().numpy()
+
+
+def svgp_to_numpy(model: SVGP) -> dict:
+    """The fields ``svgp_from_numpy`` reads."""
+    return dict(
+        raw_variance=_n(model.kernel.raw_variance),
+        raw_lengthscales=_n(model.kernel.raw_lengthscales),
+        z=_n(model.z),
+        q_mu=_n(model.q_mu),
+        q_sqrt=_n(model.q_sqrt),
+        mean_const=_n(model.mean_const),
+        raw_noise=_n(model.raw_noise),
+        w=None if model.w is None else _n(model.w),
+        whiten=model.whiten,
+        ls_low=model.kernel.ls_low,
+        ls_high=model.kernel.ls_high,
+    )
+
+
+def gpr_to_numpy(model: GPR) -> dict:
+    """The fields ``gpr_from_numpy`` reads (a stacked GPR keeps its member
+    axis on the parameters and one copy of the data)."""
+    return dict(
+        raw_variance=_n(model.kernel.raw_variance),
+        raw_lengthscales=_n(model.kernel.raw_lengthscales),
+        x=_n(model.x),
+        y=_n(model.y),
+        mean_const=_n(model.mean_const),
+        raw_noise=_n(model.raw_noise),
+        ls_low=model.kernel.ls_low,
+        ls_high=model.kernel.ls_high,
+    )
+
+
+def gpr_ensemble_to_numpy(model: GPREnsemble) -> dict:
+    """The fields ``gpr_ensemble_from_numpy`` reads."""
+    return gpr_to_numpy(model.members)
+
+
+_KINDS = {
+    "svgp": (SVGP, svgp_to_numpy, svgp_from_numpy),
+    "gpr": (GPR, gpr_to_numpy, gpr_from_numpy),
+    "gpr_ensemble": (GPREnsemble, gpr_ensemble_to_numpy, gpr_ensemble_from_numpy),
+}
+
+
+def model_to_numpy(model) -> Optional[dict]:
+    """An SVGP, GPR or GPREnsemble as its numpy dict plus its ``kind``;
+    None passes through."""
+    if model is None:
+        return None
+    for kind, (cls, to_numpy, _) in _KINDS.items():
+        if type(model) is cls:
+            return {"kind": kind, **to_numpy(model)}
+    raise TypeError(f"no numpy form for a {type(model).__name__}")
+
+
+def model_from_numpy(d: Optional[Mapping], device, dtype):
+    """The model ``model_to_numpy`` wrote; None passes through."""
+    if d is None:
+        return None
+    return _KINDS[d["kind"]][2](d, device, dtype)

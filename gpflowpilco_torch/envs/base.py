@@ -45,8 +45,9 @@ def env_step(env, state, action, dt: float, substeps: int = 10):
 
 
 def rollout(env, policy: Callable, x0: torch.Tensor, dt: float, num_steps: int, substeps: int = 10):
-    """Unroll ``num_steps`` control steps from x0; policy maps raw state ->
-    action. Returns (states incl. x0: (T+1, D), actions: (T, U))."""
+    """Unroll ``num_steps`` control steps from x0 (D,), or from a batch of
+    initial states x0 (..., D) at once; policy maps raw states -> actions.
+    Returns (states incl. x0: (T+1, ..., D), actions: (T, ..., U))."""
     states, actions = [x0], []
     state = x0
     for _ in range(num_steps):

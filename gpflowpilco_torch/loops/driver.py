@@ -16,17 +16,15 @@ def outer_loop(
     loop,
     num_episodes: int = 10,
     num_episodes_init: int = 1,
-    save: bool = False,
+    save: bool = True,
     log_summaries: bool = True,
     trace_dir: Optional[str] = None,
 ):
     """Alternate (fit dynamics, fit policy, collect episode) until
     ``num_episodes`` episodes exist; the first ``num_episodes_init`` episodes
-    act randomly. Phase wall-clock accumulates in a PhaseTimer (set
-    ``trace_dir`` for profiler traces). Checkpointing (``save``) is not
-    ported yet."""
-    if save:
-        raise NotImplementedError("checkpointing is not ported yet")
+    act randomly. With ``save``, ``loop.save()`` checkpoints after every
+    episode (a no-op for a loop without a directory). Phase wall-clock
+    accumulates in a PhaseTimer (set ``trace_dir`` for profiler traces)."""
     timer = PhaseTimer(trace_dir=trace_dir)
     while len(loop.episodes) < num_episodes:
         timings = {}
@@ -46,9 +44,9 @@ def outer_loop(
                 info = loop.update_policy()
             timings["policy_s"] = time.perf_counter() - t0
             logger.info(
-                "policy: loss=%.5f nan_frac=%.3f skipped=%d (%.1fs)",
+                "policy: loss=%.5f nan_frac=%.3f skipped=%d best_restart=%s restart_losses=%s (%.1fs)",
                 info["loss"], info.get("nan_frac", 0.0), info.get("skipped_steps", 0),
-                timings["policy_s"],
+                info.get("best_restart"), info.get("restart_losses"), timings["policy_s"],
             )
             if log_summaries:
                 log_module_summary(loop.policy_model, "policy", logger)
@@ -62,5 +60,7 @@ def outer_loop(
             scalar_metrics,
             {k: f"{v:.1f}s" for k, v in timings.items()},
         )
+        if save:
+            loop.save()
     logger.info("phase totals: %s", timer.summary())
     return loop

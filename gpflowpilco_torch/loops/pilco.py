@@ -1,12 +1,14 @@
 """Pathwise and moment-matching PILCO (counterpart of gpflowpilco_tpu/loops/pilco.py).
 
 Ported: the data plumbing, the SVGP drift fit by L-BFGS (with zero-weight
-padding rows and the refit from the incumbent), the exact GPR drift fit by
-L-BFGS and, with ``DriftSpec(model_type="gpr", optimizer="hmc")``, HMC over
-its hyperparameters thinned to a ``GPREnsemble``, the single-start Adam policy
-update, the real-environment step with its random first episodes and the
-retain-best acting gate, ``PathwisePILCO``'s SVGP particle loss (its drift
-evaluation goes through the CUDA kernel op ops/path_eval_cuda.py under
+padding rows, the refit from the incumbent and per-output noise), the exact
+GPR drift fit by L-BFGS and, with ``DriftSpec(model_type="gpr",
+optimizer="hmc")``, HMC over its hyperparameters thinned to a
+``GPREnsemble``, the optimism noise floor, the single-start and multistart
+Adam policy updates, the real-environment step with its random first
+episodes and the retain-best acting gate, checkpoints, the step and unroll
+hooks, ``PathwisePILCO``'s SVGP particle loss (its drift evaluation goes
+through the CUDA kernel op ops/path_eval_cuda.py under
 ``use_fused_paths``), and
 ``MomentMatchingPILCO``'s SVGP moment-matched loss (its eKuffu pair grid
 goes through the CUDA kernel op ops/kexp_cuda.py under ``use_fused_mm``;
@@ -25,20 +27,23 @@ Models are ``nn.Module``s trained in place. Randomness comes from
 ``torch.Generator``s seeded from (seed, number of episodes, purpose), the
 counterpart of the JAX package's per-iteration key folds.
 
-Not ported yet, and raising ``NotImplementedError``: multistart policy
-optimization (``num_restarts > 1``), the other drift optimizers
-(natgrad/Adam), checkpointing, and the optimism noise floor. As in the JAX
-package, ``PathwisePILCO`` runs its loss in the loop dtype whatever
-``PolicySpec.loss_dtype`` says (that option only keeps the loss off the
-fused rollout), and evaluates its SVGP paths through the path-eval kernel
-op only under ``use_fused_paths``.
+Not ported yet, and raising ``NotImplementedError``: the other drift
+optimizers (natgrad/Adam) and the coregionalized or shared-kernel drift.
+As in the JAX package, ``PathwisePILCO`` runs its loss in the loop dtype
+whatever ``PolicySpec.loss_dtype`` says (that option only keeps the loss
+off the fused rollout), and evaluates its SVGP paths through the path-eval
+kernel op only under ``use_fused_paths``.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import logging
 import math
+import os
+import pickle
 import time
+from pathlib import Path
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -46,12 +51,23 @@ import torch
 
 from ..components import Encoder, GaussianObjective
 from ..config import default_device
+from ..convert import model_from_numpy, model_to_numpy
 from ..dynamics.forward import forward_concrete, forward_moments
 from ..dynamics.solvers import euler_rollout, moment_matching_euler_rollout
 from ..envs.base import env_step
 from ..envs.base import rollout as env_rollout
 from ..models.builders import build_gpr, build_svgp, dynamics_mask, gpr_mask, policy_mask
-from ..models.gp import GPR, SVGP, GPREnsemble, gpr_lml, gpr_stack, gpr_view, svgp_elbo
+from ..models.gp import (
+    GPR,
+    SVGP,
+    GPREnsemble,
+    gpr_lml,
+    gpr_predict_f,
+    gpr_stack,
+    gpr_view,
+    svgp_elbo,
+    svgp_predict_f,
+)
 from ..models.hmc import HMCConfig, run_hmc
 from ..models.pathwise import (
     PathwiseGPRTransform,
@@ -64,11 +80,20 @@ from ..models.priors import pilco_snr_penalty
 from ..moment_matching.gp import GPRTransform, SVGPTransform
 from ..moment_matching.rules import SinCos, SquashedProbit
 from ..moments import Chain, DtypeIsland, GaussianMoments
-from ..utils.optimizers import adam_minimize, lbfgs_minimize, make_policy_schedule
+from ..utils import bijectors as bij
+from ..utils.optimizers import (
+    adam_minimize,
+    adam_minimize_multistart,
+    lbfgs_minimize,
+    make_policy_schedule,
+)
 from .core import EpisodeData, EpisodeSpec, stack_episodes
 
 # generator purposes (the JAX package's fold_in salts play this role)
 _DYNAMICS, _POLICY_INIT, _POLICY_OPT, _STEP, _HMC, _EXPECTED_REWARD = 0, 1, 2, 7, 11, 23
+_VALIDATION, _RESTART = 99, 1000
+
+logger = logging.getLogger("gpflowpilco_torch.pilco")
 
 
 def _cast_module(module: torch.nn.Module, dtype: Optional[torch.dtype]) -> torch.nn.Module:
@@ -110,6 +135,11 @@ class DriftSpec:
     model_type: str = "svgp"
     num_centers: int = 256
     noise_variance: float = 1.0
+    # per-output (P,) SVGP likelihood noise, each output's initial noise
+    # scaled by its target's variance, instead of one shared scalar: a
+    # shared floor rises to the largest output's residual and erases the
+    # small outputs' signal
+    per_output_noise: bool = False
     # when reinitializing, also fit from the previous episode's parameters
     # and keep the better ELBO (guards against bad-basin from-scratch refits)
     refit_from_incumbent: bool = True
@@ -122,8 +152,13 @@ class DriftSpec:
     pad_data_multiple: int = 240
     ls_low: float = 0.01
     ls_high: float = 100.0
-    # pessimistic refit after optimistic episodes (0 disables; not ported yet)
+    # pessimistic refit: when the last episode's model-predicted reward
+    # (eReward) beat its realized reward by more than this, each output's
+    # fitted likelihood noise is floored at optimism_noise_mult x the
+    # incumbent drift's held-out MSE on that episode's transitions (SVGP and
+    # GPR drifts; never an HMC ensemble). 0 disables.
     optimism_tolerance: float = 0.0
+    optimism_noise_mult: float = 1.0
     # HMC posterior over GPR hyperparameters (requires model_type='gpr'):
     # chains start around the L-BFGS MAP fit and are thinned to an ensemble
     # of hmc_ensemble hyperparameter draws
@@ -141,7 +176,7 @@ class DriftSpec:
 
 @dataclasses.dataclass(frozen=True)
 class PolicySpec:
-    """Policy build/train options. Only ``num_restarts=1`` is ported."""
+    """Policy build/train options."""
 
     reinitialize: bool = False
     num_centers: int = 30
@@ -153,6 +188,9 @@ class PolicySpec:
     action_scale: float = 10.0  # squash to (-scale, scale)
     coregionalize: Optional[bool] = None
     num_latent: Optional[int] = None
+    # multistart policy optimization: candidate 0 continues the current
+    # policy, candidate 1 is the best-validated snapshot (retain_best_policy),
+    # the rest are fresh q_mu draws; the lowest best-seen loss wins
     num_restarts: int = 4
     # act with the best-measured snapshot unless the trained policy's own
     # model-predicted reward beats the snapshot's measured score
@@ -196,6 +234,7 @@ class PILCOBase:
         episode_spec: EpisodeSpec,
         objective: GaussianObjective,
         encoder: Optional[Encoder] = None,
+        directory: Optional[str] = None,
         seed: int = 0,
         device=None,
         dtype: torch.dtype = torch.float32,
@@ -208,6 +247,7 @@ class PILCOBase:
         self.episode_spec = episode_spec
         self.objective = objective
         self.encoder = encoder
+        self.directory = Path(directory) if directory else None
         self.seed = seed
         self.device = default_device(device)
         self.dtype = dtype
@@ -217,6 +257,11 @@ class PILCOBase:
         self.metrics = metrics or {}
 
         self.episodes: List[EpisodeData] = []
+        # hooks: step callbacks get (loop, episode) after the episode is
+        # appended; unroll callbacks get (loop, states, actions) right after
+        # the trajectory is collected, before the metrics
+        self.step_callbacks: List[Callable] = []
+        self.unroll_callbacks: List[Callable] = []
         self.drift_model: Optional[SVGP] = None
         self.policy_model: Optional[SVGP] = None
         # best-measured policy snapshot and the policy that acted last
@@ -239,10 +284,11 @@ class PILCOBase:
         self.use_fused_rollout: bool = False
 
     # ------------------------------------------------------------------ randomness
-    def iteration_generator(self, purpose: int) -> torch.Generator:
-        """A generator seeded from (seed, episodes so far + 1, purpose), so a
-        rerun of the same iteration draws the same numbers."""
-        state = np.random.SeedSequence([self.seed, len(self.episodes) + 1, purpose])
+    def iteration_generator(self, purpose: int, *index: int) -> torch.Generator:
+        """A generator seeded from (seed, episodes so far + 1, purpose,
+        *index), so a rerun of the same iteration draws the same numbers
+        (``index`` tells apart, e.g., the multistart candidates)."""
+        state = np.random.SeedSequence([self.seed, len(self.episodes) + 1, purpose, *index])
         seed = int(state.generate_state(1, np.uint64)[0]) & (2**63 - 1)
         return torch.Generator(device=self.device).manual_seed(seed)
 
@@ -282,6 +328,7 @@ class PILCOBase:
             num_inducing=spec.num_centers,
             generator=self.iteration_generator(_DYNAMICS),
             noise_variance=spec.noise_variance,
+            per_output_noise=spec.per_output_noise,
             ls_low=spec.ls_low,
             ls_high=spec.ls_high,
         )
@@ -320,6 +367,53 @@ class PILCOBase:
         return Chain(SquashedProbit(scale=2.0 * scale - 1e-5), policy_t)
 
     # ------------------------------------------------------------------ training
+    def _optimism_noise_floor(self, prev_model) -> Optional[torch.Tensor]:
+        """The per-output (P,) likelihood-noise floor of a pessimistic refit,
+        or None. It applies when the last episode's model-predicted reward
+        (eReward) beat its realized reward by more than
+        ``DriftSpec.optimism_tolerance``: the floor is
+        ``optimism_noise_mult`` x the incumbent drift's MSE on that
+        episode's transitions, rows it never trained on."""
+        spec = self.drift_spec
+        if (
+            not spec.optimism_tolerance
+            or prev_model is None
+            or isinstance(prev_model, GPREnsemble)
+            or not self.episodes
+        ):
+            return None
+        m = self.episodes[-1].metrics
+        e_rew, rew = m.get("eReward"), m.get("rewards")
+        if e_rew is None or rew is None or not (np.isfinite(e_rew) and np.isfinite(rew)):
+            return None
+        if float(e_rew) - float(rew) <= spec.optimism_tolerance:
+            return None
+        x, y = self.get_data_dynamics()
+        n = min(self.episode_spec.num_steps, x.shape[0])
+        xs, ys = x[-n:], y[-n:]
+        with torch.no_grad():
+            predict = svgp_predict_f if isinstance(prev_model, SVGP) else gpr_predict_f
+            mu, _ = predict(prev_model, xs)
+            mse = torch.mean((ys - mu) ** 2, dim=0)  # (P,)
+        logger.info(
+            "pessimistic refit: eReward %.2f - reward %.2f > tol %.2f; held-out per-output MSE floor %s",
+            float(e_rew), float(rew), spec.optimism_tolerance,
+            np.array2string(mse.cpu().numpy(), precision=3),
+        )
+        return spec.optimism_noise_mult * mse
+
+    @staticmethod
+    def _apply_noise_floor(model, floor: torch.Tensor):
+        """Raise the fitted likelihood noise to at least ``floor`` ((P,)), in
+        place; a scalar noise takes the mean floor, so one large output
+        cannot drown the small outputs' signal. Returns the model."""
+        with torch.no_grad():
+            noise = model.noise_variance
+            f = floor.to(noise.dtype)
+            f = f if noise.dim() else f.mean()
+            model.raw_noise.copy_(bij.positive_inv(torch.maximum(noise, f)))
+        return model
+
     def update_dynamics(self):
         spec = self.drift_spec
         if spec.optimizer == "hmc" and spec.model_type != "gpr":
@@ -327,15 +421,25 @@ class PILCOBase:
                 "DriftSpec.optimizer='hmc' samples exact-GP hyperparameter "
                 "posteriors and requires model_type='gpr'"
             )
-        if spec.optimism_tolerance:
-            raise NotImplementedError("the optimism noise floor is not ported yet")
-        if spec.model_type == "gpr":
-            return self._update_gpr()
-        if spec.model_type != "svgp" or spec.optimizer != "lbfgs":
+        if spec.model_type not in ("svgp", "gpr") or (
+            spec.model_type == "svgp" and spec.optimizer != "lbfgs"
+        ):
             raise NotImplementedError(
                 f"drift {spec.model_type!r}/{spec.optimizer!r}: only the SVGP L-BFGS fit "
                 "and the GPR fits are ported yet"
             )
+        noise_floor = self._optimism_noise_floor(self.drift_model)
+        info = self._update_gpr() if spec.model_type == "gpr" else self._update_svgp()
+        # the pessimistic refit; an HMC ensemble is already honestly Bayesian
+        if noise_floor is not None and not isinstance(self.drift_model, GPREnsemble):
+            self._apply_noise_floor(self.drift_model, noise_floor)
+            info["pessimistic"] = True
+        return info
+
+    def _update_svgp(self):
+        """L-BFGS fit of the SVGP drift (ELBO plus the SNR penalty), from a
+        fresh build and, when it has the same shapes, from the incumbent."""
+        spec = self.drift_spec
         prev_model = self.drift_model
         if self.drift_model is None or spec.reinitialize:
             self.drift_model = self.build_dynamics()
@@ -456,21 +560,19 @@ class PILCOBase:
 
     def update_policy(self):
         spec = self.policy_spec
-        if spec.num_restarts > 1:
-            raise NotImplementedError(
-                "multistart policy optimization is not ported yet; use num_restarts=1"
-            )
         if self.policy_model is None or spec.reinitialize:
             self.policy_model = self.build_policy()
         model = self.policy_model
-        params = policy_mask(model)
         drift = self.policy_loss_drift()
+        schedule = make_policy_schedule(spec.step_limit, spec.initial_learning_rate)
+        if spec.num_restarts > 1:
+            return self._update_policy_multistart(model, drift, schedule)
         gen = self.iteration_generator(_POLICY_OPT)  # fresh paths every step
         losses, notfinite = adam_minimize(
             lambda: self.policy_loss_fn(model, gen, drift=drift),
-            params,
+            policy_mask(model),
             num_steps=spec.step_limit,
-            schedule=make_policy_schedule(spec.step_limit, spec.initial_learning_rate),
+            schedule=schedule,
             global_clipnorm=spec.global_clipnorm,
         )
         finite = losses[np.isfinite(losses)]
@@ -480,6 +582,52 @@ class PILCOBase:
             "nan_frac": float(np.mean(~np.isfinite(losses))),
             # optimizer steps skipped because gradients were non-finite
             "skipped_steps": notfinite,
+        }
+
+    def _update_policy_multistart(self, model: SVGP, drift, schedule):
+        """K candidates, each trained with its own generator: candidate 0
+        continues ``model`` (in place), candidate 1 is a copy of the
+        best-validated snapshot when ``retain_best_policy`` keeps one, the
+        rest are copies of ``model`` with fresh 1e-3 N(0, I) ``q_mu`` draws.
+        The lowest best-seen loss wins, and its best-seen parameters become
+        ``self.policy_model``. The snapshot is copied, not trained: the
+        acting gate deploys it."""
+        spec = self.policy_spec
+        candidates = [model]
+        if spec.retain_best_policy and self.best_policy_model is not None:
+            candidates.append(copy.deepcopy(self.best_policy_model))
+        for i in range(len(candidates), spec.num_restarts):
+            cand = copy.deepcopy(model)
+            with torch.no_grad():
+                cand.q_mu.copy_(1e-3 * torch.randn(
+                    model.q_mu.shape, generator=self.iteration_generator(_RESTART, i),
+                    dtype=self.dtype, device=self.device,
+                ))
+            candidates.append(cand)
+        gens = [self.iteration_generator(_POLICY_OPT, i) for i in range(len(candidates))]
+        params = [policy_mask(c) for c in candidates]
+        t0 = time.perf_counter()
+        bests, best_losses, traces, notfinite = adam_minimize_multistart(
+            [lambda c=c, g=g: self.policy_loss_fn(c, g, drift=drift) for c, g in zip(candidates, gens)],
+            params,
+            num_steps=spec.step_limit,
+            schedule=schedule,
+            global_clipnorm=spec.global_clipnorm,
+        )
+        logger.info("policy multistart: %d x %d steps in %.1f s", len(candidates), spec.step_limit,
+                    time.perf_counter() - t0)
+        best = int(np.argmin(best_losses))
+        with torch.no_grad():
+            for p, b in zip(params[best], bests[best]):
+                p.copy_(b)
+        self.policy_model = candidates[best]
+        return {
+            "loss": float(best_losses[best]),
+            "losses": traces[best],
+            "nan_frac": float(np.mean(~np.isfinite(traces))),
+            "skipped_steps": notfinite,
+            "best_restart": best,
+            "restart_losses": best_losses.tolist(),
         }
 
     # ------------------------------------------------------------------ rollout
@@ -542,6 +690,8 @@ class PILCOBase:
             )
         states_np = states.detach().cpu().numpy()
         actions_np = actions.detach().cpu().numpy()
+        for cb in self.unroll_callbacks:
+            cb(self, states_np, actions_np)
 
         metrics = {}
         for name, fn in self.metrics.items():
@@ -554,6 +704,8 @@ class PILCOBase:
             metrics["fallback"] = fallback
         episode = EpisodeData(states=states_np, actions=actions_np, metrics=metrics)
         self.episodes.append(episode)
+        for cb in self.step_callbacks:
+            cb(self, episode)
 
         # a fallback refreshes the snapshot's score; otherwise the trained
         # policy replaces the snapshot only by measuring strictly better
@@ -567,11 +719,80 @@ class PILCOBase:
         return episode
 
     # ------------------------------------------------------------------ checkpoint
-    def save(self):
-        raise NotImplementedError("checkpointing is not ported yet")
+    # numbered ckpt-<episodes>.pkl files written atomically (a .tmp file,
+    # flushed and fsynced, then os.replace), a schema number, the newest
+    # ``checkpoint_keep`` kept; restore walks newest to oldest past
+    # unreadable files (one truncated by a crash mid-write). The models are
+    # numpy dicts (convert.model_to_numpy), not pickled modules.
+    CHECKPOINT_SCHEMA = 1
+    checkpoint_keep = 3
 
-    def restore_or_initialize(self):
-        raise NotImplementedError("checkpointing is not ported yet")
+    def save(self) -> Optional[Path]:
+        """Write a checkpoint into ``directory``; None without one."""
+        if self.directory is None:
+            return None
+        self.directory.mkdir(parents=True, exist_ok=True)
+        payload = {
+            "schema": self.CHECKPOINT_SCHEMA,
+            "episodes": [(ep.states, ep.actions, _scrub_metrics(ep.metrics)) for ep in self.episodes],
+            "drift": model_to_numpy(self.drift_model),
+            "policy": model_to_numpy(self.policy_model),
+            "best_policy": model_to_numpy(self.best_policy_model),
+            "best_policy_score": self.best_policy_score,
+        }
+        path = self.directory / f"ckpt-{len(self.episodes)}.pkl"
+        tmp = path.with_suffix(".pkl.tmp")
+        with tmp.open("wb") as f:
+            pickle.dump(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)  # readers never see a partial file
+        for old in self._checkpoint_paths()[: -self.checkpoint_keep]:
+            old.unlink(missing_ok=True)
+        return path
+
+    def _checkpoint_paths(self) -> List[Path]:
+        """The numbered checkpoints, oldest to newest."""
+        if self.directory is None:
+            return []
+        return sorted(self.directory.glob("ckpt-*.pkl"), key=lambda p: int(p.stem.split("-")[1]))
+
+    def restore_or_initialize(self) -> bool:
+        """Load the newest readable checkpoint, if there is one; raises
+        ``ValueError`` on a newer schema rather than misread it."""
+        for path in reversed(self._checkpoint_paths()):
+            try:
+                with path.open("rb") as f:
+                    payload = pickle.load(f)
+            except Exception:  # a crash mid-write can leave any unpickling error
+                logger.warning("skipping unreadable checkpoint %s", path, exc_info=True)
+                continue
+            schema = payload.get("schema", 0)
+            if schema > self.CHECKPOINT_SCHEMA:
+                raise ValueError(
+                    f"checkpoint {path} has schema {schema} > supported {self.CHECKPOINT_SCHEMA}"
+                )
+            self.episodes = [EpisodeData(states=s, actions=a, metrics=m) for s, a, m in payload["episodes"]]
+            self.drift_model = model_from_numpy(payload["drift"], self.device, self.dtype)
+            self.policy_model = model_from_numpy(payload["policy"], self.device, self.dtype)
+            self.best_policy_model = model_from_numpy(payload["best_policy"], self.device, self.dtype)
+            self.best_policy_score = payload["best_policy_score"]
+            for model in (self.policy_model, self.best_policy_model):
+                if model is not None:
+                    policy_mask(model)  # the trainable flags the policies were saved with
+            return True
+        return False
+
+
+def _scrub_metrics(metrics: dict) -> dict:
+    """Metric values as plain Python numbers and lists, for pickling."""
+    out = {}
+    for k, v in metrics.items():
+        try:
+            out[k] = np.asarray(v).tolist()
+        except Exception:
+            out[k] = v
+    return out
 
 
 class MomentMatchingPILCO(PILCOBase):

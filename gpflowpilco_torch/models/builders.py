@@ -25,6 +25,7 @@ def build_svgp(
     max_corr: float = 1.0,
     q_mu: Optional[torch.Tensor] = None,
     noise_variance: float = 1.0,
+    per_output_noise: bool = False,
     whiten: bool = True,
     shared_kernel: bool = False,
     ls_low: float = 0.01,
@@ -32,7 +33,10 @@ def build_svgp(
 ) -> SVGP:
     """An SVGP on the device and dtype of ``x``: RBF kernels with
     median-heuristic lengthscales, k-means inducing points, one latent per
-    output. Coregionalization and the shared kernel are not ported yet."""
+    output. With ``per_output_noise`` the noise is (P,), each output's
+    ``noise_variance`` scaled by its target's variance, so no output starts
+    under another's noise floor. Coregionalization and the shared kernel are
+    not ported yet."""
     num_data, num_out = y.shape
     if num_latent is None:
         num_latent = num_out
@@ -63,13 +67,17 @@ def build_svgp(
     if q_mu is None:
         q_mu = torch.zeros((m, num_latent), dtype=dtype, device=device)
     q_sqrt = torch.eye(m, dtype=dtype, device=device)[None].repeat(num_latent, 1, 1)
+    if per_output_noise:
+        noise0 = noise_variance * (y.var(dim=0, correction=0) + 1e-12)
+    else:
+        noise0 = torch.tensor(noise_variance, dtype=dtype, device=device)
     return SVGP(
         kernel=kernel,
         z=z,
         q_mu=q_mu,
         q_sqrt=q_sqrt,
         mean_const=torch.zeros((num_out,), dtype=dtype, device=device),
-        raw_noise=bij.positive_inv(torch.tensor(noise_variance, dtype=dtype, device=device)),
+        raw_noise=bij.positive_inv(noise0),
         w=None,
         whiten=whiten,
     )

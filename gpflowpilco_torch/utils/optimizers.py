@@ -1,11 +1,12 @@
-"""Training drivers: guarded Adam and L-BFGS over ``nn.Parameter`` lists
-(counterpart of gpflowpilco_tpu/utils/optimizers.py).
+"""Training drivers: guarded Adam (single- and multi-start) and L-BFGS over
+``nn.Parameter`` lists (counterpart of gpflowpilco_tpu/utils/optimizers.py).
 
 Parameters are updated in place. Frozen parameters are the ones the caller
 leaves out of ``params`` (see models/builders.py masks).
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, List, Optional, Sequence
 
 import torch
@@ -29,6 +30,27 @@ def _clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float):
         g.mul_(scale)
 
 
+def _adam(params: List[torch.Tensor], schedule: Callable[[int], float]) -> torch.optim.Adam:
+    return torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8)
+
+
+def _guarded_step(opt, params, schedule, applied: int, global_clipnorm: Optional[float]) -> bool:
+    """Clip the gradients in ``p.grad`` and apply one Adam step at the
+    learning rate of ``applied`` applied steps. A step whose gradients are
+    not all finite is skipped: neither the parameters nor Adam's state or
+    step count move, as under optax ``apply_if_finite``. Returns whether the
+    step was applied."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not bool(torch.stack([torch.isfinite(g).all() for g in grads]).all()):
+        return False
+    if global_clipnorm is not None:
+        _clip_by_global_norm(grads, global_clipnorm)
+    for group in opt.param_groups:
+        group["lr"] = schedule(applied)
+    opt.step()
+    return True
+
+
 def adam_minimize(
     loss_fn: Callable[[], torch.Tensor],
     params: List[torch.Tensor],
@@ -41,30 +63,80 @@ def adam_minimize(
     (losses (num_steps,) numpy, number of skipped steps).
 
     Global-norm clip, then Adam, and a step whose gradients are not all
-    finite is skipped: neither the parameters nor Adam's state or step count
-    move, as under optax ``apply_if_finite``. ``schedule(count)`` gives the
+    finite is skipped (``_guarded_step``). ``schedule(count)`` gives the
     learning rate from the count of applied steps.
     """
     if schedule is None:
         schedule = lambda count: learning_rate  # noqa: E731
-    opt = torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8)
+    opt = _adam(params, schedule)
     losses, applied, skipped = [], 0, 0
     for _ in range(num_steps):
         opt.zero_grad(set_to_none=False)
         loss = loss_fn()
         loss.backward()
-        grads = [p.grad for p in params if p.grad is not None]
         losses.append(loss.detach())
-        if not bool(torch.stack([torch.isfinite(g).all() for g in grads]).all()):
+        if _guarded_step(opt, params, schedule, applied, global_clipnorm):
+            applied += 1
+        else:
             skipped += 1
-            continue
-        if global_clipnorm is not None:
-            _clip_by_global_norm(grads, global_clipnorm)
-        for group in opt.param_groups:
-            group["lr"] = schedule(applied)
-        opt.step()
-        applied += 1
     return torch.stack(losses).cpu().numpy(), skipped
+
+
+def adam_minimize_multistart(
+    loss_fns: Sequence[Callable[[], torch.Tensor]],
+    params: Sequence[List[torch.Tensor]],
+    num_steps: int,
+    learning_rate: float = 0.01,
+    schedule: Optional[Callable[[int], float]] = None,
+    global_clipnorm: Optional[float] = 1.0,
+):
+    """K-candidate Adam: ``loss_fns[i]()`` is candidate i's loss over its
+    parameters ``params[i]``. Returns (bests: per candidate, clones of its
+    best-seen parameters; best losses (K,) numpy; losses (K, num_steps)
+    numpy; skipped steps summed over the candidates).
+
+    The candidates run one after another, each with its own Adam state,
+    clip, non-finite skip and schedule count, as ``adam_minimize``; the
+    caller gives each its own randomness. Each returns its BEST-SEEN
+    parameters and loss, not its final ones: the loss of a step belongs to
+    the parameters that enter that step, a NaN loss never counts as better,
+    and the best loss (and the trace) is kept in the parameters' dtype, even
+    when the loss runs wider (``PolicySpec.loss_dtype``). The best loss and
+    parameters stay on the device, updated by ``torch.where``, so the
+    tracking adds no host sync. The parameters are left at their final
+    values. There is no ``chunk_size``: the JAX runner's chunks bound
+    ``lax.scan`` dispatches, which eager PyTorch does not have.
+    """
+    if schedule is None:
+        schedule = lambda count: learning_rate  # noqa: E731
+    bests, best_losses, traces, skipped = [], [], [], 0
+    for loss_fn, cand in zip(loss_fns, params):
+        opt = _adam(cand, schedule)
+        best = [p.detach().clone() for p in cand]
+        best_loss = torch.full((), math.inf, dtype=cand[0].dtype, device=cand[0].device)
+        losses, applied = [], 0
+        for _ in range(num_steps):
+            opt.zero_grad(set_to_none=False)
+            loss = loss_fn()
+            loss.backward()
+            loss = loss.detach().to(best_loss.dtype)
+            losses.append(loss)
+            better = loss < best_loss  # NaN < x is False
+            best_loss = torch.where(better, loss, best_loss)
+            best = [torch.where(better, p.detach(), b) for p, b in zip(cand, best)]
+            if _guarded_step(opt, cand, schedule, applied, global_clipnorm):
+                applied += 1
+            else:
+                skipped += 1
+        bests.append(best)
+        best_losses.append(best_loss)
+        traces.append(torch.stack(losses))
+    return (
+        bests,
+        torch.stack(best_losses).cpu().numpy(),
+        torch.stack(traces).cpu().numpy(),
+        skipped,
+    )
 
 
 def lbfgs_minimize(

@@ -791,3 +791,41 @@ def test_torch_rollout_wrapper_raises_on_gpu():
     with pytest.raises(NotImplementedError, match="differentiates only the policy"):
         rc.FusedRolloutLoss.apply(meta, *ops[:7], ops[7].clone().requires_grad_(True), *ops[8:])
     assert rc.launches == before
+
+
+@pytest.mark.gpu
+def test_torch_multistart_through_rollout_kernel_on_gpu():
+    """A K=2 x 3-step multistart policy update of a small pathwise loop on
+    the card with use_fused_rollout: one K6 forward and one backward per
+    candidate step (6 of each), no K1, and the winner is the argmin of the
+    candidates' best-seen losses."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "examples" / "cartpole_swingup"))
+    from run_torch import build_loop
+
+    from gpflowpilco_torch.loops.pilco import DriftSpec, PolicySpec
+    from gpflowpilco_torch.ops import rollout_cuda as rc
+
+    loop = build_loop(
+        0, torch.device("cuda"), torch.float32,
+        drift_spec=DriftSpec(num_centers=16, max_iters=20),
+        policy_spec=PolicySpec(batch_size=64, num_bases=64, num_restarts=2, step_limit=3),
+    )
+    loop.step()
+    loop.step()
+    loop.update_dynamics()
+    loop.use_fused_rollout = True
+    rc.reset_launches()
+    pe.reset_launches()
+    info = loop.update_policy()
+    torch.cuda.synchronize()
+    assert loop._fused_rollout_eligible(loop.drift_model, loop.policy_model)
+    assert rc.launches == {"rollout_fwd_f32": 6, "rollout_fwd_f64": 0, "rollout_bwd_f32": 6, "rollout_bwd_f64": 0}
+    assert not any(pe.launches.values())
+    assert len(info["restart_losses"]) == 2 and info["losses"].shape == (3,)
+    assert info["best_restart"] == int(np.argmin(info["restart_losses"]))
+    assert np.isfinite(info["loss"])

@@ -1,6 +1,6 @@
 """The PyTorch port's optimizers and loop: Adam and L-BFGS against the JAX
-package's drivers (float64), the not-yet-ported options of the pathwise and
-moment-matching loops, and one tiny pathwise PILCO iteration on the CPU."""
+package's drivers (float64), an option the moment-matching loop refuses, as
+the JAX package does, and one tiny pathwise PILCO iteration on the CPU."""
 import dataclasses
 import math
 import pathlib
@@ -62,35 +62,17 @@ def test_torch_pathwise_iteration_runs():
     assert len(loop.episodes) == 3 and "fallback" in loop.episodes[-1].metrics
 
 
-@pytest.mark.parametrize("what", ["restarts", "optimism", "gpr", "save", "mm_gpr"])
+@pytest.mark.parametrize("what", ["mm_gpr"])
 def test_torch_unported_options_raise(what):
-    """The GPR cases: the optimism floor under a GPR drift (not ported for
-    any drift), and in the MM loop the compensated loss under a GPR drift,
-    which the JAX package refuses too (it supports SVGP drifts only)."""
-    loop = _tiny_loop(
-        loop_cls=MomentMatchingPILCO if what.startswith("mm_") else PathwisePILCO,
-        **({"num_restarts": 4} if what == "restarts" else {}),
-    )
-    if what == "optimism":
-        loop.drift_spec = DriftSpec(optimism_tolerance=1.0)
-    if what == "gpr":
-        loop.drift_spec = DriftSpec(model_type="gpr", optimism_tolerance=1.0)
-    if what == "mm_gpr":
-        loop.drift_spec = DriftSpec(model_type="gpr", max_iters=5)
-        loop.policy_spec = PolicySpec(loss_compensated=True, num_restarts=1)
+    """In the MM loop the compensated loss under a GPR drift raises, as the
+    JAX package refuses it too (it supports SVGP drifts only)."""
+    loop = _tiny_loop(loop_cls=MomentMatchingPILCO)
+    loop.drift_spec = DriftSpec(model_type="gpr", max_iters=5)
+    loop.policy_spec = PolicySpec(loss_compensated=True, num_restarts=1)
     loop.step()
-    if what == "mm_gpr":
-        loop.update_dynamics()
+    loop.update_dynamics()
     with pytest.raises(NotImplementedError):
-        if what == "save":
-            loop.save()
-        elif what in ("optimism", "gpr"):
-            loop.update_dynamics()
-        elif what == "mm_gpr":
-            loop.policy_loss_fn(loop.build_policy(), None)
-        else:
-            loop.update_dynamics()
-            loop.update_policy()
+        loop.policy_loss_fn(loop.build_policy(), None)
 
 
 def _pathwise_models(dtype):
