@@ -104,7 +104,8 @@
 10. K6 (the whole pathwise rollout loss, forward and backward) at the
    pathwise slice's widths (S=1024, B=1024, M=240, Mp=30, 30 steps) in
    float32 and float64 against its plain version (rollout_kernels_phase),
-   also at S=1000, at the LCK shape and on the 8-member axis, timed beside it
+   also at S=1000, at the LCK shape and on the 8-member axis, the float32
+   forward's ring route bit-identical to its resident one, timed beside it
    and its bound; then the fused-rollout slice: the pathwise slice's loop
    with use_fused_rollout, a policy update (one K6 forward and one backward
    per Adam step, no K1), and at that state the float64 loss and gradient
@@ -120,7 +121,28 @@
    cartpole success mask, 3 rollouts held against serial ones (1e-5
    relative, float32), (d) a checkpoint saved and restored into a fresh
    loop (episodes and q_mu bit-identical, one K6 loss equal bit for bit).
-12. Prints the kernels' JSON line, then {"ok": true, "device": {...}} as the
+12. Slice-D kernels: every entry on the double pendulum's paths at its
+   shapes, held against its plain version by the bars of 3, 6 and 10, timed
+   beside it and its bound, rows named ``<entry>/dp``: K1a/K1b at the
+   drift's S=1024, L=4, B=1024, M=320, D=8 (and, ``/mc``, mountain car's
+   L=2, M=128, D=3); K2 at the drift's N=1, P=10, D2=18, M=320 (D2 > 16:
+   the DM = 32 route, whose ptxas report is printed) and the policy's P=3,
+   D2=14, M=100; K3 at the drift's L=4, D=8, M=320 and the policy's L=2,
+   D=6, M=100 (the full backward at the policy's shape only, where the
+   path runs it: the drift match is frozen); K4 with both angles active
+   (NA=2) at N=1 and N=50; K5a at the policy joint's D=8; K6 at DXU=8,
+   M=320, Mp=100, T=50 (the float32 forward's resident route, its ring
+   route bit-identical).
+13. Tasks (tasks_phase): the double pendulum and mountain car at full
+   width through their runners, each update's counts zeroed just before
+   and read just after: (a) the double pendulum pathwise, through K6 and
+   then K1, an RK4 episode, the float64 K6 loss and gradient against the
+   per-step path; (b) its MM updates through K2 (float64 loss) and the
+   whole-match kernels, each float64 loss against the unfused one; (c)
+   mountain car's MM update through K2, pathwise update through K1 and an
+   RK4 episode; (d) the 'adam' and 'natgrad_adam' drift fits beside
+   L-BFGS's ELBO.
+14. Prints the kernels' JSON line, then {"ok": true, "device": {...}} as the
    last line. Any failed check raises, so the exit code is non-zero.
 
 Tolerances of the kernel checks, rtol = atol:
@@ -243,9 +265,11 @@ def _bound(bytes_moved, ops, dtype):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bound_ms(kind):
-    """Least time of one K1 launch: the bytes it must move (each input read
-    once, each output written once) and its float32 operations (_bound)."""
+def bound_ms(kind, shape=(S, L, B, M, D)):
+    """Least time of one K1 launch at ``shape`` (S, L, B, M, D): the bytes it
+    must move (each input read once, each output written once) and its
+    float32 operations (_bound)."""
+    S, L, B, M, D = shape  # noqa: N806
     inputs = S * D + S * L * (B + M) + L * (B * D + B + M * D + M + D)
     outputs = S * L
     # per (s, l, b): the D-term dot and the sum; per (s, l, m): the dot, the
@@ -260,7 +284,8 @@ def bound_ms(kind):
     return _bound((inputs + outputs) * 4, flops, torch.float32)
 
 
-def kernel_inputs(seed, device):
+def kernel_inputs(seed, device, shape=(S, L, B, M, D)):
+    S, L, B, M, D = shape  # noqa: N806
     rng = np.random.default_rng(seed)
     f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()  # noqa: E731
     ls = 1.0 + rng.uniform(size=(L, D))
@@ -289,30 +314,33 @@ def check(name, got, want, tol=RTOL):
     return err
 
 
-def kernels_phase(pe, seed, device):
-    """Hold K1a/K1b/K1c against the plain version and time both."""
-    t = kernel_inputs(seed, device)
+def kernels_phase(pe, seed, device, shape=(S, L, B, M, D), sfx="", full=True):
+    """Hold K1a/K1b and, with ``full``, K1c against the plain version at
+    ``shape`` (S, L, B, M, D) and time both, and each launch's own device
+    time (stage_ms); the rows' names end in ``sfx``."""
+    t = kernel_inputs(seed, device, shape)
     ops = (t["x"], t["w"], t["v"], t["omega"], t["phase"], t["z_scaled"], t["z2"], t["inv_ls"])
     g = t["g"]
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=device)  # > 50 MB L2
 
     want_f = pe.path_eval_reference(*ops)
     want_dx, _, _ = pe.path_eval_reference_bwd(*ops, g, want_wv=False)
-    _, want_dw, want_dv = pe.path_eval_reference_bwd(*ops, g, want_wv=True)
     got_f = pe._fwd(*ops)
     got_dx = pe._bwd_dx(*ops, g)
-    full_dx, got_dw, got_dv = pe._bwd_full(*ops, g)
     sync()
-    print(f"kernels at S={S} L={L} B={B} M={M} D={D} float32, rtol=atol={RTOL}:")
+    print("kernels at S={} L={} B={} M={} D={} float32, rtol=atol={}:".format(*shape, RTOL))
     errs = {
-        "path_eval_fwd": check("path_eval_fwd f", got_f, want_f),
-        "path_eval_bwd_dx": check("path_eval_bwd_dx dx", got_dx, want_dx),
-        "path_eval_bwd_full": max(
+        "path_eval_fwd": check(f"path_eval_fwd{sfx} f", got_f, want_f),
+        "path_eval_bwd_dx": check(f"path_eval_bwd_dx{sfx} dx", got_dx, want_dx),
+    }
+    if full:
+        _, want_dw, want_dv = pe.path_eval_reference_bwd(*ops, g, want_wv=True)
+        full_dx, got_dw, got_dv = pe._bwd_full(*ops, g)
+        errs["path_eval_bwd_full"] = max(
             check("path_eval_bwd_full dx", full_dx, want_dx),
             check("path_eval_bwd_full dw", got_dw, want_dw),
             check("path_eval_bwd_full dv", got_dv, want_dv),
-        ),
-    }
+        )
     calls = {
         "path_eval_fwd": (
             lambda: pe._fwd(*ops),
@@ -332,17 +360,21 @@ def kernels_phase(pe, seed, device):
     }
     timings = {}
     for name, (kern, plain, kind) in calls.items():
+        if name not in errs:
+            continue
         ms = median_ms(kern, flush=flush)
         warm_ms = median_ms(kern)
         plain_ms = median_ms(plain, reps=10, flush=flush)
-        bound, bound_by = bound_ms(kind)
-        timings[name] = dict(ms=ms, plain_ms=plain_ms, plain_how="device", bound_ms=bound,
-                             bound_by=bound_by)
+        bound, bound_by = bound_ms(kind, shape)
+        timings[name + sfx] = dict(ms=ms, plain_ms=plain_ms, plain_how="device", bound_ms=bound,
+                                   bound_by=bound_by)
         print(
-            f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), "
+            f"  {name}{sfx}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), "
             f"plain torch {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})"
         )
-    return errs, timings
+        times = timings[name + sfx]["stages"] = stage_ms(kern)
+        print(f"  stages of {name}{sfx}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    return {k + sfx: v for k, v in errs.items()}, timings
 
 
 def pair_bound_ms(kind, n, p, d2, m, dtype, r=1):
@@ -381,17 +413,17 @@ def pair_inputs(rng, n, p, d2, m, dtype, device, r=1):
     )
 
 
-def pair_kernels_phase(kc, seed, device):
+def pair_kernels_phase(kc, seed, device, shapes=PAIR_SHAPES, tag=""):
     """Hold K2's six entries against the plain version at both MM shapes and
     time each at the shape the main path gives it (float64 at the drift's,
-    float32 at the policy's)."""
+    float32 at the policy's); the rows' names end in ``tag``."""
     rng = np.random.default_rng(seed + 1000)
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=device)
     errs = {name: 0.0 for name in kc.launches}
     timings = {}
     for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
         tol = PAIR_TOL[dtype]
-        for where, (n, p, d2, m) in PAIR_SHAPES.items():
+        for where, (n, p, d2, m) in shapes.items():
             t = pair_inputs(rng, n, p, d2, m, dtype, device)
             ops = (t["su"], t["sw"], t["alu"], t["qm"])
             cot = (t["devc"], t["dqcol"])
@@ -429,17 +461,17 @@ def pair_kernels_phase(kc, seed, device):
                 warm_ms = median_ms(kern)
                 plain_ms = median_ms(plain, reps=10, flush=flush)
                 bound, bound_by = pair_bound_ms(kind, n, p, d2, m, dtype)
-                timings[name] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, plain_how="device",
-                                     bound_ms=bound, bound_by=bound_by)
-                print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), "
+                timings[name + tag] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, plain_how="device",
+                                           bound_ms=bound, bound_by=bound_by)
+                print(f"  {name}{tag}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), "
                       f"plain torch {plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
             # each entry's stages (warm L2): tiles and, above one tile, finish
             for kind in ("fwd", "bwd", "bwd_frozen"):
-                stages = stage_ms(calls[kind][0])
-                timings[f"pair_contract_{kind}_{sfx}"]["stages"] = stages
-                print(f"  stages of pair_contract_{kind}_{sfx}: "
-                      + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
-    return errs, timings
+                times = stage_ms(calls[kind][0])
+                timings[f"pair_contract_{kind}_{sfx}{tag}"]["stages"] = times
+                print(f"  stages of pair_contract_{kind}_{sfx}{tag}: "
+                      + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    return {k + tag: v for k, v in errs.items()}, timings
 
 
 def pair_repeats(kc, ops, cot, sfx, where=""):
@@ -698,9 +730,10 @@ def mm_slice_phase(kc, seed, device, step_limit, lbfgs_iters):
 # (N=1, L=1, D=5, M=30, deterministic) and the HMC ensemble policy's (the
 # policy match with the 8 members as its batch, N=8); K4 at N=1 in the
 # rollout and N=30 on the post-rollout cost; K5a on the policy joint (D=6),
-# K5b on the state (D=4)
-MATCH_SHAPES = {"drift": (1, L, D, M, True), "policy": (1, 1, 5, 30, False),
-                "ensemble policy": (8, 1, 5, 30, False)}
+# K5b on the state (D=4). Each shape is (N, L, D, M, model uncertainty,
+# whether the full backward is held there)
+MATCH_SHAPES = {"drift": (1, L, D, M, True, True), "policy": (1, 1, 5, 30, False, True),
+                "ensemble policy": (8, 1, 5, 30, False, True)}
 MATCH_F64_TOL = 1e-9  # K3 float64, of each output's scale: sums of M^2 terms, 6 x 6 adjoints
 # K3 float32 against plain float32 on the well-conditioned grid, of each
 # output's scale: there the plain float32 version itself misses float64 by a
@@ -922,7 +955,8 @@ def scaled_err(got, want):
     return float((got.double() - want.double()).abs().max()) / (1.0 + float(want.abs().max()))
 
 
-def match_kernels_phase(mc, ec, gc, seed, device):
+def match_kernels_phase(mc, ec, gc, seed, device, shapes=MATCH_SHAPES, enc=(ENC_ACTIVE, ENC_D),
+                        joint_d=GLUE_JOINT_D, steps=HORIZON_STEPS, tag=""):
     """Hold every K3, K4, K5a and K5b entry against its plain version in
     float32 and float64 at the path's shapes, and time each beside its plain
     version, its bound and (K5) torch.linalg.eigvalsh on the same batch.
@@ -938,7 +972,14 @@ def match_kernels_phase(mc, ec, gc, seed, device):
     kernel. So float32 K3 is also held against the plain float32 version at
     a fixed bar, MATCH_WC_TOL of the scale, on a well-conditioned grid of the
     same shape (well_conditioned), where a fault of the float instantiation
-    alone (a fast exp, a sum in the wrong type) shows."""
+    alone (a fast exp, a sum in the wrong type) shows.
+
+    ``shapes`` are K3's (the full backward only at those that say so),
+    ``enc`` K4's (active dims, D; at N=1 and N=``steps``), ``joint_d``
+    K5a's D (K5b's is K4's D), and the rows' names end in ``tag``. The
+    float64 full backward is timed at the drift's shape where it is held
+    there, else at the policy's."""
+    enc_active, enc_d = enc
     rng = np.random.default_rng(seed + 2000)
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=device)
     from gpflowpilco_torch.moments import GaussianMoments, psd_project
@@ -956,7 +997,7 @@ def match_kernels_phase(mc, ec, gc, seed, device):
         return scaled
 
     for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
-        for where, (n, num_l, d, m, unc) in MATCH_SHAPES.items():
+        for where, (n, num_l, d, m, unc, full) in shapes.items():
             g = match_grid(num_l, d, m, unc, dtype, device, seed + m)
             g64 = mc.FusedMatchGrid(**{k: v.double() for k, v in zip(mc.GRID_FIELDS, g.tensors())},
                                     meta=g.meta)
@@ -969,8 +1010,9 @@ def match_kernels_phase(mc, ec, gc, seed, device):
             plain = k3_outputs(mc, g, mx, sxx, cots, kernel=False)
             truth = k3_outputs(mc, g64, mx.double(), sxx.double(), up(cots), kernel=False)
             sync()
-            names = {"fwd": ("f1", "sff", "cross"), "bwd_frozen": ("dmx", "dsxx"),
-                     "bwd": ("dmx", "dsxx", *mc.GRID_FIELDS)}
+            names = {"fwd": ("f1", "sff", "cross"), "bwd_frozen": ("dmx", "dsxx")}
+            if full:
+                names["bwd"] = ("dmx", "dsxx", *mc.GRID_FIELDS)
 
             def hold(name, outs, got, plain, truth):
                 for what, a, b, c in zip(outs, got, plain, truth):
@@ -1039,7 +1081,8 @@ def match_kernels_phase(mc, ec, gc, seed, device):
                     lambda a=args, c=cots, f=f1: mc._bwd(*a, f, *c, True),
                     lambda a=args, c=cots: mc.match_reference_bwd(*a, *c, True),
                     match_bound_ms("bwd_frozen", g.meta, n, dtype), None)
-            if where == ("policy" if dtype == torch.float32 else "drift"):
+            full_where = "drift" if dtype == torch.float64 and shapes["drift"][5] else "policy"
+            if where == full_where:
                 calls[f"svgp_match_bwd_{sfx}"] = (
                     lambda a=args, c=cots, f=f1: mc._bwd(*a, f, *c, False),
                     lambda a=args, c=cots: mc.match_reference_bwd(*a, *c, False),
@@ -1055,13 +1098,13 @@ def match_kernels_phase(mc, ec, gc, seed, device):
                     match_bound_ms("bwd", g.meta, n, dtype), None)
 
         tol = SMALL_TOL[dtype]
-        meta = ec.make_enc_meta(ENC_ACTIVE, ENC_D)
+        meta = ec.make_enc_meta(enc_active, enc_d)
         de = meta.num_out
-        for n in (1, HORIZON_STEPS):
-            mx, sxx = state_moments(rng, n, ENC_D, dtype, device)
+        for n in (1, steps):
+            mx, sxx = state_moments(rng, n, enc_d, dtype, device)
             f = lambda *sh: torch.as_tensor(rng.normal(size=sh), dtype=dtype, device=device)  # noqa: E731
-            cots = (f(n, de), f(n, de, de), f(n, ENC_D, de))
-            print(f"encoder match N={n} D={ENC_D} active={ENC_ACTIVE} {sfx}, bar {tol:g}:")
+            cots = (f(n, de), f(n, de, de), f(n, enc_d, de))
+            print(f"encoder match N={n} D={enc_d} active={enc_active} {sfx}, bar {tol:g}:")
             pairs = [("fwd", ("ym", "yc", "cr"), ec._fwd(meta, mx, sxx), ec.enc_match_reference(meta, mx, sxx)),
                      ("bwd", ("dmx", "dsxx"), ec._bwd(meta, mx, sxx, *cots),
                       ec.enc_match_reference_bwd(meta, mx, sxx, *cots))]
@@ -1079,19 +1122,19 @@ def match_kernels_phase(mc, ec, gc, seed, device):
                 calls[f"enc_match_fwd_{sfx}"] = (
                     lambda a=(meta, mx, sxx): ec._fwd(*a),
                     lambda a=(meta, mx, sxx): ec.enc_match_reference(*a),
-                    enc_bound_ms("fwd", n, ENC_D, len(ENC_ACTIVE), dtype), None)
+                    enc_bound_ms("fwd", n, enc_d, len(enc_active), dtype), None)
                 calls[f"enc_match_bwd_{sfx}"] = (
                     lambda a=(meta, mx, sxx), c=cots: ec._bwd(*a, *c),
                     lambda a=(meta, mx, sxx), c=cots: ec.enc_match_reference_bwd(*a, *c),
-                    enc_bound_ms("bwd", n, ENC_D, len(ENC_ACTIVE), dtype), None)
+                    enc_bound_ms("bwd", n, enc_d, len(enc_active), dtype), None)
 
         # K5a on indefinite policy joints, K5b on the state with and without the boost
-        _, s6 = state_moments(rng, 1, GLUE_JOINT_D, dtype, device, shift=-0.3)
-        m4, s4 = state_moments(rng, 1, D - 2, dtype, device, shift=-0.3)
-        f14, sff4 = state_moments(rng, 1, D - 2, dtype, device)
-        sxf4 = torch.as_tensor(0.1 * rng.normal(size=(1, 4, 4)), dtype=dtype, device=device)
+        _, s6 = state_moments(rng, 1, joint_d, dtype, device, shift=-0.3)
+        m4, s4 = state_moments(rng, 1, enc_d, dtype, device, shift=-0.3)
+        f14, sff4 = state_moments(rng, 1, enc_d, dtype, device)
+        sxf4 = torch.as_tensor(0.1 * rng.normal(size=(1, enc_d, enc_d)), dtype=dtype, device=device)
         jitter = 1e-6 if dtype == torch.float32 else 0.0  # the solver's cov_jitter
-        print(f"glue: psd boost N=1 D={GLUE_JOINT_D}, euler update N=1 D=4 {sfx}, bar {tol:g}:")
+        print(f"glue: psd boost N=1 D={joint_d}, euler update N=1 D={enc_d} {sfx}, bar {tol:g}:")
         checks = [("psd_boost", "out", gc._psd(s6, 0.0), gc.boosted_reference(0.5 * (s6 + s6.mT), 0.0, tol))]
         for jit in (0.0, 1e-6):
             got = gc._euler(m4, s4, f14, sff4, sxf4, 1.0, jit)
@@ -1118,12 +1161,13 @@ def match_kernels_phase(mc, ec, gc, seed, device):
               f"{jacobi_gap[sfx]:.3e}")
         calls[f"psd_boost_{sfx}"] = (
             lambda s=s6: gc._psd(s, 0.0), lambda s=s6: gc.psd_boost_reference(s, 0.0),
-            glue_bound_ms("psd", 1, GLUE_JOINT_D, dtype), lambda s=s6: torch.linalg.eigvalsh(s))
+            glue_bound_ms("psd", 1, joint_d, dtype), lambda s=s6: torch.linalg.eigvalsh(s))
         eargs = (m4, s4, f14, sff4, sxf4, 1.0, jitter)
         calls[f"euler_update_{sfx}"] = (
             lambda a=eargs: gc._euler(*a), lambda a=eargs: gc.euler_update_reference(*a),
-            glue_bound_ms("euler", 1, 4, dtype), lambda s=s4: torch.linalg.eigvalsh(s))
+            glue_bound_ms("euler", 1, enc_d, dtype), lambda s=s4: torch.linalg.eigvalsh(s))
 
+    calls = {name + tag: call for name, call in calls.items()}
     for name, (kern, plain, (bound, bound_by), library) in calls.items():
         ms = median_ms(kern, flush=flush)
         warm_ms = median_ms(kern)
@@ -1140,11 +1184,15 @@ def match_kernels_phase(mc, ec, gc, seed, device):
     for name in ("svgp_match_fwd_f32", "svgp_match_bwd_frozen_f32", "svgp_match_fwd_f64",
                  "svgp_match_bwd_frozen_f64", "svgp_match_fwd_f32 (policy)", "svgp_match_bwd_f32",
                  "svgp_match_bwd_f32 (ensemble policy)", "enc_match_fwd_f32", "enc_match_fwd_f64",
-                 "enc_match_bwd_f32", "enc_match_bwd_f64", "euler_update_f32", "euler_update_f64"):
-        stages = stage_ms(calls[name][0])
-        timings[name]["stages"] = stages
-        print(f"  stages of {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
-    return errs, timings, jacobi_gap["f64"]
+                 "enc_match_bwd_f32", "enc_match_bwd_f64", "euler_update_f32",
+                 "euler_update_f64"):
+        name += tag
+        if name not in calls:
+            continue
+        times = stage_ms(calls[name][0])
+        timings[name]["stages"] = times
+        print(f"  stages of {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    return {k + tag: v for k, v in errs.items()}, timings, jacobi_gap["f64"]
 
 
 # A perturbed x0 whose covariance is indefinite: the cart's position and
@@ -1847,22 +1895,27 @@ ROLL_F64_TOL = 1e-10  # of each output's scale: the same sums in another order
 ROLL_F32_TOL = 1e-4  # of each output's scale over ROLL_SHORT_T steps, where the rollout is healthy
 ROLL_SHORT_T = 5
 ROLL_MEMBERS = 8  # the HMC ensemble's members on K6's member axis
+ROLL_WIDTHS = dict(s=S, lp=1, ld=L, u=1, steps=HORIZON_STEPS, b=B, m=M, mp=30, active=(1,), action_scale=10.0)
 
 
-def rollout_operands(rc, k, s, lp, ld, u, steps, dtype, device, seed, b=B, m=M, mp=30):
-    """A K6 meta and operands (x0 first) from numpy, cartpole-shaped (D=4,
-    active dim 1): lengthscales 1-2, path weights small enough that 30 steps
-    stay in a healthy state, a non-symmetric precision matrix. Made in
-    float64 and cast."""
+def rollout_operands(rc, k, s, lp, ld, u, steps, dtype, device, seed, b=B, m=M, mp=30, active=(1,),
+                     action_scale=10.0):
+    """A K6 meta and operands (x0 first) from numpy, D=4 with the encoder's
+    ``active`` dims (the cartpole's (1,) or the double pendulum's (0, 1)),
+    x0 near pi on those: lengthscales 1-2, path weights small enough that
+    30 steps stay in a healthy state, a non-symmetric precision matrix.
+    Made in float64 and cast."""
     rng = np.random.default_rng(seed)
     n = lambda *sh: rng.normal(size=sh)  # noqa: E731
-    d, de = 4, 5
+    d = 4
+    de = d + len(active)
     dxu = de + u
-    meta = rc.RolloutMeta(num_steps=steps, dt=1.0, squash_scale=19.99999, active_dims=(1,),
-                          state_dim=d, enc_dim=de, act_dim=u, num_latent=ld, pol_latent=lp)
+    meta = rc.RolloutMeta(num_steps=steps, dt=1.0, squash_scale=2.0 * action_scale - 1e-5,
+                          active_dims=active, state_dim=d, enc_dim=de, act_dim=u, num_latent=ld,
+                          pol_latent=lp)
     ls_p, ls_d = rng.uniform(0.7, 1.5, size=(lp, de)), rng.uniform(1.0, 2.0, size=(k, ld, dxu))
     zp, zd, a = n(lp, mp, de), n(k, ld, m, dxu), n(de, de)
-    x0 = np.array([0.0, math.pi, 0.0, 0.0]) + 0.1 * n(s, d)
+    x0 = math.pi * np.isin(np.arange(d), active) + 0.1 * n(s, d)
     ops = (x0, zp, (zp * zp).sum(-1), 0.3 * n(lp, mp), 1.0 / ls_p, n(u, lp), 0.1 * n(u),
            n(k, ld, b, dxu) / ls_d[:, :, None, :], rng.uniform(0, 2 * math.pi, size=(k, ld, b)),
            1.0 / ls_d, zd, (zd * zd).sum(-1), 0.1 * n(s, ld, b) * math.sqrt(2.0 / b),
@@ -1915,28 +1968,33 @@ def rollout_outputs(rc, meta, ops, gl, kernel):
 ROLL_OUTS = ("loss", "trajectory", "dzp", "dalpha", "dilp")
 
 
-def rollout_kernels_phase(rc, seed, device):
-    """Hold K6 (forward and backward) against its plain version at the
-    slice's widths and time both beside the bound. Bars: float64, 30 steps,
-    ROLL_F64_TOL of each output's scale; float32 over ROLL_SHORT_T steps,
-    ROLL_F32_TOL of the scale; float32 over 30 steps, kernel and plain
-    float32 both against float64 on the same inputs, the kernel within 3x
-    the plain version's error plus 1e-4 of the scale (match_kernels_phase's
-    pattern: 30 float32 steps amplify rounding). Correctness only: S=1000
-    (ragged against the backward's row tiles), the LCK shape (U=2, Lp=2,
-    Ld=3) and the member axis (ROLL_MEMBERS members: all five outputs
-    against the plain version at the float64 bar, and each member's losses
-    bit-identical to a one-member call). The plain versions launch ~1000
-    small kernels a call, more than the launch queue holds, so they are
-    timed by host wall time (plain_ms_of) after a short hold."""
+def rollout_kernels_phase(rc, seed, device, widths=ROLL_WIDTHS, tag=""):
+    """Hold K6 (forward and backward) against its plain version at
+    ``widths`` (rollout_operands' S, Lp, Ld, U, T, B, M, Mp, active dims and
+    action scale) and time both beside the bound; the rows' names end in
+    ``tag``. Bars: float64 over T steps, ROLL_F64_TOL of each output's
+    scale; float32 over ROLL_SHORT_T steps, ROLL_F32_TOL of the scale;
+    float32 over T steps, kernel and plain float32 both against float64 on
+    the same inputs, the kernel within 3x the plain version's error plus
+    1e-4 of the scale (match_kernels_phase's pattern: T float32 steps
+    amplify rounding). The float32 forward must keep its tables in shared
+    memory (the resident route), and the ring route must give its results
+    bit for bit. At the cartpole's widths (no ``tag``) also, for
+    correctness only: S=1000 (ragged against the backward's row tiles), the
+    LCK shape (U=2, Lp=2, Ld=3) and the member axis (ROLL_MEMBERS members:
+    all five outputs against the plain version at the float64 bar, and
+    each member's losses bit-identical to a one-member call). The plain
+    versions launch ~1000 small kernels a call, more than the launch queue
+    holds, so they are timed by host wall time (plain_ms_of) after a short
+    hold. Returns (errors, timings, the forward's route per dtype)."""
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=device)
-    errs = {name: 0.0 for name in rc.launches}
-    timings = {}
+    errs = {name + tag: 0.0 for name in rc.launches}
+    timings, routes = {}, {}
     gl_of = lambda s, dtype: torch.full((s,), 1.0 / s, dtype=dtype, device=device)  # noqa: E731
 
     def record(sfx, what, got, want, tol=None):
         err = float((got.double() - want.double()).abs().max())
-        name = f"rollout_{'fwd' if what in ('loss', 'trajectory') else 'bwd'}_{sfx}"
+        name = f"rollout_{'fwd' if what in ('loss', 'trajectory') else 'bwd'}_{sfx}{tag}"
         errs[name] = max(errs[name], err)
         scaled = scaled_err(got, want)
         print(f"  {name} {what}: max |kernel - plain| = {err:.3e}, scaled {scaled:.3e}")
@@ -1945,37 +2003,77 @@ def rollout_kernels_phase(rc, seed, device):
         return scaled
 
     f64, f32 = torch.float64, torch.float32
-    meta, ops = rollout_operands(rc, 1, S, 1, L, 1, HORIZON_STEPS, f64, device, seed + 4000)
-    for dtype in (f32, f64):
-        route, smem = rc.fwd_plan(meta, B, M, dtype)
-        print(f"rollout_fwd_{'f32' if dtype == f32 else 'f64'} at B={B} M={M}: the {route} route, {smem} bytes "
-              f"of dynamic shared memory a block")
-    print(f"rollout S={S} Ld={L} B={B} M={M} Mp=30 T={HORIZON_STEPS} float64, bar {ROLL_F64_TOL:g} "
-          f"of the scale:")
-    got = rollout_outputs(rc, meta, ops, gl_of(S, f64), True)
-    want = rollout_outputs(rc, meta, ops, gl_of(S, f64), False)
+    s, b, m, steps = widths["s"], widths["b"], widths["m"], widths["steps"]
+    meta, ops = rollout_operands(rc, 1, dtype=f64, device=device, seed=seed + 4000, **widths)
+    for dtype, sfx in ((f32, "f32"), (f64, "f64")):
+        routes[sfx], smem = rc.fwd_plan(meta, b, m, dtype)
+        print(f"rollout_fwd_{sfx}{tag} at B={b} M={m}: the {routes[sfx]} route, {smem} bytes of dynamic "
+              f"shared memory a block (cap {rc.FWD_SMEM_MAX})")
+    print(f"rollout{tag} S={s} Ld={meta.num_latent} Lp={meta.pol_latent} U={meta.act_dim} B={b} M={m} "
+          f"Mp={widths['mp']} T={steps} float64, bar {ROLL_F64_TOL:g} of the scale:")
+    got = rollout_outputs(rc, meta, ops, gl_of(s, f64), True)
+    want = rollout_outputs(rc, meta, ops, gl_of(s, f64), False)
     sync()
     for what, a, w in zip(ROLL_OUTS, got, want):
         record("f64", what, a, w, ROLL_F64_TOL)
     ops32 = tuple(o.float() for o in ops)
-    print(f"rollout float32 over 30 steps, kernel and plain float32 against float64 (3x + 1e-4):")
-    got32 = rollout_outputs(rc, meta, ops32, gl_of(S, f32), True)
-    plain32 = rollout_outputs(rc, meta, ops32, gl_of(S, f32), False)
-    truth = rollout_outputs(rc, meta, tuple(o.double() for o in ops32), gl_of(S, f64), False)
+    print(f"rollout{tag} float32 over {steps} steps, kernel and plain float32 against float64 (3x + 1e-4):")
+    got32 = rollout_outputs(rc, meta, ops32, gl_of(s, f32), True)
+    plain32 = rollout_outputs(rc, meta, ops32, gl_of(s, f32), False)
+    truth = rollout_outputs(rc, meta, tuple(o.double() for o in ops32), gl_of(s, f64), False)
     sync()
     for what, a, p, w in zip(ROLL_OUTS, got32, plain32, truth):
         record("f32", what, a, p)
         err_k, err_p = scaled_err(a, w), scaled_err(p, w)
         print(f"    vs float64: kernel {err_k:.3e}, plain float32 {err_p:.3e}")
         if not (torch.isfinite(a).all() and err_k <= 3.0 * err_p + 1e-4):
-            raise AssertionError(f"rollout f32 {what}: the kernel is less accurate than plain float32")
-    short, _ = rollout_operands(rc, 1, S, 1, L, 1, ROLL_SHORT_T, f32, device, seed + 4000)
-    print(f"rollout float32 over {ROLL_SHORT_T} steps, bar {ROLL_F32_TOL:g} of the scale:")
-    got_s = rollout_outputs(rc, short, ops32, gl_of(S, f32), True)
-    want_s = rollout_outputs(rc, short, ops32, gl_of(S, f32), False)
+            raise AssertionError(f"rollout{tag} f32 {what}: the kernel is less accurate than plain float32")
+    short = meta._replace(num_steps=ROLL_SHORT_T)
+    print(f"rollout{tag} float32 over {ROLL_SHORT_T} steps, bar {ROLL_F32_TOL:g} of the scale:")
+    got_s = rollout_outputs(rc, short, ops32, gl_of(s, f32), True)
+    want_s = rollout_outputs(rc, short, ops32, gl_of(s, f32), False)
     sync()
     for what, a, w in zip(ROLL_OUTS, got_s, want_s):
         record("f32", what, a, w, ROLL_F32_TOL)
+    if routes["f32"] != "resident":
+        raise AssertionError(f"rollout{tag}: the float32 forward took the {routes['f32']} route")
+    ring = rc._fwd(meta, *ops32, route="ring")
+    if not (torch.equal(ring[0], got32[0]) and torch.equal(ring[1], got32[1])):
+        raise AssertionError(f"rollout{tag}: the ring route differs from the resident route")
+    print(f"rollout_fwd_f32{tag}: the ring route's loss and trajectory bit-identical to the resident route's")
+    if not tag:
+        rollout_extras(rc, seed, device, record, gl_of)
+
+    for dtype, sfx, o in ((f32, "f32", ops32), (f64, "f64", ops)):
+        gl = gl_of(s, dtype)
+        traj, plain_traj = rc._fwd(meta, *o)[1], rc._rollout(meta, *o)[1]
+        calls = {
+            "fwd": (lambda o=o: rc._fwd(meta, *o), lambda o=o: rc._rollout(meta, *o)),
+            "bwd": (lambda o=o, t=traj, g=gl: rc._bwd(meta, t, g, *o[1:]),
+                    lambda o=o, t=plain_traj, g=gl: rc.rollout_reference_bwd(meta, t, g, *o[1:])),
+        }
+        for kind, (kern, plain) in calls.items():
+            name = f"rollout_{kind}_{sfx}{tag}"
+            ms = median_ms(kern, reps=10, flush=flush)
+            warm_ms = median_ms(kern, reps=10)
+            plain_ms, plain_how = plain_ms_of(plain, flush, reps=3, hold_s=0.2)
+            bound, bound_by = rollout_bound_ms(kind, meta, o, dtype)
+            # each launch's stages (warm L2): the forward's one; the
+            # backward's jac, maps, adjoint, grads and slot sums
+            stages = stage_ms(kern)
+            timings[name] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, plain_how=plain_how,
+                                 bound_ms=bound, bound_by=bound_by, library_ms=None, stages=stages)
+            print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), plain torch "
+                  f"{plain_ms:.4f} ms ({plain_how}), bound {bound:.5f} ms ({bound_by}); stages "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
+    return errs, timings, routes
+
+
+def rollout_extras(rc, seed, device, record, gl_of):
+    """K6 at S=1000 and at the LCK shape, and on its member axis
+    (ROLL_MEMBERS members), each at the float64 bar; each member's losses
+    bit-identical to a one-member call."""
+    f64 = torch.float64
     for label, args in (("S=1000", (1, 1000, 1, L, 1)), ("LCK U=2 Lp=2 Ld=3", (1, 256, 2, 3, 2))):
         m_x, o_x = rollout_operands(rc, *args, HORIZON_STEPS, f64, device, seed + 4001)
         print(f"rollout {label} float64, bar {ROLL_F64_TOL:g}:")
@@ -2001,31 +2099,6 @@ def rollout_kernels_phase(rc, seed, device):
     sync()
     print(f"rollout member axis: {ROLL_MEMBERS} members x {per} particles, each bit-identical to a "
           f"one-member call")
-
-    for dtype, sfx, o in ((f32, "f32", ops32), (f64, "f64", ops)):
-        gl = gl_of(S, dtype)
-        traj = rc._fwd(meta, *o)[1]
-        plain_traj = rc._rollout(meta, *o)[1]
-        calls = {
-            f"rollout_fwd_{sfx}": (lambda o=o: rc._fwd(meta, *o), lambda o=o: rc._rollout(meta, *o)),
-            f"rollout_bwd_{sfx}": (lambda o=o, t=traj, g=gl: rc._bwd(meta, t, g, *o[1:]),
-                                   lambda o=o, t=plain_traj, g=gl: rc.rollout_reference_bwd(meta, t, g, *o[1:])),
-        }
-        for name, (kern, plain) in calls.items():
-            ms = median_ms(kern, reps=10, flush=flush)
-            warm_ms = median_ms(kern, reps=10)
-            plain_ms, plain_how = plain_ms_of(plain, flush, reps=3, hold_s=0.2)
-            bound, bound_by = rollout_bound_ms(name.split("_")[1], meta, o, dtype)
-            timings[name] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, plain_how=plain_how,
-                                 bound_ms=bound, bound_by=bound_by, library_ms=None)
-            print(f"  {name}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), plain torch "
-                  f"{plain_ms:.4f} ms ({plain_how}), bound {bound:.5f} ms ({bound_by})")
-        # the backward's stages (warm L2): jac, maps, adjoint, grads and the slot sums
-        name = f"rollout_bwd_{sfx}"
-        stages = stage_ms(calls[name][0])
-        timings[name]["stages"] = stages
-        print(f"  stages of {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
-    return errs, timings
 
 
 def _per_step_drift(drift, paths, x0):
@@ -2264,6 +2337,285 @@ def policy_loop_phase(rc, pe, loop, seed, device, step_limit):
     return launches, out
 
 
+# ---------------------------------------------------------------- slice D: the other two tasks
+# The double pendulum's full width (examples/double_pendulum/run_torch.py's
+# defaults, the JAX full run's): state D=4 with both angles encoded (6
+# features), a 2-D torque; an LCK drift of 4 latents over 4 outputs at
+# M=320 (8 random episodes of 50 steps give N=400), an LCK policy of 2
+# latents at M=100; 1024 particles x 1024 bases, T=50 steps of 0.05 s.
+# Mountain car's: state D=2 and no encoder, a 1-D force; drift M=128, policy
+# M=20, T=50 steps of 0.1 s.
+DP_S, DP_B, DP_M, DP_MP, DP_LD, DP_LP, DP_U, DP_T, DP_ACTIVE = 1024, 1024, 320, 100, 4, 2, 2, 50, (0, 1)
+DP_DE = 4 + len(DP_ACTIVE)
+MC_M, MC_MP, MC_T = 128, 20, 50
+# K1 at the drifts' paths: (S, L, B, M, D) with D the drift's input
+# (features and action)
+DP_PATHS, MC_PATHS = (DP_S, DP_LD, DP_B, DP_M, DP_DE + DP_U), (DP_S, 2, DP_B, MC_M, 3)
+# K2 at the double pendulum's MM shapes, (N, P, D2, M): the drift match
+# (P = L(L+1)/2 latent pairs, D2 = 2 * 8 + 2 = 18 > 16: the DM = 32 route)
+# and the policy match (P = 3 pairs of its 2 latents, D2 = 2 * 6 + 2)
+DP_PAIR_SHAPES = {"drift": (1, DP_LD * (DP_LD + 1) // 2, 2 * (DP_DE + DP_U) + 2, DP_M),
+                  "policy": (1, DP_LP * (DP_LP + 1) // 2, 2 * DP_DE + 2, DP_MP)}
+# K3 at the drift's (L=4, D=8, M=320, with model uncertainty; forward and
+# frozen backward: the drift match is frozen on the path) and the policy's
+# (L=2, D=6, M=100; forward and full backward) shapes; K4 with both angles active (NA=2); K5a
+# on the policy joint (6 features and 2 torques: D=8)
+DP_MATCH_SHAPES = {"drift": (1, DP_LD, DP_DE + DP_U, DP_M, True, False),
+                   "policy": (1, DP_LP, DP_DE, DP_MP, False, True)}
+# K6 at the double pendulum's widths (DXU = 8: two warps a particle)
+DP_ROLL_WIDTHS = dict(s=DP_S, lp=DP_LP, ld=DP_LD, u=DP_U, steps=DP_T, b=DP_B, m=DP_M, mp=DP_MP,
+                      active=DP_ACTIVE, action_scale=2.0)
+TASK_MM_STEPS = 3  # Adam steps of the double pendulum's MM updates (b)
+TASK_K1_STEPS = 5  # Adam steps of the updates through K1 (a) and (c)
+
+
+def load_runner(task):
+    """examples/<task>/run_torch.py as the module ``<task>_run_torch`` (the
+    cartpole's runner is imported as ``run_torch``)."""
+    import importlib.util
+
+    name = f"{task}_run_torch"
+    if name not in sys.modules:
+        path = Path(__file__).resolve().parent / "examples" / task / "run_torch.py"
+        spec = importlib.util.spec_from_file_location(name, path)
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
+
+
+def task_loop(task, loop_cls, seed, device, dtype, lbfgs_iters, **policy):
+    """The task's loop at the full run's specs (its runner's defaults), the
+    drift fit cut to ``lbfgs_iters`` L-BFGS iterations, one policy
+    candidate, no validation rollouts, ``policy`` overriding the policy
+    spec."""
+    run = load_runner(task)
+    args = run.parser().parse_args([])
+    drift, pol, _, _ = run.run_specs(args)
+    return run.build_loop(
+        seed, device, dtype,
+        drift_spec=dataclasses.replace(drift, max_iters=lbfgs_iters),
+        policy_spec=dataclasses.replace(pol, **{"num_restarts": 1, **policy}),
+        step_size=args.dt, horizon=args.horizon, loop_cls=loop_cls, validation_samples=0,
+    )
+
+
+def counted_update(loop, counters, what):
+    """A policy update with every count zeroed just before and read just
+    after; returns (info, the launches, seconds)."""
+    for c in counters:
+        c.reset_launches()
+    before = {n: p.detach().clone() for n, p in loop.policy_model.named_parameters()}
+    t0 = time.perf_counter()
+    info = loop.update_policy()
+    sync()
+    seconds = time.perf_counter() - t0
+    delta = {k: v for c in counters for k, v in c.launches.items()}
+    steps = loop.policy_spec.step_limit
+    print(f"{what}: {steps} Adam steps in {1e3 * seconds:.1f} ms = {1e3 * seconds / steps:.2f} ms a step; "
+          f"loss {info['loss']:.6f}, skipped {info['skipped_steps']}; launches "
+          f"{ {k: v for k, v in delta.items() if v} }")
+    assert math.isfinite(info["loss"]), f"{what}: the policy loss is not finite"
+    moved = max(float((p.detach() - before[n]).abs().max())
+                for n, p in loop.policy_model.named_parameters() if p.requires_grad)
+    assert moved > 0, f"{what}: the policy parameters did not change"
+    return info, delta, seconds
+
+
+def expect(delta, per_step, steps, what):
+    """The launches must be ``per_step`` x ``steps`` and none of any other kernel."""
+    want = {k: per_step.get(k, 0) * steps for k in delta}
+    assert delta == want, f"{what}: launches {delta}, expected {want}"
+
+
+def tasks_phase(counters, seed, device, step_limit, lbfgs_iters, jacobi_gap):
+    """Slice D: the double pendulum and mountain car at full width, through
+    their runners' build_task and build_loop with the full runs' specs.
+
+    (a) Double pendulum, pathwise: 8 random episodes (N=400, so M=320), an
+    L-BFGS LCK drift fit (cut to ``lbfgs_iters``), a policy update through
+    K6 (one forward and one backward per Adam step, no K1; the forward's
+    route printed), a TASK_K1_STEPS-step update through K1 (50 K1a forwards
+    and 50 K1b backwards a step), one RK4 episode; then the float64 loss and
+    gradient through K6 against the per-step path at the same paths and x0
+    (f64_rollout_hold: max(1e-9, 10x the loss's rounding noise), cosine >=
+    0.9999). (b) Double pendulum, MM, on (a)'s data and drift: a
+    TASK_MM_STEPS-step use_fused_mm update with the float64 loss and the
+    float32 policy island (per Adam step 50 float64 K2 forwards and frozen
+    backwards, 50 float32 forwards and full backwards), the float64 loss
+    through K2 against the unfused one (phase 5's bar); a TASK_MM_STEPS-step
+    use_fused_match update in float32 (per step 100 K3 forwards, 50 frozen
+    and 50 full K3 backwards, 51 K4 forwards and 50 backwards, 50 K5a and 50
+    K5b), the float64 whole-match loss against the unfused one (phase 7's
+    bar, Jacobi gap included). (c) Mountain car: 8 random episodes, a drift
+    fit (M=128), a TASK_MM_STEPS-step use_fused_mm update (float32 loss: per
+    step 100 K2 forwards, 50 frozen and 50 full backwards), a
+    TASK_K1_STEPS-step pathwise update through K1 (D=3, L=2; no encoder, so
+    never K6), one RK4 episode. (d) On (a)'s data: the drift fit by
+    'adam' and 'natgrad_adam' (cut to ``lbfgs_iters``), each timed, its ELBO
+    printed beside L-BFGS's. Returns (launches by row name, the times)."""
+    from gpflowpilco_torch.loops.driver import outer_loop
+    from gpflowpilco_torch.loops.pilco import MomentMatchingPILCO, PathwisePILCO
+    from gpflowpilco_torch.models.gp import svgp_elbo
+    from gpflowpilco_torch.models.pathwise import PathState, fused_rollout_operands, generate_paths_svgp
+
+    pe, kc, mc, ec, gc, rc = counters
+    f32, f64 = torch.float32, torch.float64
+    out, rows = {}, {}
+
+    # ---- (a) double pendulum, pathwise, full width
+    loop = task_loop("double_pendulum", PathwisePILCO, seed, device, f32, lbfgs_iters, step_limit=step_limit)
+    assert loop.episode_spec.num_steps == DP_T and loop.policy_spec.batch_size == DP_S
+    t0 = time.perf_counter()
+    outer_loop(loop, num_episodes=8, num_episodes_init=8, log_summaries=False)
+    out["dp_random_episodes_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info_d = loop.update_dynamics()
+    sync()
+    out["dp_lbfgs_s"] = time.perf_counter() - t0
+    drift = loop.drift_model
+    print(f"tasks (a): double pendulum, 8 random episodes in {out['dp_random_episodes_s']:.2f} s; L-BFGS "
+          f"LCK drift fit {out['dp_lbfgs_s']:.2f} s, loss {info_d['loss']:.4f}, {info_d['iters']} "
+          f"iterations; M={drift.num_inducing}, W {tuple(drift.w.shape)}, noise "
+          f"{tuple(drift.noise_variance.shape)}")
+    assert math.isfinite(info_d["loss"]) and drift.num_inducing == DP_M and drift.w.shape == (4, DP_LD)
+    loop.policy_model = loop.build_policy()
+    assert loop.policy_model.num_inducing == DP_MP and loop.policy_model.w.shape == (DP_U, DP_LP)
+    loop.use_fused_rollout = True
+    assert loop._fused_rollout_eligible(drift, loop.policy_model)
+    with torch.no_grad():
+        paths = generate_paths_svgp(drift, torch.Generator(device=device).manual_seed(seed), 8, DP_B)
+        meta, _ = fused_rollout_operands(
+            loop.policy_model, drift, paths, state_dim=4, active_dims=DP_ACTIVE, action_scale=2.0,
+            target=loop.objective.target, precis=loop.objective.precis, num_steps=DP_T)
+    route, smem = rc.fwd_plan(meta, DP_B, DP_M, f32)
+    print(f"tasks (a): K6's forward takes the {route} route ({smem} bytes of shared memory a block)")
+    _, delta, sec = counted_update(loop, counters, "tasks (a) update through K6")
+    expect(delta, {"rollout_fwd_f32": 1, "rollout_bwd_f32": 1}, step_limit, "tasks (a) K6")
+    out["dp_k6_step_ms"] = 1e3 * sec / step_limit
+    rows.update({f"{k}/dp": delta[k] for k in rc.launches})
+    loop.use_fused_rollout, loop.use_fused_paths = False, True
+    loop.policy_spec = dataclasses.replace(loop.policy_spec, step_limit=TASK_K1_STEPS)
+    _, delta, sec = counted_update(loop, counters, "tasks (a) update through K1")
+    expect(delta, {"path_eval_fwd": DP_T, "path_eval_bwd_dx": DP_T}, TASK_K1_STEPS, "tasks (a) K1")
+    out["dp_k1_step_ms"] = 1e3 * sec / TASK_K1_STEPS
+    rows.update({f"{k}/dp": delta[k] for k in pe.launches})
+    loop.use_fused_rollout = True
+    t0 = time.perf_counter()
+    ep = loop.step()
+    sync()
+    out["dp_episode_s"] = time.perf_counter() - t0
+    print(f"tasks (a): RK4 episode {out['dp_episode_s']:.2f} s, reward {ep.metrics['rewards']:.4f}, "
+          f"model-predicted {ep.metrics['eReward']:.4f}, success {ep.metrics['success']}")
+    assert ep.states.shape == (DP_T + 1, 4) and np.isfinite(ep.states).all()
+    assert np.all(np.abs(ep.actions) <= 2.0) and math.isfinite(ep.metrics["eReward"])
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    with torch.no_grad():
+        paths = generate_paths_svgp(drift, gen, DP_S, DP_B)
+        x0 = loop.episode_spec.sample(gen, (DP_S,), dtype=f32, device=device)
+    loop64 = task_loop("double_pendulum", PathwisePILCO, seed, device, f64, lbfgs_iters)
+    loop64.use_fused_rollout = True
+    out["dp_f64_rel_gap"], out["dp_f64_noise"], out["dp_f64_grad_cos"], _ = f64_rollout_hold(
+        "tasks (a)", loop64, copy.deepcopy(loop.policy_model).double(), copy.deepcopy(drift).double(),
+        PathState(*(p.double() for p in paths)), x0.double())
+
+    # ---- (b) double pendulum, MM, on (a)'s episodes and drift
+    mm = task_loop("double_pendulum", MomentMatchingPILCO, seed, device, f32, lbfgs_iters,
+                   step_limit=TASK_MM_STEPS, loss_dtype=f64)
+    mm.episodes, mm.drift_model = loop.episodes, drift
+    mm.policy_model = mm.build_policy()
+    mm.use_fused_mm = True
+    _, delta, sec = counted_update(mm, counters, "tasks (b) use_fused_mm update, float64 loss")
+    expect(delta, {"pair_contract_fwd_f64": DP_T, "pair_contract_bwd_frozen_f64": DP_T,
+                   "pair_contract_fwd_f32": DP_T, "pair_contract_bwd_f32": DP_T}, TASK_MM_STEPS,
+           "tasks (b) K2")
+    out["dp_mm_step_ms"] = 1e3 * sec / TASK_MM_STEPS
+    rows.update({f"{k}/dp": delta[k] for k in kc.launches})
+    losses = mm_losses(mm)
+    rel = abs(losses["kernel"] - losses["unfused"]) / abs(losses["unfused"])
+    noise = mm_loss_noise(mm, losses["unfused"])
+    bar = max(1e-9, 10.0 * noise)
+    print(f"tasks (b): {DP_T}-step float64 MM loss via K2 {losses['kernel']:.15f}, unfused "
+          f"{losses['unfused']:.15f}, relative gap {rel:.3e}; rounding noise {noise:.3e}, bar {bar:.3e}")
+    assert math.isfinite(losses["kernel"]) and rel <= bar, "tasks (b): K2 and unfused MM losses disagree"
+    out["dp_mm_f64_rel_gap"] = rel
+    wm = task_loop("double_pendulum", MomentMatchingPILCO, seed, device, f32, lbfgs_iters,
+                   step_limit=TASK_MM_STEPS)
+    wm.episodes, wm.drift_model, wm.policy_model = loop.episodes, drift, mm.policy_model
+    wm.use_fused_match = True
+    assert wm._fused_match_on
+    _, delta, sec = counted_update(wm, counters, "tasks (b) use_fused_match update, float32")
+    # as the whole-match slice counts them, at T = 50
+    expect(delta, {"svgp_match_fwd_f32": 2 * DP_T, "svgp_match_bwd_frozen_f32": DP_T,
+                   "svgp_match_bwd_f32": DP_T, "enc_match_fwd_f32": DP_T + 1, "enc_match_bwd_f32": DP_T,
+                   "psd_boost_f32": DP_T, "euler_update_f32": DP_T}, TASK_MM_STEPS, "tasks (b) K3-K5")
+    out["dp_match_step_ms"] = 1e3 * sec / TASK_MM_STEPS
+    rows.update({f"{k}/dp": delta[k] for c in (mc, ec, gc) for k in c.launches})
+    with torch.no_grad():
+        l_fused, states = whole_match_loss(wm, True, f64)
+        l_unfused = float(whole_match_loss(wm, False, f64)[0])
+        noise = max(abs(float(whole_match_loss(wm, False, f64, dx)[0]) - l_unfused) / abs(l_unfused)
+                    for dx in (1e-14, 1e-13, 1e-12))
+        sym = policy_joints(wm, initial_moments(wm, f64), states, f64)
+        lam_j, lam_e = gc.jacobi_min_eig(sym), torch.linalg.eigvalsh(sym).amin(-1)
+        gap = max(jacobi_gap, float(((lam_j - lam_e).abs() / (1.0 + sym.abs().amax(dim=(-2, -1)))).max()))
+    rel = abs(float(l_fused) - l_unfused) / abs(l_unfused)
+    bar = max(1e-9, 10.0 * noise, 10.0 * gap)
+    print(f"tasks (b): {DP_T}-step float64 loss, whole-match kernels {float(l_fused):.15f}, unfused "
+          f"{l_unfused:.15f}, relative gap {rel:.3e}; rounding noise {noise:.3e}, Jacobi gap {gap:.3e} "
+          f"(policy joints D={sym.shape[-1]}), bar {bar:.3e}")
+    assert math.isfinite(float(l_fused)) and rel <= bar, "tasks (b): whole-match and unfused losses disagree"
+    out["dp_match_f64_rel_gap"] = rel
+
+    # ---- (c) mountain car, full width
+    car = task_loop("mountain_car", MomentMatchingPILCO, seed, device, f32, lbfgs_iters,
+                    step_limit=TASK_MM_STEPS)
+    assert car.episode_spec.num_steps == MC_T and car.encoder is None
+    outer_loop(car, num_episodes=8, num_episodes_init=8, log_summaries=False)
+    info_d = car.update_dynamics()
+    car.policy_model = car.build_policy()
+    print(f"tasks (c): mountain car, drift fit loss {info_d['loss']:.4f}, M={car.drift_model.num_inducing}, "
+          f"policy M={car.policy_model.num_inducing}")
+    assert math.isfinite(info_d["loss"]) and car.drift_model.num_inducing == MC_M
+    assert car.policy_model.num_inducing == MC_MP
+    car.use_fused_mm = True
+    _, delta, _ = counted_update(car, counters, "tasks (c) use_fused_mm update, float32 loss")
+    expect(delta, {"pair_contract_fwd_f32": 2 * MC_T, "pair_contract_bwd_frozen_f32": MC_T,
+                   "pair_contract_bwd_f32": MC_T}, TASK_MM_STEPS, "tasks (c) K2")
+    pw = task_loop("mountain_car", PathwisePILCO, seed, device, f32, lbfgs_iters, step_limit=TASK_K1_STEPS)
+    pw.episodes, pw.drift_model, pw.policy_model = car.episodes, car.drift_model, car.policy_model
+    pw.use_fused_paths = pw.use_fused_rollout = True
+    assert not pw._fused_rollout_eligible(pw.drift_model, pw.policy_model)  # no encoder
+    _, delta, _ = counted_update(pw, counters, "tasks (c) pathwise update through K1")
+    expect(delta, {"path_eval_fwd": MC_T, "path_eval_bwd_dx": MC_T}, TASK_K1_STEPS, "tasks (c) K1")
+    rows.update({f"{k}/mc": delta[k] for k in pe.launches})
+    ep = car.step()
+    sync()
+    print(f"tasks (c): RK4 episode, reward {ep.metrics['rewards']:.4f}, model-predicted "
+          f"{ep.metrics['eReward']:.4f}")
+    assert ep.states.shape == (MC_T + 1, 2) and np.isfinite(ep.states).all()
+    assert np.all(np.abs(ep.actions) <= 4.0) and math.isfinite(ep.metrics["eReward"])
+
+    # ---- (d) the new drift fits on (a)'s data, against L-BFGS's ELBO
+    x, y = loop.get_data_dynamics()
+    with torch.no_grad():
+        elbos = {"lbfgs": float(svgp_elbo(drift, x, y))}
+    secs = {"lbfgs": out["dp_lbfgs_s"]}
+    for name in ("adam", "natgrad_adam"):
+        loop.drift_spec = dataclasses.replace(loop.drift_spec, optimizer=name, max_iters=lbfgs_iters)
+        t0 = time.perf_counter()
+        info = loop.update_dynamics()
+        sync()
+        secs[name] = time.perf_counter() - t0
+        with torch.no_grad():
+            elbos[name] = float(svgp_elbo(loop.drift_model, x, y))
+        assert math.isfinite(info["loss"]) and math.isfinite(elbos[name]), f"tasks (d): {name} fit {info}"
+    print(f"tasks (d): double-pendulum drift fits on N={x.shape[0]} at M={DP_M}, {lbfgs_iters} iterations "
+          f"(natgrad_adam: {max(1, lbfgs_iters // 10)} rounds): ELBO " +
+          ", ".join(f"{k} {v:.3f} ({secs[k]:.2f} s)" for k, v in elbos.items()))
+    out.update({f"elbo_{k}": v for k, v in elbos.items()}, **{f"fit_{k}_s": v for k, v in secs.items()})
+    return rows, out
+
+
 # kernel-name fragments whose rows a profile prints on their own: this
 # repository's kernels and the eigenvalue solver behind psd_project's eigvalsh
 _WATCHED = ("fwd_warp", "bwd_warp", "bwd_kernel", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads",
@@ -2421,7 +2773,7 @@ def main():
     pair_errs, pair_timings = timed("K2", pair_kernels_phase, kc, args.seed, device)
     match_errs, match_timings, jacobi_gap = timed("K3-K5", match_kernels_phase, mc, ec, gc, args.seed, device)
     gpr_errs, gpr_timings = timed("K3g", gpr_kernels_phase, gm, kc, args.seed, device)
-    roll_errs, roll_timings = timed("K6", rollout_kernels_phase, rc, args.seed, device)
+    roll_errs, roll_timings, _ = timed("K6", rollout_kernels_phase, rc, args.seed, device)
     loop, launches, slice_ms = timed("pathwise", slice_phase, pe, args.seed, device, args.step_limit,
                                      args.lbfgs_iters)
     roll_launches, fused_ms = timed("fused rollout", fused_rollout_slice_phase, rc, pe, loop, args.seed,
@@ -2437,6 +2789,27 @@ def main():
     ens_loop, _, ens_launches_a, ens_launches_b, ens_ms = timed(
         "ensemble", ensemble_slice_phase, (*counters, gm), args.seed, device, args.step_limit,
         args.lbfgs_iters)
+    # slice D: the kernels at the double pendulum's (and K1 at mountain car's) shapes, then the tasks
+    dp_errs, dp_timings = timed("K1 dp", kernels_phase, pe, args.seed, device, DP_PATHS, "/dp", False)
+    dp_match = timed("K3-K5 dp", match_kernels_phase, mc, ec, gc, args.seed, device, DP_MATCH_SHAPES,
+                     (DP_ACTIVE, 4), DP_DE + DP_U, DP_T, "/dp")
+    dp_gap = dp_match[2]  # Jacobi's lambda_min gap at the policy joint's D = 8
+    # (K6's operands from seed + 100, apart from the cartpole widths')
+    dp_roll = timed("K6 dp", rollout_kernels_phase, rc, args.seed + 100, device, DP_ROLL_WIDTHS, "/dp")
+    for e, t in (timed("K1 mc", kernels_phase, pe, args.seed, device, MC_PATHS, "/mc", False),
+                 timed("K2 dp", pair_kernels_phase, kc, args.seed, device, DP_PAIR_SHAPES, "/dp"),
+                 dp_match[:2], dp_roll[:2]):
+        dp_errs.update(e)
+        dp_timings.update(t)
+    # K2's DM = 32 instantiations, which the drift's D2 = 18 takes
+    for kern, t, params, n_regs, st, ld, stack in ptxas_report(_build.compiler_output.get("kexp_pair", ""),
+                                                               PTXAS_K2):
+        if params and params[0] == 32:
+            print(f"ptxas kexp_pair {kern}<{'float' if t == 'f' else 'double'}"
+                  f"{''.join(f', {v}' for v in params)}> (the DM = 32 route): {n_regs} registers, {st} bytes "
+                  f"spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
+    task_launches, task_s = timed("tasks", tasks_phase, counters, args.seed, device, args.step_limit,
+                                  args.lbfgs_iters, dp_gap)
     if args.profile:
         timed("profile", profile_phase, loop, mm_loop, match_loop, ens_loop, args.profile)
 
@@ -2492,8 +2865,19 @@ def main():
     for name in gpr_route:
         base = name.split("/")[0]
         sources[name], replaces[name] = sources[base], replaces[base]
+    # slice D's rows: each kernel at the double pendulum's shapes (K1 also at
+    # mountain car's), its launches from the tasks phase's runs
+    task_rows = [f"{k}/dp" for k in ("path_eval_fwd", "path_eval_bwd_dx")] + [
+        f"{k}/mc" for k in ("path_eval_fwd", "path_eval_bwd_dx")] + [
+        f"{k}/dp" for c in (kc, mc, ec, gc, rc) for k in c.launches]
+    for name in task_rows:
+        base = name.split("/")[0]
+        sources[name], replaces[name] = sources[base], replaces[base]
+    errs.update(dp_errs)
+    timings.update(dp_timings)
+    launches.update({name: task_launches[name] for name in task_rows})
     names = (*pe.launches, *kc.launches, *gpr_route, *mc.launches, *ec.launches, *gc.launches,
-             *gm.launches, *rc.launches)
+             *gm.launches, *rc.launches, *task_rows)
     for name in names:
         timings[name].setdefault("library_ms", None)
     kernels = [
@@ -2522,6 +2906,8 @@ def main():
     print(f"mm slice ms: {json.dumps(mm_ms)}")
     print(f"whole-match slice ms: {json.dumps(match_ms)}")
     print(f"ensemble slice: {json.dumps(ens_ms)}")
+    print(f"tasks: {json.dumps(task_s)}; K6's forward at the double pendulum's widths: "
+          f"{json.dumps(dp_roll[2])}")
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, total "
           f"{time.perf_counter() - t_start:.1f}")
     print(f"card: {card}")

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from .models.gp import GPR, SVGP, GPREnsemble
-from .models.kernels import RBF
+from .models.kernels import RBF, SharedRBF
 from .models.pathwise import PathState
 
 
@@ -20,16 +20,21 @@ def _t(a, device, dtype):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
+def _svgp_kernel(d: Mapping, device, dtype) -> RBF:
+    """The RBF, or with a ``num_outputs`` that is not None the SharedRBF,
+    of an SVGP's dict."""
+    raw = (_t(d["raw_variance"], device, dtype), _t(d["raw_lengthscales"], device, dtype))
+    if d.get("num_outputs") is not None:
+        return SharedRBF(*raw, int(d["num_outputs"]), ls_low=d["ls_low"], ls_high=d["ls_high"])
+    return RBF(*raw, ls_low=d["ls_low"], ls_high=d["ls_high"])
+
+
 def svgp_from_numpy(d: Mapping, device, dtype) -> SVGP:
     """An SVGP from ``raw_variance``, ``raw_lengthscales``, ``z``, ``q_mu``,
     ``q_sqrt``, ``mean_const``, ``raw_noise``, ``w`` (array or None),
-    ``whiten``, ``ls_low`` and ``ls_high``."""
-    kernel = RBF(
-        _t(d["raw_variance"], device, dtype),
-        _t(d["raw_lengthscales"], device, dtype),
-        ls_low=d["ls_low"],
-        ls_high=d["ls_high"],
-    )
+    ``whiten``, ``ls_low``, ``ls_high`` and, for a shared kernel (the JAX
+    package's SharedRBF), ``num_outputs`` (absent or None otherwise)."""
+    kernel = _svgp_kernel(d, device, dtype)
     w = d.get("w")
     return SVGP(
         kernel=kernel,
@@ -98,6 +103,7 @@ def svgp_to_numpy(model: SVGP) -> dict:
         whiten=model.whiten,
         ls_low=model.kernel.ls_low,
         ls_high=model.kernel.ls_high,
+        num_outputs=model.kernel.num_outputs if isinstance(model.kernel, SharedRBF) else None,
     )
 
 

@@ -35,6 +35,15 @@ def metric_expected_reward(loop, states, actions):
     return loop.expected_reward()
 
 
+def holds_for(flags: torch.Tensor, num_consecutive: int) -> torch.Tensor:
+    """Whether ``flags`` (..., T) is true for ``num_consecutive`` steps in a
+    row: bool (...). A run's length in each window comes from a cumulative
+    sum, in integers."""
+    counts = torch.nn.functional.pad(torch.cumsum(flags.to(torch.int64), dim=-1), (1, 0))
+    runs = counts[..., num_consecutive:] - counts[..., :-num_consecutive]
+    return torch.any(runs >= num_consecutive, dim=-1)
+
+
 def make_success_metric(success_fn: Callable):
     """Boolean episode-success metric from a per-trajectory predicate
     ``success_fn(loop, states (T+1, D)) -> bool tensor``."""
@@ -85,3 +94,17 @@ def make_validation_metrics(success_fn: Optional[Callable], num_samples: int = 1
         return out
 
     return validation
+
+
+def task_metrics(success_fn: Callable, validation_samples: int) -> dict:
+    """A task's episode metrics: the realized reward, success by
+    ``success_fn``, the model-predicted reward and, unless
+    ``validation_samples`` is 0, validation (vReward, vSuccess)."""
+    metrics = {
+        "rewards": metric_rewards,
+        "success": make_success_metric(success_fn),
+        "eReward": metric_expected_reward,
+    }
+    if validation_samples:
+        metrics["validation"] = make_validation_metrics(success_fn, validation_samples)
+    return metrics

@@ -1,7 +1,11 @@
 """Pathwise and moment-matching PILCO (counterpart of gpflowpilco_tpu/loops/pilco.py).
 
-Ported: the data plumbing, the SVGP drift fit by L-BFGS (with zero-weight
-padding rows, the refit from the incumbent and per-output noise), the exact
+Ported: the data plumbing, the SVGP drift (one latent per output, or
+coregionalized: a (P, L) mixing matrix over L latent GPs, optionally with one
+shared kernel) fit by L-BFGS (with zero-weight padding rows, the refit from
+the incumbent and per-output noise), by minibatched Adam on the stochastic
+ELBO, or by exact natural-gradient steps on q(u) alternating with Adam on the
+hyperparameters (``DriftSpec.optimizer`` 'lbfgs', 'adam', 'natgrad_adam'), the exact
 GPR drift fit by L-BFGS and, with ``DriftSpec(model_type="gpr",
 optimizer="hmc")``, HMC over its hyperparameters thinned to a
 ``GPREnsemble``, the optimism noise floor, the single-start and multistart
@@ -27,8 +31,6 @@ Models are ``nn.Module``s trained in place. Randomness comes from
 ``torch.Generator``s seeded from (seed, number of episodes, purpose), the
 counterpart of the JAX package's per-iteration key folds.
 
-Not ported yet, and raising ``NotImplementedError``: the other drift
-optimizers (natgrad/Adam) and the coregionalized or shared-kernel drift.
 As in the JAX package, ``PathwisePILCO`` runs its loss in the loop dtype
 whatever ``PolicySpec.loss_dtype`` says (that option only keeps the loss
 off the fused rollout), and evaluates its SVGP paths through the path-eval
@@ -69,6 +71,7 @@ from ..models.gp import (
     svgp_predict_f,
 )
 from ..models.hmc import HMCConfig, run_hmc
+from ..models.natgrad import natgrad_step
 from ..models.pathwise import (
     PathwiseGPRTransform,
     PathwiseSVGPTransform,
@@ -92,6 +95,8 @@ from .core import EpisodeData, EpisodeSpec, stack_episodes
 # generator purposes (the JAX package's fold_in salts play this role)
 _DYNAMICS, _POLICY_INIT, _POLICY_OPT, _STEP, _HMC, _EXPECTED_REWARD = 0, 1, 2, 7, 11, 23
 _VALIDATION, _RESTART = 99, 1000
+_MINIBATCH = 3  # index of the drift's minibatch draws under _DYNAMICS
+_SVGP_OPTIMIZERS = ("lbfgs", "adam", "natgrad_adam")
 
 logger = logging.getLogger("gpflowpilco_torch.pilco")
 
@@ -127,9 +132,11 @@ def _same_structure(a: torch.nn.Module, b: torch.nn.Module) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class DriftSpec:
-    """Dynamics-model build/train options. Ported: ``model_type='svgp'``
-    with ``optimizer='lbfgs'``, and ``model_type='gpr'`` with ``'lbfgs'`` or
-    ``'hmc'``."""
+    """Dynamics-model build/train options: ``model_type='svgp'`` with
+    ``optimizer`` 'lbfgs', 'adam' (minibatched ELBO) or 'natgrad_adam'
+    (exact conjugate natural-gradient updates of q(u) alternating with Adam
+    on the hyperparameters), and ``model_type='gpr'`` with 'lbfgs' or
+    'hmc'."""
 
     reinitialize: bool = True
     model_type: str = "svgp"
@@ -147,7 +154,15 @@ class DriftSpec:
     snr_power: float = 30.0
     max_iters: int = 1000
     lbfgs_tol: float = 1e-5
+    # 'lbfgs' | 'adam' | 'natgrad_adam' (SVGP) | 'hmc' (GPR)
     optimizer: str = "lbfgs"
+    # natgrad_adam: the natural-gradient step size on q(u) (1 is the exact
+    # conjugate update) and Adam's learning rate on the hyperparameters
+    natgrad_gamma: float = 1.0
+    hyper_lr: float = 0.05
+    # adam: rows per with-replacement minibatch and the learning rate
+    batch_size: int = 1024
+    adam_lr: float = 0.01
     # pad the training set to a multiple of this with zero-weight rows (0 disables)
     pad_data_multiple: int = 240
     ls_low: float = 0.01
@@ -172,6 +187,16 @@ class DriftSpec:
     # 'jitter' (fixed-cap random trajectories) or 'chees' (adapted
     # integration time, at most 4 * hmc_leapfrog steps)
     hmc_adapt: str = "jitter"
+    # linear coregionalization of the SVGP drift: num_latent < outputs mixes
+    # that many latent GPs through a trained (P, L) matrix
+    coregionalize: Optional[bool] = None
+    num_latent: Optional[int] = None
+    # one hyperparameter set shared by all latents (SharedRBF)
+    shared_kernel: bool = False
+    # round the inducing count up to a multiple of this (capped at
+    # num_centers), so M changes at most a few times as the data grow; 0
+    # disables
+    pad_inducing_multiple: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,6 +237,14 @@ class PolicySpec:
     # scan unroll of the JAX MM rollout; accepted and ignored, since eager
     # PyTorch has no scan to unroll
     mm_unroll: int = 30
+
+
+def _svgp_loss(model: SVGP, x, y, spec: DriftSpec, weights=None, num_data=None) -> torch.Tensor:
+    """The SVGP drift's training loss: minus the ELBO plus the SNR penalty."""
+    return -(
+        svgp_elbo(model, x, y, num_data=num_data, weights=weights)
+        + pilco_snr_penalty(model, spec.snr_threshold, spec.snr_power)
+    )
 
 
 def gpr_log_posterior(model: GPR, spec: DriftSpec) -> Callable:
@@ -322,13 +355,17 @@ class PILCOBase:
                 x, y, noise_variance=spec.noise_variance, ls_low=spec.ls_low, ls_high=spec.ls_high
             )
         if spec.model_type != "svgp":
-            raise NotImplementedError(f"drift model_type={spec.model_type!r} is not ported yet")
+            raise ValueError(f"drift model_type={spec.model_type!r}: 'svgp' or 'gpr'")
         return build_svgp(
             x, y,
             num_inducing=spec.num_centers,
             generator=self.iteration_generator(_DYNAMICS),
+            coregionalize=spec.coregionalize,
+            num_latent=spec.num_latent,
             noise_variance=spec.noise_variance,
             per_output_noise=spec.per_output_noise,
+            shared_kernel=spec.shared_kernel,
+            pad_inducing_multiple=spec.pad_inducing_multiple,
             ls_low=spec.ls_low,
             ls_high=spec.ls_high,
         )
@@ -421,12 +458,9 @@ class PILCOBase:
                 "DriftSpec.optimizer='hmc' samples exact-GP hyperparameter "
                 "posteriors and requires model_type='gpr'"
             )
-        if spec.model_type not in ("svgp", "gpr") or (
-            spec.model_type == "svgp" and spec.optimizer != "lbfgs"
-        ):
-            raise NotImplementedError(
-                f"drift {spec.model_type!r}/{spec.optimizer!r}: only the SVGP L-BFGS fit "
-                "and the GPR fits are ported yet"
+        if spec.model_type == "svgp" and spec.optimizer not in _SVGP_OPTIMIZERS:
+            raise ValueError(
+                f"DriftSpec.optimizer={spec.optimizer!r}: an SVGP drift takes one of {_SVGP_OPTIMIZERS}"
             )
         noise_floor = self._optimism_noise_floor(self.drift_model)
         info = self._update_gpr() if spec.model_type == "gpr" else self._update_svgp()
@@ -437,8 +471,9 @@ class PILCOBase:
         return info
 
     def _update_svgp(self):
-        """L-BFGS fit of the SVGP drift (ELBO plus the SNR penalty), from a
-        fresh build and, when it has the same shapes, from the incumbent."""
+        """Fit the SVGP drift (ELBO plus the SNR penalty) by
+        ``DriftSpec.optimizer``. L-BFGS fits a fresh build and, when it has
+        the same shapes, the incumbent too, and keeps the better."""
         spec = self.drift_spec
         prev_model = self.drift_model
         if self.drift_model is None or spec.reinitialize:
@@ -446,6 +481,9 @@ class PILCOBase:
         model = self.drift_model
         x, y = self.get_data_dynamics()
         num_data = x.shape[0]
+        freeze_inducing = model.num_inducing >= num_data
+        if spec.optimizer == "adam":
+            return self._fit_svgp_adam(model, x, y, freeze_inducing)
 
         weights = None
         if spec.pad_data_multiple:
@@ -458,12 +496,8 @@ class PILCOBase:
                     torch.ones((num_data,), dtype=x.dtype, device=x.device),
                     torch.zeros((pad,), dtype=x.dtype, device=x.device),
                 ])
-
-        def loss(m):
-            return -(
-                svgp_elbo(m, x, y, weights=weights)
-                + pilco_snr_penalty(m, spec.snr_threshold, spec.snr_power)
-            )
+        if spec.optimizer == "natgrad_adam":
+            return self._fit_svgp_natgrad(model, x, y, weights, freeze_inducing)
 
         # from-scratch refits occasionally land in a bad basin: when an
         # incumbent of the same shapes exists, also fit from its parameters
@@ -476,12 +510,12 @@ class PILCOBase:
             and _same_structure(prev_model, model)
         ):
             candidates.append(copy.deepcopy(prev_model))
-        freeze_inducing = model.num_inducing >= num_data
         best = None
         for cand in candidates:
             params = dynamics_mask(cand, freeze_inducing=freeze_inducing)
             fl, it = lbfgs_minimize(
-                lambda c=cand: loss(c), params, max_iters=spec.max_iters, tol=spec.lbfgs_tol
+                lambda c=cand: _svgp_loss(c, x, y, spec, weights=weights), params,
+                max_iters=spec.max_iters, tol=spec.lbfgs_tol,
             )
             if best is None or (
                 math.isfinite(fl) and (not math.isfinite(best[1]) or fl < best[1])
@@ -489,6 +523,48 @@ class PILCOBase:
                 best = (cand, fl, it)
         self.drift_model, final_loss, iters = best
         return {"loss": final_loss, "iters": iters, "refit_candidates": len(candidates)}
+
+    def _fit_svgp_adam(self, model: SVGP, x, y, freeze_inducing: bool):
+        """The minibatched stochastic ELBO: every Adam step draws a fresh
+        with-replacement batch of ``batch_size`` real rows (at most the data)
+        and scales the data term to all of them; no gradient clipping."""
+        spec = self.drift_spec
+        num_data = x.shape[0]
+        gen = self.iteration_generator(_DYNAMICS, _MINIBATCH)
+        size = min(spec.batch_size, num_data)
+
+        def loss():
+            idx = torch.randint(0, num_data, (size,), generator=gen, device=x.device)
+            return _svgp_loss(model, x[idx], y[idx], spec, num_data=num_data)
+
+        losses, _ = adam_minimize(
+            loss, dynamics_mask(model, freeze_inducing=freeze_inducing),
+            num_steps=spec.max_iters, learning_rate=spec.adam_lr, global_clipnorm=None,
+        )
+        finite = losses[np.isfinite(losses)]
+        return {"loss": float(finite[-1]) if finite.size else float("nan"), "iters": spec.max_iters}
+
+    def _fit_svgp_natgrad(self, model: SVGP, x, y, weights, freeze_inducing: bool):
+        """``max_iters // 10`` rounds of one natural-gradient step on q(u)
+        (``natgrad_gamma``) and one Adam step at ``hyper_lr`` on the other
+        trainable parameters, then a last natural-gradient step."""
+        spec = self.drift_spec
+        trainable = {id(p) for p in dynamics_mask(model, freeze_inducing)}
+        hypers = [
+            p for name, p in model.named_parameters()
+            if id(p) in trainable and name not in ("q_mu", "q_sqrt")
+        ]
+        opt = torch.optim.Adam(hypers, lr=spec.hyper_lr, betas=(0.9, 0.999), eps=1e-8)
+        rounds = max(1, spec.max_iters // 10)
+        val = torch.tensor(float("inf"))
+        for _ in range(rounds):
+            natgrad_step(model, x, y, gamma=spec.natgrad_gamma, weights=weights)
+            val = _svgp_loss(model, x, y, spec, weights=weights)
+            for p, g in zip(hypers, torch.autograd.grad(val, hypers)):
+                p.grad = g
+            opt.step()
+        natgrad_step(model, x, y, gamma=spec.natgrad_gamma, weights=weights)
+        return {"loss": float(val.detach()), "iters": rounds}
 
     def _update_gpr(self):
         """L-BFGS MAP fit of an exact GPR (LML plus the SNR penalty; the data

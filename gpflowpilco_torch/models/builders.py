@@ -12,7 +12,7 @@ import torch
 from ..utils import bijectors as bij
 from .gp import GPR, SVGP
 from .initializers import inducing_points_kmeans, lengthscales_median, replace_duplicates
-from .kernels import RBF
+from .kernels import RBF, SharedRBF
 
 
 def build_svgp(
@@ -28,35 +28,57 @@ def build_svgp(
     per_output_noise: bool = False,
     whiten: bool = True,
     shared_kernel: bool = False,
+    pad_inducing_multiple: int = 0,
     ls_low: float = 0.01,
     ls_high: float = 100.0,
 ) -> SVGP:
     """An SVGP on the device and dtype of ``x``: RBF kernels with
-    median-heuristic lengthscales, k-means inducing points, one latent per
-    output. With ``per_output_noise`` the noise is (P,), each output's
+    median-heuristic lengthscales, k-means inducing points and, when
+    ``coregionalize`` (the default where ``num_latent`` differs from the
+    outputs), a (P, L) mixing matrix ``w``: the identity at P = L, else
+    Gaussian rows normalized to unit norm. ``shared_kernel`` ties one
+    hyperparameter set across the latents (``SharedRBF``). With
+    ``per_output_noise`` the noise is (P,), each output's
     ``noise_variance`` scaled by its target's variance, so no output starts
-    under another's noise floor. Coregionalization and the shared kernel are
-    not ported yet."""
+    under another's noise floor.
+
+    ``pad_inducing_multiple`` > 0 rounds the inducing count up to that
+    multiple (capped at ``num_inducing``), so M changes at most a few times
+    as the data grow. The slots past the k-means centres take resamples of
+    the data jittered by about one lengthscale, which keeps Kuu's columns
+    apart."""
     num_data, num_out = y.shape
     if num_latent is None:
         num_latent = num_out
     if coregionalize is None:
         coregionalize = num_out != num_latent
-    if coregionalize or shared_kernel:
-        raise NotImplementedError(
-            "build_svgp: coregionalized and shared-kernel SVGPs are not ported yet"
-        )
+    if not coregionalize and num_out != num_latent:
+        raise ValueError(f"{num_latent} latents for {num_out} outputs need coregionalize")
     dtype, device = x.dtype, x.device
 
     ls = lengthscales_median(x, lower=ls_low, upper=ls_high)  # (D,)
-    kernel = RBF.create(
-        torch.ones((num_latent,), dtype=dtype, device=device),
-        ls[None].repeat(num_latent, 1),
-        ls_low=ls_low,
-        ls_high=ls_high,
-    )
+    if shared_kernel:
+        kernel = SharedRBF.create_shared(
+            torch.ones((), dtype=dtype, device=device), ls, num_outputs=num_latent,
+            ls_low=ls_low, ls_high=ls_high,
+        )
+    else:
+        kernel = RBF.create(
+            torch.ones((num_latent,), dtype=dtype, device=device),
+            ls[None].repeat(num_latent, 1),
+            ls_low=ls_low,
+            ls_high=ls_high,
+        )
     m = min(num_inducing, num_data)
+    m_target = m
+    if pad_inducing_multiple > 0:
+        m_target = min(num_inducing, -(-m // pad_inducing_multiple) * pad_inducing_multiple)
     z0 = inducing_points_kmeans(x, m, generator=generator)
+    if m_target > m:
+        idx = torch.randint(0, num_data, (m_target - m,), generator=generator, device=device)
+        noise = torch.randn((m_target - m, x.shape[-1]), generator=generator, dtype=dtype, device=device)
+        z0 = torch.cat([z0, x[idx] + ls * noise], dim=0)
+        m = m_target
     if max_corr < 1.0:
         z0 = torch.as_tensor(
             replace_duplicates(z0.cpu().numpy(), 1.0, ls.cpu().numpy(), tol=max_corr),
@@ -67,6 +89,13 @@ def build_svgp(
     if q_mu is None:
         q_mu = torch.zeros((m, num_latent), dtype=dtype, device=device)
     q_sqrt = torch.eye(m, dtype=dtype, device=device)[None].repeat(num_latent, 1, 1)
+    w = None
+    if coregionalize:
+        if num_out == num_latent:
+            w = torch.eye(num_out, dtype=dtype, device=device)
+        else:
+            w = torch.randn((num_out, num_latent), generator=generator, dtype=dtype, device=device)
+            w = w / torch.linalg.norm(w, dim=-1, keepdim=True)
     if per_output_noise:
         noise0 = noise_variance * (y.var(dim=0, correction=0) + 1e-12)
     else:
@@ -78,7 +107,7 @@ def build_svgp(
         q_sqrt=q_sqrt,
         mean_const=torch.zeros((num_out,), dtype=dtype, device=device),
         raw_noise=bij.positive_inv(noise0),
-        w=None,
+        w=w,
         whiten=whiten,
     )
 
@@ -119,7 +148,8 @@ def _set_trainable(model: SVGP, frozen) -> List[torch.nn.Parameter]:
 
 
 def dynamics_mask(model: SVGP, freeze_inducing: bool) -> List[torch.nn.Parameter]:
-    """Everything trainable, except the inducing inputs when M >= N."""
+    """Everything trainable, the mixing matrix ``w`` included, except the
+    inducing inputs when M >= N."""
     return _set_trainable(model, lambda name: freeze_inducing and name == "z")
 
 

@@ -2,8 +2,8 @@
 (counterpart of gpflowpilco_tpu/models/kernels.py).
 
 A multioutput kernel is one ``RBF`` whose parameters carry a leading latent
-axis L: variance (L,), lengthscales (L, D). ``SharedRBF`` (one hyperparameter
-set tied across latents) is not ported yet.
+axis L: variance (L,), lengthscales (L, D). ``SharedRBF`` ties one
+hyperparameter set across the L latents.
 """
 from __future__ import annotations
 
@@ -13,6 +13,13 @@ import torch
 from torch import nn
 
 from ..utils import bijectors as bij
+
+
+def _raw_parameters(variance, lengthscales, ls_low, ls_high):
+    """The unconstrained (raw variance, raw lengthscales) of an RBF."""
+    if ls_low is None:
+        return bij.positive_inv(variance), bij.positive_inv(lengthscales)
+    return bij.positive_inv(variance), bij.sigmoid_interval_inv(lengthscales, ls_low, ls_high)
 
 
 class RBF(nn.Module):
@@ -54,11 +61,7 @@ class RBF(nn.Module):
         ls_low: Optional[float] = 0.01,
         ls_high: Optional[float] = 100.0,
     ) -> "RBF":
-        raw_v = bij.positive_inv(variance)
-        if ls_low is None:
-            raw_l = bij.positive_inv(lengthscales)
-        else:
-            raw_l = bij.sigmoid_interval_inv(lengthscales, ls_low, ls_high)
+        raw_v, raw_l = _raw_parameters(variance, lengthscales, ls_low, ls_high)
         return cls(raw_v, raw_l, ls_low=ls_low, ls_high=ls_high)
 
     def gram(self, a: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -78,6 +81,46 @@ class RBF(nn.Module):
         diff = sa[..., :, None, :] - sb[..., None, :, :]
         d2 = torch.sum(diff * diff, dim=-1)
         return self.variance[..., None, None] * torch.exp(-0.5 * d2)
+
+
+class SharedRBF(RBF):
+    """One set of RBF hyperparameters shared by all ``num_outputs`` latent
+    GPs. The raw parameters are unstacked (variance (), lengthscales (D,));
+    ``variance`` and ``lengthscales`` broadcast them to (L,) and (L, D), so
+    every latent-stacked consumer works unchanged, and autograd sums the
+    per-latent gradients onto the shared parameter."""
+
+    def __init__(
+        self,
+        raw_variance: torch.Tensor,
+        raw_lengthscales: torch.Tensor,
+        num_outputs: int,
+        ls_low: Optional[float] = 0.01,
+        ls_high: Optional[float] = 100.0,
+    ):
+        super().__init__(raw_variance, raw_lengthscales, ls_low=ls_low, ls_high=ls_high)
+        self.num_outputs = num_outputs
+
+    @property
+    def variance(self) -> torch.Tensor:
+        return super().variance.expand(self.num_outputs).contiguous()
+
+    @property
+    def lengthscales(self) -> torch.Tensor:
+        ls = super().lengthscales
+        return ls[None].expand((self.num_outputs,) + ls.shape).contiguous()
+
+    @classmethod
+    def create_shared(
+        cls,
+        variance: torch.Tensor,
+        lengthscales: torch.Tensor,
+        num_outputs: int,
+        ls_low: Optional[float] = 0.01,
+        ls_high: Optional[float] = 100.0,
+    ) -> "SharedRBF":
+        raw_v, raw_l = _raw_parameters(variance, lengthscales, ls_low, ls_high)
+        return cls(raw_v, raw_l, num_outputs, ls_low=ls_low, ls_high=ls_high)
 
 
 def square_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -53,6 +53,7 @@ def svgp_to_numpy(model) -> dict:
         whiten=model.whiten,
         ls_low=model.kernel.ls_low,
         ls_high=model.kernel.ls_high,
+        num_outputs=getattr(model.kernel, "num_outputs", None),  # a SharedRBF's
     )
 
 

@@ -53,7 +53,7 @@ def _path_eval_ops(rng, s, num_latent, b, m, d, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("s", [1024, 1000, 33])
-@pytest.mark.parametrize("d", [6, 8, 12, 16])
+@pytest.mark.parametrize("d", [3, 6, 8, 12, 16])  # 3: mountain car's drift input
 @pytest.mark.parametrize("num_latent", [1, 4])
 def test_torch_path_eval_forward_matches_reference_on_gpu(s, d, num_latent):
     """K1a (a block per 32 particles and one latent, a warp per particle)
@@ -61,7 +61,7 @@ def test_torch_path_eval_forward_matches_reference_on_gpu(s, d, num_latent):
     1024, M = 240 (16-byte weight copies), and at S = 1000 and 33 with B =
     1000, M = 239 (M not a multiple of 4: element copies, padded groups;
     a part-filled last block); every register width of the kernel (D <= 6,
-    <= 8, <= 16). rtol = atol = 1e-4, chip_smoke.py's bar. Two runs are
+    <= 8, <= 16), D = 3 mountain car's. rtol = atol = 1e-4, chip_smoke.py's bar. Two runs are
     bit-identical (no atomics)."""
     dev = _gpu_or_skip()
     b, m = (1024, 240) if s == 1024 else (1000, 239)
@@ -101,7 +101,7 @@ def test_torch_path_eval_forward_cos_branches_on_gpu():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("s", [1024, 1000, 33])
-@pytest.mark.parametrize("d", [6, 8, 12, 16])
+@pytest.mark.parametrize("d", [3, 6, 8, 12, 16])  # 3: mountain car's drift input
 @pytest.mark.parametrize("num_latent", [1, 4])
 def test_torch_path_eval_backward_matches_reference_on_gpu(s, d, num_latent):
     """K1b (the forward's grid and staging, a warp per particle; at L = 4 the
@@ -162,12 +162,15 @@ def test_torch_path_eval_backward_repeats_on_gpu():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n, p, d2, m, r", [(1, 10, 14, 240, 1), (3, 3, 14, 17, 1), (1, 1, 12, 30, 1),
                                            (2, 2, 20, 45, 1), (1, 2, 14, 64, 1), (1, 2, 14, 65, 1),
-                                           (2, 1, 14, 129, 1), (1, 8, 14, 240, 4)])
+                                           (2, 1, 14, 129, 1), (1, 8, 14, 240, 4), (1, 10, 18, 320, 1),
+                                           (1, 3, 14, 100, 1)])
 def test_torch_pair_contract_kernels_match_reference_on_gpu(dtype, n, p, d2, m, r):
     """K2 forward, full and frozen backward against the plain version, at the
-    drift's and the policy's shapes, the GPR route's (8 members on P, R = 4
+    cartpole drift's and policy's shapes, the double pendulum's (the drift's
+    D2 = 18 takes the DM = 32 route; the policy's 3 latent pairs at M =
+    100), the GPR route's (8 members on P, R = 4
     rows of alpha^T) and ragged ones (M not a multiple of the kernels'
-    32-wide tiles: 17, 30, 45, 65, 129; M = 64 exact tiles; a batch N > 1,
+    32-wide tiles: 17, 30, 45, 65, 100, 129; M = 64 exact tiles; a batch N > 1,
     D2 > 16). Each output is a sum of at most M
     terms taken in another order: rtol = atol = 1e-4 in float32, 1e-10 in
     float64. Repeated forward, full and frozen backward runs are
@@ -270,10 +273,13 @@ def _close_vs_truth(got, plain, truth, what=""):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n, num_latent, d, m", [(1, 4, 6, 240), (1, 1, 5, 30), (3, 2, 4, 37),
                                                  (2, 3, 10, 45), (1, 2, 6, 65), (2, 3, 4, 1),
-                                                 (8, 4, 6, 240), (8, 1, 5, 30)])
+                                                 (8, 4, 6, 240), (8, 1, 5, 30), (1, 4, 8, 320),
+                                                 (1, 2, 6, 100)])
 def test_torch_svgp_match_kernels_match_reference_on_gpu(dtype, n, num_latent, d, m):
     """K3 forward, frozen and full backward against the plain version at the
-    drift's and the policy's shapes and at ragged ones (M not a multiple of
+    cartpole drift's and policy's shapes, the double pendulum's (the drift's
+    L = 4 over 6 features and 2 torques at M = 320, the policy's L = 2 over
+    the 6 features at M = 100) and at ragged ones (M not a multiple of
     the 64-point tile: 37, 45, a tile plus one (65) and below one tile (1, 30);
     a batch N = 2, 3 and 8 on the block grid, N = 8 also at the HMC ensemble
     policy's shape, where the full backward adds its entries' slots; D = 10
@@ -357,11 +363,13 @@ def test_torch_svgp_match_wrapper_raises_on_gpu():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n, d, active", [(1, 4, (1,)), (30, 4, (1,)), (3, 6, (4, 0)), (3, 10, (9, 2, 5)),
                                           (33, 4, (1,)), (1, 8, (1,)), (30, 8, (7, 2, 5)),
-                                          (33, 8, tuple(range(8))), (30, 8, (0, 6))])
+                                          (33, 8, tuple(range(8))), (30, 8, (0, 6)), (1, 4, (0, 1)),
+                                          (50, 4, (0, 1))])
 def test_torch_enc_match_kernels_match_reference_on_gpu(dtype, n, d, active):
     """K4 forward and backward against the plain version, at the rollout's
     N = 1 and the post-rollout cost's N = 30 (the path's exact
-    instantiation, D = 4 with active (1,)), N = 33, and the generic one at
+    instantiation, D = 4 with active (1,)), the double pendulum's two
+    active angles (NA = 2) at N = 1 and its post-rollout N = 50, N = 33, and the generic one at
     D = 6, 8 and 10 with active dims out of order, with and without
     inactive dims; bars 1e-5 in float32, 1e-12 in float64 (a few dozen
     terms per output); the forward's repeated runs bit-identical. Raises on
@@ -542,6 +550,30 @@ def test_torch_mm_glue_repeated_eigenvalue_on_gpu(dtype, d):
     _hold_glue(gc, s, m, f1, f(np.zeros((n, d, d))), f(np.zeros((n, d, d))), tol)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_torch_mm_glue_dp_policy_joints_on_gpu(dtype):
+    """K5a and K5b at the double pendulum's D = 8 policy joint (6 features
+    and 2 torques) on 200 random joints: a rank-6 covariance (the torques
+    are functions of the features) minus a small shift, so some are
+    indefinite by a little and some by more, held against eigvalsh's
+    lambda_min (gc.boosted_reference) at the bars of
+    test_torch_mm_glue_kernels_match_reference_on_gpu."""
+    from gpflowpilco_torch.ops import mm_glue_cuda as gc
+
+    dev = _gpu_or_skip()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    rng = np.random.default_rng(88)
+    n, d = 200, 8
+    a = rng.normal(size=(n, d, 6))
+    shift = rng.choice([1e-6, 1e-3, 0.1], size=(n, 1, 1))
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev).contiguous()  # noqa: E731
+    s = f(0.3 * a @ a.transpose(0, 2, 1) - shift * np.eye(d))
+    m, f1 = f(rng.normal(size=(n, d))), f(rng.normal(size=(n, d)))
+    sff, sxf = f(0.1 * np.abs(rng.normal(size=(n, d, d)))), f(0.1 * rng.normal(size=(n, d, d)))
+    _hold_glue(gc, s, m, f1, sff, sxf, tol)
+
+
 def _stacked_gpr(k, n, d, r, dev, seed, noise=0.05):
     """A float64 GPR stacked over k members on random data (lengthscales
     around 1-2, noise ``noise``), on ``dev``."""
@@ -677,10 +709,12 @@ def test_torch_entrywise_escalation_on_gpu():
             torch.testing.assert_close(chol[k], gpr_cholesky(one), rtol=1e-5, atol=1e-5)
 
 
-def _rollout_operands(k, s, d, active, u, lp, ld, b, m, mp, steps, dtype, dev, seed):
+def _rollout_operands(k, s, d, active, u, lp, ld, b, m, mp, steps, dtype, dev, seed, action_scale=10.0,
+                      hanging=False):
     """A K6 meta and operands (x0 first) from numpy at the given widths: the
     paths' weights small enough that the rollout stays in a healthy state,
-    a non-symmetric precision matrix."""
+    a non-symmetric precision matrix. x0 is spread around 0, or with
+    ``hanging`` around pi on the active dims (the tasks' start)."""
     from gpflowpilco_torch.ops import rollout_cuda as rc
 
     rng = np.random.default_rng(seed)
@@ -688,14 +722,15 @@ def _rollout_operands(k, s, d, active, u, lp, ld, b, m, mp, steps, dtype, dev, s
     n = lambda *sh: rng.normal(size=sh)  # noqa: E731
     de = 2 * len(active) + d - len(active)
     dxu = de + u
-    meta = rc.RolloutMeta(num_steps=steps, dt=1.0, squash_scale=19.99999, active_dims=active,
+    meta = rc.RolloutMeta(num_steps=steps, dt=1.0, squash_scale=2.0 * action_scale - 1e-5, active_dims=active,
                           state_dim=d, enc_dim=de, act_dim=u, num_latent=ld, pol_latent=lp)
     ls_p = rng.uniform(0.7, 1.5, size=(lp, de))
     zp = n(lp, mp, de)
     ls_d = rng.uniform(1.0, 2.0, size=(k, ld, dxu))
     zd = n(k, ld, m, dxu)
     a = n(de, de)
-    ops = (0.3 * n(s, d), zp, (zp * zp).sum(-1), 0.3 * n(lp, mp), 1.0 / ls_p, n(u, lp), 0.1 * n(u),
+    x0 = np.pi * np.isin(np.arange(d), active) + 0.1 * n(s, d) if hanging else 0.3 * n(s, d)
+    ops = (x0, zp, (zp * zp).sum(-1), 0.3 * n(lp, mp), 1.0 / ls_p, n(u, lp), 0.1 * n(u),
            n(k, ld, b, dxu) / ls_d[:, :, None, :], rng.uniform(0, 2 * np.pi, size=(k, ld, b)),
            1.0 / ls_d, zd, (zd * zd).sum(-1), 0.1 * n(s, ld, b) * np.sqrt(2.0 / b),
            0.01 * n(s, ld, m), 0.5 * n(d, ld), 0.01 * n(k, d), n(de),
@@ -718,6 +753,8 @@ def _rollout_operands(k, s, d, active, u, lp, ld, b, m, mp, steps, dtype, dev, s
     (1, 1024, 4, (1,), 1, 1, 4, 1000, 236, 30, 5),   # B, M not multiples of 32 columns (a lane's last round)
     (1, 1024, 4, (1,), 1, 1, 4, 1001, 237, 30, 5),   # B, M ragged against the 16-byte groups (single loads)
     (1, 512, 4, (1,), 1, 1, 8, 1024, 240, 30, 5),    # Ld = 8: the tables outgrow shared memory (the ring)
+    (1, 1024, 4, (0, 1), 2, 2, 4, 1024, 320, 100, 5),   # the double pendulum's widths: DXU = 8, resident
+    (1, 1024, 4, (0, 1), 2, 2, 4, 1024, 320, 100, 50),  # with a spare 3 KB in float32, and its horizon
 ])
 def test_torch_rollout_kernels_match_reference_on_gpu(dtype, k, s, d, active, u, lp, ld, b, m, mp, steps):
     """K6 forward (loss and trajectory) and backward (dzp, dalpha, dilp)
@@ -733,7 +770,10 @@ def test_torch_rollout_kernels_match_reference_on_gpu(dtype, k, s, d, active, u,
 
     dev = _gpu_or_skip()
     tol = 1e-4 if dtype == torch.float32 else 1e-10
-    meta, ops = _rollout_operands(k, s, d, active, u, lp, ld, b, m, mp, steps, dtype, dev, seed=s + d)
+    # the double pendulum's cases (both angles active) take its torque box
+    # and its hanging start, as its loop does
+    task = dict(action_scale=2.0, hanging=True) if active == (0, 1) else {}
+    meta, ops = _rollout_operands(k, s, d, active, u, lp, ld, b, m, mp, steps, dtype, dev, seed=s + d, **task)
     gl = torch.as_tensor(np.random.default_rng(s).uniform(size=s) / s, dtype=dtype, device=dev)
     before = dict(rc.launches)
     loss, traj = rc._fwd(meta, *ops)

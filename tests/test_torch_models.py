@@ -154,5 +154,7 @@ def test_torch_build_svgp_and_masks():
     trainable_ids = {id(p) for p in policy_mask(model)}
     names = {n for n, p in model.named_parameters() if id(p) in trainable_ids}
     assert names == {"z", "q_mu", "kernel.raw_lengthscales"}
-    with pytest.raises(NotImplementedError):
-        build_svgp(x, y, num_inducing=12, num_latent=2)
+    # 2 latents over the 4 outputs: coregionalized, w's rows of unit norm
+    mixed = build_svgp(x, y, num_inducing=12, num_latent=2)
+    assert mixed.w.shape == (4, 2) and mixed.z.shape == (2, 12, 6)
+    torch.testing.assert_close(torch.linalg.norm(mixed.w, dim=-1), torch.ones(4, dtype=torch.float64))
