@@ -121,7 +121,17 @@
    cartpole success mask, 3 rollouts held against serial ones (1e-5
    relative, float32), (d) a checkpoint saved and restored into a fresh
    loop (episodes and q_mu bit-identical, one K6 loss equal bit for bit).
-12. Slice-D kernels: every entry on the double pendulum's paths at its
+12. Scale-out (scaleout_phase, slice E) on the policy loop's fitted loop at
+   full width: (i) world size 1 over NCCL in this process: the sharded
+   step's loss and gradient through K1 (route (b)) and K6 (route (c))
+   against PathwisePILCO.policy_loss_fn on the same draws (1e-6 relative,
+   cosine >= 0.99999) with their launch counts, Adam steps sharded and
+   unsharded in turns, timed, and the float64 K6 loss sharded against
+   unsharded (1e-10); (iii) sharded HMC and resampling against the local
+   ones at that world size; (ii) two gloo ranks on the one card (NCCL
+   refuses two ranks on one device), route (c) at 512 particles a rank,
+   held against (i) by the same bars and timed.
+13. Slice-D kernels: every entry on the double pendulum's paths at its
    shapes, held against its plain version by the bars of 3, 6 and 10, timed
    beside it and its bound, rows named ``<entry>/dp``: K1a/K1b at the
    drift's S=1024, L=4, B=1024, M=320, D=8 (and, ``/mc``, mountain car's
@@ -133,7 +143,7 @@
    (NA=2) at N=1 and N=50; K5a at the policy joint's D=8; K6 at DXU=8,
    M=320, Mp=100, T=50 (the float32 forward's resident route, its ring
    route bit-identical).
-13. Tasks (tasks_phase): the double pendulum and mountain car at full
+14. Tasks (tasks_phase): the double pendulum and mountain car at full
    width through their runners, each update's counts zeroed just before
    and read just after: (a) the double pendulum pathwise, through K6 and
    then K1, an RK4 episode, the float64 K6 loss and gradient against the
@@ -142,7 +152,7 @@
    mountain car's MM update through K2, pathwise update through K1 and an
    RK4 episode; (d) the 'adam' and 'natgrad_adam' drift fits beside
    L-BFGS's ELBO.
-14. Prints the kernels' JSON line, then {"ok": true, "device": {...}} as the
+15. Prints the kernels' JSON line, then {"ok": true, "device": {...}} as the
    last line. Any failed check raises, so the exit code is non-zero.
 
 Tolerances of the kernel checks, rtol = atol:
@@ -2337,6 +2347,289 @@ def policy_loop_phase(rc, pe, loop, seed, device, step_limit):
     return launches, out
 
 
+# ---------------------------------------------------------------- slice E: scale-out
+SCALE_STEPS = 5  # Adam steps of each sharded route
+SCALE_HMC = dict(num_warmup=30, num_samples=20, num_leapfrog=8)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _cos(a, b):
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def _sharded_route(loss_fn, policy, seed, device, group):
+    """The sharded loss and its dp-summed policy gradient on the draws of a
+    generator seeded ``seed``."""
+    from gpflowpilco_torch.parallel.pathwise import allreduce_gradients
+
+    policy.zero_grad(set_to_none=True)
+    loss = loss_fn(policy, torch.Generator(device=device).manual_seed(seed))
+    loss.backward()
+    allreduce_gradients(policy.parameters(), group)
+    out = float(loss.detach()), _flat_grads(policy)
+    policy.zero_grad(set_to_none=True)
+    return out
+
+
+def _timed_steps(step_fn, n):
+    """ms per call of step_fn(i) over n calls, the device synced after each."""
+    sync()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(n):
+        losses.append(float(step_fn(i)))
+        sync()
+    return 1e3 * (time.perf_counter() - t0) / n, losses
+
+
+def _scaleout_rank(rank, world, port, job, out_dir):
+    """One of the two gloo ranks of the scale-out phase (ii) on the one
+    card: route (c) at dp = 2, each rank 512 particles of the 1024. The
+    kernels were built by the parent; this process loads them."""
+    import torch.distributed as dist
+
+    from gpflowpilco_torch.components import GaussianObjective, trigonometric_encoder
+    from gpflowpilco_torch.convert import svgp_from_numpy
+    from gpflowpilco_torch.loops.core import EpisodeSpec
+    from gpflowpilco_torch.models.builders import policy_mask
+    from gpflowpilco_torch.ops import rollout_cuda as rc
+    from gpflowpilco_torch.parallel.mesh import make_mesh
+    from gpflowpilco_torch.parallel.pathwise import make_pathwise_train_step
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
+    try:
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)  # both ranks on the one card
+        mesh = make_mesh(world, 1, backend="gloo")
+        drift = svgp_from_numpy(job["drift"], device, torch.float32).requires_grad_(False)
+        policy = svgp_from_numpy(job["policy"], device, torch.float32)
+        policy_mask(policy)
+        encoder = trigonometric_encoder(active_dims=job["active"])
+        objective = GaussianObjective.create(target=torch.as_tensor(job["target"], device=device),
+                                             precis=torch.as_tensor(job["precis"], device=device))
+        opt = torch.optim.Adam(policy.parameters(), lr=job["lr"])
+        step, loss_fn = make_pathwise_train_step(
+            mesh, drift, None, encoder, objective, EpisodeSpec(**job["spec"]), batch_size=S, num_bases=B,
+            optimizer=opt, dtype=torch.float32, fused_rollout=True, action_scale=job["action_scale"])
+        rc.reset_launches()
+        loss, grad = _sharded_route(loss_fn, policy, job["seed"], device, mesh.get_group("dp"))
+        sync()
+        per_loss = dict(rc.launches)
+        rc.reset_launches()
+        ms, losses = _timed_steps(
+            lambda i: step(policy, torch.Generator(device=device).manual_seed(job["seed"] + 1 + i)), SCALE_STEPS)
+        torch.save(dict(loss=loss, grad=grad.cpu(), per_loss=per_loss, steps=dict(rc.launches), ms=ms,
+                        losses=losses, rows=job["rows"]), Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def scaleout_phase(rc, pe, loop, seed, device):
+    """Slice E on the pathwise slice's fitted loop at full width (1024
+    particles x 1024 bases x 30 steps, float32, SVGP drift M=240):
+    (i) world size 1 over NCCL, in this process: the sharded loss and
+    gradient of routes (b) (K1, use_fused_paths) and (c) (K6) held
+    against PathwisePILCO.policy_loss_fn on the same draws (loss relative
+    1e-6, gradient cosine >= 0.99999), the sharded float64 K6 loss
+    against the unsharded one at the same paths and x0 (1e-10 relative),
+    SCALE_STEPS Adam steps of each route, all finite (K1: 30 forwards and
+    30 dx-only backwards a step; K6: one forward and one backward), timed
+    beside the same steps unsharded; (iii) run_hmc_sharded against
+    run_hmc (8 float64 chains, rounding) and the sharded resampler
+    against the local one (bit for bit), at that world size; (ii) two gloo
+    ranks on the one card (NCCL refuses two ranks on one device): route
+    (c) at dp = 2, 512 particles a rank, its loss and gradient held
+    against (i)'s by the same bars, and its steps timed."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from gpflowpilco_torch.convert import svgp_to_numpy
+    from gpflowpilco_torch.loops.pilco import fused_rollout_costs
+    from gpflowpilco_torch.models.hmc import HMCConfig, run_hmc
+    from gpflowpilco_torch.models.pathwise import PathState, generate_paths_svgp
+    from gpflowpilco_torch.parallel.hmc import run_hmc_sharded
+    from gpflowpilco_torch.parallel.mesh import make_mesh
+    from gpflowpilco_torch.parallel.pathwise import make_pathwise_train_step
+    from gpflowpilco_torch.parallel.resample import systematic_resample, systematic_resample_sharded
+
+    out, secs = {}, {}
+    drift, policy0 = loop.policy_loss_drift(), loop.policy_model
+    spec, action_scale, lr = loop.episode_spec, float(loop.policy_spec.action_scale), 1e-3
+    fused_paths0, fused_rollout0 = loop.use_fused_paths, loop.use_fused_rollout
+    seed_d = seed + 500
+
+    def make(mesh, pol, **kw):
+        opt = torch.optim.Adam(pol.parameters(), lr=lr)
+        step, loss_fn = make_pathwise_train_step(
+            mesh, drift, loop.policy_chain, loop.encoder, loop.objective, spec, batch_size=S, num_bases=B,
+            optimizer=opt, dtype=torch.float32, action_scale=action_scale, **kw)
+        return step, loss_fn, opt
+
+    def counts():
+        return {**{k: v for k, v in pe.launches.items() if v}, **{k: v for k, v in rc.launches.items() if v}}
+
+    # ---- (i) world size 1 over NCCL
+    t_i = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        group = mesh.get_group("dp")
+        per_step = {"fused": dict(path_eval_fwd=HORIZON_STEPS, path_eval_bwd_dx=HORIZON_STEPS),
+                    "fused_rollout": dict(rollout_fwd_f32=1, rollout_bwd_f32=1)}
+        for route, (paths_on, rollout_on) in (("fused", (True, False)), ("fused_rollout", (False, True))):
+            pol = copy.deepcopy(policy0)
+            step, loss_fn, _ = make(mesh, pol, **{route: True})
+            rc.reset_launches()
+            pe.reset_launches()
+            l_sh, g_sh = _sharded_route(loss_fn, pol, seed_d, device, group)
+            sync()
+            got_counts = counts()
+            loop.use_fused_paths, loop.use_fused_rollout = paths_on, rollout_on
+            ref = copy.deepcopy(policy0)
+            loss = loop.policy_loss_fn(ref, torch.Generator(device=device).manual_seed(seed_d), drift=drift)
+            loss.backward()
+            l_ref, g_ref = float(loss.detach()), _flat_grads(ref)
+            rel, cos = abs(l_sh - l_ref) / abs(l_ref), _cos(g_sh, g_ref)
+            print(f"scale-out (i) {route}: sharded loss {l_sh:.8f}, PathwisePILCO.policy_loss_fn {l_ref:.8f}, "
+                  f"relative gap {rel:.3e}; gradient cosine {cos:.9f}, norm ratio "
+                  f"{float(g_sh.norm() / g_ref.norm()):.9f}; launches per loss+grad {got_counts}")
+            assert math.isfinite(l_sh) and rel <= 1e-6, f"scale-out (i) {route}: the losses disagree"
+            assert cos >= 0.99999, f"scale-out (i) {route}: the gradients disagree"
+            assert got_counts == per_step[route], f"scale-out (i) {route}: launches {got_counts}"
+            out[f"{route}_loss"], out[f"{route}_grad"] = l_sh, g_sh
+
+            # Adam steps sharded and unsharded in turns (sharded, unsharded,
+            # unsharded, sharded), SCALE_STEPS each, timed
+            opt_ref = torch.optim.Adam(ref.parameters(), lr=lr)
+
+            def plain_step(i):
+                opt_ref.zero_grad(set_to_none=True)
+                loss = loop.policy_loss_fn(ref, torch.Generator(device=device).manual_seed(seed_d + 1 + i),
+                                           drift=drift)
+                loss.backward()
+                opt_ref.step()
+                return loss.detach()
+
+            def sharded_step(i):
+                return step(pol, torch.Generator(device=device).manual_seed(seed_d + 1 + i))
+
+            rc.reset_launches()
+            pe.reset_launches()
+            ms, ms_plain, losses, losses_plain = [], [], [], []
+            for fn, times, seen, first in ((sharded_step, ms, losses, 0), (plain_step, ms_plain, losses_plain, 0),
+                                           (plain_step, ms_plain, losses_plain, SCALE_STEPS),
+                                           (sharded_step, ms, losses, SCALE_STEPS)):
+                t, ls = _timed_steps(lambda i: fn(first + i), SCALE_STEPS)
+                times.append(t)
+                seen.extend(ls)
+            got_counts = counts()
+            want_counts = {k: 4 * SCALE_STEPS * v for k, v in per_step[route].items()}
+            assert all(math.isfinite(v) for v in losses), f"scale-out (i) {route}: losses {losses}"
+            assert got_counts == want_counts, f"scale-out (i) {route}: launches {got_counts}"
+            print(f"scale-out (i) {route}: 2 x {SCALE_STEPS} Adam steps sharded at world size 1, "
+                  f"{' and '.join(f'{t:.2f}' for t in ms)} ms a step; unsharded, in turns, "
+                  f"{' and '.join(f'{t:.2f}' for t in ms_plain)} ms a step; launches in all {got_counts}; "
+                  f"losses sharded {[round(v, 6) for v in losses]}, unsharded {[round(v, 6) for v in losses_plain]}")
+            out[f"{route}_step_ms_world1"], out[f"{route}_step_ms_unsharded"] = ms, ms_plain
+
+        # float64: the sharded K6 loss against the unsharded one at the same paths and x0
+        pol64, drift64 = copy.deepcopy(policy0).double(), copy.deepcopy(drift).double()
+        gen = torch.Generator(device=device).manual_seed(seed_d)
+        with torch.no_grad():
+            paths64 = PathState(*(p.double() for p in generate_paths_svgp(drift, gen, S, B)))
+            x064 = spec.sample(gen, (S,), dtype=torch.float32, device=device).double()
+        _, loss64_fn = make_pathwise_train_step(
+            mesh, drift64, loop.policy_chain, loop.encoder, loop.objective, spec, batch_size=S, num_bases=B,
+            optimizer=torch.optim.Adam(pol64.parameters()), dtype=torch.float64, fused_rollout=True,
+            action_scale=action_scale)
+        with torch.no_grad():
+            rc.reset_launches()
+            l_sh = float(loss64_fn(pol64, paths=paths64, x0=x064))
+            l_un = float(fused_rollout_costs(pol64, drift64, paths64, x064, loop.encoder, loop.objective,
+                                             action_scale, spec.num_steps).mean())
+        rel = abs(l_sh - l_un) / abs(l_un)
+        print(f"scale-out (i) float64 K6: sharded {l_sh:.15f}, unsharded {l_un:.15f}, relative gap {rel:.3e}; "
+              f"launches {counts()}")
+        assert rel <= 1e-10 and rc.launches["rollout_fwd_f64"] == 2, "scale-out (i): the float64 K6 losses disagree"
+        secs["i"] = time.perf_counter() - t_i
+
+        # ---- (iii) sharded HMC and resampling at world size 1
+        t_iii = time.perf_counter()
+        cfg = HMCConfig(**SCALE_HMC)
+        mean = torch.linspace(-1.0, 1.0, 6, dtype=torch.float64, device=device)
+
+        def log_prob(q):
+            return -0.5 * torch.sum((q - mean) ** 2, -1)
+
+        q_init = torch.randn((8, 6), generator=torch.Generator(device=device).manual_seed(seed_d), dtype=torch.float64,
+                             device=device)
+        runs = [fn(log_prob, q_init, torch.Generator(device=device).manual_seed(seed_d + 1), *a, cfg)
+                for fn, a in ((run_hmc_sharded, (mesh,)), (run_hmc, ()))]
+        gap = float((runs[0].samples - runs[1].samples).abs().max() / runs[1].samples.abs().max())
+        acc = float(runs[0].accept_prob.mean())
+        print(f"scale-out (iii): run_hmc_sharded against run_hmc, 8 chains x {cfg.num_samples} samples: "
+              f"relative gap {gap:.3e}, acceptance {acc:.3f}, step size {float(runs[0].step_size):.5f}")
+        assert gap <= 1e-10 and 0.0 < acc <= 1.0, "scale-out (iii): sharded HMC differs"
+        weights = torch.rand((S,), generator=torch.Generator(device=device).manual_seed(seed_d + 2),
+                             dtype=torch.float64, device=device)
+        states = spec.sample(torch.Generator(device=device).manual_seed(seed_d + 3), (S,), dtype=torch.float32,
+                             device=device)
+        res = [systematic_resample_sharded(torch.Generator(device=device).manual_seed(seed_d + 4), weights,
+                                           states, mesh),
+               systematic_resample(torch.Generator(device=device).manual_seed(seed_d + 4), weights, states)]
+        print(f"scale-out (iii): sharded resampling of {S} states equals the local one: {torch.equal(*res)}")
+        assert torch.equal(*res), "scale-out (iii): the sharded resampler differs"
+        secs["iii"] = time.perf_counter() - t_iii
+    finally:
+        dist.destroy_process_group()
+        loop.use_fused_paths, loop.use_fused_rollout = fused_paths0, fused_rollout0
+
+    # ---- (ii) two gloo ranks on the one card, route (c) at dp = 2
+    t_ii = time.perf_counter()
+    job = dict(drift=svgp_to_numpy(drift), policy=svgp_to_numpy(policy0), active=tuple(loop.encoder.active_dims),
+               target=loop.objective.target.cpu().numpy(), precis=loop.objective.precis.cpu().numpy(),
+               spec=dict(spec._asdict()), action_scale=action_scale, lr=lr, seed=seed_d, rows=S // 2)
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        port = _free_port()
+        procs = [ctx.Process(target=_scaleout_rank, args=(r, 2, port, job, tmp)) for r in range(2)]
+        for proc in procs:
+            proc.start()
+        for proc in procs:
+            proc.join(300)
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        assert all(proc.exitcode == 0 for proc in procs), \
+            f"scale-out (ii): ranks exited {[proc.exitcode for proc in procs]}"
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    g_one = out["fused_rollout_grad"].cpu()
+    for r, res in enumerate(ranks):
+        rel = abs(res["loss"] - out["fused_rollout_loss"]) / abs(out["fused_rollout_loss"])
+        cos = _cos(res["grad"], g_one)
+        print(f"scale-out (ii) rank {r}: {res['rows']} particles; loss {res['loss']:.8f} against world size 1's "
+              f"{out['fused_rollout_loss']:.8f}, relative gap {rel:.3e}; gradient cosine {cos:.9f}; launches per "
+              f"loss+grad {res['per_loss']}; {SCALE_STEPS} Adam steps {res['ms']:.2f} ms a step (launches "
+              f"{res['steps']}, losses {[round(v, 6) for v in res['losses']]})")
+        assert rel <= 1e-6 and cos >= 0.99999, f"scale-out (ii) rank {r}: differs from world size 1"
+        assert res["per_loss"]["rollout_fwd_f32"] == 1 and res["per_loss"]["rollout_bwd_f32"] == 1
+        assert res["steps"]["rollout_fwd_f32"] == SCALE_STEPS and all(math.isfinite(v) for v in res["losses"])
+    out["fused_rollout_step_ms_dp2"] = max(res["ms"] for res in ranks)
+    secs["ii"] = time.perf_counter() - t_ii
+    print(f"scale-out: sub-phase seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}")
+    return {k: v for k, v in out.items() if not k.endswith(("_grad", "_loss"))}
+
+
 # ---------------------------------------------------------------- slice D: the other two tasks
 # The double pendulum's full width (examples/double_pendulum/run_torch.py's
 # defaults, the JAX full run's): state D=4 with both angles encoded (6
@@ -2780,6 +3073,7 @@ def main():
                                     device, args.step_limit)
     _, policy_loop_ms = timed("policy loop", policy_loop_phase, rc, pe, loop, args.seed, device,
                               args.step_limit)
+    scale_ms = timed("scale-out", scaleout_phase, rc, pe, loop, args.seed, device)
     mm_loop, pair_launches, mm_ms = timed("mm", mm_slice_phase, kc, args.seed, device, args.step_limit,
                                           args.lbfgs_iters)
     counters = (pe, kc, mc, ec, gc, rc)
@@ -2903,6 +3197,7 @@ def main():
     print(f"fused-rollout slice: {json.dumps(fused_ms)} (K1 path {slice_ms['policy_step_ms']:.2f} ms "
           f"per policy step in this call)")
     print(f"policy loop: {json.dumps(policy_loop_ms)}")
+    print(f"scale-out: {json.dumps(scale_ms)}")
     print(f"mm slice ms: {json.dumps(mm_ms)}")
     print(f"whole-match slice ms: {json.dumps(match_ms)}")
     print(f"ensemble slice: {json.dumps(ens_ms)}")

@@ -11,8 +11,12 @@ match (``ops/mm_match_cuda.py``), the encoder match
 (``ops/enc_match_cuda.py``), the PSD guard and the Euler update
 (``ops/mm_glue_cuda.py``); and, for exact GPR drifts and their HMC
 ensembles (slice B), the GPR whole match (``ops/gpr_match_cuda.py``) and
-the pair grid's GPR route. Their CUDA C++ is in ``csrc/``, built at first
-use into ``build/kernels/``.
+the pair grid's GPR route; since slice D, the double pendulum and
+mountain car with coregionalized SVGPs; since slice E, scale-out on
+torch.distributed (``parallel/``: the sharded pathwise step through the
+path-eval and rollout kernels, sharded HMC and resampling) and the run
+supervisor (``utils/launch.py``). Their CUDA C++ is in ``csrc/``, built at
+first use into ``build/kernels/``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

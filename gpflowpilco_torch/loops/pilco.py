@@ -990,6 +990,43 @@ class MomentMatchingPILCO(PILCOBase):
         return self._mm_rollout_loss(policy_model, drift)
 
 
+def particle_rollout_costs(policy, drift_fn, x0: torch.Tensor, encoder, objective,
+                           num_steps: int) -> torch.Tensor:
+    """Cumulative cost (S,) of each particle of x0 (S, D) over ``num_steps``
+    Euler steps, each riding the fixed sampled drift function in
+    ``drift_fn`` under the policy transform ``policy``."""
+
+    def f(t, x):
+        return forward_concrete(x, drift_fn, policy=policy, encoder=encoder)
+
+    def acc(t, x, loss):
+        return loss + objective(x if encoder is None else encoder(x))
+
+    _, loss, _ = euler_rollout(
+        f, x0,
+        dt=1.0,  # the drift predicts per-control-step deltas
+        num_steps=num_steps,
+        accumulate=acc,
+        acc_init=torch.zeros((x0.shape[0],), dtype=x0.dtype, device=x0.device),
+    )
+    return loss
+
+
+def fused_rollout_costs(policy_model: SVGP, drift_model, paths, x0: torch.Tensor, encoder,
+                        objective, action_scale: float, num_steps: int) -> torch.Tensor:
+    """Cumulative cost (S,) of each particle through the whole-rollout kernel
+    op; a stacked GPR's paths carry its members, particles member-major."""
+    return pathwise_rollout_loss_fused(
+        policy_model, drift_model, paths, x0,
+        active_dims=tuple(encoder.active_dims),
+        action_scale=float(action_scale),
+        target=objective.target.to(x0.dtype),
+        precis=objective.precis.to(x0.dtype),
+        dt=1.0,  # the drift predicts per-control-step deltas
+        num_steps=num_steps,
+    )
+
+
 class PathwisePILCO(PILCOBase):
     """Pathwise-conditioned Monte-Carlo particle rollouts: each particle rides
     its own fixed posterior sample of the drift."""
@@ -997,22 +1034,8 @@ class PathwisePILCO(PILCOBase):
     def _particle_rollout_loss(self, policy_model: SVGP, drift_fn, x0: torch.Tensor):
         """Mean cumulative cost over the particles x0 (S, D), each riding the
         fixed sampled drift function in ``drift_fn``."""
-        pol = self.policy_chain(policy_model)
-
-        def f(t, x):
-            return forward_concrete(x, drift_fn, policy=pol, encoder=self.encoder)
-
-        def acc(t, x, loss):
-            return loss + self.objective(self.encode(x))
-
-        _, loss, _ = euler_rollout(
-            f, x0,
-            dt=1.0,  # the drift predicts per-control-step deltas
-            num_steps=self.episode_spec.num_steps,
-            accumulate=acc,
-            acc_init=torch.zeros((x0.shape[0],), dtype=x0.dtype, device=x0.device),
-        )
-        return loss.mean()
+        return particle_rollout_costs(self.policy_chain(policy_model), drift_fn, x0, self.encoder,
+                                      self.objective, self.episode_spec.num_steps).mean()
 
     def policy_loss_fn(self, policy_model: SVGP, generator, drift=None, x0=None):
         """Particle loss on fresh sample paths of the drift (and fresh initial
@@ -1084,13 +1107,5 @@ class PathwisePILCO(PILCOBase):
     def _fused_rollout_loss(self, policy_model: SVGP, drift_model, paths, x0: torch.Tensor):
         """Mean whole-rollout loss over the particles x0 through the kernel
         op; a stacked GPR's paths carry its members, particles member-major."""
-        loss = pathwise_rollout_loss_fused(
-            policy_model, drift_model, paths, x0,
-            active_dims=tuple(self.encoder.active_dims),
-            action_scale=float(self.policy_spec.action_scale),
-            target=self.objective.target.to(x0.dtype),
-            precis=self.objective.precis.to(x0.dtype),
-            dt=1.0,  # the drift predicts per-control-step deltas
-            num_steps=self.episode_spec.num_steps,
-        )
-        return loss.mean()
+        return fused_rollout_costs(policy_model, drift_model, paths, x0, self.encoder, self.objective,
+                                   self.policy_spec.action_scale, self.episode_spec.num_steps).mean()

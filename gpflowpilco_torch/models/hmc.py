@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -70,10 +70,24 @@ def run_hmc(
     q_init: torch.Tensor,
     generator: torch.Generator,
     config: HMCConfig = HMCConfig(),
+    chain_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    chain_rows: Optional[Tuple[slice, int]] = None,
 ) -> HMCResult:
     """Sample from exp(log_prob_fn(q)) with q_init (C, dim) the chains'
-    starting points; ``log_prob_fn`` takes (C, dim) to (C,)."""
+    starting points; ``log_prob_fn`` takes (C, dim) to (C,).
+
+    ``chain_mean`` takes a (C, ...) tensor to its mean over the chains (the
+    step-size adaptation's acceptance and ChEES's signal); it defaults to
+    the mean over these C chains. Where the chains are split over
+    processes (parallel/hmc.py) it is the mean over all of them, and
+    ``chain_rows`` = (rows, total) says that these are rows ``rows`` of
+    ``total`` chains: every random draw is made for all ``total`` chains
+    and these rows are kept, so a split run draws what one run of all the
+    chains draws."""
     num_chains, dim = q_init.shape
+    if chain_mean is None:
+        chain_mean = lambda x: x.mean(0)  # noqa: E731
+    rows, total = chain_rows if chain_rows is not None else (slice(None), num_chains)
     dtype, device = q_init.dtype, q_init.device
     chees = config.adapt_trajectory == "chees"
     num_lf = config.max_leapfrog if chees else config.num_leapfrog
@@ -89,15 +103,15 @@ def run_hmc(
             steps = torch.clamp(torch.ceil(h * tau / eps), 1, num_lf).to(torch.int64)
             return steps.expand(num_chains)
         if config.jitter_trajectory:
-            return torch.randint(1, num_lf + 1, (num_chains,), generator=generator, device=device)
+            return torch.randint(1, num_lf + 1, (total,), generator=generator, device=device)[rows]
         return torch.full((num_chains,), num_lf, dtype=torch.int64, device=device)
 
     def hmc_step(q, logp, grad, eps, lengths):
         """One transition of every chain; returns the new state with its log
         density and gradient, the acceptance probabilities and the proposal
         (q, p) that ChEES reads."""
-        p = torch.randn((num_chains, dim), **rand)
-        u = torch.rand((num_chains,), **rand)
+        p = torch.randn((total, dim), **rand)[rows]
+        u = torch.rand((total,), **rand)[rows]
         h0 = logp - 0.5 * torch.sum(p * p, -1)
         qn, pn, lpn, gn = q, p, logp, grad
         for step in range(int(lengths.max())):
@@ -124,11 +138,11 @@ def run_hmc(
     def chees_grad(q, q_prop, p_prop, accept):
         """d ChEES / d tau (Hoffman et al. 2021, eq. 14) from cross-chain
         means only."""
-        dq = q - q.mean(0)
-        dqp = q_prop - q_prop.mean(0)
+        dq = q - chain_mean(q)
+        dqp = q_prop - chain_mean(q_prop)
         delta = torch.sum(dqp * dqp, -1) - torch.sum(dq * dq, -1)
         dot = torch.sum(dqp * p_prop, -1)
-        g = torch.mean(accept * delta * dot) / torch.clamp(torch.mean(accept), min=1e-6)
+        g = chain_mean(accept * delta * dot) / torch.clamp(chain_mean(accept), min=1e-6)
         return torch.where(torch.isfinite(g), g, torch.zeros_like(g))
 
     # ---- warmup: dual-averaged step size and, for ChEES, the trajectory time
@@ -145,7 +159,7 @@ def run_hmc(
         q_old = q
         q, logp, grad, accept, q_prop, p_prop = hmc_step(q, logp, grad, eps, lengths)
         t = it + 1.0 + config.da_t0
-        h_bar = (1.0 - 1.0 / t) * h_bar + (config.target_accept - accept.mean()) / t
+        h_bar = (1.0 - 1.0 / t) * h_bar + (config.target_accept - chain_mean(accept)) / t
         log_eps = mu - math.sqrt(it + 1.0) / config.da_gamma * h_bar
         w = (it + 1.0) ** (-config.da_kappa)
         log_eps_bar = w * log_eps + (1.0 - w) * log_eps_bar

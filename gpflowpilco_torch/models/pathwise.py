@@ -46,10 +46,12 @@ class PathNoise(NamedTuple):
     eps: torch.Tensor  # (S, L, M) standard normals for u ~ q(u)
 
 
-def _prior_at(kernel: RBF, omega, phase, w, x):
-    """Prior sample values at per-sample inputs x (S, D) -> (S, L)."""
+def _prior_at(kernel: RBF, omega, phase, w, x, num_bases: Optional[int] = None):
+    """Prior sample values at per-sample inputs x (S, D) -> (S, L). The
+    scale is that of ``num_bases`` bases (default: omega's), so that a slab
+    of the basis axis gives its part of the whole sum."""
     proj = torch.einsum("sd,lbd->slb", x, omega) + phase
-    scale = torch.sqrt(2.0 * kernel.variance / omega.shape[-2])
+    scale = torch.sqrt(2.0 * kernel.variance / (num_bases or omega.shape[-2]))
     return torch.einsum("slb,slb->sl", scale[:, None] * torch.cos(proj), w)
 
 
@@ -99,8 +101,13 @@ def generate_paths_svgp(
 def eval_paths_svgp(model: SVGP, paths: PathState, x: torch.Tensor) -> torch.Tensor:
     """Evaluate sample s at its own input x[s]: x (S, D) -> (S, P). Plain
     torch, differentiable in everything."""
+    f_lat = _prior_at(model.kernel, paths.omega, paths.phase, paths.w, x)  # (S, L)
+    return mix_latents(model, f_lat + _update_at(model, paths.v, x))
+
+
+def _update_at(model: SVGP, v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The canonical update k(x_s, Z_l) v_sl at per-sample inputs: (S, L)."""
     kern = model.kernel
-    f_lat = _prior_at(kern, paths.omega, paths.phase, paths.w, x)  # (S, L)
     ls = kern.lengthscales  # (L, D)
     xs = x[:, None, :] / ls[None, :, :]  # (S, L, D)
     zs = model.z / ls[:, None, :]  # (L, M, D)
@@ -109,7 +116,12 @@ def eval_paths_svgp(model: SVGP, paths: PathState, x: torch.Tensor) -> torch.Ten
     xz = torch.einsum("sld,lmd->slm", xs, zs)
     d2 = torch.clamp(x2[..., None] + z2[None] - 2.0 * xz, min=0.0)
     kxz = kern.variance[None, :, None] * torch.exp(-0.5 * d2)
-    f_lat = f_lat + torch.einsum("slm,slm->sl", kxz, paths.v)
+    return torch.einsum("slm,slm->sl", kxz, v)
+
+
+def mix_latents(model: SVGP, f_lat: torch.Tensor) -> torch.Tensor:
+    """Latent values (S, L) -> outputs (S, P): the mixing matrix, then the
+    mean constant."""
     out = f_lat @ model.w.T if model.w is not None else f_lat
     return out + model.mean_const
 

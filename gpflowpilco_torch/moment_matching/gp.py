@@ -13,9 +13,9 @@ using the kernel expectations of ops/kexp.py:
 The cross-covariance comes pre-multiplied by Cov(x,x)^{-1} (preinv=True).
 
 ``fused_match`` runs the whole match as one CUDA kernel op
-(ops/mm_match_cuda.py). Not ported yet: the diagonal-only path
-(``full_output_cov=False`` without a mixing matrix, which raises on the
-unfused path).
+(ops/mm_match_cuda.py). ``full_output_cov=False`` without a mixing matrix
+forms only eKuffu's L diagonal blocks (the diagonal-only match), in plain
+torch on every cache.
 
 The GPR rule (``match_gpr``) is the same with the training inputs as the
 inducing points and one shared kernel, so its eKuffu is a single symmetric
@@ -57,6 +57,7 @@ class SVGPMatchCache(NamedTuple):
     cct: torch.Tensor  # (L, M, M) projected q-covariance
     qmat: torch.Tensor  # (L, M, M) Kuu^{-1} - Luu^{-T} cct Luu^{-1}
     pairs: Optional[tuple]  # kexp.ekuffu_pair_cache terms (x-free eKuffu factors), unfused only
+    dpairs: tuple  # kexp.ekuffu_diag_cache terms (the diagonal-only match's)
     fused_grid: Optional[FusedPairGrid] = None  # the pair-grid kernel's tensors (K2)
     match_grid: Optional[FusedMatchGrid] = None  # the whole-match kernel's tensors (K3)
 
@@ -87,6 +88,7 @@ def svgp_match_cache(
         cct=cct,
         qmat=qmat,
         pairs=None if fused or fused_match else kexp.ekuffu_pair_cache(model.kernel, model.z),
+        dpairs=kexp.ekuffu_diag_cache(model.kernel, model.z),
         fused_grid=fused_grid,
         match_grid=match_grid,
     )
@@ -163,18 +165,17 @@ def match_svgp(
     frozen: bool = False,
 ) -> GaussianMatch:
     """``full_output_cov=False`` diagonalizes the output covariance after
-    mixing; without a mixing matrix the unfused path would take the
-    diagonal-only path, which is not ported yet. A cache with a
-    ``match_grid`` runs the whole-match kernel op (``frozen`` as in
-    ``fused_svgp_match``)."""
+    mixing. Without a mixing matrix it forms only eKuffu's L diagonal
+    blocks (the cross-latent blocks are never formed), before and instead
+    of the pair-grid kernel op. A cache with a ``match_grid`` runs the
+    whole-match kernel op (``frozen`` as in ``fused_svgp_match``) and
+    diagonalizes after it."""
     if cache is not None and cache.match_grid is not None:
         grid = cache.match_grid
         if grid.meta.uncertainty != model_uncertainty:
             raise ValueError("fused match grid was built with a different model_uncertainty")
         f1, sff, cross = fused_svgp_match(grid, x.mean, x.cov, frozen=frozen)
         return _mix_and_finish(model, x, f1, sff, cross, jitter, full_output_cov)
-    if not full_output_cov and model.w is None:
-        raise NotImplementedError("the diagonal-only eKuffu path is not ported yet")
     mx, sxx = x.mean, x.cov
     kern, z = model.kernel, model.z  # z (L, M, D)
     if cache is None:
@@ -186,17 +187,25 @@ def match_svgp(
     ekfu, iv_dx = kexp.ekxz_isolve(kern.variance, kexp.latent_lam(kern, z.shape[-1]), z, mx, sxx)
     f1_lat = torch.einsum("...ml,lm->...l", ekfu, alpha)  # (..., L)
 
-    if cache.fused_grid is not None:
-        # kernel path: the (P, M, M) exp blocks are never stored, only the
-        # alpha- and Q-contracted vectors come back
-        f2_lat, ecov_corr = ekuffu_contract_fused(cache.fused_grid, mx, sxx)
-    else:
-        ekuffu = kexp.ekuffu_mo_from_cache(cache.pairs, num_latent, mx, sxx)  # (..., L, M, L, M)
-        f2_lat = torch.einsum("im,...imjn,jn->...ij", alpha, ekuffu, alpha)  # (..., L, L)
+    if not full_output_cov and model.w is None:
+        # diagonal-only: the L diagonal blocks, never the pair grid
+        blk = kexp.ekuffu_mo_diag_from_cache(cache.dpairs, mx, sxx)  # (..., L, M, M)
+        f2_diag = torch.einsum("lm,...lmn,ln->...l", alpha, blk, alpha)
+        sff_lat = torch.diag_embed(f2_diag - f1_lat * f1_lat)
         if model_uncertainty:
-            blk = torch.stack([ekuffu[..., l, :, l, :] for l in range(num_latent)], dim=-3)
             ecov_corr = torch.einsum("lmn,...lmn->...l", cache.qmat, blk)
-    sff_lat = f2_lat - f1_lat[..., :, None] * f1_lat[..., None, :]
+    else:
+        if cache.fused_grid is not None:
+            # kernel path: the (P, M, M) exp blocks are never stored, only
+            # the alpha- and Q-contracted vectors come back
+            f2_lat, ecov_corr = ekuffu_contract_fused(cache.fused_grid, mx, sxx)
+        else:
+            ekuffu = kexp.ekuffu_mo_from_cache(cache.pairs, num_latent, mx, sxx)  # (..., L, M, L, M)
+            f2_lat = torch.einsum("im,...imjn,jn->...ij", alpha, ekuffu, alpha)  # (..., L, L)
+            if model_uncertainty:
+                blk = torch.stack([ekuffu[..., l, :, l, :] for l in range(num_latent)], dim=-3)
+                ecov_corr = torch.einsum("lmn,...lmn->...l", cache.qmat, blk)
+        sff_lat = f2_lat - f1_lat[..., :, None] * f1_lat[..., None, :]
     if model_uncertainty:
         # tr(Q blk) without per-step (L, M, M) triangular solves (qmat cached)
         sff_lat = sff_lat + torch.diag_embed(kern.variance - ecov_corr)

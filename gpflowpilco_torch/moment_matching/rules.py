@@ -80,6 +80,21 @@ class Scale:
         return GaussianMatch(x=x, y=y, cross=torch.diag_embed(c), preinv=True)
 
 
+class MatVec:
+    """y = A x, with A (P, D)."""
+
+    def __init__(self, matrix):
+        self.matrix = matrix
+
+    def __call__(self, x):
+        return torch.einsum("pd,...d->...p", self.matrix, x)
+
+    def moment_match(self, x: GaussianMoments) -> GaussianMatch:
+        a = self.matrix
+        y = GaussianMoments(mean=self(x.mean), cov=torch.einsum("pd,...de,qe->...pq", a, x.cov, a))
+        return GaussianMatch(x=x, y=y, cross=a.mT, preinv=True)
+
+
 def _trig_terms(x: GaussianMoments):
     m, s = x.mean, x.cov
     # float32 moment propagation can leave tiny negative variances on the

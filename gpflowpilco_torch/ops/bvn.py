@@ -164,3 +164,14 @@ def bvnu(h, k, r) -> torch.Tensor:
     """Upper-right bivariate normal probability P(X > h, Y > k)."""
     return _BVNU.apply(*torch.broadcast_tensors(h, k, r))
 
+
+
+def bvn(xl, xu, yl, yu, r) -> torch.Tensor:
+    """Rectangle probability P(xl < X < xu, yl < Y < yu), clipped to [0, 1]."""
+    p = bvnu(xl, yl, r) - bvnu(xu, yl, r) - bvnu(xl, yu, r) + bvnu(xu, yu, r)
+    return torch.clamp(p, 0.0, 1.0)
+
+
+def bvn_cdf(h, k, r) -> torch.Tensor:
+    """Lower-left CDF P(X <= h, Y <= k) = bvnu(-h, -k, r)."""
+    return bvnu(-torch.as_tensor(h), -torch.as_tensor(k), r)

@@ -13,8 +13,9 @@ z1_i and w_j = V Lam2^{-1} z2_j, and zfac_ij = s1^2 s2^2 exp(-1/2 (z1_i-z2_j)^T
 (M1, M2, D) tensor is formed.
 
 These make up the unfused eKuffu path (the JAX package's default when the
-pair-grid kernel is off); ``ops/kexp_cuda.py`` holds the fused one. Leading
-batch dimensions of (mx, sxx) broadcast. The per-step D x D Cholesky
+pair-grid kernel is off), its diagonal-only blocks and the single- and
+multi-output wrappers; ``ops/kexp_cuda.py`` holds the fused pair grid.
+Leading batch dimensions of (mx, sxx) broadcast. The per-step D x D Cholesky
 factorizations return NaN on failure (``ops/linalg.cholesky_nan``).
 """
 from __future__ import annotations
@@ -38,6 +39,26 @@ def latent_lam(kernel, d: int) -> torch.Tensor:
     if lam.dim() == 1:  # (L,) isotropic per latent
         lam = lam[:, None]
     return lam.expand(lam.shape[0], d)
+
+
+def ekff(variance, mx):
+    """E[k(x, x)] for an RBF kernel: the variance, broadcast to (...,)."""
+    return torch.as_tensor(variance, dtype=mx.dtype, device=mx.device).expand(mx.shape[:-1])
+
+
+def ekxz(variance, lengthscales, z, mx, sxx):
+    """E[k(x, Z)]: mx (..., D), sxx (..., D, D), z (M, D) -> (..., M).
+    Kernels stacked on leading dims of variance (K,), lengthscales (K, D)
+    and z (K, M, D) broadcast against the batch dims of (mx, sxx)."""
+    dt = dict(dtype=mx.dtype, device=mx.device)
+    lam = _bc_lengthscales(torch.as_tensor(lengthscales, **dt), z.shape[-1]) ** 2
+    chol = cholesky_nan(sxx + torch.diag_embed(lam))
+    diff = z - mx[..., None, :]  # (..., M, D)
+    il_diff = bsolve_triangular(chol, diff.mT, lower=True)
+    quad = torch.sum(il_diff * il_diff, dim=-2)  # (..., M)
+    half_logdet_s = torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+    log_det_term = 0.5 * torch.sum(torch.log(lam), dim=-1) - half_logdet_s
+    return torch.as_tensor(variance, **dt)[..., None] * torch.exp(log_det_term[..., None] - 0.5 * quad)
 
 
 def ekxz_isolve(variance, lam, z, mx, sxx):
@@ -114,6 +135,47 @@ def ekzxxz_from_terms(vdiag, u, w, log_pref, mx, sxx):
     return torch.exp(log_pref - (half_logdet_s[..., None, None] + 0.5 * quad))
 
 
+def ekzxxz(v1, l1, z1, v2, l2, z2, mx, sxx):
+    """E[k1(Z1, x) k2(x, Z2)] -> (..., M1, M2) (the module docstring's
+    algebra)."""
+    return ekzxxz_from_terms(*ekzxxz_pair_terms(v1, l1, z1, v2, l2, z2), mx, sxx)
+
+
+# ----------------------------------------------------------------------------
+# multi-output (latent-stacked) variants: the latents ride the kernels'
+# batch axis, in front of the batch dims of (mx, sxx)
+# ----------------------------------------------------------------------------
+def ekff_mo(kernel, mx):
+    """(..., L): per-latent E[k(x, x)]."""
+    var = kernel.variance
+    return var.expand(mx.shape[:-1] + var.shape)
+
+
+def ekfu_mo(kernel, z, mx, sxx):
+    """Stacked E[k_l(x, Z_l)]: z (L, M, D) -> (..., M, L)."""
+    out = ekxz(kernel.variance, kernel.lengthscales, z, mx[..., None, :], sxx[..., None, :, :])
+    return out.mT  # (..., L, M) -> (..., M, L)
+
+
+def ekuffu_diag_cache(kernel, z):
+    """State-independent terms of the diagonal latent blocks only: the
+    pair terms of (l, l) for every latent l."""
+    var, ls = kernel.variance, kernel.lengthscales
+    return ekzxxz_pair_terms(var, ls, z, var, ls, z)
+
+
+def ekuffu_mo_diag_from_cache(diag_cache, mx, sxx):
+    """Diagonal latent blocks from ``ekuffu_diag_cache`` -> (..., L, M, M)."""
+    return ekzxxz_from_terms(*diag_cache, mx[..., None, :], sxx[..., None, :, :])
+
+
+def ekuffu_mo_diag(kernel, z, mx, sxx):
+    """Diagonal latent blocks E[k_l(Z_l, x) k_l(x, Z_l)]: z (L, M, D) ->
+    (..., L, M, M), the L(L-1)/2 cross-latent blocks never formed (the
+    diagonal-only match)."""
+    return ekuffu_mo_diag_from_cache(ekuffu_diag_cache(kernel, z), mx, sxx)
+
+
 def latent_pairs(num_latent: int):
     """The upper-triangular latent pairs (i, j), i <= j, in grid order."""
     return [(i, j) for i in range(num_latent) for j in range(i, num_latent)]
@@ -146,3 +208,9 @@ def ekuffu_mo_from_cache(pair_cache, num_latent: int, mx, sxx):
     full = out[..., lut, :, :]  # (..., L1, L2, M1, M2)
     full = torch.where(tmask[:, :, None, None], full.mT, full)
     return full.transpose(-3, -2)  # (..., L1, M1, L2, M2)
+
+
+def ekuffu_mo(kernel, z, mx, sxx):
+    """Stacked E[k_i(Z_i, x) k_j(x, Z_j)]: z (L, M, D) -> (..., L, M, L, M),
+    from the upper-triangular pairs and their mirror."""
+    return ekuffu_mo_from_cache(ekuffu_pair_cache(kernel, z), z.shape[0], mx, sxx)

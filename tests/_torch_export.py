@@ -128,3 +128,14 @@ def gpr_to_numpy(model) -> dict:
         ls_low=model.kernel.ls_low,
         ls_high=model.kernel.ls_high,
     )
+
+
+def jax_svgp_from_numpy(d, dtype=jnp.float64):
+    """A JAX SVGP from the numpy dict of gpflowpilco_torch.convert.svgp_to_numpy."""
+    arr = lambda a: None if a is None else jnp.asarray(a, dtype)  # noqa: E731
+    return SVGP(
+        kernel=RBF(raw_variance=arr(d["raw_variance"]), raw_lengthscales=arr(d["raw_lengthscales"]),
+                   ls_low=d["ls_low"], ls_high=d["ls_high"]),
+        z=arr(d["z"]), q_mu=arr(d["q_mu"]), q_sqrt=arr(d["q_sqrt"]), mean_const=arr(d["mean_const"]),
+        raw_noise=arr(d["raw_noise"]), w=arr(d["w"]), whiten=bool(d["whiten"]),
+    )

@@ -869,3 +869,76 @@ def test_torch_multistart_through_rollout_kernel_on_gpu():
     assert len(info["restart_losses"]) == 2 and info["losses"].shape == (3,)
     assert info["best_restart"] == int(np.argmin(info["restart_losses"]))
     assert np.isfinite(info["loss"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["fused", "fused_rollout"])
+def test_torch_sharded_step_world1_on_gpu(route):
+    """The sharded pathwise step (gpflowpilco_torch/parallel/) at world size
+    1 over NCCL on a small fitted loop: route (b) through K1 or (c) through
+    K6, its loss and gradient against PathwisePILCO.policy_loss_fn on the
+    same draws (loss relative 1e-6, gradient cosine >= 0.99999, float32),
+    the launches of one loss+grad (K1: one forward and one dx-only
+    backward per rollout step; K6: one of each), and two finite Adam
+    steps. The process group is torn down at the end."""
+    dev = _gpu_or_skip()
+    import copy
+    import pathlib
+    import socket
+    import sys
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "examples" / "cartpole_swingup"))
+    from run_torch import build_loop
+
+    from gpflowpilco_torch.loops.pilco import DriftSpec, PolicySpec
+    from gpflowpilco_torch.models.builders import policy_mask
+    from gpflowpilco_torch.ops import rollout_cuda as rc
+    from gpflowpilco_torch.parallel.mesh import make_mesh
+    from gpflowpilco_torch.parallel.pathwise import allreduce_gradients, make_pathwise_train_step
+
+    loop = build_loop(0, dev, torch.float32, drift_spec=DriftSpec(num_centers=16, max_iters=20),
+                      policy_spec=PolicySpec(batch_size=64, num_bases=64, num_restarts=1, step_limit=3))
+    loop.step()
+    loop.step()
+    loop.update_dynamics()
+    drift, policy = loop.policy_loss_drift(), loop.build_policy()
+    policy_mask(policy)
+    loop.use_fused_paths, loop.use_fused_rollout = route == "fused", route == "fused_rollout"
+    grads = lambda m: torch.cat([p.grad.reshape(-1) for p in m.parameters() if p.grad is not None])  # noqa: E731
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        pol = copy.deepcopy(policy)
+        opt = torch.optim.Adam(pol.parameters(), lr=1e-3)
+        step, loss_fn = make_pathwise_train_step(
+            mesh, drift, loop.policy_chain, loop.encoder, loop.objective, loop.episode_spec, batch_size=64,
+            num_bases=64, optimizer=opt, dtype=torch.float32, action_scale=10.0, **{route: True})
+        pe.reset_launches()
+        rc.reset_launches()
+        loss = loss_fn(pol, torch.Generator(device=dev).manual_seed(7))
+        loss.backward()
+        allreduce_gradients(pol.parameters(), mesh.get_group("dp"))
+        torch.cuda.synchronize()
+        t = loop.episode_spec.num_steps
+        if route == "fused":
+            assert pe.launches == {"path_eval_fwd": t, "path_eval_bwd_dx": t, "path_eval_bwd_full": 0}
+            assert not any(rc.launches.values())
+        else:
+            assert rc.launches == {"rollout_fwd_f32": 1, "rollout_fwd_f64": 0, "rollout_bwd_f32": 1,
+                                   "rollout_bwd_f64": 0}
+            assert not any(pe.launches.values())
+        ref = copy.deepcopy(policy)
+        want = loop.policy_loss_fn(ref, torch.Generator(device=dev).manual_seed(7), drift=drift)
+        want.backward()
+        assert abs(float(loss) - float(want)) <= 1e-6 * abs(float(want))
+        g, w = grads(pol).double(), grads(ref).double()
+        assert float(g @ w / (g.norm() * w.norm())) >= 0.99999
+        for i in range(2):
+            assert torch.isfinite(step(pol, torch.Generator(device=dev).manual_seed(8 + i)))
+    finally:
+        dist.destroy_process_group()

@@ -275,3 +275,52 @@ def test_torch_mm_compensated_loss_is_the_float64_loss(policy_f32):
     assert torch.equal(grads["compensated"], grads["f64"])
     assert losses["f32"].dtype == torch.float32
     assert float(losses["f32"]) != float(losses["f64"])
+
+
+def _python_scan(f, init, xs=None, length=None, reverse=False, unroll=1, **kw):
+    """lax.scan as a Python loop over eagerly dispatched steps."""
+    n = length if xs is None else len(jax.tree.leaves(xs)[0])
+    carry, ys = init, [None] * n
+    for i in (range(n - 1, -1, -1) if reverse else range(n)):
+        carry, ys[i] = f(carry, None if xs is None else jax.tree.map(lambda a: a[i], xs))
+    return carry, (None if ys[0] is None else jax.tree.map(lambda *a: jnp.stack(a), *ys))
+
+
+def test_torch_mm_f64_loss_matches_jax_compensated_loss(monkeypatch):
+    """The port's float64 MM loss (what ``loss_compensated`` runs here, with
+    the policy chain as a float32 island) against the JAX package's
+    double-float ``loss_compensated`` loss at a small fitted state: a
+    float32 drift fitted by the port to one random episode, exported to
+    JAX, and a fresh policy; one rollout step. JAX runs eagerly, op by op,
+    with its scans as Python loops: jitted XLA:CPU miscompiles double-float
+    arithmetic (docs/perf_notes.md, round 5). The JAX loss takes its cost
+    in float32 from the moments' high words, so the two may differ by some
+    float32 ulps of the loss: measured 1.5e-7 relative; bar 1e-6."""
+    from gpflowpilco_torch.convert import svgp_to_numpy as torch_svgp_to_numpy
+
+    from ._torch_export import jax_svgp_from_numpy
+
+    loop = run_torch.build_loop(
+        3, CPU, torch.float32,
+        drift_spec=DriftSpec(num_centers=8, max_iters=40, pad_data_multiple=0),
+        policy_spec=PolicySpec(num_centers=5, num_restarts=1, loss_compensated=True, loss_policy_f32=True),
+        horizon=0.6, loop_cls=MomentMatchingPILCO,
+    )
+    loop.step()
+    assert np.isfinite(loop.update_dynamics()["loss"])
+    policy = loop.build_policy().requires_grad_(False)
+    loop.episode_spec = loop.episode_spec._replace(horizon=0.1)  # one rollout step
+    got = float(loop.policy_loss_fn(policy, None, drift=loop.drift_model))
+
+    jloop = jax_experiment.build_loop(
+        JaxMomentMatchingPILCO, None, 3, dtype=jnp.float32,
+        policy_spec=JaxPolicySpec(num_restarts=1, loss_compensated=True, loss_policy_f32=True, mm_unroll=1),
+        horizon=0.1, validation_samples=2,
+    )
+    jloop.drift_model = jax_svgp_from_numpy(torch_svgp_to_numpy(loop.drift_model), jnp.float32)
+    drift = jloop.policy_loss_drift()
+    monkeypatch.setattr(jax.lax, "scan", _python_scan)
+    want = float(jloop.policy_loss_fn(jax_svgp_from_numpy(torch_svgp_to_numpy(policy), jnp.float32),
+                                      jax.random.PRNGKey(0), drift=drift))
+    gap = abs(got - want) / abs(want)
+    assert np.isfinite(want) and gap <= 1e-6, (got, want, gap)

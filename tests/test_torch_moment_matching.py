@@ -19,6 +19,7 @@ from gpflowpilco_tpu.ops import bvn as jbvn
 from gpflowpilco_torch import components as tcomp
 from gpflowpilco_torch import moments as tmom
 from gpflowpilco_torch.convert import svgp_from_numpy
+from gpflowpilco_torch.moment_matching import gp as gp_mod
 from gpflowpilco_torch.moment_matching import rules as trules
 from gpflowpilco_torch.moment_matching.gp import SVGPTransform, match_svgp
 from gpflowpilco_torch.ops import bvn as tbvn
@@ -89,9 +90,10 @@ def test_torch_match_svgp_matches_jax(fused, deterministic, whiten):
 
 
 @pytest.mark.parametrize("fused", [False, True])
-def test_torch_match_svgp_lck_matches_jax(fused):
+def test_torch_match_svgp_lck_matches_jax(fused, monkeypatch):
     """A linear-coregionalization SVGP (mixing matrix w, 4 outputs from 2
-    latents), with model uncertainty and diagonalized output covariance."""
+    latents), with model uncertainty and diagonalized output covariance;
+    and the diagonal-only match of an SVGP without a mixing matrix."""
     jm = jax_svgp(41, num_latent=2, m=7, d=4, num_out=4)
     tm = svgp_from_numpy(svgp_to_numpy(jm), CPU, torch.float64)
     mx, sxx = _moments(42, 4)
@@ -104,10 +106,55 @@ def test_torch_match_svgp_lck_matches_jax(fused):
         mx, sxx, 1e-9, 1e-8, interpret=fused,
     )
     # without a mixing matrix, full_output_cov=False is the diagonal-only
-    # path, which is not ported yet
-    single = svgp_from_numpy(svgp_to_numpy(jax_svgp(43, num_latent=2, m=7, d=4)), CPU, torch.float64)
-    with pytest.raises(NotImplementedError):
-        match_svgp(single, tmom.GaussianMoments(t(mx), t(sxx)), full_output_cov=False)
+    # path: it equals JAX's, with and without model uncertainty, and never
+    # reaches the pair-grid op, even with a fused cache
+    js = jax_svgp(43, num_latent=3, m=7, d=4)
+    single = svgp_from_numpy(svgp_to_numpy(js), CPU, torch.float64).requires_grad_(False)
+    with pltpu.force_tpu_interpret_mode():
+        jcache = JaxSVGPTransform(model=js, fused=fused).with_cache().cache
+    tcache = SVGPTransform(single, fused=fused).with_cache().cache
+
+    def no_pair_grid(*args):
+        raise AssertionError("the diagonal-only match reached the pair-grid op")
+
+    monkeypatch.setattr(gp_mod, "ekuffu_contract_fused", no_pair_grid)
+    for unc in (True, False):
+        _compare_diag_match(
+            lambda x: jax_match(js, x, model_uncertainty=unc, full_output_cov=False, cache=jcache),
+            lambda x: match_svgp(single, x, model_uncertainty=unc, full_output_cov=False, cache=tcache),
+            mx, sxx,
+        )
+
+
+def _compare_diag_match(jax_match_fn, torch_match_fn, mx, sxx):
+    """The diagonal-only match on (mx, sxx): mean, cov and the preinv cross
+    within 1e-10 of each output's scale, the output cov diagonal, and the
+    gradient of a random functional of the three in (mx, sxx) at cosine and
+    norm ratio within 1e-10 of 1."""
+    torch_x = tmom.GaussianMoments(t(mx).requires_grad_(True), t(sxx).requires_grad_(True))
+    tm = torch_match_fn(torch_x)
+    outs = (tm.y.mean, tm.y.cov, tm.cross_covariance(preinv=True))
+    ws = _weights(1, [tuple(o.shape) for o in outs])
+
+    def jax_fn(m, s):
+        jm = jax_match_fn(jmom.GaussianMoments(mean=m, cov=s))
+        jo = (jm.y.mean, jm.y.cov, jm.cross_covariance(preinv=True))
+        return sum(jnp.sum(w * o) for w, o in zip(ws, jo)), jo
+
+    (_, want), want_grads = jax.jit(jax.value_and_grad(jax_fn, argnums=(0, 1), has_aux=True))(
+        jnp.asarray(mx), jnp.asarray(sxx))
+    for name, got, w in zip(("mean", "cov", "cross"), outs, want):
+        w = np.asarray(w)
+        assert tuple(got.shape) == w.shape, name
+        assert np.max(np.abs(got.detach().numpy() - w)) <= 1e-10 * np.max(np.abs(w)), name
+    cov = outs[1].detach().numpy()
+    assert np.array_equal(cov, np.eye(cov.shape[-1]) * cov)
+    sum(torch.sum(t(w) * o) for w, o in zip(ws, outs)).backward()
+    got = np.concatenate([torch_x.mean.grad.numpy().ravel(), torch_x.cov.grad.numpy().ravel()])
+    want = np.concatenate([np.asarray(g).ravel() for g in want_grads])
+    cos = got @ want / (np.linalg.norm(got) * np.linalg.norm(want))
+    ratio = np.linalg.norm(got) / np.linalg.norm(want)
+    assert cos >= 1.0 - 1e-10 and abs(ratio - 1.0) <= 1e-10, (cos, ratio)
 
 
 @pytest.mark.parametrize("rule", ["sincos", "probit", "squashed_probit"])
