@@ -8,8 +8,11 @@
    source, all started together) and prints the build time.
 3. Kernels, on inputs made from --seed with numpy, each held against its
    plain torch version on the same inputs and timed beside it:
-   - K1 (path eval) at the pathwise path's shapes: S=1024 particles, L=4
-     latents, B=1024 Fourier bases, M=240 inducing points, D=6, float32;
+   - K1 (path eval: K1a forward, K1b dx-only backward, K1c full backward)
+     at the pathwise path's shapes: S=1024 particles, L=4 latents, B=1024
+     Fourier bases, M=240 inducing points, D=6, in float32 and float64
+     (rows ``*_f64``); K1c's dx bit for bit K1b's, its repeats
+     bit-identical;
    - K2 (eKuffu pair contraction: forward, full and frozen backward) in
      float32 and float64 at the MM path's two shapes: the drift's N=1,
      P=10 latent pairs, D2=14, M=240 and the policy's N=1, P=1, D2=12, M=30;
@@ -21,6 +24,12 @@
    through outer_loop, then one iteration (L-BFGS drift fit, Adam policy
    update, one RK4 episode). The launch counts are zeroed just before that
    iteration and read just after; each kernel the path runs must have run.
+   Then the float64 K1 hold (f64_paths_phase): PathwisePILCO in float64
+   with use_fused_paths at the trained policy and drift, its loss+grad
+   through K1a and K1b in float64 (30 + 30 launches, counted from zero)
+   against the unfused float64 path at the same paths and x0 (bar
+   max(1e-9, 10x the unfused loss's rounding noise), cosine >= 0.9999), and
+   ms per float64 loss+grad.
 5. MM slice: moment-matching PILCO on cartpole at full width (drift M=240,
    policy M=30, horizon 30) with the pair-grid kernel (use_fused_mm), the
    float64 loss with the policy chain as a float32 island: 8 random
@@ -55,7 +64,7 @@
    (mm_glue_cuda.boosted_reference). The build prints ptxas's registers,
    spills and stack frames of every kernel and fails if a float32 tile
    kernel at the main path's register capacity spills (K3's and K3g's at 8,
-   K2's forward and backward tiles at 16, K1's forward and dx-only backward
+   K2's forward and backward tiles at 16, K1's forward and both backwards
    and K6's forward at 6 and 8, K6's Jacobians at 8), or if K4's forward
    or backward or K5b's kernel at the path's D = 4 spills or has a stack
    frame.
@@ -133,9 +142,9 @@
    held against (i) by the same bars and timed.
 13. Slice-D kernels: every entry on the double pendulum's paths at its
    shapes, held against its plain version by the bars of 3, 6 and 10, timed
-   beside it and its bound, rows named ``<entry>/dp``: K1a/K1b at the
-   drift's S=1024, L=4, B=1024, M=320, D=8 (and, ``/mc``, mountain car's
-   L=2, M=128, D=3); K2 at the drift's N=1, P=10, D2=18, M=320 (D2 > 16:
+   beside it and its bound, rows named ``<entry>/dp``: K1a/K1b in float32
+   and float64 at the drift's S=1024, L=4, B=1024, M=320, D=8 (and,
+   ``/mc``, mountain car's L=2, M=128, D=3), K1c held there untimed; K2 at the drift's N=1, P=10, D2=18, M=320 (D2 > 16:
    the DM = 32 route, whose ptxas report is printed) and the policy's P=3,
    D2=14, M=100; K3 at the drift's L=4, D=8, M=320 and the policy's L=2,
    D=6, M=100 (the full backward at the policy's shape only, where the
@@ -156,10 +165,11 @@
    last line. Any failed check raises, so the exit code is non-zero.
 
 Tolerances of the kernel checks, rtol = atol:
-- K1, 1e-4: the kernel and its plain version both sum ~1024 float32 terms
-  of size ~0.05 per output, in different orders and with differently
-  rounded cos/sin/exp arguments; the expected gap is ~1e-6, so 1e-4 leaves
-  room without hiding a wrong index or term.
+- K1, 1e-4 in float32 and 1e-10 in float64: the kernel and its plain
+  version both sum ~1024 terms of size ~0.05 per output, in different
+  orders and with differently rounded cos/sin/exp arguments; the expected
+  gap is ~1e-6 in float32 (~1e-14 in float64), so the bars leave room
+  without hiding a wrong index or term.
 - K2, 1e-4 in float32 and 1e-10 in float64: each output is a sum of at most
   240 terms (times a 14-term exponent) taken in another order than the
   plain version's, so the gap is a few ulps of the sum's size.
@@ -275,10 +285,10 @@ def _bound(bytes_moved, ops, dtype):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bound_ms(kind, shape=(S, L, B, M, D)):
-    """Least time of one K1 launch at ``shape`` (S, L, B, M, D): the bytes it
-    must move (each input read once, each output written once) and its
-    float32 operations (_bound)."""
+def bound_ms(kind, shape=(S, L, B, M, D), dtype=torch.float32):
+    """Least time of one K1 launch at ``shape`` (S, L, B, M, D) in ``dtype``:
+    the bytes it must move (each input read once, each output written once)
+    and its operations (_bound)."""
     S, L, B, M, D = shape  # noqa: N806
     inputs = S * D + S * L * (B + M) + L * (B * D + B + M * D + M + D)
     outputs = S * L
@@ -291,13 +301,13 @@ def bound_ms(kind, shape=(S, L, B, M, D)):
         flops = S * L * (B * (4 * D + 4) + M * (4 * D + 8))
     if kind == "full":
         outputs += S * L * (B + M)
-    return _bound((inputs + outputs) * 4, flops, torch.float32)
+    return _bound((inputs + outputs) * (torch.finfo(dtype).bits // 8), flops, dtype)
 
 
-def kernel_inputs(seed, device, shape=(S, L, B, M, D)):
+def kernel_inputs(seed, device, shape=(S, L, B, M, D), dtype=torch.float32):
     S, L, B, M, D = shape  # noqa: N806
     rng = np.random.default_rng(seed)
-    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()  # noqa: E731
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device).contiguous()  # noqa: E731
     ls = 1.0 + rng.uniform(size=(L, D))
     il = 1.0 / ls
     z = rng.normal(size=(L, M, D)) * ls[:, None, :]  # inducing inputs spread over ~1 lengthscale
@@ -324,67 +334,75 @@ def check(name, got, want, tol=RTOL):
     return err
 
 
-def kernels_phase(pe, seed, device, shape=(S, L, B, M, D), sfx="", full=True):
-    """Hold K1a/K1b and, with ``full``, K1c against the plain version at
-    ``shape`` (S, L, B, M, D) and time both, and each launch's own device
-    time (stage_ms); the rows' names end in ``sfx``."""
-    t = kernel_inputs(seed, device, shape)
-    ops = (t["x"], t["w"], t["v"], t["omega"], t["phase"], t["z_scaled"], t["z2"], t["inv_ls"])
-    g = t["g"]
-    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=device)  # > 50 MB L2
+K1_TOL = {torch.float32: RTOL, torch.float64: 1e-10}
 
-    want_f = pe.path_eval_reference(*ops)
-    want_dx, _, _ = pe.path_eval_reference_bwd(*ops, g, want_wv=False)
-    got_f = pe._fwd(*ops)
-    got_dx = pe._bwd_dx(*ops, g)
-    sync()
-    print("kernels at S={} L={} B={} M={} D={} float32, rtol=atol={}:".format(*shape, RTOL))
-    errs = {
-        "path_eval_fwd": check(f"path_eval_fwd{sfx} f", got_f, want_f),
-        "path_eval_bwd_dx": check(f"path_eval_bwd_dx{sfx} dx", got_dx, want_dx),
-    }
-    if full:
-        _, want_dw, want_dv = pe.path_eval_reference_bwd(*ops, g, want_wv=True)
+
+def kernels_phase(pe, seed, device, shape=(S, L, B, M, D), sfx="", full=True):
+    """Hold K1a, K1b and K1c against the plain version at ``shape`` (S, L,
+    B, M, D) in float32 and float64 (K1_TOL), K1c's dx against K1b's bit for
+    bit and each entry's repeat against its first run; time K1a and K1b,
+    and with ``full`` K1c, beside the plain version, and each launch's own
+    device time (stage_ms). The rows' names end in ``sfx``, the float64
+    rows' in ``_f64`` before it."""
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=device)  # > 50 MB L2
+    errs, timings = {}, {}
+    for dtype, key in ((torch.float32, ""), (torch.float64, "_f64")):
+        t = kernel_inputs(seed, device, shape, dtype)
+        ops = (t["x"], t["w"], t["v"], t["omega"], t["phase"], t["z_scaled"], t["z2"], t["inv_ls"])
+        g = t["g"]
+        tol = K1_TOL[dtype]
+        want_f = pe.path_eval_reference(*ops)
+        want_dx, want_dw, want_dv = pe.path_eval_reference_bwd(*ops, g, want_wv=True)
+        got_f = pe._fwd(*ops)
+        got_dx = pe._bwd_dx(*ops, g)
         full_dx, got_dw, got_dv = pe._bwd_full(*ops, g)
-        errs["path_eval_bwd_full"] = max(
-            check("path_eval_bwd_full dx", full_dx, want_dx),
-            check("path_eval_bwd_full dw", got_dw, want_dw),
-            check("path_eval_bwd_full dv", got_dv, want_dv),
+        sync()
+        print("kernels at S={} L={} B={} M={} D={} {}, rtol=atol={}:".format(*shape, str(dtype)[6:], tol))
+        name = {e: f"{e}{key}{sfx}" for e in pe.ENTRIES}
+        errs[name["path_eval_fwd"]] = check(f"{name['path_eval_fwd']} f", got_f, want_f, tol)
+        errs[name["path_eval_bwd_dx"]] = check(f"{name['path_eval_bwd_dx']} dx", got_dx, want_dx, tol)
+        errs[name["path_eval_bwd_full"]] = max(
+            check(f"{name['path_eval_bwd_full']} dx", full_dx, want_dx, tol),
+            check(f"{name['path_eval_bwd_full']} dw", got_dw, want_dw, tol),
+            check(f"{name['path_eval_bwd_full']} dv", got_dv, want_dv, tol),
         )
-    calls = {
-        "path_eval_fwd": (
-            lambda: pe._fwd(*ops),
-            lambda: pe.path_eval_reference(*ops),
-            "fwd",
-        ),
-        "path_eval_bwd_dx": (
-            lambda: pe._bwd_dx(*ops, g),
-            lambda: pe.path_eval_reference_bwd(*ops, g, want_wv=False),
-            "dx",
-        ),
-        "path_eval_bwd_full": (
-            lambda: pe._bwd_full(*ops, g),
-            lambda: pe.path_eval_reference_bwd(*ops, g, want_wv=True),
-            "full",
-        ),
-    }
-    timings = {}
-    for name, (kern, plain, kind) in calls.items():
-        if name not in errs:
-            continue
-        ms = median_ms(kern, flush=flush)
-        warm_ms = median_ms(kern)
-        plain_ms = median_ms(plain, reps=10, flush=flush)
-        bound, bound_by = bound_ms(kind, shape)
-        timings[name + sfx] = dict(ms=ms, plain_ms=plain_ms, plain_how="device", bound_ms=bound,
-                                   bound_by=bound_by)
-        print(
-            f"  {name}{sfx}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), "
-            f"plain torch {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})"
-        )
-        times = timings[name + sfx]["stages"] = stage_ms(kern)
-        print(f"  stages of {name}{sfx}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
-    return {k + sfx: v for k, v in errs.items()}, timings
+        if not torch.equal(full_dx, got_dx):
+            raise AssertionError(f"{name['path_eval_bwd_full']}: K1c's dx differs from K1b's")
+        repeats = (torch.equal(got_f, pe._fwd(*ops)) and torch.equal(got_dx, pe._bwd_dx(*ops, g))
+                   and all(torch.equal(a, c) for a, c in zip((full_dx, got_dw, got_dv), pe._bwd_full(*ops, g))))
+        if not repeats:
+            raise AssertionError(f"K1{key}{sfx}: repeated runs differ")
+        print("  K1c's dx equals K1b's bit for bit; repeated runs of K1a, K1b and K1c bit-identical")
+        calls = {
+            "path_eval_fwd": (lambda: pe._fwd(*ops), lambda: pe.path_eval_reference(*ops), "fwd"),
+            "path_eval_bwd_dx": (
+                lambda: pe._bwd_dx(*ops, g),
+                lambda: pe.path_eval_reference_bwd(*ops, g, want_wv=False),
+                "dx",
+            ),
+            "path_eval_bwd_full": (
+                lambda: pe._bwd_full(*ops, g),
+                lambda: pe.path_eval_reference_bwd(*ops, g, want_wv=True),
+                "full",
+            ),
+        }
+        for entry, (kern, plain, kind) in calls.items():
+            if kind == "full" and not full:
+                continue
+            row = name[entry]
+            ms = median_ms(kern, flush=flush)
+            warm_ms = median_ms(kern)
+            plain_ms = median_ms(plain, reps=10, flush=flush)
+            bound, bound_by = bound_ms(kind, shape, dtype)
+            timings[row] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, plain_how="device", bound_ms=bound,
+                                bound_by=bound_by)
+            print(
+                f"  {row}: {ms:.4f} ms cold-L2 median ({warm_ms:.4f} ms warm), "
+                f"plain torch {plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})"
+            )
+            times = timings[row]["stages"] = stage_ms(kern)
+            print(f"  stages of {row}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    return errs, timings
 
 
 def pair_bound_ms(kind, n, p, d2, m, dtype, r=1):
@@ -610,6 +628,71 @@ def slice_phase(pe, seed, device, step_limit, lbfgs_iters):
     assert all(math.isfinite(v) for v in losses.values()), "the particle loss is not finite"
     return loop, launches, dict(dynamics_ms=1e3 * t_dyn, policy_step_ms=1e3 * t_pol / step_limit,
                                 episode_ms=1e3 * t_ep)
+
+
+F64_TIMED_STEPS = 3  # float64 loss+grad calls timed through K1 after the hold
+
+
+def f64_paths_phase(pe, loop, seed, device):
+    """The float64 K1 hold on the pathwise slice's trained loop: a float64
+    PathwisePILCO with use_fused_paths (as run_torch.py --f64 --fused)
+    evaluates policy_loss_fn's loss and policy gradient through K1a and
+    K1b in float64, counts zeroed just before and read just after (30 + 30
+    launches, no float32 or K1c launch), against the unfused float64 path
+    at the same paths and x0 (drawn from one generator seed): the loss
+    within max(1e-9, 10x the unfused loss's rounding noise, x0 moved by
+    1e-14, 1e-13 and 1e-12), the gradient at cosine >= 0.9999. Then
+    F64_TIMED_STEPS more loss+grad calls through K1, timed. Returns (the
+    float64 rows' launches over the phase, its numbers)."""
+    from run_torch import build_loop
+
+    loop64 = build_loop(seed, device, torch.float64, policy_spec=loop.policy_spec)
+    drift64 = copy.deepcopy(loop.policy_loss_drift()).double()
+    policy64 = copy.deepcopy(loop.policy_model).double()
+    x0 = loop64.episode_spec.sample(torch.Generator(device=device).manual_seed(seed + 3), (S,),
+                                    dtype=torch.float64, device=device)
+
+    def loss_and_grad(fused, x0_):
+        loop64.use_fused_paths = fused
+        policy64.zero_grad(set_to_none=True)
+        loss = loop64.policy_loss_fn(policy64, torch.Generator(device=device).manual_seed(seed + 4),
+                                     drift=drift64, x0=x0_)
+        loss.backward()
+        return float(loss.detach()), _flat_grads(policy64)
+
+    pe.reset_launches()
+    l_k, g_k = loss_and_grad(True, x0)
+    sync()
+    delta = dict(pe.launches)
+    want = {**dict.fromkeys(delta, 0), "path_eval_fwd_f64": HORIZON_STEPS, "path_eval_bwd_dx_f64": HORIZON_STEPS}
+    print(f"pathwise f64: one float64 loss+grad through K1, launches {delta}")
+    assert delta == want, f"pathwise f64: launches {delta}, expected {want}"
+    l_u, g_u = loss_and_grad(False, x0)
+    with torch.no_grad():
+        loop64.use_fused_paths = False
+        gen = lambda: torch.Generator(device=device).manual_seed(seed + 4)  # noqa: E731
+        noise = max(abs(float(loop64.policy_loss_fn(policy64, gen(), drift=drift64, x0=x0 + dx)) - l_u) / abs(l_u)
+                    for dx in (1e-14, 1e-13, 1e-12))
+    rel, bar = abs(l_k - l_u) / abs(l_u), max(1e-9, 10.0 * noise)
+    cos64 = float(g_k @ g_u / (g_k.norm() * g_u.norm()))
+    print(f"pathwise f64: {HORIZON_STEPS}-step float64 loss via K1 {l_k:.15f}, unfused {l_u:.15f}, relative gap "
+          f"{rel:.3e}; unfused rounding noise {noise:.3e}, bar {bar:.3e}; gradient cosine {cos64:.12f}")
+    assert math.isfinite(l_k) and rel <= bar, "pathwise f64: K1 and unfused float64 losses disagree"
+    assert cos64 >= 0.9999, "pathwise f64: K1 and unfused float64 gradients disagree"
+    pe.reset_launches()
+    loss_and_grad(True, x0)  # warm
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(F64_TIMED_STEPS):
+        loss_and_grad(True, x0)
+    sync()
+    step_ms = 1e3 * (time.perf_counter() - t0) / F64_TIMED_STEPS
+    launches = {k: v for k, v in pe.launches.items() if k.endswith("_f64")}
+    print(f"pathwise f64: {step_ms:.2f} ms per float64 loss+grad through K1 ({F64_TIMED_STEPS} timed); "
+          f"launches over {F64_TIMED_STEPS + 1} calls {launches}")
+    assert launches["path_eval_fwd_f64"] == launches["path_eval_bwd_dx_f64"] == (F64_TIMED_STEPS + 1) * HORIZON_STEPS
+    policy64.zero_grad(set_to_none=True)
+    return launches, dict(f64_rel_gap=rel, f64_noise=noise, f64_grad_cos=cos64, f64_loss_grad_ms=step_ms)
 
 
 def mm_losses(loop, paths=(("kernel", True), ("unfused", False))):
@@ -915,7 +998,7 @@ def stage_ms(fn, reps=5, sessions=4):
 PTXAS_K3 = ("svgp_fwd_tiles", "svgp_fwd_combine", "svgp_bwd_tiles", "svgp_bwd_finish", "svgp_bwd_combine",
             "bwd_groups", "svgp_bwd_slots")
 PTXAS_K3G = ("gpr_fwd_tiles", "fwd_combine", "gpr_bwd_tiles", "gpr_bwd_finish", "bwd_combine")
-PTXAS_K1 = ("fwd_warp", "bwd_warp", "bwd_finish", "bwd_kernel")
+PTXAS_K1 = ("fwd_warp", "bwd_warp", "bwd_full_warp", "bwd_finish")
 PTXAS_K2 = ("fwd_tiles", "fwd_finish", "bwd_tiles", "bwd_finish")
 PTXAS_K4 = ("enc_fwd_warp", "enc_bwd_warp")
 PTXAS_K5 = ("psd_kernel", "euler_warp", "euler_kernel")
@@ -924,7 +1007,7 @@ PTXAS_K6 = ("fwd_panels", "fwd_warp", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd
 # main path's register capacities or shapes (their first template integer),
 # those, and whether those must also have no stack frame): K3's and K3g's
 # tiles at D <= 8 (DM = 8), K2's forward and backward tiles (frozen and
-# full) at D2 <= 16 (DM = 16), K1's forward and dx-only backward at D = 6
+# full) at D2 <= 16 (DM = 16), K1's forward and both backwards at D = 6
 # (the cartpole's) and D <= 8, K4's forward and backward and K5b's warp
 # kernel at the path's D = 4 (no stack frame either: no local memory),
 # K6's phase-1 Jacobian kernel at Dxu <= 8 (DXU = 8) and its forward, both
@@ -933,7 +1016,7 @@ PTXAS_LIBS = (("mm_match", PTXAS_K3, ("svgp_fwd_tiles", "svgp_bwd_tiles"), (8,),
               ("gpr_match", PTXAS_K3G, ("gpr_fwd_tiles", "gpr_bwd_tiles"), (8,), False),
               ("kexp_pair", PTXAS_K2, ("fwd_tiles", "bwd_tiles"), (16,), False),
               ("enc_match", PTXAS_K4, ("enc_fwd_warp", "enc_bwd_warp"), (4,), True),
-              ("path_eval", PTXAS_K1, ("fwd_warp", "bwd_warp"), (6, 8), False),
+              ("path_eval", PTXAS_K1, ("fwd_warp", "bwd_warp", "bwd_full_warp"), (6, 8), False),
               ("mm_glue", PTXAS_K5, ("euler_warp",), (4,), True),
               ("rollout", PTXAS_K6, ("bwd_jac", "fwd_warp"), (6, 8), False))
 
@@ -942,8 +1025,8 @@ def ptxas_report(text, kernels=PTXAS_K3):
     """[(kernel, 'f' | 'd', its integer and bool template arguments (the
     register capacity DM or the exact shape first, then a tile side or a
     route), registers, spill stores, spill loads, stack frame)] in bytes
-    from nvcc's -Xptxas -v output. A kernel with no type parameter (K1's,
-    float32 only) counts as 'f'; one with no template arguments has none."""
+    from nvcc's -Xptxas -v output. A kernel with no type parameter counts as
+    'f'; one with no template arguments has none."""
     rows, name, spill = [], None, (0, 0, 0)
     pat = re.compile(r"\d+(" + "|".join(kernels) + r")(?:I([fd])?((?:L[ib]\d+E)*)|E)")
     for line in text.splitlines():
@@ -2911,7 +2994,7 @@ def tasks_phase(counters, seed, device, step_limit, lbfgs_iters, jacobi_gap):
 
 # kernel-name fragments whose rows a profile prints on their own: this
 # repository's kernels and the eigenvalue solver behind psd_project's eigvalsh
-_WATCHED = ("fwd_warp", "bwd_warp", "bwd_kernel", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads",
+_WATCHED = ("fwd_warp", "bwd_warp", "bwd_full_warp", "bwd_jac", "bwd_maps", "bwd_adjoint", "bwd_grads",
             "bwd_finish", "fwd_finish", "bwd_groups", "bwd_slots", "fwd_tiles", "bwd_tiles",
             "combine", "enc_fwd", "enc_bwd", "psd_kernel", "euler_warp", "euler_kernel", "syev", "eig")
 # host runtime calls that wait for the device or copy through it
@@ -3069,6 +3152,7 @@ def main():
     roll_errs, roll_timings, _ = timed("K6", rollout_kernels_phase, rc, args.seed, device)
     loop, launches, slice_ms = timed("pathwise", slice_phase, pe, args.seed, device, args.step_limit,
                                      args.lbfgs_iters)
+    f64_launches, f64_ms = timed("pathwise f64", f64_paths_phase, pe, loop, args.seed, device)
     roll_launches, fused_ms = timed("fused rollout", fused_rollout_slice_phase, rc, pe, loop, args.seed,
                                     device, args.step_limit)
     _, policy_loop_ms = timed("policy loop", policy_loop_phase, rc, pe, loop, args.seed, device,
@@ -3108,8 +3192,9 @@ def main():
         timed("profile", profile_phase, loop, mm_loop, match_loop, ens_loop, args.profile)
 
     for name, n in launches.items():
-        if name != "path_eval_bwd_full" and n == 0:
+        if name in ("path_eval_fwd", "path_eval_bwd_dx") and n == 0:
             raise AssertionError(f"{name} was not launched on the pathwise path")
+    launches.update(f64_launches)  # the float64 rows' launches: the float64 K1 hold's
     for name, n in match_launches.items():
         if name in pe.launches or name in kc.launches or name in rc.launches:
             continue
@@ -3136,11 +3221,9 @@ def main():
     sources.update(dict.fromkeys(gc.launches, "gpflowpilco_torch/csrc/mm_glue.cu"))
     sources.update(dict.fromkeys(gm.launches, "gpflowpilco_torch/csrc/gpr_match.cu"))
     sources.update(dict.fromkeys(rc.launches, "gpflowpilco_torch/csrc/rollout.cu"))
-    replaces = {
-        "path_eval_fwd": "gpflowpilco_tpu/ops/path_eval_pallas.py:58",
-        "path_eval_bwd_dx": "gpflowpilco_tpu/ops/path_eval_pallas.py:102",
-        "path_eval_bwd_full": "gpflowpilco_tpu/ops/path_eval_pallas.py:90",
-    }
+    k1_sites = {"path_eval_fwd": "58", "path_eval_bwd_dx": "102", "path_eval_bwd_full": "90"}
+    replaces = {name: "gpflowpilco_tpu/ops/path_eval_pallas.py:" + k1_sites[name.removesuffix("_f64")]
+                for name in pe.launches}
     for name in kc.launches:
         replaces[name] = "gpflowpilco_tpu/ops/kexp_pallas.py:" + ("47" if "_fwd_" in name else "62")
     for name in gm.launches:
@@ -3161,8 +3244,8 @@ def main():
         sources[name], replaces[name] = sources[base], replaces[base]
     # slice D's rows: each kernel at the double pendulum's shapes (K1 also at
     # mountain car's), its launches from the tasks phase's runs
-    task_rows = [f"{k}/dp" for k in ("path_eval_fwd", "path_eval_bwd_dx")] + [
-        f"{k}/mc" for k in ("path_eval_fwd", "path_eval_bwd_dx")] + [
+    k1_task = ("path_eval_fwd", "path_eval_bwd_dx", "path_eval_fwd_f64", "path_eval_bwd_dx_f64")
+    task_rows = [f"{k}/{t}" for t in ("dp", "mc") for k in k1_task] + [
         f"{k}/dp" for c in (kc, mc, ec, gc, rc) for k in c.launches]
     for name in task_rows:
         base = name.split("/")[0]
@@ -3194,6 +3277,7 @@ def main():
         for name in names
     ]
     print(f"pathwise slice ms: {json.dumps(slice_ms)}")
+    print(f"pathwise f64 (K1 in float64): {json.dumps(f64_ms)}")
     print(f"fused-rollout slice: {json.dumps(fused_ms)} (K1 path {slice_ms['policy_step_ms']:.2f} ms "
           f"per policy step in this call)")
     print(f"policy loop: {json.dumps(policy_loop_ms)}")

@@ -2,7 +2,8 @@
 """PILCO on cartpole swing-up with the PyTorch port, on an NVIDIA GPU.
 
 The torch twin of ``run_tpu_full.py``: SVGP drift (<= --num-centers inducing
-points) fit by L-BFGS, 30-step horizon, float32 models and fits.
+points) fit by L-BFGS, 30-step horizon, float32 models and fits (``--f64``: the
+whole loop, its kernels included, in float64, the JAX runners' default).
 ``--variant pathwise`` (the default) optimizes 1024 particles x 1024 Fourier
 bases per policy step, with ``--fused`` through the CUDA path-eval kernel
 (plain torch without it, as the JAX package's default); ``--variant mm``
@@ -58,6 +59,7 @@ sys.path[:0] = [str(HERE.parents[1]), str(HERE)]
 
 from gpflowpilco_torch.components import GaussianObjective, trigonometric_encoder  # noqa: E402
 from gpflowpilco_torch.envs.cartpole import CartPole  # noqa: E402
+from gpflowpilco_torch.loops.cli import loop_dtype  # noqa: E402
 from gpflowpilco_torch.loops.core import EpisodeSpec  # noqa: E402
 from gpflowpilco_torch.loops.driver import outer_loop  # noqa: E402
 from gpflowpilco_torch.loops.pilco import (  # noqa: E402
@@ -119,7 +121,8 @@ def build_loop(seed, device, dtype, drift_spec=DriftSpec(), policy_spec=PolicySp
     return loop
 
 
-def main():
+def parser() -> argparse.ArgumentParser:
+    """The runner's flags."""
     p = argparse.ArgumentParser()
     p.add_argument("--seed", type=int, default=3)
     p.add_argument("--episodes", type=int, default=10)
@@ -171,24 +174,21 @@ def main():
                         "incumbent's held-out episode MSE (DriftSpec.optimism_tolerance; 0 disables)")
     p.add_argument("--optimism-noise-mult", type=float, default=1.0,
                    help="scale on the held-out-MSE noise floor (DriftSpec.optimism_noise_mult)")
+    p.add_argument("--f64", action="store_true",
+                   help="the whole loop in float64 (models, fits, losses and kernels), the JAX "
+                        "runners' default; without it float32")
     p.add_argument("--dest", default=None,
                    help="checkpoint directory: restore from it at the start, save every episode")
-    args = p.parse_args()
+    return p
 
-    logging.basicConfig(
-        level=logging.INFO,
-        datefmt="%H:%M:%S",
-        format="%(asctime)s %(levelname)s:%(name)s:%(message)s",
-    )
-    # full float32 products: the gram cancellations must not run in TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    if args.device.startswith("cuda"):
-        logging.info("device: %s", torch.cuda.get_device_name(0))
-    loop = build_loop(
+
+def loop_from_args(args):
+    """The run's loop, in the flags' dtype (float32, or float64 under
+    --f64)."""
+    return build_loop(
         args.seed,
         torch.device(args.device),
-        torch.float32,
+        loop_dtype(args),
         drift_spec=DriftSpec(
             num_centers=args.num_centers,
             max_iters=args.lbfgs_iters,
@@ -216,6 +216,22 @@ def main():
         directory=args.dest,
         validation_samples=args.validation_samples,
     )
+
+
+def main():
+    args = parser().parse_args()
+
+    logging.basicConfig(
+        level=logging.INFO,
+        datefmt="%H:%M:%S",
+        format="%(asctime)s %(levelname)s:%(name)s:%(message)s",
+    )
+    # full float32 products: the gram cancellations must not run in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.device.startswith("cuda"):
+        logging.info("device: %s", torch.cuda.get_device_name(0))
+    loop = loop_from_args(args)
     if loop.episodes:
         logging.info("restored %d episodes from %s", len(loop.episodes), args.dest)
     loop.use_fused_paths = args.fused

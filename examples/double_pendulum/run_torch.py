@@ -15,7 +15,8 @@ exactly in the features:
   Q   = [[l0^2, l0 l1], [l0 l1, l1^2]] (x) I_2   (sin block, cos block)
 
 The defaults are the full run: 20 Hz control over 2.5 s (50 steps), drift
-M=320, policy M=100, 1024 particles x 1024 bases, float32 models, pathwise.
+M=320, policy M=100, 1024 particles x 1024 bases, float32 models, pathwise
+(``--f64``: the whole loop in float64, the JAX runner's default).
 ``--fused`` routes the pathwise drift evaluations through the CUDA path-eval
 kernel and the MM pair grid through the pair-contraction kernel,
 ``--fused-rollout`` the whole pathwise rollout loss through one kernel op,
@@ -162,16 +163,22 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
-def main():
-    args = parser().parse_args()
-    seed = cli.setup(args)
+def loop_from_args(args, seed):
+    """(loop, episodes) of a run: the specs from the flags, the loop in the
+    flags' dtype (float32, or float64 under --f64)."""
     drift, policy, episodes, validation = run_specs(args)
     loop = build_loop(
-        seed, torch.device(args.device), torch.float32,
+        seed, torch.device(args.device), cli.loop_dtype(args),
         drift_spec=drift, policy_spec=policy, step_size=args.dt, horizon=args.horizon,
         loop_cls=MomentMatchingPILCO if args.variant == "mm" else PathwisePILCO,
         directory=args.dest, validation_samples=validation,
     )
+    return loop, episodes
+
+
+def main():
+    args = parser().parse_args()
+    loop, episodes = loop_from_args(args, cli.setup(args))
     cli.run(loop, args, episodes)
 
 

@@ -5,7 +5,8 @@ The torch twin of ``run_mountain_car.py`` and ``experiment.py``: no encoder
 (no angular dims), 2-D state (x, dx), a 1-D force in [-4, 4], and a
 Gaussian cost around the hilltop goal x = 0.6. The defaults are the full
 run: moment matching, 10 Hz control over 5 s (50 steps), drift M=128,
-policy M=20, float32 models. Without an encoder the pathwise variant never
+policy M=20, float32 models (``--f64``: the whole loop in float64, the JAX
+runner's default). Without an encoder the pathwise variant never
 takes the fused rollout kernel; ``--fused`` routes its drift evaluations
 through the path-eval kernel and the MM pair grid through the
 pair-contraction kernel.
@@ -126,16 +127,22 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
-def main():
-    args = parser().parse_args()
-    seed = cli.setup(args)
+def loop_from_args(args, seed):
+    """(loop, episodes) of a run: the specs from the flags, the loop in the
+    flags' dtype (float32, or float64 under --f64)."""
     drift, policy, episodes, validation = run_specs(args)
     loop = build_loop(
-        seed, torch.device(args.device), torch.float32,
+        seed, torch.device(args.device), cli.loop_dtype(args),
         drift_spec=drift, policy_spec=policy, step_size=args.dt, horizon=args.horizon,
         loop_cls=MomentMatchingPILCO if args.variant == "mm" else PathwisePILCO,
         directory=args.dest, validation_samples=validation,
     )
+    return loop, episodes
+
+
+def main():
+    args = parser().parse_args()
+    loop, episodes = loop_from_args(args, cli.setup(args))
     cli.run(loop, args, episodes)
 
 

@@ -36,6 +36,9 @@ def task_arguments(p: argparse.ArgumentParser, episodes: int, episodes_init: int
                    help="mm: the whole-match path (use_fused_match)")
     p.add_argument("--mm-loss-f64", action="store_true",
                    help="mm: the loss in float64 with the policy chain as a float32 island")
+    p.add_argument("--f64", action="store_true",
+                   help="the whole loop in float64 (models, fits, losses and kernels), the JAX "
+                        "runners' default; without it float32")
     p.add_argument("--dt", type=float, default=dt, help="control step, s")
     p.add_argument("--horizon", type=float, default=horizon, help="episode length, s")
     p.add_argument("--policy-centers", type=int, default=policy_centers)
@@ -57,6 +60,11 @@ def task_arguments(p: argparse.ArgumentParser, episodes: int, episodes_init: int
                    help="the SVGP drift's fit (DriftSpec.optimizer)")
     p.add_argument("--dest", default=None,
                    help="checkpoint directory: restore from it at the start, save every episode")
+
+
+def loop_dtype(args) -> torch.dtype:
+    """The loop's dtype: float64 under --f64, else float32."""
+    return torch.float64 if args.f64 else torch.float32
 
 
 def apply_flags(drift: DriftSpec, policy: PolicySpec, args):

@@ -34,7 +34,7 @@ counterpart of the JAX package's per-iteration key folds.
 As in the JAX package, ``PathwisePILCO`` runs its loss in the loop dtype
 whatever ``PolicySpec.loss_dtype`` says (that option only keeps the loss
 off the fused rollout), and evaluates its SVGP paths through the path-eval
-kernel op only under ``use_fused_paths``.
+kernel op (float32 or float64, the loop dtype) only under ``use_fused_paths``.
 """
 from __future__ import annotations
 

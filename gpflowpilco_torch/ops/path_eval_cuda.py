@@ -15,14 +15,16 @@ optimization) or the full one (w or v perturbed). Gradients for omega, phase
 or the kernel hyperparameters raise, as the JAX VJP does.
 
 Dispatch is by the device of the tensors: CUDA tensors go to the kernels of
-``csrc/path_eval.cu`` (float32, contiguous, else the wrapper raises), CPU
-tensors to ``path_eval_reference`` and its backward formulas. There is no
-fallback from one to the other. ``launches`` counts kernel launches only.
-The forward and the dx-only backward stage each latent's tables in shared
-memory in chunks of columns that ``fwd_plan`` sizes (one chunk at the
-pathwise path's widths); the dx-only backward writes per-latent partials
-(L, S, D) into a scratch the wrapper allocates, and a second launch adds
-them in latent order.
+``csrc/path_eval.cu`` (float32 or float64, all operands of one type,
+contiguous, else the wrapper raises), CPU tensors to
+``path_eval_reference`` and its backward formulas. There is no fallback
+from one to the other. ``launches`` counts kernel launches only, by entry
+and type: the float32 entries' keys are the entry's name, the float64
+entries' end in ``_f64``. Every entry stages each latent's tables in
+shared memory in chunks of columns that ``fwd_plan`` sizes for the type
+(one chunk at the pathwise path's widths in both types); both backwards
+write per-latent partials (L, S, D) of dx into a scratch the wrapper
+allocates, and a second launch adds them in latent order.
 """
 from __future__ import annotations
 
@@ -32,14 +34,18 @@ import torch
 
 from . import _build
 
-# calls that launched each entry's kernels (the dx-only backward's one
-# call is two launches at L > 1); reset with reset_launches()
-launches = {"path_eval_fwd": 0, "path_eval_bwd_dx": 0, "path_eval_bwd_full": 0}
+# calls that launched each entry's kernels (a backward's one call is two
+# launches at L > 1); reset with reset_launches()
+ENTRIES = ("path_eval_fwd", "path_eval_bwd_dx", "path_eval_bwd_full")
+_KEY = {torch.float32: "", torch.float64: "_f64"}  # the launch counts' keys
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}  # the kernels' exported names
+launches = {name + key: 0 for key in _KEY.values() for name in ENTRIES}
 
 _MAX_D = 16  # kMaxD in csrc/path_eval.cu: x rows are held in registers
-# the forward's and the dx-only backward's shared memory (csrc/path_eval.cu): a block's weight ring
-# (kRing = 4 groups of 4 floats for each of its 1024 threads), then the
-# panels; at most FWD_SMEM_MAX bytes a block
+# every entry's shared memory (csrc/path_eval.cu): a block's weight ring
+# (kRing = 4 groups of 4 values for each of its threads: 1024 in float32,
+# 512 in float64, 64 KB in both), then the panels; at most FWD_SMEM_MAX
+# bytes a block
 FWD_RING_BYTES = 4 * 4 * 4 * 1024
 FWD_SMEM_MAX = 232448
 
@@ -50,27 +56,34 @@ def reset_launches():
 
 
 def _launch(name: str, inputs, outputs, *extra):
-    """Check the operands and launch ``name`` on the current stream, with
-    the shape's ints and then ``extra``'s."""
+    """Check the operands and launch ``name``'s kernel of their type on the
+    current stream, with the shape's ints and then ``extra``'s."""
     shape = operand_shape(*inputs)
-    for t in (*inputs, *outputs):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32 tensors, got {t.dtype}")
-    _build.launch("path_eval", name, (*inputs, *outputs), *(ctypes.c_int(v) for v in (*shape, *extra)))
-    launches[name] += 1
+    dtypes = {t.dtype for t in (*inputs, *outputs)}
+    if len(dtypes) != 1 or inputs[0].dtype not in _SUFFIX:
+        raise TypeError(f"{name}: the CUDA kernels take operands of one type, float32 or float64, got {dtypes}")
+    dtype = inputs[0].dtype
+    _build.launch("path_eval", f"{name}_{_SUFFIX[dtype]}", (*inputs, *outputs),
+                  *(ctypes.c_int(v) for v in (*shape, *extra)))
+    launches[name + _KEY[dtype]] += 1
 
 
-def fwd_plan(b: int, m: int, d: int):
-    """(cw, bytes) of the forward and the dx-only backward: the width of the chunks of columns in
-    which a block stages its latent's panels (D + 1 rows over the bases,
-    then the centers, each rounded up to 4 columns), a multiple of 128 (so
-    each lane has as many groups of 4 in every chunk), as wide as all the
-    columns where they fit beside the ring; and the dynamic shared memory
-    that takes."""
+def fwd_plan(b: int, m: int, d: int, elem: int = 4):
+    """(cw, bytes) of every entry for values of ``elem`` bytes (4: float32,
+    8: float64): the width of the chunks of columns in which a block stages
+    its latent's panels (D + 1 rows over the bases, then the centers, each
+    rounded up to 4 columns), a multiple of 128 (so each lane has as many
+    groups of 4 in every chunk), as wide as all the columns where they fit
+    beside the ring; and the dynamic shared memory that takes."""
     cols = -(-b // 4) * 4 + -(-m // 4) * 4
-    fit = (FWD_SMEM_MAX - FWD_RING_BYTES) // (4 * (d + 1)) // 128 * 128
+    fit = (FWD_SMEM_MAX - FWD_RING_BYTES) // (elem * (d + 1)) // 128 * 128
     cw = min(-(-cols // 128) * 128, fit)
-    return cw, FWD_RING_BYTES + 4 * (d + 1) * cw
+    return cw, FWD_RING_BYTES + elem * (d + 1) * cw
+
+
+def _chunk(x, w, v):
+    """fwd_plan's chunk width for these operands."""
+    return fwd_plan(w.shape[2], v.shape[2], x.shape[1], x.element_size())[0]
 
 
 def operand_shape(x, w, v, omega, phase, z_scaled, z2, inv_ls, g=None):
@@ -132,9 +145,14 @@ def _fwd(x, w, v, omega, phase, z_scaled, z2, inv_ls):
     if x.device.type == "cpu":
         return path_eval_reference(x, w, v, omega, phase, z_scaled, z2, inv_ls)
     out = torch.empty(w.shape[:2], dtype=x.dtype, device=x.device)
-    _launch("path_eval_fwd", (x, w, v, omega, phase, z_scaled, z2, inv_ls), (out,),
-            fwd_plan(w.shape[2], v.shape[2], x.shape[1])[0])
+    _launch("path_eval_fwd", (x, w, v, omega, phase, z_scaled, z2, inv_ls), (out,), _chunk(x, w, v))
     return out
+
+
+def _partials(x, w):
+    """The backwards' (L, S, D) scratch of per-latent partials, which a
+    second launch adds in order (the kernel writes dx itself at L = 1)."""
+    return torch.empty((w.shape[1], *x.shape), dtype=x.dtype, device=x.device)
 
 
 def _bwd_dx(x, w, v, omega, phase, z_scaled, z2, inv_ls, g):
@@ -142,11 +160,9 @@ def _bwd_dx(x, w, v, omega, phase, z_scaled, z2, inv_ls, g):
         return path_eval_reference_bwd(
             x, w, v, omega, phase, z_scaled, z2, inv_ls, g, want_wv=False
         )[0]
-    # the kernel's per-latent partials, which a second launch adds in order
-    # (the kernel writes dx itself at L = 1)
-    dx, part = torch.empty_like(x), torch.empty((w.shape[1], *x.shape), dtype=x.dtype, device=x.device)
-    _launch("path_eval_bwd_dx", (x, w, v, omega, phase, z_scaled, z2, inv_ls, g), (dx, part),
-            fwd_plan(w.shape[2], v.shape[2], x.shape[1])[0])
+    dx = torch.empty_like(x)
+    _launch("path_eval_bwd_dx", (x, w, v, omega, phase, z_scaled, z2, inv_ls, g), (dx, _partials(x, w)),
+            _chunk(x, w, v))
     return dx
 
 
@@ -156,7 +172,8 @@ def _bwd_full(x, w, v, omega, phase, z_scaled, z2, inv_ls, g):
             x, w, v, omega, phase, z_scaled, z2, inv_ls, g, want_wv=True
         )
     dx, dw, dv = torch.empty_like(x), torch.empty_like(w), torch.empty_like(v)
-    _launch("path_eval_bwd_full", (x, w, v, omega, phase, z_scaled, z2, inv_ls, g), (dx, dw, dv))
+    _launch("path_eval_bwd_full", (x, w, v, omega, phase, z_scaled, z2, inv_ls, g),
+            (dx, dw, dv, _partials(x, w)), _chunk(x, w, v))
     return dx, dw, dv
 
 

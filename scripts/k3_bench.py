@@ -16,7 +16,7 @@ in reverse), and times every K3 entry at the whole-match path's shapes,
 K3g's at the HMC ensemble's, and K2's six entries at the MM drift's and
 policy's shapes and its forward and frozen backward on the GPR route (P=8
 members, R=4), K1's three entries at the pathwise slice's shape (S=1024,
-L=4, B=1024, M=240, D=6), K5a in float32 and float64 at the policy
+L=4, B=1024, M=240, D=6) in float32 and float64, K5a in float32 and float64 at the policy
 joint's shape (N=1, D=6) and K5b at the state's (N=1, D=4): float32 with
 the boost (the path's) and without it (no Jacobi sweeps: the loads and
 stores alone), float64 without it (the solver's float64 semantics), K4's
@@ -30,14 +30,14 @@ is reported by the smaller of its medians. On the same inputs, each other
 checkout's outputs are compared with this one's: K3g's forward at its bars
 (float64: 1e-9 of the scale; float32: within 3x the plain float32
 version's error against float64, plus 1e-4 of the scale), K2's forward and
-full backward and K1's dx-only backward at their own (rtol = atol = 1e-10
-in float64, 1e-4 in float32), K4's backward and K5's at chip_smoke.py's
-(1e-12 of the scale in float64, 1e-5 in float32; these entries also report
-whether they are bit-identical), K6's forward and backward at
+full backward and K1's two backwards at their own (rtol = atol = 1e-10 in
+float64, 1e-4 in float32), K4's backward and K5's at chip_smoke.py's
+(1e-12 of the scale in float64, 1e-5 in float32; these entries and K2's
+and K1's also report whether they are bit-identical), K6's forward and backward at
 chip_smoke.py's (float64: 1e-10 of the scale; float32 over 30 steps:
 within 3x the plain float32 version's error against float64, plus 1e-4 of
-the scale), every other entry (K1's forward and full backward, K2's frozen
-backward among them) bit for bit. ``--only`` keeps the
+the scale), every other entry (K1's forward, K2's frozen backward among
+them) bit for bit. ``--only`` keeps the
 entries whose name starts with one of the prefixes (``k6_``: K6 alone,
 ``k6_fwd``: its forward alone, ``k4_``: K4 alone), and builds only the
 libraries they need. Each checkout's per-stage device times
@@ -63,7 +63,8 @@ ROOT = Path(__file__).resolve().parents[1]
 # R=4); K2's six entries at the MM drift's (N=1, P=10, D2=14, M=240) and
 # policy's (N=1, P=1, D2=12, M=30) shapes, and the GPR route's forward and
 # frozen backward (N=1, P=8, D2=14, M=240, R=4); K1's three entries at the
-# pathwise slice's shape; K5a at the policy joint's, K5b at the state's
+# pathwise slice's shape in float32 and float64 (a checkout whose K1 takes
+# float32 alone times no float64 case); K5a at the policy joint's, K5b at the state's
 # with the boost ("state") and without ("sym")
 CASES = (
     ("fwd", "f32", "drift"), ("fwd", "f32", "policy"), ("bwd_frozen", "f32", "drift"),
@@ -76,7 +77,7 @@ CASES = (
     *((f"k2_{kind}", sfx, "gpr") for sfx in ("f64", "f32") for kind in ("fwd", "bwd_frozen")),
     *((f"k6_{kind}", sfx, where) for where in ("slice", "members") for sfx in ("f32", "f64")
       for kind in ("fwd", "bwd")),
-    *((f"k1_{kind}", "f32", "pathwise") for kind in ("fwd", "bwd_dx", "bwd_full")),
+    *((f"k1_{kind}", sfx, "pathwise") for sfx in ("f32", "f64") for kind in ("fwd", "bwd_dx", "bwd_full")),
     ("k5_psd", "f32", "joint"), ("k5_psd", "f64", "joint"), ("k5_euler", "f32", "state"),
     ("k5_euler", "f32", "sym"), ("k5_euler", "f64", "sym"),
     *((f"k4_{kind}", sfx, where) for sfx in ("f32", "f64") for where in ("rollout", "cost")
@@ -156,11 +157,11 @@ def _k4_case(cs, ec, kind, dtype, where, device):
     return (lambda: ec._bwd(meta, mx, sxx, *cots)), bound
 
 
-def _k1_case(cs, pe, kind, device):
+def _k1_case(cs, pe, kind, dtype, device):
     """(fn, bound) of a K1 entry on chip_smoke's kernel inputs."""
-    t = cs.kernel_inputs(11, device)
+    t = cs.kernel_inputs(11, device, dtype=dtype)
     ops = tuple(t[k] for k in ("x", "w", "v", "omega", "phase", "z_scaled", "z2", "inv_ls"))
-    bound, _ = cs.bound_ms({"fwd": "fwd", "bwd_dx": "dx", "bwd_full": "full"}[kind])
+    bound, _ = cs.bound_ms({"fwd": "fwd", "bwd_dx": "dx", "bwd_full": "full"}[kind], dtype=dtype)
     if kind == "fwd":
         return (lambda: (pe._fwd(*ops),)), bound
     if kind == "bwd_dx":
@@ -241,8 +242,10 @@ def run(root, save, only=()):
             outs[key] = [t.cpu() for t in fn()]
             timed(key, fn, bound)
             continue
+        if kind.startswith("k1_") and dtype == torch.float64 and "path_eval_fwd_f64" not in pe.launches:
+            continue  # this checkout's K1 takes float32 alone
         if kind.startswith(("k1_", "k2_", "k4_", "k5_")):
-            fn, bound = (_k1_case(cs, pe, kind[3:], device) if kind.startswith("k1_")
+            fn, bound = (_k1_case(cs, pe, kind[3:], dtype, device) if kind.startswith("k1_")
                          else _k5_case(cs, gc, kind[3:], dtype, where, device) if kind.startswith("k5_")
                          else _k4_case(cs, ec, kind[3:], dtype, where, device) if kind.startswith("k4_")
                          else _k2_case(cs, kc, kind[3:], dtype, where, device))
@@ -299,7 +302,7 @@ def compare(a, b, cs):
         if "/" in k or k not in b:
             continue
         pairs = list(zip(a[k], b[k]))
-        if not k.startswith(("gpr_fwd_", "k2_fwd", "k2_bwd_f32", "k2_bwd_f64", "k1_bwd_dx", "k4_", "k5_", "k6_")):
+        if not k.startswith(("gpr_fwd_", "k2_fwd", "k2_bwd_f32", "k2_bwd_f64", "k1_bwd", "k4_", "k5_", "k6_")):
             diff = {i: float((x.double() - y.double()).abs().max()) for i, (x, y) in enumerate(pairs)
                     if not torch.equal(x, y)}
             out[k] = diff or True
@@ -324,7 +327,7 @@ def compare(a, b, cs):
             err = max(cs.scaled_err(x, y) for x, y in pairs)
             out[k] = dict(scaled_vs_parent=err, bars_hold=err <= tol,
                           bit_identical=all(torch.equal(x, y) for x, y in pairs))
-        else:  # K2's forward and full backward, K1's dx-only backward
+        else:  # K2's forward and full backward, K1's backwards
             tol = cs.PAIR_TOL[torch.float64 if "_f64_" in k else torch.float32]
             out[k] = dict(max_abs_vs_parent=max(float((x.double() - y.double()).abs().max()) for x, y in pairs),
                           bars_hold=all(torch.allclose(x, y, rtol=tol, atol=tol) for x, y in pairs),

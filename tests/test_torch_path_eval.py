@@ -136,10 +136,12 @@ def test_torch_path_eval_operand_shapes_are_checked():
 
 def test_torch_path_eval_launch_counts_stay_zero_on_cpu():
     pe.reset_launches()
-    _, _, _, model, paths, x = _setup(jnp.float32, s=8, b=8, m=4)
-    x = x.requires_grad_(True)
-    pe.eval_paths_svgp_fused(model, paths, x).sum().backward()
-    assert pe.launches == {"path_eval_fwd": 0, "path_eval_bwd_dx": 0, "path_eval_bwd_full": 0}
+    for dtype in (jnp.float32, jnp.float64):
+        _, _, _, model, paths, x = _setup(dtype, s=8, b=8, m=4)
+        x = x.requires_grad_(True)
+        pe.eval_paths_svgp_fused(model, paths, x).sum().backward()
+    assert pe.launches == {"path_eval_fwd": 0, "path_eval_bwd_dx": 0, "path_eval_bwd_full": 0,
+                           "path_eval_fwd_f64": 0, "path_eval_bwd_dx_f64": 0, "path_eval_bwd_full_f64": 0}
 
 
 def _forward_warp_split(x, w, v, omega, phase, z_scaled, z2, inv_ls):
