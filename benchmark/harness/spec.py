@@ -1,0 +1,66 @@
+"""Find a cell and everything that belongs to it by name.
+
+``BENCHMARK.json`` at the checkout's root lists the cells (``workloads``),
+the configurations and the metrics. A cell's configuration is the file its
+``configs`` entry names; its traffic mix is ``traffic/<traffic>.json`` and
+its correctness limits ``workloads/<cell>.json``, both beside this package;
+a per-layer metric is read by ``metrics/<metric>.py``'s ``read``. Adding a
+cell, a configuration, a mix or a metric adds files and entries and edits
+nothing here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+from pathlib import Path
+from typing import Callable, Dict, List, Optional
+
+BENCH_DIR = Path(__file__).resolve().parents[1]
+ROOT = BENCH_DIR.parent
+
+
+@dataclasses.dataclass
+class Cell:
+    name: str
+    chips: int
+    config: dict
+    traffic: dict
+    limits: Dict[str, float]
+    end_to_end: List[dict]  # the end-to-end metrics this cell reports
+    per_layer: List[dict]  # the per-layer metrics this cell reports
+
+
+def load_benchmark(root: Path = ROOT) -> dict:
+    return json.loads((root / "BENCHMARK.json").read_text())
+
+
+def _for_cell(metrics: List[dict], cell: str) -> List[dict]:
+    return [m for m in metrics if cell in m.get("workloads", [cell])]
+
+
+def load_cell(name: str, root: Path = ROOT) -> Cell:
+    """The cell ``name`` of ``root``'s BENCHMARK.json; raises KeyError for an
+    unknown name."""
+    bench = load_benchmark(root)
+    bench_dir = root / "benchmark"
+    cells = {w["name"]: w for w in bench["workloads"]}
+    if name not in cells:
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json: {sorted(cells)}")
+    work = cells[name]
+    configs = {c["name"]: c for c in bench["configs"]}
+    config = json.loads((root / configs[work["config"]]["file"]).read_text())
+    traffic = json.loads((bench_dir / "traffic" / f"{work['traffic']}.json").read_text())
+    limits = json.loads((bench_dir / "workloads" / f"{name}.json").read_text())["limits"]
+    return Cell(name=name, chips=int(work["chips"]), config=config, traffic=traffic, limits=limits,
+                end_to_end=_for_cell(bench["end_to_end"], name),
+                per_layer=_for_cell(bench["per_layer"], name))
+
+
+def metric_reader(name: str, bench_dir: Path = BENCH_DIR) -> Callable[[dict], Optional[float]]:
+    """``read`` of ``metrics/<name>.py``."""
+    path = bench_dir / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_benchmark_metric_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
