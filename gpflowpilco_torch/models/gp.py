@@ -19,6 +19,7 @@ from .. import config
 from ..ops.linalg import bsolve_triangular as solve_triangular
 from ..ops.linalg import safe_cholesky, safe_cholesky_entrywise
 from ..utils import bijectors as bij
+from ..utils import tracing
 from .kernels import RBF
 
 _LOG2PI = math.log(2.0 * math.pi)
@@ -70,11 +71,12 @@ def kuu(model: SVGP, jitter: Optional[float] = None) -> torch.Tensor:
     return k + jitter * eye
 
 
+@tracing.span("kuu.factor")
 def chol_kuu(model: SVGP) -> torch.Tensor:
     """(L, M, M) Cholesky of the jittered inducing covariances, with
-    escalating-jitter retries."""
+    escalating-jitter retries (host syncs ``sync.kuu``)."""
     k = model.kernel.gram(model.z)
-    return safe_cholesky(k, config.default_jitter(model.z.dtype))
+    return safe_cholesky(k, config.default_jitter(model.z.dtype), site="kuu")
 
 
 def svgp_predict_f(model: SVGP, x: torch.Tensor, full_output_cov: bool = False):
@@ -223,7 +225,7 @@ def gpr_cholesky(model: GPR) -> torch.Tensor:
     knn = model.kernel.gram(x)
     eye = torch.eye(x.shape[0], dtype=knn.dtype, device=knn.device)
     kyy = knn + model.noise_variance[..., None, None] * eye
-    return safe_cholesky_entrywise(kyy, config.default_jitter(knn.dtype))
+    return safe_cholesky_entrywise(kyy, config.default_jitter(knn.dtype), site="kyy")
 
 
 def gpr_lml(model: GPR) -> torch.Tensor:

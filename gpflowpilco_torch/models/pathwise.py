@@ -24,6 +24,7 @@ from ..ops.linalg import bcho_solve
 from ..ops.linalg import bsolve_triangular as solve_triangular
 from ..ops.path_eval_cuda import eval_fused_operands, fused_operands
 from ..ops.rollout_cuda import FusedRolloutLoss, RolloutMeta
+from ..utils import tracing
 from .gp import GPR, SVGP, chol_kuu, gpr_cholesky
 from .kernels import RBF
 
@@ -63,6 +64,7 @@ def _prior_at_shared(kernel: RBF, omega, phase, w, z):
     return torch.einsum("lmb,slb->slm", feats, w)
 
 
+@tracing.span("paths.draw")
 def draw_path_noise(
     model: SVGP, num_samples: int, num_bases: int, generator: Optional[torch.Generator] = None
 ) -> PathNoise:
@@ -77,6 +79,7 @@ def draw_path_noise(
     )
 
 
+@tracing.span("paths.condition")
 def paths_from_noise(model: SVGP, noise: PathNoise) -> PathState:
     """Decoupled posterior sample functions of ``model`` from given draws."""
     kern = model.kernel
@@ -231,6 +234,7 @@ def _policy_alpha(policy_model: SVGP) -> torch.Tensor:
     return policy_model.kernel.variance[:, None] * alpha
 
 
+@tracing.span("rollout.operands")
 def fused_rollout_operands(policy_model: SVGP, drift_model, paths: PathState, *, state_dim: int,
                            active_dims: Tuple[int, ...], action_scale: float, target, precis,
                            dt: float = 1.0, num_steps: int = 30):

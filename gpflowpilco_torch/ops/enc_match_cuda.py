@@ -23,10 +23,12 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils import tracing
 from . import _build
 
 # kernel launches per entry; reset with reset_launches()
-launches = {f"enc_match_{kind}_{sfx}": 0 for kind in ("fwd", "bwd") for sfx in ("f32", "f64")}
+launches = tracing.register_launches(
+    {f"enc_match_{kind}_{sfx}": 0 for kind in ("fwd", "bwd") for sfx in ("f32", "f64")})
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 MAX_D = 16  # kMaxD in csrc/enc_match.cu: active dims travel as 4-bit fields

@@ -41,12 +41,14 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import tracing
 from . import _build
 from .kexp_cuda import gpr_pair_factors
 from .linalg import bsolve_triangular, cholesky_nan
 
 # kernel launches per entry; reset with reset_launches()
-launches = {f"gpr_match_{kind}_{sfx}": 0 for kind in ("fwd", "bwd_frozen") for sfx in ("f32", "f64")}
+launches = tracing.register_launches(
+    {f"gpr_match_{kind}_{sfx}": 0 for kind in ("fwd", "bwd_frozen") for sfx in ("f32", "f64")})
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 MAX_D, MAX_R = 16, 4  # csrc/gpr_match.cu's kMaxD and kMaxR

@@ -45,15 +45,16 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils import tracing
 from . import _build, kexp
 from .linalg import bsolve_triangular, cholesky_nan
 
 # kernel launches per entry; reset with reset_launches()
-launches = {
+launches = tracing.register_launches({
     f"pair_contract_{kind}_{sfx}": 0
     for kind in ("fwd", "bwd", "bwd_frozen")
     for sfx in ("f32", "f64")
-}
+})
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _MAX_D2, _MAX_R = 32, 4  # kMaxD2, kMaxR in csrc/kexp_pair.cu

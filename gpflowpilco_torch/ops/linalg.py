@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
+
 
 def bsolve_triangular(a, b, lower: bool = True, trans: int = 0):
     """Solve ``a x = b`` (``trans=0``) or ``a^T x = b`` (``trans=1``) for a
@@ -34,7 +36,7 @@ def cholesky_nan(a):
     return chol.masked_fill((info != 0)[..., None, None], float("nan"))
 
 
-def _escalating_cholesky(a, extra_jitter, max_escalations, factor, entrywise):
+def _escalating_cholesky(a, extra_jitter, max_escalations, factor, entrywise, site):
     """``chol(a + extra_jitter * I)``, retried with the jitter raised by
     ``factor`` up to ``max_escalations`` times while a factor fails; with
     ``entrywise`` only the failing matrices of the batch take the retry,
@@ -43,7 +45,8 @@ def _escalating_cholesky(a, extra_jitter, max_escalations, factor, entrywise):
     ``torch.linalg.cholesky`` raises where JAX returns NaN, so this uses
     ``cholesky_ex`` and treats a nonzero ``info`` or a non-finite factor as a
     failure. Costs one host synchronization (the ``any`` check) when no
-    matrix fails, and one more per escalation level that runs."""
+    matrix fails, and one more per escalation level that runs, each counted
+    and timed under ``site`` (``tracing.host_sync``)."""
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
 
     def attempt(j):
@@ -52,7 +55,7 @@ def _escalating_cholesky(a, extra_jitter, max_escalations, factor, entrywise):
 
     chol, bad = attempt(extra_jitter)
     for level in range(1, max_escalations + 1):
-        if not bool(bad.any()):
+        if not tracing.host_sync(site, bad.any()):
             return chol
         retry, still = attempt(extra_jitter * factor**level)
         if entrywise:
@@ -62,16 +65,19 @@ def _escalating_cholesky(a, extra_jitter, max_escalations, factor, entrywise):
     return torch.where(bad[..., None, None], torch.full_like(chol, float("nan")), chol)
 
 
-def safe_cholesky(a, extra_jitter, max_escalations: int = 2, factor: float = 100.0):
+def safe_cholesky(a, extra_jitter, max_escalations: int = 2, factor: float = 100.0,
+                  site: str = "chol"):
     """``chol(a + extra_jitter * I)`` with escalating-jitter retries of the
-    whole batch when any matrix fails, as the JAX version does unbatched."""
-    return _escalating_cholesky(a, extra_jitter, max_escalations, factor, entrywise=False)
+    whole batch when any matrix fails, as the JAX version does unbatched.
+    ``site`` names its host syncs."""
+    return _escalating_cholesky(a, extra_jitter, max_escalations, factor, False, site)
 
 
-def safe_cholesky_entrywise(a, extra_jitter, max_escalations: int = 2, factor: float = 100.0):
+def safe_cholesky_entrywise(a, extra_jitter, max_escalations: int = 2, factor: float = 100.0,
+                            site: str = "chol"):
     """``safe_cholesky`` with the escalation decided for each matrix of the
     batch on its own, as the JAX version behaves under ``vmap`` (its
     ``lax.cond`` becomes a select per entry): only an entry whose factor
     failed takes the raised jitter, so one chain's or member's tiny noise
     does not change another's factor."""
-    return _escalating_cholesky(a, extra_jitter, max_escalations, factor, entrywise=True)
+    return _escalating_cholesky(a, extra_jitter, max_escalations, factor, True, site)

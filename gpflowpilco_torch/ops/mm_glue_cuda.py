@@ -25,10 +25,12 @@ import ctypes
 
 import torch
 
+from ..utils import tracing
 from . import _build
 
 # kernel launches per entry; reset with reset_launches()
-launches = {f"{kind}_{sfx}": 0 for kind in ("psd_boost", "euler_update") for sfx in ("f32", "f64")}
+launches = tracing.register_launches(
+    {f"{kind}_{sfx}": 0 for kind in ("psd_boost", "euler_update") for sfx in ("f32", "f64")})
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 MAX_D = 16  # the kernels' largest register capacity (csrc/mm_glue.cu)

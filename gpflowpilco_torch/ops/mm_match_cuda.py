@@ -40,15 +40,16 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils import tracing
 from . import _build, kexp
 from .linalg import bsolve_triangular, cholesky_nan
 
 # kernel launches per entry; reset with reset_launches()
-launches = {
+launches = tracing.register_launches({
     f"svgp_match_{kind}_{sfx}": 0
     for kind in ("fwd", "bwd_frozen", "bwd")
     for sfx in ("f32", "f64")
-}
+})
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 MAX_D = 16  # csrc/mm_match.cu's largest register capacity

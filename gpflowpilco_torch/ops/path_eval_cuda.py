@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from ..utils import tracing
 from . import _build
 
 # calls that launched each entry's kernels (a backward's one call is two
@@ -39,7 +40,8 @@ from . import _build
 ENTRIES = ("path_eval_fwd", "path_eval_bwd_dx", "path_eval_bwd_full")
 _KEY = {torch.float32: "", torch.float64: "_f64"}  # the launch counts' keys
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}  # the kernels' exported names
-launches = {name + key: 0 for key in _KEY.values() for name in ENTRIES}
+launches = tracing.register_launches(
+    {name + key: 0 for key in _KEY.values() for name in ENTRIES})
 
 _MAX_D = 16  # kMaxD in csrc/path_eval.cu: x rows are held in registers
 # every entry's shared memory (csrc/path_eval.cu): a block's weight ring

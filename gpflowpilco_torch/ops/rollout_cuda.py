@@ -52,10 +52,12 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils import tracing
 from . import _build
 
 # kernel launches per entry; reset with reset_launches()
-launches = {f"rollout_{kind}_{sfx}": 0 for kind in ("fwd", "bwd") for sfx in ("f32", "f64")}
+launches = tracing.register_launches(
+    {f"rollout_{kind}_{sfx}": 0 for kind in ("fwd", "bwd") for sfx in ("f32", "f64")})
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # csrc/rollout.cu's register capacities: state dim, drift input (De + U),
@@ -313,13 +315,25 @@ def fwd_plan(meta: RolloutMeta, b: int, m: int, dtype) -> Tuple[str, int]:
 def _fwd(meta: RolloutMeta, *ops, route=None):
     """(loss (S,), trajectory (T+1, S, D)). ``route`` ("resident" or "ring")
     overrides fwd_plan's choice on the card (a resident route that does not
-    fit raises); both give bit-identical results."""
+    fit raises); both give bit-identical results. On the card the check,
+    the plan and the launch are the span ``k6.fwd``."""
+    if ops[0].device.type == "cpu":
+        _fwd_check(meta, ops, route)
+        return _rollout(meta, *ops)
+    with tracing.span("k6.fwd"):
+        return _fwd_card(meta, ops, route)
+
+
+def _fwd_check(meta: RolloutMeta, ops, route):
     shape = operand_check("rollout_fwd", meta, ops)
     if route not in (None, "resident", "ring"):
         raise ValueError(f"rollout_fwd: route must be 'resident' or 'ring', got {route!r}")
+    return shape
+
+
+def _fwd_card(meta: RolloutMeta, ops, route):
+    shape = _fwd_check(meta, ops, route)
     x0 = ops[0]
-    if x0.device.type == "cpu":
-        return _rollout(meta, *ops)
     s, k, b, m, _ = shape
     route = route or fwd_plan(meta, b, m, x0.dtype)[0]
     new = lambda *sh: torch.empty(sh, dtype=x0.dtype, device=x0.device)  # noqa: E731
@@ -345,13 +359,26 @@ def bwd_scratch_sizes(meta: RolloutMeta, s: int):
 
 def _bwd(meta: RolloutMeta, traj, gl, *ops):
     """(dzp, dalpha, dilp) from the trajectory and the loss cotangent; ``ops``
-    are the operands after x0."""
+    are the operands after x0. On the card the check, the scratch and the
+    launch are the span ``k6.bwd``."""
+    if traj.device.type == "cpu":
+        _bwd_check(meta, traj, gl, ops)
+        return rollout_reference_bwd(meta, traj, gl, *ops)
+    with tracing.span("k6.bwd"):
+        return _bwd_card(meta, traj, gl, ops)
+
+
+def _bwd_check(meta: RolloutMeta, traj, gl, ops):
     x0 = traj[0]
     s = x0.shape[0]
     extra = (("trajectory", traj, (meta.num_steps + 1, s, meta.state_dim)), ("gl", gl, (s,)))
-    shape = operand_check("rollout_bwd", meta, (x0, *ops), extra)
-    if x0.device.type == "cpu":
-        return rollout_reference_bwd(meta, traj, gl, *ops)
+    return operand_check("rollout_bwd", meta, (x0, *ops), extra)
+
+
+def _bwd_card(meta: RolloutMeta, traj, gl, ops):
+    shape = _bwd_check(meta, traj, gl, ops)
+    x0 = traj[0]
+    s = x0.shape[0]
     sizes = bwd_scratch_sizes(meta, s)
     if max(sizes) >= 2**31:
         raise ValueError(f"rollout_bwd: T x S = {meta.num_steps} x {s} rows need scratch of {sizes} "

@@ -2,7 +2,9 @@
 ``nn.Parameter`` lists (counterpart of gpflowpilco_tpu/utils/optimizers.py).
 
 Parameters are updated in place. Frozen parameters are the ones the caller
-leaves out of ``params`` (see models/builders.py masks).
+leaves out of ``params`` (see models/builders.py masks). Each Adam iteration
+is a step record of ``utils/tracing.py`` (``opt.iter``), its loss, backward,
+finiteness guard and update each a span.
 """
 from __future__ import annotations
 
@@ -10,6 +12,8 @@ import math
 from typing import Callable, List, Optional, Sequence
 
 import torch
+
+from . import tracing
 
 
 def make_policy_schedule(step_limit: int, initial_lr: float = 0.01, num_drops: int = 3):
@@ -40,14 +44,16 @@ def _guarded_step(opt, params, schedule, applied: int, global_clipnorm: Optional
     not all finite is skipped: neither the parameters nor Adam's state or
     step count move, as under optax ``apply_if_finite``. Returns whether the
     step was applied."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not bool(torch.stack([torch.isfinite(g).all() for g in grads]).all()):
-        return False
-    if global_clipnorm is not None:
-        _clip_by_global_norm(grads, global_clipnorm)
-    for group in opt.param_groups:
-        group["lr"] = schedule(applied)
-    opt.step()
+    with tracing.span("opt.guard"):
+        grads = [p.grad for p in params if p.grad is not None]
+        if not tracing.host_sync("guard", torch.stack([torch.isfinite(g).all() for g in grads]).all()):
+            return False
+    with tracing.span("opt.update"):
+        if global_clipnorm is not None:
+            _clip_by_global_norm(grads, global_clipnorm)
+        for group in opt.param_groups:
+            group["lr"] = schedule(applied)
+        opt.step()
     return True
 
 
@@ -70,15 +76,19 @@ def adam_minimize(
         schedule = lambda count: learning_rate  # noqa: E731
     opt = _adam(params, schedule)
     losses, applied, skipped = [], 0, 0
+    iteration = tracing.step("opt.iter")
     for _ in range(num_steps):
-        opt.zero_grad(set_to_none=False)
-        loss = loss_fn()
-        loss.backward()
-        losses.append(loss.detach())
-        if _guarded_step(opt, params, schedule, applied, global_clipnorm):
-            applied += 1
-        else:
-            skipped += 1
+        with iteration:
+            opt.zero_grad(set_to_none=False)
+            with tracing.span("opt.loss"):
+                loss = loss_fn()
+                losses.append(loss.detach())
+            with tracing.span("opt.backward"):
+                loss.backward()
+            if _guarded_step(opt, params, schedule, applied, global_clipnorm):
+                applied += 1
+            else:
+                skipped += 1
     return torch.stack(losses).cpu().numpy(), skipped
 
 
@@ -110,24 +120,28 @@ def adam_minimize_multistart(
     if schedule is None:
         schedule = lambda count: learning_rate  # noqa: E731
     bests, best_losses, traces, skipped = [], [], [], 0
-    for loss_fn, cand in zip(loss_fns, params):
+    for k, (loss_fn, cand) in enumerate(zip(loss_fns, params)):
         opt = _adam(cand, schedule)
         best = [p.detach().clone() for p in cand]
         best_loss = torch.full((), math.inf, dtype=cand[0].dtype, device=cand[0].device)
         losses, applied = [], 0
+        iteration = tracing.step("opt.iter", candidate=k)
         for _ in range(num_steps):
-            opt.zero_grad(set_to_none=False)
-            loss = loss_fn()
-            loss.backward()
-            loss = loss.detach().to(best_loss.dtype)
-            losses.append(loss)
-            better = loss < best_loss  # NaN < x is False
-            best_loss = torch.where(better, loss, best_loss)
-            best = [torch.where(better, p.detach(), b) for p, b in zip(cand, best)]
-            if _guarded_step(opt, cand, schedule, applied, global_clipnorm):
-                applied += 1
-            else:
-                skipped += 1
+            with iteration:
+                opt.zero_grad(set_to_none=False)
+                with tracing.span("opt.loss"):
+                    loss = loss_fn()
+                with tracing.span("opt.backward"):
+                    loss.backward()
+                loss = loss.detach().to(best_loss.dtype)
+                losses.append(loss)
+                better = loss < best_loss  # NaN < x is False
+                best_loss = torch.where(better, loss, best_loss)
+                best = [torch.where(better, p.detach(), b) for p, b in zip(cand, best)]
+                if _guarded_step(opt, cand, schedule, applied, global_clipnorm):
+                    applied += 1
+                else:
+                    skipped += 1
         bests.append(best)
         best_losses.append(best_loss)
         traces.append(torch.stack(losses))
