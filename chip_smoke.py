@@ -220,6 +220,16 @@ def sync():
     torch.cuda.synchronize()
 
 
+def graph_captures() -> int:
+    """Captures of the particle loss's CUDA graphs so far in the process
+    (gpflowpilco_torch/ops/graphs.py). Each warms up with one K6 forward and
+    one backward beyond its steps' own, so a count of K6 launches over n
+    steps is n plus the captures made meanwhile."""
+    from gpflowpilco_torch.utils import tracing
+
+    return tracing.counters()["graphs.captures"]
+
+
 def median_ms(fn, reps=30, flush=None, hold_s=0.2):
     """Median device time of fn over reps calls (CUDA events), each after an
     L2 flush when ``flush`` is given, after a warm-up.
@@ -1946,6 +1956,7 @@ def ensemble_slice_phase(counters, seed, device, step_limit, lbfgs_iters):
     pw.use_fused_rollout = True
     assert pw._fused_rollout_eligible(ens.members, pw.policy_model)
     reset()
+    cap = graph_captures()
     t0 = time.perf_counter()
     info_d2 = pw.update_policy()
     sync()
@@ -1955,7 +1966,8 @@ def ensemble_slice_phase(counters, seed, device, step_limit, lbfgs_iters):
           f"{1e3 * t_d / PW_STEPS:.2f} ms per fused pathwise ensemble step, loss {info_d2['loss']:.6f}; "
           f"launches {delta}")
     want = dict.fromkeys(delta, 0)
-    want.update(rollout_fwd_f32=PW_STEPS, rollout_bwd_f32=PW_STEPS)
+    cap = graph_captures() - cap
+    want.update(rollout_fwd_f32=PW_STEPS + cap, rollout_bwd_f32=PW_STEPS + cap)
     assert math.isfinite(info_d2["loss"]) and delta == want, f"launches {delta}, expected {want}"
     # at that state, float64: K6 with the 8 members on its member axis
     # against the per-step GPR path at the same paths and x0 (drawn once in
@@ -2254,6 +2266,7 @@ def fused_rollout_slice_phase(rc, pe, loop, seed, device, step_limit):
     before = {n: p.detach().clone() for n, p in loop.policy_model.named_parameters()}
     rc.reset_launches()
     pe.reset_launches()
+    cap = graph_captures()
     t0 = time.perf_counter()
     info_p = loop.update_policy()
     sync()
@@ -2264,7 +2277,8 @@ def fused_rollout_slice_phase(rc, pe, loop, seed, device, step_limit):
           f"launches {delta}")
     assert math.isfinite(info_p["loss"]), "fused-rollout policy loss is not finite"
     want = dict.fromkeys(delta, 0)
-    want.update(rollout_fwd_f32=step_limit, rollout_bwd_f32=step_limit)
+    cap = graph_captures() - cap
+    want.update(rollout_fwd_f32=step_limit + cap, rollout_bwd_f32=step_limit + cap)
     assert delta == want, f"launches {delta}, expected {want}"
     moved = max(float((p.detach() - before[n]).abs().max())
                 for n, p in loop.policy_model.named_parameters() if p.requires_grad)
@@ -2338,6 +2352,7 @@ def policy_loop_phase(rc, pe, loop, seed, device, step_limit):
     snapshot = loop.best_policy_model
     snap0 = {n: p.detach().clone() for n, p in snapshot.named_parameters()}
     reset()
+    cap = graph_captures()
     t0 = time.perf_counter()
     info = loop.update_policy()
     sync()
@@ -2349,7 +2364,8 @@ def policy_loop_phase(rc, pe, loop, seed, device, step_limit):
           f"{info['best_restart']}, restart_losses {info['restart_losses']}, skipped "
           f"{info['skipped_steps']}; launches {delta}")
     want = dict.fromkeys(delta, 0)
-    want.update(rollout_fwd_f32=4 * step_limit, rollout_bwd_f32=4 * step_limit)
+    cap = graph_captures() - cap
+    want.update(rollout_fwd_f32=4 * step_limit + cap, rollout_bwd_f32=4 * step_limit + cap)
     assert delta == want, f"(a) launches {delta}, expected {want}"
     assert info["best_restart"] == int(np.argmin(info["restart_losses"])), "(a) the winner is not the argmin"
     assert math.isfinite(info["loss"]), "(a) the best loss is not finite"
@@ -2506,10 +2522,12 @@ def _scaleout_rank(rank, world, port, job, out_dir):
         sync()
         per_loss = dict(rc.launches)
         rc.reset_launches()
+        cap = graph_captures()
         ms, losses = _timed_steps(
             lambda i: step(policy, torch.Generator(device=device).manual_seed(job["seed"] + 1 + i)), SCALE_STEPS)
         torch.save(dict(loss=loss, grad=grad.cpu(), per_loss=per_loss, steps=dict(rc.launches), ms=ms,
-                        losses=losses, rows=job["rows"]), Path(out_dir) / f"rank{rank}.pt")
+                        losses=losses, rows=job["rows"], captures=graph_captures() - cap),
+                   Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
@@ -2607,6 +2625,7 @@ def scaleout_phase(rc, pe, loop, seed, device):
 
             rc.reset_launches()
             pe.reset_launches()
+            cap = graph_captures()
             ms, ms_plain, losses, losses_plain = [], [], [], []
             for fn, times, seen, first in ((sharded_step, ms, losses, 0), (plain_step, ms_plain, losses_plain, 0),
                                            (plain_step, ms_plain, losses_plain, SCALE_STEPS),
@@ -2615,7 +2634,9 @@ def scaleout_phase(rc, pe, loop, seed, device):
                 times.append(t)
                 seen.extend(ls)
             got_counts = counts()
-            want_counts = {k: 4 * SCALE_STEPS * v for k, v in per_step[route].items()}
+            cap = graph_captures() - cap
+            want_counts = {k: 4 * SCALE_STEPS * v + (cap if k.startswith("rollout_") else 0)
+                           for k, v in per_step[route].items()}
             assert all(math.isfinite(v) for v in losses), f"scale-out (i) {route}: losses {losses}"
             assert got_counts == want_counts, f"scale-out (i) {route}: launches {got_counts}"
             print(f"scale-out (i) {route}: 2 x {SCALE_STEPS} Adam steps sharded at world size 1, "
@@ -2706,7 +2727,8 @@ def scaleout_phase(rc, pe, loop, seed, device):
               f"{res['steps']}, losses {[round(v, 6) for v in res['losses']]})")
         assert rel <= 1e-6 and cos >= 0.99999, f"scale-out (ii) rank {r}: differs from world size 1"
         assert res["per_loss"]["rollout_fwd_f32"] == 1 and res["per_loss"]["rollout_bwd_f32"] == 1
-        assert res["steps"]["rollout_fwd_f32"] == SCALE_STEPS and all(math.isfinite(v) for v in res["losses"])
+        assert res["steps"]["rollout_fwd_f32"] == SCALE_STEPS + res["captures"]
+        assert all(math.isfinite(v) for v in res["losses"])
     out["fused_rollout_step_ms_dp2"] = max(res["ms"] for res in ranks)
     secs["ii"] = time.perf_counter() - t_ii
     print(f"scale-out: sub-phase seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}")
@@ -2777,14 +2799,17 @@ def task_loop(task, loop_cls, seed, device, dtype, lbfgs_iters, **policy):
 
 def counted_update(loop, counters, what):
     """A policy update with every count zeroed just before and read just
-    after; returns (info, the launches, seconds)."""
+    after; returns (info, the launches, the particle loss's graph captures
+    made meanwhile (``graph_captures``), seconds)."""
     for c in counters:
         c.reset_launches()
+    cap = graph_captures()
     before = {n: p.detach().clone() for n, p in loop.policy_model.named_parameters()}
     t0 = time.perf_counter()
     info = loop.update_policy()
     sync()
     seconds = time.perf_counter() - t0
+    cap = graph_captures() - cap
     delta = {k: v for c in counters for k, v in c.launches.items()}
     steps = loop.policy_spec.step_limit
     print(f"{what}: {steps} Adam steps in {1e3 * seconds:.1f} ms = {1e3 * seconds / steps:.2f} ms a step; "
@@ -2794,12 +2819,15 @@ def counted_update(loop, counters, what):
     moved = max(float((p.detach() - before[n]).abs().max())
                 for n, p in loop.policy_model.named_parameters() if p.requires_grad)
     assert moved > 0, f"{what}: the policy parameters did not change"
-    return info, delta, seconds
+    return info, delta, cap, seconds
 
 
-def expect(delta, per_step, steps, what):
-    """The launches must be ``per_step`` x ``steps`` and none of any other kernel."""
-    want = {k: per_step.get(k, 0) * steps for k in delta}
+def expect(delta, per_step, steps, what, captures=0):
+    """The launches must be ``per_step`` x ``steps`` and none of any other
+    kernel, plus one K6 launch of each kind the update runs for each of its
+    graph ``captures`` (the capture's side-stream warm-up)."""
+    want = {k: per_step.get(k, 0) * steps + (captures if k.startswith("rollout_") and per_step.get(k) else 0)
+            for k in delta}
     assert delta == want, f"{what}: launches {delta}, expected {want}"
 
 
@@ -2865,14 +2893,14 @@ def tasks_phase(counters, seed, device, step_limit, lbfgs_iters, jacobi_gap):
             target=loop.objective.target, precis=loop.objective.precis, num_steps=DP_T)
     route, smem = rc.fwd_plan(meta, DP_B, DP_M, f32)
     print(f"tasks (a): K6's forward takes the {route} route ({smem} bytes of shared memory a block)")
-    _, delta, sec = counted_update(loop, counters, "tasks (a) update through K6")
-    expect(delta, {"rollout_fwd_f32": 1, "rollout_bwd_f32": 1}, step_limit, "tasks (a) K6")
+    _, delta, cap, sec = counted_update(loop, counters, "tasks (a) update through K6")
+    expect(delta, {"rollout_fwd_f32": 1, "rollout_bwd_f32": 1}, step_limit, "tasks (a) K6", cap)
     out["dp_k6_step_ms"] = 1e3 * sec / step_limit
     rows.update({f"{k}/dp": delta[k] for k in rc.launches})
     loop.use_fused_rollout, loop.use_fused_paths = False, True
     loop.policy_spec = dataclasses.replace(loop.policy_spec, step_limit=TASK_K1_STEPS)
-    _, delta, sec = counted_update(loop, counters, "tasks (a) update through K1")
-    expect(delta, {"path_eval_fwd": DP_T, "path_eval_bwd_dx": DP_T}, TASK_K1_STEPS, "tasks (a) K1")
+    _, delta, cap, sec = counted_update(loop, counters, "tasks (a) update through K1")
+    expect(delta, {"path_eval_fwd": DP_T, "path_eval_bwd_dx": DP_T}, TASK_K1_STEPS, "tasks (a) K1", cap)
     out["dp_k1_step_ms"] = 1e3 * sec / TASK_K1_STEPS
     rows.update({f"{k}/dp": delta[k] for k in pe.launches})
     loop.use_fused_rollout = True
@@ -2900,10 +2928,10 @@ def tasks_phase(counters, seed, device, step_limit, lbfgs_iters, jacobi_gap):
     mm.episodes, mm.drift_model = loop.episodes, drift
     mm.policy_model = mm.build_policy()
     mm.use_fused_mm = True
-    _, delta, sec = counted_update(mm, counters, "tasks (b) use_fused_mm update, float64 loss")
+    _, delta, cap, sec = counted_update(mm, counters, "tasks (b) use_fused_mm update, float64 loss")
     expect(delta, {"pair_contract_fwd_f64": DP_T, "pair_contract_bwd_frozen_f64": DP_T,
                    "pair_contract_fwd_f32": DP_T, "pair_contract_bwd_f32": DP_T}, TASK_MM_STEPS,
-           "tasks (b) K2")
+           "tasks (b) K2", cap)
     out["dp_mm_step_ms"] = 1e3 * sec / TASK_MM_STEPS
     rows.update({f"{k}/dp": delta[k] for k in kc.launches})
     losses = mm_losses(mm)
@@ -2919,11 +2947,11 @@ def tasks_phase(counters, seed, device, step_limit, lbfgs_iters, jacobi_gap):
     wm.episodes, wm.drift_model, wm.policy_model = loop.episodes, drift, mm.policy_model
     wm.use_fused_match = True
     assert wm._fused_match_on
-    _, delta, sec = counted_update(wm, counters, "tasks (b) use_fused_match update, float32")
+    _, delta, cap, sec = counted_update(wm, counters, "tasks (b) use_fused_match update, float32")
     # as the whole-match slice counts them, at T = 50
     expect(delta, {"svgp_match_fwd_f32": 2 * DP_T, "svgp_match_bwd_frozen_f32": DP_T,
                    "svgp_match_bwd_f32": DP_T, "enc_match_fwd_f32": DP_T + 1, "enc_match_bwd_f32": DP_T,
-                   "psd_boost_f32": DP_T, "euler_update_f32": DP_T}, TASK_MM_STEPS, "tasks (b) K3-K5")
+                   "psd_boost_f32": DP_T, "euler_update_f32": DP_T}, TASK_MM_STEPS, "tasks (b) K3-K5", cap)
     out["dp_match_step_ms"] = 1e3 * sec / TASK_MM_STEPS
     rows.update({f"{k}/dp": delta[k] for c in (mc, ec, gc) for k in c.launches})
     with torch.no_grad():
@@ -2954,15 +2982,15 @@ def tasks_phase(counters, seed, device, step_limit, lbfgs_iters, jacobi_gap):
     assert math.isfinite(info_d["loss"]) and car.drift_model.num_inducing == MC_M
     assert car.policy_model.num_inducing == MC_MP
     car.use_fused_mm = True
-    _, delta, _ = counted_update(car, counters, "tasks (c) use_fused_mm update, float32 loss")
+    _, delta, cap, _ = counted_update(car, counters, "tasks (c) use_fused_mm update, float32 loss")
     expect(delta, {"pair_contract_fwd_f32": 2 * MC_T, "pair_contract_bwd_frozen_f32": MC_T,
-                   "pair_contract_bwd_f32": MC_T}, TASK_MM_STEPS, "tasks (c) K2")
+                   "pair_contract_bwd_f32": MC_T}, TASK_MM_STEPS, "tasks (c) K2", cap)
     pw = task_loop("mountain_car", PathwisePILCO, seed, device, f32, lbfgs_iters, step_limit=TASK_K1_STEPS)
     pw.episodes, pw.drift_model, pw.policy_model = car.episodes, car.drift_model, car.policy_model
     pw.use_fused_paths = pw.use_fused_rollout = True
     assert not pw._fused_rollout_eligible(pw.drift_model, pw.policy_model)  # no encoder
-    _, delta, _ = counted_update(pw, counters, "tasks (c) pathwise update through K1")
-    expect(delta, {"path_eval_fwd": MC_T, "path_eval_bwd_dx": MC_T}, TASK_K1_STEPS, "tasks (c) K1")
+    _, delta, cap, _ = counted_update(pw, counters, "tasks (c) pathwise update through K1")
+    expect(delta, {"path_eval_fwd": MC_T, "path_eval_bwd_dx": MC_T}, TASK_K1_STEPS, "tasks (c) K1", cap)
     rows.update({f"{k}/mc": delta[k] for k in pe.launches})
     ep = car.step()
     sync()

@@ -17,7 +17,7 @@ from torch import nn
 
 from .. import config
 from ..ops.linalg import bsolve_triangular as solve_triangular
-from ..ops.linalg import safe_cholesky, safe_cholesky_entrywise
+from ..ops.linalg import safe_cholesky, safe_cholesky_entrywise, safe_cholesky_on_device
 from ..utils import bijectors as bij
 from ..utils import tracing
 from .kernels import RBF
@@ -72,10 +72,14 @@ def kuu(model: SVGP, jitter: Optional[float] = None) -> torch.Tensor:
 
 
 @tracing.span("kuu.factor")
-def chol_kuu(model: SVGP) -> torch.Tensor:
+def chol_kuu(model: SVGP, on_device: bool = False) -> torch.Tensor:
     """(L, M, M) Cholesky of the jittered inducing covariances, with
-    escalating-jitter retries (host syncs ``sync.kuu``)."""
+    escalating-jitter retries (host syncs ``sync.kuu``), or with
+    ``on_device`` the same retries decided on the device, with no host sync
+    (``safe_cholesky_on_device``)."""
     k = model.kernel.gram(model.z)
+    if on_device:
+        return safe_cholesky_on_device(k, config.default_jitter(model.z.dtype))
     return safe_cholesky(k, config.default_jitter(model.z.dtype), site="kuu")
 
 

@@ -11,7 +11,8 @@ Sampling is split in two so that tests can feed the JAX package's draws:
 ``eps`` from a ``torch.Generator``; ``paths_from_noise`` turns given noise
 into a ``PathState``. ``fused_rollout_operands`` packs a policy, a drift
 and its paths into the operands of the whole-rollout kernel op
-(ops/rollout_cuda.py).
+(ops/rollout_cuda.py); ``pathwise_rollout_loss_fused`` runs the packing and
+the op as two CUDA graphs on the card (ops/graphs.py).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops import graphs
 from ..ops.linalg import bcho_solve
 from ..ops.linalg import bsolve_triangular as solve_triangular
 from ..ops.path_eval_cuda import eval_fused_operands, fused_operands
@@ -224,8 +226,9 @@ def _policy_alpha(policy_model: SVGP) -> torch.Tensor:
     """(Lp, Mp) weights of the policy's deterministic mean, Kuu^{-1} q_mu
     (Luu^{-T} q_mu when whitened), scaled by the kernel variance: the
     alpha of moment_matching/gp.py's svgp_match_cache without the factors
-    a moment match needs and the rollout does not."""
-    luu = chol_kuu(policy_model)
+    a moment match needs and the rollout does not. Kuu's escalation is
+    decided on the device, so a CUDA graph can hold it."""
+    luu = chol_kuu(policy_model, on_device=True)
     q_mu = policy_model.q_mu.T[..., None]  # (Lp, Mp, 1)
     if policy_model.whiten:
         alpha = solve_triangular(luu, q_mu, lower=True, trans=1)[..., 0]
@@ -304,9 +307,21 @@ def pathwise_rollout_loss_fused(policy_model: SVGP, drift_model, paths: PathStat
                                 dt: float = 1.0, num_steps: int = 30) -> torch.Tensor:
     """Per-particle whole-rollout pathwise loss (S,) through
     ``FusedRolloutLoss``. The drift, its paths and x0 are constants of the
-    differentiated computation."""
-    meta, ops = fused_rollout_operands(
-        policy_model, drift_model, paths, state_dim=x0.shape[-1], active_dims=active_dims,
-        action_scale=action_scale, target=target, precis=precis, dt=dt, num_steps=num_steps,
-    )
-    return FusedRolloutLoss.apply(meta, x0.contiguous(), *ops)
+    differentiated computation.
+
+    On the card, with grad enabled, the operand packing and the op, forward
+    and backward, are replayed from CUDA graphs (``ops/graphs.py``): x0 and
+    the paths are copied in, the models' tensors, target and precis read in
+    place."""
+    kw = dict(state_dim=x0.shape[-1], active_dims=tuple(int(a) for a in active_dims),
+              action_scale=float(action_scale), dt=float(dt), num_steps=int(num_steps))
+
+    def costs(x0, omega, phase, w, v):
+        meta, ops = fused_rollout_operands(policy_model, drift_model, PathState(omega, phase, w, v),
+                                           target=target, precis=precis, **kw)
+        return FusedRolloutLoss.apply(meta, x0.contiguous(), *ops)
+
+    consts = (tuple(sorted(kw.items())), type(drift_model), policy_model.whiten,
+              getattr(drift_model, "whiten", None), (policy_model.kernel.ls_low, policy_model.kernel.ls_high),
+              (drift_model.kernel.ls_low, drift_model.kernel.ls_high))
+    return graphs.graphed(costs, (x0, *paths), (policy_model, drift_model), (target, precis), consts)

@@ -36,6 +36,11 @@ def cholesky_nan(a):
     return chol.masked_fill((info != 0)[..., None, None], float("nan"))
 
 
+def _failed(chol, info):
+    """Per matrix: the factorization failed (``info``) or left a non-finite factor."""
+    return (info != 0) | ~torch.isfinite(chol).all(dim=(-2, -1))
+
+
 def _escalating_cholesky(a, extra_jitter, max_escalations, factor, entrywise, site):
     """``chol(a + extra_jitter * I)``, retried with the jitter raised by
     ``factor`` up to ``max_escalations`` times while a factor fails; with
@@ -51,7 +56,7 @@ def _escalating_cholesky(a, extra_jitter, max_escalations, factor, entrywise, si
 
     def attempt(j):
         chol, info = torch.linalg.cholesky_ex(a + j * eye)
-        return chol, (info != 0) | ~torch.isfinite(chol).all(dim=(-2, -1))
+        return chol, _failed(chol, info)
 
     chol, bad = attempt(extra_jitter)
     for level in range(1, max_escalations + 1):
@@ -71,6 +76,30 @@ def safe_cholesky(a, extra_jitter, max_escalations: int = 2, factor: float = 100
     whole batch when any matrix fails, as the JAX version does unbatched.
     ``site`` names its host syncs."""
     return _escalating_cholesky(a, extra_jitter, max_escalations, factor, False, site)
+
+
+def safe_cholesky_on_device(a, extra_jitter, max_escalations: int = 2, factor: float = 100.0):
+    """``safe_cholesky`` with no host sync, so a CUDA graph can hold it: the
+    whole batch escalates when any matrix fails, at most ``max_escalations``
+    times by ``factor``, and a matrix whose last attempt fails comes back as
+    NaN, as there.
+
+    The attempts below the last level are probed without gradient, and the
+    jitter of the first level at which no matrix fails (else the last) is
+    picked on the device as a 0-dim tensor; then one differentiable
+    factorization runs at it. With no failure the factor and its gradient
+    are ``safe_cholesky``'s bit for bit (``a + j_t I`` is ``a + j I``). No
+    select between differentiable factors: a failed one's NaN would reach
+    the gradient through the branch not taken."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    with torch.no_grad():
+        probe = a.detach()
+        jitter = torch.full((), extra_jitter * factor**max_escalations, dtype=a.dtype, device=a.device)
+        for level in reversed(range(max_escalations)):
+            j = extra_jitter * factor**level
+            jitter = torch.where(_failed(*torch.linalg.cholesky_ex(probe + j * eye)).any(), jitter, j)
+    chol, info = torch.linalg.cholesky_ex(a + jitter * eye)
+    return torch.where(_failed(chol, info)[..., None, None], torch.full_like(chol, float("nan")), chol)
 
 
 def safe_cholesky_entrywise(a, extra_jitter, max_escalations: int = 2, factor: float = 100.0,

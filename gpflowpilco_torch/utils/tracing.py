@@ -28,7 +28,10 @@ threads must not hold spans open, or sync, at once.
 the device: it returns ``bool(flag)``, counts the read under ``site`` and in
 the open step's record, and times the wait in a ``sync.<site>`` span. The
 kernel modules' ``launches`` dicts are registered here, so ``counters()``
-shows them beside the host syncs under their own keys.
+shows them beside the host syncs under their own keys. ``graph_event(kind)``
+counts the particle loss's CUDA graphs (``ops/graphs.py``): ``captures``,
+``replays`` (forward replays, also counted in the open step's record) and
+``eager`` calls, shown as ``graphs.<kind>``.
 
     from gpflowpilco_torch.utils import tracing
     tracing.steps()[-1].spans      # the newest step's span tree
@@ -48,6 +51,7 @@ from torch.autograd.profiler import record_function
 
 RING = 16384  # step records held
 SLOTS = 20  # spans a step record holds
+GRAPH_EVENTS = ("captures", "replays", "eager")  # graph_event's kinds
 
 _now = time.perf_counter_ns
 _profiling = torch._C._autograd._profiler_enabled
@@ -72,6 +76,7 @@ class Step(NamedTuple):
     host_syncs: int
     dropped: int  # spans beyond SLOTS, not held
     spans: Tuple[Span, ...]  # in the order they opened
+    graph_replays: int  # forward replays of the particle loss's CUDA graph
 
 
 class _Store:
@@ -89,7 +94,7 @@ class _Store:
 
     def reset(self):
         # per record, written as its step closes: (step id, candidate, profiled,
-        # aborted, host syncs, spans held, spans dropped)
+        # aborted, host syncs, spans held, spans dropped, graph replays)
         self.closed: List[Optional[tuple]] = [None] * RING
         self.seq = 0  # the newest step's id
         self.cur = -1  # ring index of the open step, -1 for none
@@ -102,11 +107,12 @@ class _Store:
         self.push, self.pop = self.open.append, self.open.pop
         self.site_syncs: Dict[str, int] = collections.defaultdict(int)
         self.synced = 0  # host syncs in all
+        self.graphs = dict.fromkeys(GRAPH_EVENTS, 0)
 
     def record(self, index: int) -> Step:
         """The closed record ``index``. Spans nest (one stack), so a span's
         parent is the latest opened before it that ends no earlier."""
-        seq, candidate, profiled, aborted, syncs, n, dropped = self.closed[index]
+        seq, candidate, profiled, aborted, syncs, n, dropped, replays = self.closed[index]
         base = index * SLOTS
         spans: List[Span] = []
         outer: List[int] = []
@@ -116,7 +122,7 @@ class _Store:
                 outer.pop()
             spans.append(Span(self.names[start & 255], outer[-1] if outer else -1, start >> 8, end))
             outer.append(len(spans) - 1)
-        return Step(seq, candidate, profiled, aborted, syncs, dropped, tuple(spans))
+        return Step(seq, candidate, profiled, aborted, syncs, dropped, tuple(spans), replays)
 
 
 _store = _Store()
@@ -190,7 +196,7 @@ class step:
     """``with step(name, candidate):``: a step record, its top span ``name``.
     One object serves a loop's iterations in turn."""
 
-    __slots__ = ("top", "candidate", "saved", "seq", "synced")
+    __slots__ = ("top", "candidate", "saved", "seq", "synced", "replayed")
 
     def __init__(self, name: str, candidate: int = -1):
         self.top = span(name)
@@ -203,7 +209,7 @@ class step:
         rec = s.cur = self.seq % RING
         s.slots, s.dropped = iter(range(rec * SLOTS, (rec + 1) * SLOTS)), 0
         s.profiled = _profiling()
-        self.synced = s.synced
+        self.synced, self.replayed = s.synced, s.graphs["replays"]
         self.top.__enter__()
         return self
 
@@ -211,7 +217,8 @@ class step:
         self.top.__exit__()
         s = _store
         s.closed[s.cur] = (self.seq, self.candidate, s.profiled or _profiling(), exc_type is not None,
-                           s.synced - self.synced, SLOTS - s.slots.__length_hint__(), s.dropped)
+                           s.synced - self.synced, SLOTS - s.slots.__length_hint__(), s.dropped,
+                           s.graphs["replays"] - self.replayed)
         s.cur, s.slots, s.dropped, s.profiled = self.saved
         return False
 
@@ -227,10 +234,21 @@ def host_sync(site: str, flag: torch.Tensor) -> bool:
     return value
 
 
+def graph_event(kind: str) -> None:
+    """Count one of ``GRAPH_EVENTS``: a capture, a forward replay (counted in
+    the open step's record too) or an eager call of a graphed region."""
+    _store.graphs[kind] += 1
+
+
 def register_launches(counts: Dict[str, int]) -> Dict[str, int]:
     """Show a kernel module's launch counts in ``counters()``; returns them."""
     _store.launches.append(counts)
     return counts
+
+
+def launch_counts() -> List[Dict[str, int]]:
+    """The registered launch-count dicts, in registration order."""
+    return list(_store.launches)
 
 
 def steps() -> List[Step]:
@@ -245,15 +263,18 @@ def steps() -> List[Step]:
 
 
 def counters() -> Dict[str, int]:
-    """``host_syncs.<site>`` for each site that has synced, and every
-    registered launch count under its own key."""
+    """``host_syncs.<site>`` for each site that has synced, ``graphs.<kind>``
+    for each of ``GRAPH_EVENTS``, and every registered launch count under its
+    own key."""
     out = {f"host_syncs.{site}": n for site, n in sorted(_store.site_syncs.items())}
+    out.update({f"graphs.{kind}": n for kind, n in _store.graphs.items()})
     for counts in _store.launches:
         out.update(counts)
     return out
 
 
 def reset():
-    """Drop the held records and the host-sync counts, with no span open
-    (launch counts are the kernel modules', reset by ``reset_launches``)."""
+    """Drop the held records, the host-sync and the graph counts, with no
+    span open (launch counts are the kernel modules', reset by
+    ``reset_launches``)."""
     _store.reset()

@@ -957,8 +957,10 @@ def test_torch_rollout_wrapper_raises_on_gpu():
 def test_torch_multistart_through_rollout_kernel_on_gpu():
     """A K=2 x 3-step multistart policy update of a small pathwise loop on
     the card with use_fused_rollout: one K6 forward and one backward per
-    candidate step (6 of each), no K1, and the winner is the argmin of the
-    candidates' best-seen losses."""
+    candidate step (6 of each), and one more of each where a candidate's
+    second step warms its loss's CUDA graphs up before the capture
+    (ops/graphs.py), no K1, and the winner is the argmin of the candidates'
+    best-seen losses."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     import pathlib
@@ -984,7 +986,8 @@ def test_torch_multistart_through_rollout_kernel_on_gpu():
     info = loop.update_policy()
     torch.cuda.synchronize()
     assert loop._fused_rollout_eligible(loop.drift_model, loop.policy_model)
-    assert rc.launches == {"rollout_fwd_f32": 6, "rollout_fwd_f64": 0, "rollout_bwd_f32": 6, "rollout_bwd_f64": 0}
+    assert rc.launches == {"rollout_fwd_f32": 6 + 2, "rollout_fwd_f64": 0, "rollout_bwd_f32": 6 + 2,
+                           "rollout_bwd_f64": 0}
     assert not any(pe.launches.values())
     assert len(info["restart_losses"]) == 2 and info["losses"].shape == (3,)
     assert info["best_restart"] == int(np.argmin(info["restart_losses"]))
@@ -1062,3 +1065,235 @@ def test_torch_sharded_step_world1_on_gpu(route):
             assert torch.isfinite(step(pol, torch.Generator(device=dev).manual_seed(8 + i)))
     finally:
         dist.destroy_process_group()
+
+
+def _graph_case(case, dev):
+    """(policy, frozen drift, draw(generator) -> (paths, x0), the loss's
+    keywords) of a graphed particle-loss case: the benchmark's cartpole at
+    its published widths in float64 and float32, the double pendulum's at
+    its own in float64 (K6's forward on its ring route), and a 4-member
+    stacked GPR drift under the cartpole policy."""
+    import json
+
+    from benchmark.harness.inputs import dims, make_inputs
+    from benchmark.harness.spec import BENCH_DIR
+    from benchmark.harness.system import build_system
+    from gpflowpilco_torch.models.pathwise import generate_paths_gpr, generate_paths_svgp
+
+    task = "double-pendulum" if case.startswith("double-pendulum") else "cartpole-swingup"
+    cfg = json.loads((BENCH_DIR / "configs" / f"{task}-pathwise.json").read_text())
+    dtype = torch.float32 if case.endswith("f32") else torch.float64
+    system = build_system(cfg, {"route": "fused_rollout"}, make_inputs(cfg, 2**33 + 5, dtype, dev), 7, dev)
+    loop, n = system.loop, dims(cfg)
+    kw = dict(active_dims=tuple(cfg["active_dims"]), action_scale=cfg["action_scale"],
+              target=loop.objective.target, precis=loop.objective.precis, dt=1.0, num_steps=n["T"])
+    if case.startswith("stacked-gpr"):
+        drift, members, per, bases = _stacked_gpr(4, 60, n["Dxu"], n["D"], dev, seed=3), 4, 64, 256
+        kw["num_steps"] = 10
+
+        def draw(gen):
+            paths = generate_paths_gpr(drift, gen, per, bases)
+            return paths, loop.episode_spec.sample(gen, (members * per,), dtype=dtype, device=dev)
+    else:
+        drift = system.drift
+
+        def draw(gen):
+            paths = generate_paths_svgp(drift, gen, n["S"], n["B"])
+            return paths, loop.episode_spec.sample(gen, (n["S"],), dtype=dtype, device=dev)
+    return system.policy, drift, draw, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["cartpole-f64", "cartpole-f32", "double-pendulum-ring-f64", "stacked-gpr-f64"])
+def test_torch_graphed_particle_loss_matches_eager_on_gpu(case):
+    """Over 5 Adam steps the particle loss replayed from its CUDA graphs
+    (ops/graphs.py: the first call eager, the second warms up, captures and
+    replays) gives costs, gradients and leaves bit for bit those of the
+    eager ``FusedRolloutLoss.apply`` path on the same paths and x0, and each
+    replayed step adds one K6 forward and one backward launch."""
+    import copy
+
+    from gpflowpilco_torch.models.pathwise import fused_rollout_operands, pathwise_rollout_loss_fused
+    from gpflowpilco_torch.ops import graphs
+    from gpflowpilco_torch.ops import rollout_cuda as rc
+    from gpflowpilco_torch.utils import tracing
+
+    dev = _gpu_or_skip()
+    policy, drift, draw, kw = _graph_case(case, dev)
+    graphs.clear()
+    tracing.reset()
+    models = [copy.deepcopy(policy) for _ in range(2)]
+    leaves = [[p for p in m.parameters() if p.requires_grad] for m in models]
+    opts = [torch.optim.Adam(ls, lr=0.01) for ls in leaves]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sfx = "f32" if case.endswith("f32") else "f64"
+    for step in range(5):
+        paths, x0 = draw(gen)
+        before = dict(rc.launches)
+        got = pathwise_rollout_loss_fused(models[0], drift, paths, x0, **kw)
+        got.mean().backward()
+        torch.cuda.synchronize()
+        moved = {k: rc.launches[k] - before[k] for k in before}
+        meta, ops = fused_rollout_operands(models[1], drift, paths, state_dim=x0.shape[-1], **kw)
+        if case.startswith("double-pendulum"):
+            assert rc.fwd_plan(meta, ops[6].shape[2], ops[8].shape[2], x0.dtype)[0] == "ring"
+        want = rc.FusedRolloutLoss.apply(meta, x0.contiguous(), *ops)
+        want.mean().backward()
+        assert torch.equal(got, want), step
+        assert all(torch.equal(a.grad, b.grad) for a, b in zip(*leaves)), step
+        for opt in opts:
+            opt.step()
+            opt.zero_grad()
+        assert all(torch.equal(a, b) for a, b in zip(*leaves)), step
+        per_step = 2 if step == 1 else 1  # the capture's warm-up, then its replay
+        assert moved == {**dict.fromkeys(moved, 0), f"rollout_fwd_{sfx}": per_step,
+                         f"rollout_bwd_{sfx}": per_step}, step
+    counts = tracing.counters()
+    assert (counts["graphs.eager"], counts["graphs.captures"], counts["graphs.replays"]) == (1, 1, 4)
+    graphs.clear()
+
+
+@pytest.mark.gpu
+def test_torch_graphed_particle_loss_recaptures_and_stays_eager_without_grad_on_gpu():
+    """A new leaf set is a new key (eager, then a capture); a call with grad
+    disabled runs eager and gives the replay's costs; a backward after the
+    region's next forward replay raises."""
+    import copy
+
+    from gpflowpilco_torch.models.pathwise import pathwise_rollout_loss_fused
+    from gpflowpilco_torch.ops import graphs
+    from gpflowpilco_torch.utils import tracing
+
+    dev = _gpu_or_skip()
+    policy, drift, draw, kw = _graph_case("cartpole-f64", dev)
+    graphs.clear()
+    tracing.reset()
+    paths, x0 = draw(torch.Generator(device=dev).manual_seed(12))
+    counts = lambda: tuple(tracing.counters()[f"graphs.{k}"] for k in ("eager", "captures", "replays"))  # noqa: E731
+    first = copy.deepcopy(policy)
+    for _ in range(3):
+        replayed = pathwise_rollout_loss_fused(first, drift, paths, x0, **kw)
+        replayed.mean().backward()
+    assert counts() == (1, 1, 2)
+    with torch.no_grad():
+        quiet = pathwise_rollout_loss_fused(first, drift, paths, x0, **kw)
+    assert counts() == (2, 1, 2) and torch.equal(quiet, replayed)
+    second = copy.deepcopy(policy)
+    for _ in range(2):
+        pathwise_rollout_loss_fused(second, drift, paths, x0, **kw).mean().backward()
+    assert counts() == (3, 2, 3) and len(graphs._cache.entries) == 2
+    stale = pathwise_rollout_loss_fused(second, drift, paths, x0, **kw)
+    pathwise_rollout_loss_fused(second, drift, paths, x0, **kw).mean().backward()
+    with pytest.raises(RuntimeError, match="another forward"):
+        stale.mean().backward()
+    graphs.clear()
+
+
+@pytest.mark.gpu
+def test_torch_graphed_particle_loss_kernels_reach_the_profiler_on_gpu():
+    """Replayed steps under torch.profiler: the trace holds K6's forward and
+    backward kernels once a step (the benchmark's traced runs read K6's
+    time and roofline from them)."""
+    import copy
+
+    from gpflowpilco_torch.models.pathwise import pathwise_rollout_loss_fused
+    from gpflowpilco_torch.ops import graphs
+    from gpflowpilco_torch.utils import tracing
+
+    dev = _gpu_or_skip()
+    policy, drift, draw, kw = _graph_case("cartpole-f64", dev)
+    graphs.clear()
+    tracing.reset()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    model = copy.deepcopy(policy)
+    for _ in range(2):  # eager, then the capture
+        pathwise_rollout_loss_fused(model, drift, *draw(gen), **kw).mean().backward()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(3):
+            with tracing.step("opt.iter"):
+                pathwise_rollout_loss_fused(model, drift, *draw(gen), **kw).mean().backward()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("fwd_warp" in k for k in names) == 3 and sum("bwd_jac" in k for k in names) == 3, sorted(set(names))
+    assert all(r.graph_replays == 1 and r.profiled for r in tracing.steps()[-3:])
+    graphs.clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("escalations", [1, 2, "all"])
+def test_torch_graphed_particle_loss_escalates_the_policy_kuu_as_the_host_does_on_gpu(escalations, monkeypatch):
+    """The policy's Kuu factor inside the replayed graphs escalates its jitter
+    as ``safe_cholesky`` does on the host: with the policy's gram shifted so
+    that its smallest eigenvalue is lifted by the second or the third jitter
+    level, or by none, the replayed costs, gradients and leaves over 5 Adam
+    steps are bit for bit those of the eager ``FusedRolloutLoss.apply`` path
+    whose policy factor escalates on the host (``chol_kuu`` without
+    ``on_device``); NaN costs where every attempt fails. An Adam step is
+    taken only on finite gradients, as the optimizer's guard does."""
+    import copy
+
+    from gpflowpilco_torch import config
+    from gpflowpilco_torch.models import gp
+    from gpflowpilco_torch.models import pathwise
+    from gpflowpilco_torch.ops import graphs
+    from gpflowpilco_torch.ops import rollout_cuda as rc
+    from gpflowpilco_torch.utils import tracing
+
+    dev = _gpu_or_skip()
+    policy, drift, draw, kw = _graph_case("cartpole-f64", dev)
+    f64 = torch.float64
+    j0 = config.default_jitter(f64)
+    # the smallest eigenvalue after the shift: -c j0, lifted by 100 j0, by 1e4 j0, or by neither
+    c = {1: 50.0, 2: 5e3, "all": 5e5}[escalations]
+    shift = torch.zeros((), dtype=f64, device=dev)  # read in place by the captured graphs
+    models = [copy.deepcopy(policy) for _ in range(2)]
+    grams = [m.kernel.gram for m in models]
+    for m, g in zip(models, grams):
+        m.kernel.gram = lambda a, b=None, g=g: (
+            g(a) - shift * torch.eye(a.shape[-2], dtype=a.dtype, device=a.device) if b is None else g(a, b))
+    leaves = [[p for p in m.parameters() if p.requires_grad] for m in models]
+    opts = [torch.optim.Adam(ls, lr=0.01) for ls in leaves]
+
+    def bits(t):
+        t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
+        return t.view(torch.int64)
+
+    def kuu_syncs():
+        return tracing.counters()["host_syncs.kuu"]
+
+    graphs.clear()
+    tracing.reset()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for step in range(5):
+        with torch.no_grad():
+            shift.copy_(torch.linalg.eigvalsh(grams[0](models[0].z)).min() + c * j0)
+            k = models[0].kernel.gram(models[0].z)
+            eye = torch.eye(k.shape[-1], dtype=f64, device=dev)
+            lifted = [bool((torch.linalg.cholesky_ex(k + j0 * 100.0**lv * eye).info == 0).all()) for lv in range(3)]
+        assert (lifted.index(True) if any(lifted) else "all") == escalations, (step, lifted)
+        paths, x0 = draw(gen)
+        syncs = kuu_syncs()
+        got = pathwise.pathwise_rollout_loss_fused(models[0], drift, paths, x0, **kw)
+        got.mean().backward()
+        torch.cuda.synchronize()
+        assert kuu_syncs() == syncs, step  # the policy's factor decided on the device
+        with monkeypatch.context() as mp:
+            mp.setattr(pathwise, "chol_kuu", lambda m, on_device=False: gp.chol_kuu(m))
+            meta, ops = pathwise.fused_rollout_operands(models[1], drift, paths, state_dim=x0.shape[-1], **kw)
+        assert kuu_syncs() == syncs + 2, step  # the host checks at the first and the second level
+        want = rc.FusedRolloutLoss.apply(meta, x0.contiguous(), *ops)
+        want.mean().backward()
+        assert torch.equal(bits(got), bits(want)), step
+        assert all(torch.equal(bits(a.grad), bits(b.grad)) for a, b in zip(*leaves)), step
+        assert bool(torch.isnan(got).all()) == (escalations == "all"), step
+        assert bool(torch.isfinite(got).all()) == (escalations != "all"), step
+        if all(bool(torch.isfinite(p.grad).all()) for p in leaves[0]):
+            for opt in opts:
+                opt.step()
+        for opt in opts:
+            opt.zero_grad()
+        assert all(torch.equal(a, b) for a, b in zip(*leaves)), step
+    counts = tracing.counters()
+    assert (counts["graphs.eager"], counts["graphs.captures"], counts["graphs.replays"]) == (1, 1, 4)
+    graphs.clear()

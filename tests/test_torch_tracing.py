@@ -30,7 +30,7 @@ CELL = "cartpole-k6-f64"
 TINY = {"particles": 32, "bases": 64, "horizon": 0.5, "drift": {"num_inducing": 24},
         "policy": {"num_inducing": 8}}
 NEW_METRICS = ("host_syncs_per_step", "sync_wait_ms", "dispatch_ms", "operands_ms", "backward_ms",
-               "update_ms", "first_step_ms")
+               "update_ms", "first_step_ms", "loss_graph_replays_per_step")
 HARNESS_SPANS = {"step", "paths", "rollout_fwd", "backward_update"}  # benchmark/harness/trace.py's
 KERNEL_MODULES = ("path_eval", "enc_match", "gpr_match", "kexp", "mm_glue", "mm_match", "rollout")
 
@@ -64,8 +64,11 @@ def test_pathwise_k6_route_step_span_tree_and_self_times():
         ("opt.guard", "opt.iter"), ("opt.update", "opt.iter"),
         ("paths.draw", "opt.loss"), ("paths.condition", "opt.loss"), ("rollout.operands", "opt.loss"),
         ("kuu.factor", "paths.condition"), ("kuu.factor", "rollout.operands"),
-        ("sync.kuu", "kuu.factor"), ("sync.kuu", "kuu.factor"), ("sync.guard", "opt.guard"),
+        ("sync.kuu", "kuu.factor"), ("sync.guard", "opt.guard"),
     ])
+    # the drift's Kuu syncs, the policy's (inside the particle loss) does not
+    assert [rec.spans[s.parent].parent for s in rec.spans if s.name == "sync.kuu"] == [
+        next(i for i, s in enumerate(rec.spans) if s.name == "paths.condition")]
     for i, s in enumerate(rec.spans):
         kids = [c for c in rec.spans if c.parent == i]
         assert s.end_ns >= s.start_ns
@@ -75,12 +78,13 @@ def test_pathwise_k6_route_step_span_tree_and_self_times():
 
 
 def test_host_syncs_three_a_step_and_one_more_per_escalation(monkeypatch):
-    """The drift's and the policy's Kuu check once each, the guard once; a
-    drift Kuu that needs one jitter escalation checks once more."""
+    """The drift's Kuu checks once and the guard once (the policy's Kuu
+    escalates on the device, with no sync); a drift Kuu that needs one
+    jitter escalation checks once more."""
     system = _system()
     rec = _steps(system, 1)[-1]
-    assert rec.host_syncs == 3
-    assert tracing.counters()["host_syncs.kuu"] == 2 and tracing.counters()["host_syncs.guard"] == 1
+    assert rec.host_syncs == 2
+    assert tracing.counters()["host_syncs.kuu"] == 1 and tracing.counters()["host_syncs.guard"] == 1
     gram = system.drift.kernel.gram
 
     def shifted(a, b=None):  # a negative eigenvalue that the first jitter does not lift, the second does
@@ -89,8 +93,8 @@ def test_host_syncs_three_a_step_and_one_more_per_escalation(monkeypatch):
 
     monkeypatch.setattr(system.drift.kernel, "gram", shifted)
     rec = _steps(system, 1)[-1]
-    assert rec.host_syncs == 4 and tracing.counters()["host_syncs.kuu"] == 3
-    assert [s.name for s in rec.spans].count("sync.kuu") == 3
+    assert rec.host_syncs == 3 and tracing.counters()["host_syncs.kuu"] == 2
+    assert [s.name for s in rec.spans].count("sync.kuu") == 2
     assert "opt.update" in [s.name for s in rec.spans]  # the step's gradients were finite
 
 
@@ -186,5 +190,6 @@ def test_run_cell_reads_the_new_metrics_on_the_cpu_route():
     assert result["correct"] and result["attempted"] > 0
     metrics = result["metrics"]
     assert all(math.isfinite(metrics[m]["value"]) for m in NEW_METRICS if m in metrics)
-    assert metrics["host_syncs_per_step"] == {"value": 3.0, "unit": "syncs"}
+    assert metrics["host_syncs_per_step"] == {"value": 2.0, "unit": "syncs"}
+    assert metrics["loss_graph_replays_per_step"] == {"value": 0.0, "unit": "replays"}  # eager here
     assert {"dispatch_ms", "operands_ms", "backward_ms", "update_ms", "first_step_ms"} <= set(metrics)
