@@ -12,8 +12,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..counts.paths import step_ops
-from ..reference.pathwise import reference_steps
-from .check import compare, lines, verdict
+from ..reference.pathwise import kept_particles, reference_steps
+from .check import checks, compare, lines, verdict
 from .inputs import STEPS, derived_seed, dims, make_inputs
 from .spec import ROOT, load_cell, metric_reader
 
@@ -103,10 +103,14 @@ def first_steps(cfg: dict, traffic: dict, seed: int, device, seconds: float = 0.
 
 
 def reference_record(cfg: dict, traffic: dict, inputs: dict, step_seed: int, *,
-                     control: bool = False, half_batch: bool = False) -> dict:
+                     control: bool = False, half_batch: bool = False,
+                     kept: Optional[torch.Tensor] = None, detach_last: bool = False,
+                     nudge: bool = False) -> dict:
     """The reference's record in float64, or, with ``control``, the reference
     in the traffic's control precision, the one below the cell's (its
-    Cholesky factors still in the cell's precision)."""
+    Cholesky factors still in the cell's precision); with ``kept``, also the
+    kept particles' gradient. ``half_batch``, ``detach_last`` and ``nudge``
+    pass to ``reference_steps``."""
     draw = DTYPES[traffic["dtype"]]
     dtype, factor = torch.float64, torch.float64
     if control:
@@ -114,7 +118,50 @@ def reference_record(cfg: dict, traffic: dict, inputs: dict, step_seed: int, *,
     return reference_steps(cfg, inputs["drift"], inputs["policy"], step_seed,
                            traffic["checked_steps"], draw_dtype=draw, dtype=dtype,
                            jitter=cfg["jitter"][traffic["dtype"]], factor_dtype=factor,
-                           half_batch=half_batch)
+                           half_batch=half_batch, kept=kept, detach_last=detach_last, nudge=nudge)
+
+
+def kept_of(cell, cfg: dict, inputs: dict, step_seed: int, tau: Optional[float] = None):
+    """The cell's kept particles (S,) from the reference and its twin alone,
+    or None where its limits do not name ``grad_gap_kept`` (and no ``tau``
+    is given)."""
+    tau = cell.kept_tau if tau is None and "grad_gap_kept" in cell.limits else tau
+    if tau is None:
+        return None
+    dtype = cell.traffic["dtype"]
+    return kept_particles(cfg, inputs["drift"], inputs["policy"], step_seed, DTYPES[dtype],
+                          cfg["jitter"][dtype], tau)
+
+
+def kept_gradient(steps, step_seed: int, kept: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The first step's raw gradient of the kept particles' mean cost through
+    the port's own step: the window's system with its leaves set back to
+    their start and its generator to the step seed, then ``policy_loss_fn``
+    and ``backward()``. The fused rollout's costs (``pilco.
+    fused_rollout_costs``, wrapped as the window wraps it) keep only the kept
+    particles, so the port's ``mean()`` and K6's backward give the gradient;
+    on the card the loss replays the window's own CUDA graphs."""
+    from gpflowpilco_torch.loops import pilco
+
+    system = steps.system
+    index = kept.nonzero()[:, 0]
+    original = pilco.fused_rollout_costs
+
+    def masked(*args, **kwargs):
+        costs = original(*args, **kwargs)
+        return costs[index[index < costs.shape[0]]]
+
+    with torch.no_grad():
+        for p, p0 in zip(system.params, steps.start):
+            p.copy_(p0)
+            p.grad = None
+    system.generator.manual_seed(step_seed)
+    pilco.fused_rollout_costs = masked
+    try:
+        system.loss().backward()
+    finally:
+        pilco.fused_rollout_costs = original
+    return {k: p.grad.detach().to(torch.float64) for k, p in zip(system.names, system.params)}
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
@@ -147,6 +194,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
         summary = reduce(export_events(steps.profiler))
     if on_card:
         check_route(cell.traffic, steps, summary if trace else None)
+    kept = kept_of(cell, cfg, inputs, step_seed)
+    if kept is not None:
+        program["grad_kept"] = kept_gradient(steps, step_seed, kept)
     window = dict(steps=steps.window_steps, seconds=steps.window_seconds,
                   intervals=steps.intervals(), after_return=steps.after_return())
     spans = dict(paths=steps.paths_s, rollout_fwd=steps.rollout_s)
@@ -157,7 +207,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
     if on_card:
         torch.cuda.empty_cache()
 
-    reference = reference_record(cfg, cell.traffic, inputs, step_seed)
+    reference = reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept)
     numbers = compare(program, reference)
     correct = verdict(numbers, cell.limits)
 
@@ -183,5 +233,5 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
     if trace and summary:
         result["breakdown"] = dict(device_ops=summary["device_ops"], idle_gaps=summary["idle_gaps"])
     result["card"] = card_line() if on_card else "cpu"
-    result["checks"] = {k: dict(value=numbers[k], limit=cell.limits[k]) for k in cell.limits}
+    result["checks"] = checks(numbers, cell.limits)
     return result, lines(numbers, cell.limits)

@@ -3,7 +3,9 @@
 ``BENCHMARK.json`` at the checkout's root lists the cells (``workloads``),
 the configurations and the metrics. A cell's configuration is the file its
 ``configs`` entry names; its traffic mix is ``traffic/<traffic>.json`` and
-its correctness limits ``workloads/<cell>.json``, both beside this package;
+its correctness limits ``workloads/<cell>.json`` (with ``kept_tau``, the
+relative gap to the one-ulp twin that ``grad_gap_kept``'s particles keep),
+both beside this package;
 a per-layer metric is read by ``metrics/<metric>.py``'s ``read``. Adding a
 cell, a configuration, a mix or a metric adds files and entries and edits
 nothing here.
@@ -27,6 +29,7 @@ class Cell:
     config: dict
     traffic: dict
     limits: Dict[str, float]
+    kept_tau: Optional[float]  # where the limits name grad_gap_kept
     end_to_end: List[dict]  # the end-to-end metrics this cell reports
     per_layer: List[dict]  # the per-layer metrics this cell reports
 
@@ -51,8 +54,9 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     configs = {c["name"]: c for c in bench["configs"]}
     config = json.loads((root / configs[work["config"]]["file"]).read_text())
     traffic = json.loads((bench_dir / "traffic" / f"{work['traffic']}.json").read_text())
-    limits = json.loads((bench_dir / "workloads" / f"{name}.json").read_text())["limits"]
-    return Cell(name=name, chips=int(work["chips"]), config=config, traffic=traffic, limits=limits,
+    checks = json.loads((bench_dir / "workloads" / f"{name}.json").read_text())
+    return Cell(name=name, chips=int(work["chips"]), config=config, traffic=traffic,
+                limits=checks["limits"], kept_tau=checks.get("kept_tau"),
                 end_to_end=_for_cell(bench["end_to_end"], name),
                 per_layer=_for_cell(bench["per_layer"], name))
 

@@ -1,9 +1,16 @@
-"""Mean host time of a window step's ``rollout.operands`` span
-(``models/pathwise.py:fused_rollout_operands``, K6's operand packing) less
-its host syncs' waits, in ms."""
+"""Mean host time of a window step's forward through the particle loss's
+graphed region, less its host syncs' waits, in ms: the packing of K6's
+operands and K6's forward, the work that ``ops/graphs.py`` captures. On a
+replayed step that is the ``graph.fwd`` span (the input copies and the
+forward graph's replay); on an eager step the ``rollout.operands`` span
+(``models/pathwise.py:fused_rollout_operands``) and the ``k6.fwd`` span
+(``ops/rollout_cuda.py:_fwd``: the check, the plan and the launch; on the
+card only, the CPU's plain rollout opens none). The same work on either
+route, so the number moves with what that work costs the host."""
 import sys
 
 STORE = "gpflowpilco_torch.utils.tracing"  # the span store the program loaded
+SPANS = ("graph.fwd", "rollout.operands", "k6.fwd")  # replayed; eager
 
 
 def _window(run):
@@ -34,5 +41,5 @@ def _ms_less_syncs(record, name):
 
 def read(run):
     window = _window(run)
-    found = [v for v in (_ms_less_syncs(r, "rollout.operands") for r in window) if v is not None]
+    found = [v for r in window for v in (_ms_less_syncs(r, name) for name in SPANS) if v is not None]
     return sum(found) / len(window) if found else None

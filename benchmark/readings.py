@@ -1,15 +1,24 @@
 """The readings a cell's correctness limits are set from, in one process.
 
     python3 benchmark/readings.py --workload <cell> --seeds 1 2 ... \
-        [--control-seeds ...] [--fault-seeds ...] [--witness-seeds ...] [--out FILE]
+        [--control-seeds ...] [--fault-seeds ...] [--twin-seeds ...] \
+        [--witness-seeds ...] [--taus ...] [--out FILE]
 
 For each of ``--seeds`` the program runs the cell's set-up and checked
 steps (no window) and is compared with the float64 reference: the lower
-readings. For each of ``--control-seeds`` the reference computed in the
-precision below the cell's takes the program's place (the control), and for
-each of ``--fault-seeds`` two faults do: the reference with half of the
-particles left out of the mean, and the program with every Adam step
-returning its state unchanged. For each of ``--witness-seeds`` the first
+readings; a ``twin`` line beside it gives the share of particles each gap
+from 1e-2 to 1e-15 would keep. For each of ``--control-seeds`` the
+reference computed in the precision below the cell's takes the program's
+place (the control), and for each of ``--fault-seeds`` three faults do: the
+reference with half of the particles left out of the mean, the reference
+with its last transition cut out of the backward (``detach_last``, the
+forward unchanged), and the program with every Adam step returning its
+state unchanged. Where the cell's limits name ``grad_gap_kept``, or at each
+of ``--taus``, every reading also carries the kept particles' gradient (the
+program's through ``run_cell.kept_gradient``). For each of ``--twin-seeds``
+the reference with every step's initial states moved by one unit in the
+last place takes the program's place (``ref_twin``): how far the reference
+departs from itself under chaos. For each of ``--witness-seeds`` the first
 step's rollout is read particle by particle at several horizons, on the
 step's own paths and initial states: through K6, through the port's plain
 PyTorch rollout, through the reference, and through the reference and K6
@@ -32,7 +41,10 @@ def main() -> int:
     p.add_argument("--seeds", type=int, nargs="*", default=[])
     p.add_argument("--control-seeds", type=int, nargs="*", default=[])
     p.add_argument("--fault-seeds", type=int, nargs="*", default=[])
+    p.add_argument("--twin-seeds", type=int, nargs="*", default=[])
     p.add_argument("--witness-seeds", type=int, nargs="*", default=[])
+    p.add_argument("--taus", type=float, nargs="*", default=[],
+                   help="kept particles' gaps to read grad_gap_kept at (default: the cell's kept_tau)")
     p.add_argument("--device", default="cuda:0")
     p.add_argument("--out", default=None)
     args = p.parse_args()
@@ -41,57 +53,73 @@ def main() -> int:
 
     from benchmark.harness.check import compare
     from benchmark.harness.inputs import STEPS, derived_seed, make_inputs
-    from benchmark.harness.run_cell import DTYPES, first_steps, reference_record
+    from benchmark.harness.run_cell import (DTYPES, first_steps, kept_gradient, kept_of,
+                                            reference_record)
     from benchmark.harness.spec import load_cell
-    from gpflowpilco_torch.utils import optimizers
+    from benchmark.reference.pathwise import twin_gaps
+    from gpflowpilco_torch.utils import optimizers, tracing
 
     cell = load_cell(args.workload)
     cfg, traffic, device = cell.config, cell.traffic, torch.device(args.device)
+    taus = args.taus or [None]  # None: the cell's own (none where its limits do not name it)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = open(args.out, "a") if args.out else None
 
-    def emit(kind, seed, numbers, t0):
+    def emit(kind, seed, numbers, t0, **extra):
         line = json.dumps(dict(workload=args.workload, kind=kind, seed=seed, numbers=numbers,
-                               seconds=time.perf_counter() - t0))
+                               seconds=time.perf_counter() - t0, **extra))
         print(line, flush=True)
         if out:
             out.write(line + "\n")
             out.flush()
 
-    def program(seed):
-        inputs, step_seed, steps, record = first_steps(cfg, traffic, seed, device)
-        del steps
-        return inputs, step_seed, record
-
-    for seed in args.seeds:
+    def program(kind, seed):
+        """The program's readings at each tau, against the float64 reference."""
         t0 = time.perf_counter()
-        inputs, step_seed, record = program(seed)
-        emit("program", seed, compare(record, reference_record(cfg, traffic, inputs, step_seed), True), t0)
+        inputs, step_seed, steps, record = first_steps(cfg, traffic, seed, device)
+        for tau in taus:
+            kept = kept_of(cell, cfg, inputs, step_seed, tau)
+            replays = tracing.counters().get("graphs.replays", 0)
+            if kept is not None:
+                record["grad_kept"] = kept_gradient(steps, step_seed, kept)
+            replayed = tracing.counters().get("graphs.replays", 0) - replays
+            emit(kind, seed, compare(record, reference_record(cfg, traffic, inputs, step_seed, kept=kept),
+                                     True), t0, tau=tau, kept_replayed=replayed)
+            t0 = time.perf_counter()
+        if kind == "program":  # the twin's gaps: the share each tau would keep
+            gaps = twin_gaps(cfg, inputs["drift"], inputs["policy"], step_seed, DTYPES[traffic["dtype"]],
+                             cfg["jitter"][traffic["dtype"]])
+            shares = {f"{10.0 ** -k:.0e}": float((gaps <= 10.0 ** -k).double().mean()) for k in range(2, 16)}
+            emit("twin", seed, dict(shares=shares, median=float(gaps.median()), max=float(gaps.max())), t0)
+        del steps
 
-    def reference_side(seed):
+    def against_reference(kind, seed, **fault):
+        """The reference, a precision lower or with a fault, in the
+        program's place, at each tau."""
         inputs = make_inputs(cfg, seed, DTYPES[traffic["dtype"]], device)
         step_seed = derived_seed(seed, STEPS)
-        return inputs, step_seed, reference_record(cfg, traffic, inputs, step_seed)
+        for tau in taus:
+            t0 = time.perf_counter()
+            kept = kept_of(cell, cfg, inputs, step_seed, tau)
+            ref = reference_record(cfg, traffic, inputs, step_seed, kept=kept)
+            other = reference_record(cfg, traffic, inputs, step_seed, kept=kept, **fault)
+            emit(kind, seed, compare(other, ref, True), t0, tau=tau)
 
+    for seed in args.seeds:
+        program("program", seed)
     for seed in args.control_seeds:
-        t0 = time.perf_counter()
-        inputs, step_seed, ref = reference_side(seed)
-        control = reference_record(cfg, traffic, inputs, step_seed, control=True)
-        emit("control", seed, compare(control, ref, True), t0)
+        against_reference("control", seed, control=True)
     for seed in args.fault_seeds:
-        t0 = time.perf_counter()
-        inputs, step_seed, ref = reference_side(seed)
-        half = reference_record(cfg, traffic, inputs, step_seed, half_batch=True)
-        emit("half_batch", seed, compare(half, ref, True), t0)
+        against_reference("half_batch", seed, half_batch=True)
+        against_reference("detach_last", seed, detach_last=True)
+    for seed in args.twin_seeds:
+        against_reference("ref_twin", seed, nudge=True)
     guarded = optimizers._guarded_step
     optimizers._guarded_step = lambda *a, **k: True  # the step returns its state unchanged
     try:
         for seed in args.fault_seeds:
-            t0 = time.perf_counter()
-            inputs, step_seed, record = program(seed)
-            emit("unchanged", seed, compare(record, reference_record(cfg, traffic, inputs, step_seed), True),
-                 t0)
+            program("unchanged", seed)
     finally:
         optimizers._guarded_step = guarded
     for seed in args.witness_seeds:
@@ -120,27 +148,21 @@ def witness(cfg, traffic, seed, device):
     loop, spec = system.loop, system.loop.policy_spec
     horizon = loop.episode_spec.num_steps
     marks = sorted({max(1, horizon * k // 5) for k in range(1, 6)})
-    ulp = 1.0 + torch.finfo(dtype).eps
     with torch.no_grad():
         paths = pilco.generate_paths_svgp(system.drift, system.generator, spec.batch_size, spec.num_bases)
         x0 = loop.episode_spec.sample(system.generator, (spec.batch_size,), dtype=dtype, device=device)
         drift_fn = PathwiseSVGPTransform(model=system.drift, paths=paths, fused=False)
         chain = loop.policy_chain(system.policy)
         gen = torch.Generator(device=device).manual_seed(step_seed)
-        draws = {k: v.to(f64) for k, v in ref.draw_step(gen, cfg, dtype, device).items()}
-        cast = lambda d: {k: None if v is None else v.to(f64) for k, v in d.items()}  # noqa: E731
-        dr, po, jitter = cast(inputs["drift"]), cast(inputs["policy"]), cfg["jitter"][traffic["dtype"]]
-        rpaths = ref.sample_paths(dr, draws, cfg, jitter, f64)
-        mean = torch.as_tensor(cfg["state_mean"], dtype=f64, device=device)
-        tril = torch.as_tensor(cfg["state_scale_tril"], dtype=f64, device=device)
-        x0r = mean + draws["rvs"] @ tril.T
+        dr, po, jitter = ref.cast(inputs["drift"], f64), ref.cast(inputs["policy"], f64), cfg["jitter"][traffic["dtype"]]
+        rpaths, x0r = ref.step_operands(gen, cfg, dr, dtype, f64, jitter, f64)
         routes = dict(
             k6=lambda t: pilco.fused_rollout_costs(system.policy, system.drift, paths, x0, loop.encoder,
                                                    loop.objective, spec.action_scale, t),
-            k6_ulp=lambda t: pilco.fused_rollout_costs(system.policy, system.drift, paths, x0 * ulp,
+            k6_ulp=lambda t: pilco.fused_rollout_costs(system.policy, system.drift, paths, ref.twin(x0),
                                                        loop.encoder, loop.objective, spec.action_scale, t),
             plain=lambda t: pilco.particle_rollout_costs(chain, drift_fn, x0, loop.encoder, loop.objective, t),
-            ref_ulp=lambda t: ref.rollout_costs(po, dr, rpaths, x0r * ulp, cfg, jitter, f64, t),
+            ref_ulp=lambda t: ref.rollout_costs(po, dr, rpaths, ref.twin(x0r), cfg, jitter, f64, t),
         )
         out = dict(x0_gap=float((x0.to(f64) - x0r).abs().max()), marks=marks)
         for t in marks:

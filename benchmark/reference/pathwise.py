@@ -17,6 +17,16 @@ uniforms (L, B), the bases' weights (S, L, B), the inducing normals (S, L, M)
 and the initial states' normals (S, D), in that order and in the cell's
 dtype. Everything else is computed in ``dtype`` (float64 for the truth), the
 Cholesky factors in ``factor_dtype``.
+
+Where a rollout is chaotic, the gradient of the mean cost is dominated by a
+few particles whose trajectories rounding alone moves: the reference moved
+by one unit in the last place departs from itself there. ``kept_particles``
+runs the first step twice, on the same paths, from the initial states and
+from its **twin**, the same states times ``1 + eps``, and keeps the
+particles whose state stays within a relative gap ``tau`` of the twin's at
+every step. ``reference_steps(kept=...)`` then also gives the raw gradient
+(before the clip) of the kept particles' mean cost, one backward with the
+cotangent ``kept / n_kept`` on the first step's per-particle costs.
 """
 from __future__ import annotations
 
@@ -115,8 +125,12 @@ def policy_weights(policy, cfg, jitter, factor_dtype):
     return var[:, None] * alpha, ls
 
 
-def rollout_costs(policy, drift, paths, x0, cfg, jitter, factor_dtype, num_steps):
-    """Per-particle cumulative cost (S,)."""
+def rollout_costs(policy, drift, paths, x0, cfg, jitter, factor_dtype, num_steps, states=None,
+                  detach_last=False):
+    """Per-particle cumulative cost (S,). A list ``states`` receives each
+    step's state (S, D). ``detach_last`` is a fault for the checks: the last
+    transition reads its input state detached, which leaves the forward bit
+    for bit as it is and cuts that transition out of the backward."""
     active = tuple(cfg["active_dims"])
     scale = 2.0 * cfg["action_scale"] - 1e-5
     target = torch.as_tensor(cfg["target"], dtype=x0.dtype, device=x0.device)
@@ -125,8 +139,8 @@ def rollout_costs(policy, drift, paths, x0, cfg, jitter, factor_dtype, num_steps
     wp, mc_p = policy.get("w"), policy["mean_const"]
     wd, mc_d = drift.get("w"), drift["mean_const"]
     x, cost = x0, torch.zeros(x0.shape[0], dtype=x0.dtype, device=x0.device)
-    for _ in range(num_steps):
-        e = encode(x, active)
+    for t in range(num_steps):
+        e = encode(x.detach() if detach_last and t == num_steps - 1 else x, active)
         kp = torch.exp(-0.5 * scaled_sqdist(e, policy["z"], ls_p))  # (Lp, S, Mp)
         g = torch.einsum("lsm,lm->sl", kp, alpha)
         g = (g if wp is None else g @ wp.T) + mc_p
@@ -136,44 +150,104 @@ def rollout_costs(policy, drift, paths, x0, cfg, jitter, factor_dtype, num_steps
         kd = torch.exp(-0.5 * scaled_sqdist(xu, paths["z"], paths["ls"]))  # (L, S, M)
         f = f + paths["var"] * torch.einsum("lsm,slm->sl", kd, paths["v"])
         x = x + ((f if wd is None else f @ wd.T) + mc_d)
+        if states is not None:
+            states.append(x.detach())
         err = encode(x, active) - target
         cost = cost - torch.exp(-0.5 * torch.sum(err * (err @ precis.T), dim=-1))
     return cost
 
 
+def cast(params: Dict[str, torch.Tensor], dtype) -> Dict[str, Optional[torch.Tensor]]:
+    return {k: None if v is None else v.detach().to(dtype).clone() for k, v in params.items()}
+
+
+def step_operands(gen, cfg, drift, draw_dtype, dtype, jitter, factor_dtype):
+    """One step's paths and initial states (S, D) from the generator, in ``dtype``."""
+    device = drift["z"].device
+    draws = {k: v.to(dtype) for k, v in draw_step(gen, cfg, draw_dtype, device).items()}
+    with torch.no_grad():
+        paths = sample_paths(drift, draws, cfg, jitter, factor_dtype)
+    mean = torch.as_tensor(cfg["state_mean"], dtype=dtype, device=device)
+    tril = torch.as_tensor(cfg["state_scale_tril"], dtype=dtype, device=device)
+    return paths, mean + draws["rvs"] @ tril.T
+
+
+def num_rollout_steps(cfg: dict) -> int:
+    return int(math.ceil(cfg["horizon"] / cfg["step_size"]))
+
+
+def twin(x0: torch.Tensor) -> torch.Tensor:
+    """The initial states moved by one unit in the last place of their dtype."""
+    return x0 * (1.0 + torch.finfo(x0.dtype).eps)
+
+
+def twin_gaps(cfg: dict, drift: Dict[str, torch.Tensor], policy: Dict[str, torch.Tensor],
+              step_seed: int, draw_dtype: torch.dtype, jitter: float,
+              eps: Optional[float] = None) -> torch.Tensor:
+    """Per particle (S,), the largest relative gap over the first step's
+    rollout between the reference's state and its twin's, from the initial
+    states times ``1 + eps`` (one unit in the last place of float64 by
+    default) on the same paths: max over t of |x_t - x'_t| / max(|x'_t|, 1),
+    norms over the state. In float64."""
+    f64 = torch.float64
+    dr, po = cast(drift, f64), cast(policy, f64)
+    gen = torch.Generator(device=po["z"].device).manual_seed(step_seed)
+    with torch.no_grad():
+        paths, x0 = step_operands(gen, cfg, dr, draw_dtype, f64, jitter, f64)
+        runs = []
+        for start in (x0, twin(x0) if eps is None else x0 * (1.0 + eps)):
+            runs.append([])
+            rollout_costs(po, dr, paths, start, cfg, jitter, f64, num_rollout_steps(cfg), states=runs[-1])
+        gaps = [torch.linalg.vector_norm(a - b, dim=-1) / torch.clamp(torch.linalg.vector_norm(b, dim=-1),
+                                                                      min=1.0)
+                for a, b in zip(*runs)]
+    return torch.stack(gaps).amax(0)
+
+
+def kept_particles(cfg: dict, drift: Dict[str, torch.Tensor], policy: Dict[str, torch.Tensor],
+                   step_seed: int, draw_dtype: torch.dtype, jitter: float, tau: float) -> torch.Tensor:
+    """(S,) bool: the particles whose first-step rollout stays within ``tau``
+    of its one-ulp twin's at every step (``twin_gaps``)."""
+    return twin_gaps(cfg, drift, policy, step_seed, draw_dtype, jitter) <= tau
+
+
 def reference_steps(cfg: dict, drift: Dict[str, torch.Tensor], policy: Dict[str, torch.Tensor],
                     step_seed: int, num_steps: int, draw_dtype: torch.dtype, dtype: torch.dtype,
                     jitter: float, factor_dtype: Optional[torch.dtype] = None,
-                    half_batch: bool = False) -> dict:
+                    half_batch: bool = False, kept: Optional[torch.Tensor] = None,
+                    detach_last: bool = False, nudge: bool = False) -> dict:
     """Follow the policy update's first ``num_steps`` steps from the given raw
     parameters. Returns the losses, the first step's per-particle costs, its
     clipped gradient and the leaves' change after it, and their change after
-    the last step, each leaf by name."""
+    the last step, each leaf by name; with ``kept`` (S,) also the first
+    step's raw gradient of the kept particles' mean cost (``grad_kept``) and
+    their share. ``half_batch`` and ``detach_last`` are faults for the
+    checks: the mean over the first half of the particles, and the last
+    transition cut out of the backward (``rollout_costs``). ``nudge`` starts
+    every step from its initial states' twin: the reference's own spread
+    under chaos, a witness for the numbers the program reads."""
     factor_dtype = factor_dtype or dtype
     device = policy["z"].device
-    cast = lambda t: None if t is None else t.detach().to(dtype).clone()  # noqa: E731
-    dr = {k: cast(v) for k, v in drift.items()}
-    po = {k: cast(v) for k, v in policy.items()}
+    dr, po = cast(drift, dtype), cast(policy, dtype)
     leaves = [po[name].requires_grad_(True) for name in LEAVES]
     start = [t.detach().clone() for t in leaves]
-    mean = torch.as_tensor(cfg["state_mean"], dtype=dtype, device=device)
-    tril = torch.as_tensor(cfg["state_scale_tril"], dtype=dtype, device=device)
-    num_rollout = int(math.ceil(cfg["horizon"] / cfg["step_size"]))
+    num_rollout = num_rollout_steps(cfg)
     gen = torch.Generator(device=device).manual_seed(step_seed)
     m1 = [torch.zeros_like(t) for t in leaves]
     m2 = [torch.zeros_like(t) for t in leaves]
     losses: List[float] = []
-    first_grad = first_costs = change_first = None
+    first_grad = first_costs = change_first = grad_kept = None
     for step in range(num_steps):
-        draws = {k: v.to(dtype) for k, v in draw_step(gen, cfg, draw_dtype, device).items()}
-        with torch.no_grad():
-            paths = sample_paths(dr, draws, cfg, jitter, factor_dtype)
-        x0 = mean + draws["rvs"] @ tril.T
-        costs = rollout_costs(po, dr, paths, x0, cfg, jitter, factor_dtype, num_rollout)
+        paths, x0 = step_operands(gen, cfg, dr, draw_dtype, dtype, jitter, factor_dtype)
+        costs = rollout_costs(po, dr, paths, twin(x0) if nudge else x0, cfg, jitter, factor_dtype, num_rollout,
+                              detach_last=detach_last)
         if half_batch:
             costs = costs[: costs.shape[0] // 2]
         if first_costs is None:
             first_costs = costs.detach().to(torch.float64)
+            if kept is not None:
+                mask = kept[: costs.shape[0]].to(dtype)
+                grad_kept = torch.autograd.grad(costs, leaves, mask / mask.sum(), retain_graph=True)
         loss = costs.mean()
         grads = torch.autograd.grad(loss, leaves)
         losses.append(float(loss.detach()))
@@ -192,7 +266,7 @@ def reference_steps(cfg: dict, drift: Dict[str, torch.Tensor], policy: Dict[str,
             if step == 0:
                 change_first = {name: (t.detach() - t0).to(torch.float64)
                                 for name, t, t0 in zip(LEAVES, leaves, start)}
-    return dict(
+    out = dict(
         losses=losses,
         costs=first_costs,
         grad={name: g.to(torch.float64) for name, g in zip(LEAVES, first_grad)},
@@ -200,3 +274,7 @@ def reference_steps(cfg: dict, drift: Dict[str, torch.Tensor], policy: Dict[str,
         change={name: (t.detach() - t0).to(torch.float64)
                 for name, t, t0 in zip(LEAVES, leaves, start)},
     )
+    if kept is not None:
+        out.update(grad_kept={name: g.to(torch.float64) for name, g in zip(LEAVES, grad_kept)},
+                   kept_share=float(kept.to(torch.float64).mean()))
+    return out

@@ -46,14 +46,29 @@ def _half_batch(*args, **kwargs):
     return costs[: costs.shape[0] // 2]  # the mean is taken over half of the particles
 
 
-@pytest.mark.parametrize("fault", ["unchanged", "half_batch"])
-def test_broken_step_is_not_correct(fault, tiny, monkeypatch):
+def _backward_halved(*args, **kwargs):
+    costs = _backward_halved.original(*args, **kwargs)
+    return costs.detach() + 0.5 * (costs - costs.detach())  # the forward as it was, half the gradient
+
+
+@pytest.mark.parametrize("cell, fault", [(CELL, "unchanged"), (CELL, "half_batch"),
+                                         ("double-pendulum-k6-f64", "unchanged"),
+                                         ("double-pendulum-k6-f64", "half_batch"),
+                                         ("double-pendulum-k6-f64", "backward_halved")])
+def test_broken_step_is_not_correct(cell, fault, tiny, monkeypatch):
+    """Each fault the cell can have, planted under the timed path: the step
+    returns its state unchanged; the mean is taken over half the particles;
+    (where the cell checks the gradient under chaos, ``grad_gap_kept``) the
+    backward alone is wrong."""
     if fault == "unchanged":
         monkeypatch.setattr(optimizers, "_guarded_step", _unchanged)
     else:
-        _half_batch.original = pilco.fused_rollout_costs
-        monkeypatch.setattr(pilco, "fused_rollout_costs", _half_batch)
-    assert not _run(tiny)["correct"]
+        broken = {"half_batch": _half_batch, "backward_halved": _backward_halved}[fault]
+        broken.original = pilco.fused_rollout_costs
+        monkeypatch.setattr(pilco, "fused_rollout_costs", broken)
+    result, _ = run_cell(cell, 2**32 + 9, 0.5, False, t_start=0.0, device="cpu", require_cuda=False,
+                         overrides=tiny)
+    assert not result["correct"]
 
 
 def test_window_counts_the_launches_of_its_own_steps(tiny, monkeypatch):

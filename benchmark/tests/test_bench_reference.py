@@ -7,7 +7,8 @@ import torch
 
 from benchmark.harness.check import NUMBERS, compare, verdict
 from benchmark.harness.inputs import STEPS, derived_seed, make_inputs
-from benchmark.harness.run_cell import DTYPES, first_steps, merged, reference_record
+from benchmark.harness.run_cell import (DTYPES, first_steps, kept_gradient, kept_of, merged,
+                                        reference_record)
 from benchmark.harness.spec import BENCH_DIR, load_benchmark, load_cell
 
 CELLS = [w["name"] for w in load_benchmark()["workloads"]]
@@ -17,22 +18,30 @@ CONFIGS = sorted(p.stem for p in (BENCH_DIR / "configs").glob("*.json"))
 @pytest.mark.parametrize("config", CONFIGS)
 def test_reference_follows_the_port_in_float64(config, tiny):
     """Both sides in float64 on the same inputs and draws: the losses, the
-    first step's per-particle costs, its gradient and the changes agree to
-    rounding (every configuration file, also one that no cell runs yet)."""
+    first step's per-particle costs, its gradient, the changes and the kept
+    particles' gradient agree to rounding (every configuration file, also
+    one that no cell runs yet)."""
     cfg = merged(json.loads((BENCH_DIR / "configs" / f"{config}.json").read_text()), tiny)
     traffic = json.loads((BENCH_DIR / "traffic" / "k6-f64.json").read_text())
-    inputs, step_seed, _, program = first_steps(cfg, traffic, 2**31 + 5, torch.device("cpu"))
-    numbers = compare(program, reference_record(cfg, traffic, inputs, step_seed))
-    assert set(numbers) == set(NUMBERS)
-    assert max(numbers.values()) < 1e-9, numbers
+    inputs, step_seed, steps, program = first_steps(cfg, traffic, 2**31 + 5, torch.device("cpu"))
+    cell = load_cell(CELLS[0])
+    kept = kept_of(cell, cfg, inputs, step_seed, tau=1e-8)
+    program["grad_kept"] = kept_gradient(steps, step_seed, kept)
+    numbers = compare(program, reference_record(cfg, traffic, inputs, step_seed, kept=kept))
+    assert set(numbers) == set(NUMBERS) | {"kept_share"}
+    assert numbers["kept_share"] == 1.0  # nothing chaotic at this size
+    assert max(numbers[k] for k in NUMBERS) < 1e-9, numbers
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_port_meets_its_cell_limits_at_a_tiny_size(name, tiny):
     cell = load_cell(name)
     cfg = merged(cell.config, tiny)
-    inputs, step_seed, _, program = first_steps(cfg, cell.traffic, 11, torch.device("cpu"))
-    numbers = compare(program, reference_record(cfg, cell.traffic, inputs, step_seed))
+    inputs, step_seed, steps, program = first_steps(cfg, cell.traffic, 11, torch.device("cpu"))
+    kept = kept_of(cell, cfg, inputs, step_seed)
+    if kept is not None:
+        program["grad_kept"] = kept_gradient(steps, step_seed, kept)
+    numbers = compare(program, reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept))
     assert verdict(numbers, cell.limits), numbers
 
 
@@ -41,8 +50,9 @@ def _control_fails(name, cfg, device, seeds):
     for seed in seeds:
         inputs = make_inputs(cfg, seed, DTYPES[cell.traffic["dtype"]], device)
         step_seed = derived_seed(seed, STEPS)
-        ref = reference_record(cfg, cell.traffic, inputs, step_seed)
-        control = reference_record(cfg, cell.traffic, inputs, step_seed, control=True)
+        kept = kept_of(cell, cfg, inputs, step_seed)
+        ref = reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept)
+        control = reference_record(cfg, cell.traffic, inputs, step_seed, control=True, kept=kept)
         assert not verdict(compare(control, ref), cell.limits), seed
 
 
