@@ -20,6 +20,7 @@ import torch
 from .dynamics import deltas
 
 WEIGHTS, STEPS = 1, 2  # seed purposes
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def derived_seed(seed: int, purpose: int) -> int:

@@ -11,14 +11,11 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..counts.paths import step_ops
-from ..reference.pathwise import kept_particles, reference_steps
 from .check import checks, compare, lines, verdict
-from .inputs import STEPS, derived_seed, dims, make_inputs
+from .inputs import DTYPES, STEPS, derived_seed
 from .spec import ROOT, load_cell, metric_reader
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "gpflowpilco_tpu")
-DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 class NoChip(RuntimeError):
@@ -81,87 +78,35 @@ def check_route(traffic: dict, steps, summary: Optional[dict]) -> None:
             raise OffRoute(f"the profiled slice holds no {', '.join(missing)} kernels")
 
 
-def first_steps(cfg: dict, traffic: dict, seed: int, device, seconds: float = 0.0,
+def first_steps(variant, cfg: dict, traffic: dict, seed: int, device, seconds: float = 0.0,
                 trace: bool = False, counters=()):
-    """Set the cell up from ``seed`` and drive the update through its warm-up
-    steps and a window of ``seconds``: (inputs, step seed, the stepped window,
-    record). With no window (``seconds`` 0), as for the readings of the
-    limits, the warm-up is the checked steps alone."""
-    from .system import build_system
+    """Set the cell up from ``seed`` and drive the update of ``variant``'s
+    system through its warm-up steps and a window of ``seconds``: (inputs,
+    step seed, the stepped window, record). With no window (``seconds`` 0),
+    as for the readings of the limits, the warm-up is the checked steps
+    alone."""
     from .window import StepWindow
 
-    dtype = DTYPES[traffic["dtype"]]
-    inputs = make_inputs(cfg, seed, dtype, device)
+    inputs = variant.make_inputs(cfg, seed, DTYPES[traffic["dtype"]], device)
     step_seed = derived_seed(seed, STEPS)
-    system = build_system(cfg, traffic, inputs, step_seed, device)
+    system = variant.build_system(cfg, traffic, inputs, step_seed, device)
     steps = StepWindow(system, traffic["warmup_steps"], traffic["checked_steps"], seconds,
-                       spans=trace, profile_steps=traffic["profiled_steps"] if trace else 0,
+                       spans=variant.SPANS if trace else (), costs=variant.COSTS,
+                       profile_steps=traffic["profiled_steps"] if trace else 0,
                        warmup_seconds=traffic["warmup_seconds"] if seconds else 0.0,
                        counters=counters)
     steps.run()
     return inputs, step_seed, steps, program_record(steps, system.names)
 
 
-def reference_record(cfg: dict, traffic: dict, inputs: dict, step_seed: int, *,
-                     control: bool = False, half_batch: bool = False,
-                     kept: Optional[torch.Tensor] = None, detach_last: bool = False,
-                     nudge: bool = False) -> dict:
-    """The reference's record in float64, or, with ``control``, the reference
-    in the traffic's control precision, the one below the cell's (its
-    Cholesky factors still in the cell's precision); with ``kept``, also the
-    kept particles' gradient. ``half_batch``, ``detach_last`` and ``nudge``
-    pass to ``reference_steps``."""
-    draw = DTYPES[traffic["dtype"]]
-    dtype, factor = torch.float64, torch.float64
-    if control:
-        dtype, factor = DTYPES[traffic["control"]], draw
-    return reference_steps(cfg, inputs["drift"], inputs["policy"], step_seed,
-                           traffic["checked_steps"], draw_dtype=draw, dtype=dtype,
-                           jitter=cfg["jitter"][traffic["dtype"]], factor_dtype=factor,
-                           half_batch=half_batch, kept=kept, detach_last=detach_last, nudge=nudge)
-
-
 def kept_of(cell, cfg: dict, inputs: dict, step_seed: int, tau: Optional[float] = None):
-    """The cell's kept particles (S,) from the reference and its twin alone,
-    or None where its limits do not name ``grad_gap_kept`` (and no ``tau``
-    is given)."""
+    """The cell's kept particles (S,) from the reference and its twin alone
+    (the variant's ``kept_particles``), or None where its limits do not name
+    ``grad_gap_kept`` (and no ``tau`` is given)."""
     tau = cell.kept_tau if tau is None and "grad_gap_kept" in cell.limits else tau
     if tau is None:
         return None
-    dtype = cell.traffic["dtype"]
-    return kept_particles(cfg, inputs["drift"], inputs["policy"], step_seed, DTYPES[dtype],
-                          cfg["jitter"][dtype], tau)
-
-
-def kept_gradient(steps, step_seed: int, kept: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The first step's raw gradient of the kept particles' mean cost through
-    the port's own step: the window's system with its leaves set back to
-    their start and its generator to the step seed, then ``policy_loss_fn``
-    and ``backward()``. The fused rollout's costs (``pilco.
-    fused_rollout_costs``, wrapped as the window wraps it) keep only the kept
-    particles, so the port's ``mean()`` and K6's backward give the gradient;
-    on the card the loss replays the window's own CUDA graphs."""
-    from gpflowpilco_torch.loops import pilco
-
-    system = steps.system
-    index = kept.nonzero()[:, 0]
-    original = pilco.fused_rollout_costs
-
-    def masked(*args, **kwargs):
-        costs = original(*args, **kwargs)
-        return costs[index[index < costs.shape[0]]]
-
-    with torch.no_grad():
-        for p, p0 in zip(system.params, steps.start):
-            p.copy_(p0)
-            p.grad = None
-    system.generator.manual_seed(step_seed)
-    pilco.fused_rollout_costs = masked
-    try:
-        system.loss().backward()
-    finally:
-        pilco.fused_rollout_costs = original
-    return {k: p.grad.detach().to(torch.float64) for k, p in zip(system.names, system.params)}
+    return cell.variant.kept_particles(cfg, cell.traffic, inputs, step_seed, tau)
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
@@ -183,23 +128,26 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
 
         _build.build_all(cell.traffic["sources"])
         counters = launch_counters(cell.traffic)
-    inputs, step_seed, steps, program = first_steps(cfg, cell.traffic, seed, device, seconds, trace,
-                                                    counters)
+    variant = cell.variant
+    inputs, step_seed, steps, program = first_steps(variant, cfg, cell.traffic, seed, device, seconds,
+                                                    trace, counters)
     setup_s = steps.window_open - t_start
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
     summary = {}
     if trace and steps.profiler is not None:
         from .trace import export_events, reduce
+        from .window import UPDATE_SPAN
 
-        summary = reduce(export_events(steps.profiler))
+        summary = reduce(export_events(steps.profiler), cell.traffic["kernel_groups"],
+                         (UPDATE_SPAN, *steps.spans))
     if on_card:
         check_route(cell.traffic, steps, summary if trace else None)
     kept = kept_of(cell, cfg, inputs, step_seed)
     if kept is not None:
-        program["grad_kept"] = kept_gradient(steps, step_seed, kept)
+        program["grad_kept"] = variant.kept_gradient(steps, step_seed, kept)
     window = dict(steps=steps.window_steps, seconds=steps.window_seconds,
                   intervals=steps.intervals(), after_return=steps.after_return())
-    spans = dict(paths=steps.paths_s, rollout_fwd=steps.rollout_s)
+    spans = steps.spans
     attempted = steps.window_steps
     failed = attempted - steps.applied_in_window
     del steps
@@ -207,13 +155,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
     if on_card:
         torch.cuda.empty_cache()
 
-    reference = reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept)
+    reference = variant.reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept)
     numbers = compare(program, reference)
     correct = verdict(numbers, cell.limits)
 
     if trace:
-        ctx = dict(dtype=cell.traffic["dtype"], dims=dims(cfg), window=window, spans=spans,
-                   trace=summary, step_ops=step_ops(dims(cfg)))
+        shapes = variant.dims(cfg)
+        ctx = dict(dtype=cell.traffic["dtype"], dims=shapes, window=window, spans=spans,
+                   trace=summary, step_ops=variant.step_ops(shapes))
         metrics: Dict[str, dict] = {}
         for m in cell.per_layer:
             value = metric_reader(m["name"], root / "benchmark")(ctx)

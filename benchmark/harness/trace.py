@@ -1,11 +1,14 @@
 """Reduce the profiled slice's trace to the device's busy time, each
-operation's time, K6's time per entry and the idle gaps.
+operation's time, each kernel group's time per entry and the idle gaps.
 
 The slice runs from the start of the second profiled step span to the end
 of the last (the first step warms the profiler). Device time is every
 kernel, copy and fill; busy time is the union of their intervals inside the
-slice. An idle gap is named by the harness's span that encloses it and the
-innermost host operation running at its middle.
+slice. A kernel group (the traffic's ``kernel_groups``) gives, per kind,
+its kernels' device time over the count of its entry kernel, one per call.
+An idle gap is named by the harness's span that encloses it (``step``
+where no other does) and the innermost host operation running at its
+middle.
 """
 from __future__ import annotations
 
@@ -15,14 +18,10 @@ import json
 import os
 import re
 import tempfile
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("user_annotation", "cpu_op")
-SPANS = ("paths", "rollout_fwd", "backward_update")
-K6 = {"fwd": re.compile(r"\b(fwd_panels|fwd_warp)\b"),
-      "bwd": re.compile(r"\b(bwd_jac|bwd_maps|bwd_adjoint|bwd_grads)\b")}
-K6_ENTRY = {"fwd": re.compile(r"\bfwd_warp\b"), "bwd": re.compile(r"\bbwd_jac\b")}
 
 
 def export_events(profiler) -> List[dict]:
@@ -53,9 +52,26 @@ def _short(name: str, n: int = 96) -> str:
     return name if len(name) <= n else name[: n - 3] + "..."
 
 
-def reduce(events: List[dict]) -> Dict:
-    """Summary of the slice; {} when the trace holds no step span or no
-    device operation."""
+def _group(kernels: List[dict], kinds: Dict[str, Dict[str, str]]) -> Dict[str, dict]:
+    """{kind: {"ms": device ms per entry call, "entries": calls}} of the kinds
+    whose entry kernel ran."""
+    out = {}
+    for kind, names in kinds.items():
+        pattern, entry = re.compile(names["kernels"]), re.compile(names["entry"])
+        total = sum(e["dur"] for e in kernels if pattern.search(e["name"]))
+        entries = sum(1 for e in kernels if entry.search(e["name"]))
+        if entries:
+            out[kind] = dict(ms=1e-3 * total / entries, entries=entries)
+    return out
+
+
+def reduce(events: List[dict], groups: Dict[str, Dict[str, Dict[str, str]]],
+           spans: Iterable[str]) -> Dict:
+    """Summary of the slice, with ``summary[group][kind]`` for each of
+    ``groups`` (``{group: {kind: {"kernels": regex, "entry": regex}}}``) and
+    the idle gaps named by the harness's ``spans`` (``step`` where none
+    encloses them); {} when the trace holds no step span or no device
+    operation."""
     steps = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                    if e.get("cat") == "user_annotation" and e.get("name") == "step" and "dur" in e)
     if len(steps) < 2:
@@ -71,18 +87,14 @@ def reduce(events: List[dict]) -> Dict:
     by_name: Dict[str, float] = collections.defaultdict(float)
     for e in device:
         by_name[e["name"]] += e["dur"]
-    k6 = {}
-    for kind, pattern in K6.items():
-        total = sum(e["dur"] for e in device if e.get("cat") == "kernel" and pattern.search(e["name"]))
-        entries = sum(1 for e in device if e.get("cat") == "kernel" and K6_ENTRY[kind].search(e["name"]))
-        if entries:
-            k6[kind] = dict(ms=1e-3 * total / entries, entries=entries)
+    kernels = [e for e in device if e.get("cat") == "kernel"]
     # idle gaps, each named by what the host ran at its middle: the covering
     # host op that started last (the innermost on its thread)
     host = sorted((e for e in events if e.get("cat") in HOST_CATS and "dur" in e
                    and e["ts"] < hi and e["ts"] + e["dur"] > lo), key=lambda e: e["ts"])
     starts = [e["ts"] for e in host]
-    spans = [e for e in host if e.get("cat") == "user_annotation" and e["name"] in SPANS]
+    names = set(spans)
+    enclosing = [e for e in host if e.get("cat") == "user_annotation" and e["name"] in names]
     gaps: Dict[str, float] = collections.defaultdict(float)
     edges = [lo] + [x for ab in busy for x in ab] + [hi]
     for a, b in zip(edges[0::2], edges[1::2]):
@@ -94,10 +106,11 @@ def reduce(events: List[dict]) -> Dict:
             if host[i]["ts"] + host[i]["dur"] >= mid:
                 inner = host[i]["name"]
                 break
-        outer = [e["name"] for e in spans if e["ts"] <= mid <= e["ts"] + e["dur"]]
+        outer = [e["name"] for e in enclosing if e["ts"] <= mid <= e["ts"] + e["dur"]]
         gaps[f"{outer[0] if outer else 'step'}/{inner}"] += b - a
     top = lambda d: [[_short(k), 1e-6 * v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]  # noqa: E731
     return dict(
-        slice_s=1e-6 * (hi - lo), busy_s=1e-6 * busy_us, steps=len(steps) - 1, k6=k6,
+        slice_s=1e-6 * (hi - lo), busy_s=1e-6 * busy_us, steps=len(steps) - 1,
+        **{group: _group(kernels, kinds) for group, kinds in groups.items()},
         device_ops=top(by_name), idle_gaps=top(gaps),
     )

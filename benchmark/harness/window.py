@@ -14,26 +14,27 @@ program's launch-count dicts; the window keeps how far each key moved
 between its open and its close (``launches_in_window``).
 
 For the comparison the window keeps the first ``checked_steps`` losses, the
-first step's per-particle costs as the fused rollout returned them, the
-optimizer's state and the leaves after the first step and the leaves after
-the last checked one. With ``spans`` it times the calls into path sampling
-and into the fused rollout (host clock, around the attributes
-``loops/pilco.py`` calls through), and with ``profile_steps`` it runs that
-many more steps after the window under ``torch.profiler`` (and one before
-them that warms the profiler), each step, both calls and the
-backward-and-update interval
-in a ``record_function`` span.
+first step's per-particle costs as the variant's ``costs`` function
+returned them, the optimizer's state and the leaves after the first step
+and the leaves after the last checked one. Each of ``spans``, a variant's
+``(owner, attribute, name)``, has its calls timed (host clock, around the
+attribute the port calls through) into ``self.spans[name]``; with
+``profile_steps`` the window runs that many more steps after it under
+``torch.profiler`` (and one before them that warms the profiler), each
+step (``step``), each such call (``name``) and the backward-and-update
+interval (``backward_update``) in a ``record_function`` span.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.optim.optimizer import register_optimizer_step_post_hook
 
-from gpflowpilco_torch.loops import pilco
 from gpflowpilco_torch.utils.optimizers import adam_minimize
+
+UPDATE_SPAN = "backward_update"  # from the loss's return to the next step's start
 
 
 class _Closed(Exception):
@@ -59,7 +60,8 @@ class _Span:
 
 class StepWindow:
     def __init__(self, system, warmup_steps: int, checked_steps: int, seconds: float,
-                 spans: bool = False, profile_steps: int = 0, warmup_seconds: float = 0.0,
+                 spans: Sequence[Tuple[object, str, str]] = (), costs: Optional[Tuple[object, str]] = None,
+                 profile_steps: int = 0, warmup_seconds: float = 0.0,
                  counters: Sequence[Dict[str, int]] = ()):
         self.system = system
         self.warmup_steps = max(warmup_steps, checked_steps + 1)
@@ -70,13 +72,13 @@ class StepWindow:
         self._first_call: Optional[float] = None
         self.checked_steps = checked_steps
         self.seconds = seconds
-        self.spans = spans
+        self.wrapped = tuple(spans)
+        self.costs = costs
         self.profile_steps = profile_steps
         self.calls = 0
         self.stamps: List[float] = []  # window steps' starts, then the closing call's
         self.returns: List[float] = []  # the window steps' closure returns
-        self.paths_s: List[float] = []
-        self.rollout_s: List[float] = []
+        self.spans: Dict[str, List[float]] = {name: [] for _, _, name in self.wrapped}
         self.window_open: Optional[float] = None
         self.applied_at_open = 0
         self.applied_in_window = 0
@@ -178,19 +180,20 @@ class StepWindow:
         if self._in_window:
             self.returns.append(time.perf_counter())
         if self.profiler is not None:
-            self._inner_span.start("backward_update")
+            self._inner_span.start(UPDATE_SPAN)
         return loss
 
     def run(self):
         """Run the steps until the window (and the profiled slice) closes."""
         system, spec = self.system, self.system.loop.policy_spec
         handle = register_optimizer_step_post_hook(self._on_step)
-        saved = pilco.generate_paths_svgp, pilco.fused_rollout_costs
-        pilco.fused_rollout_costs = self._kept(saved[1])
-        if self.spans:
-            pilco.generate_paths_svgp = self._timed(saved[0], self.paths_s, "paths")
-            pilco.fused_rollout_costs = self._timed(pilco.fused_rollout_costs, self.rollout_s,
-                                                    "rollout_fwd")
+        originals = {(owner, attr): getattr(owner, attr) for owner, attr, _ in self.wrapped}
+        if self.costs is not None:
+            owner, attr = self.costs
+            originals.setdefault(self.costs, getattr(owner, attr))
+            setattr(owner, attr, self._kept(getattr(owner, attr)))
+        for owner, attr, name in self.wrapped:
+            setattr(owner, attr, self._timed(getattr(owner, attr), self.spans[name], name))
         try:
             while True:  # a new update after step_limit steps
                 adam_minimize(self.closure, system.params, num_steps=spec.step_limit,
@@ -198,7 +201,8 @@ class StepWindow:
         except _Closed:
             pass
         finally:
-            pilco.generate_paths_svgp, pilco.fused_rollout_costs = saved
+            for (owner, attr), fn in originals.items():
+                setattr(owner, attr, fn)
             handle.remove()
             self._inner_span.stop()
             self._step_span.stop()

@@ -87,8 +87,8 @@ def test_window_counts_the_launches_of_its_own_steps(tiny, monkeypatch):
 
     monkeypatch.setattr(pilco, "fused_rollout_costs", counted)
     cell = load_cell(CELL)
-    _, _, steps, _ = first_steps(merged(cell.config, tiny), cell.traffic, 5, torch.device("cpu"), 0.3,
-                                 counters=[counts])
+    _, _, steps, _ = first_steps(cell.variant, merged(cell.config, tiny), cell.traffic, 5,
+                                 torch.device("cpu"), 0.3, counters=[counts])
     assert steps.window_steps > 0
     assert steps.launches_in_window == {"rollout_fwd_f64": steps.window_steps}
     assert counts["rollout_fwd_f64"] > steps.window_steps  # the warm-up's are not the window's

@@ -11,8 +11,7 @@ import torch
 
 from benchmark.harness.check import KEPT_FLOOR, compare, verdict
 from benchmark.harness.inputs import STEPS, derived_seed, dims, make_inputs
-from benchmark.harness.run_cell import (first_steps, kept_gradient, kept_of, merged, reference_record,
-                                        run_cell)
+from benchmark.harness.run_cell import first_steps, kept_of, merged, run_cell
 from benchmark.harness.spec import load_cell, metric_reader
 from benchmark.reference.pathwise import kept_particles, twin_gaps
 
@@ -39,12 +38,10 @@ def test_port_meets_grad_gap_kept_in_a_whole_run(tiny):
 
 
 def test_cartpole_run_computes_no_kept_particles(tiny, monkeypatch):
-    from benchmark.harness import run_cell as module
-
     def refused(*args, **kwargs):
         raise AssertionError("a cell whose limits do not name grad_gap_kept drew kept particles")
 
-    monkeypatch.setattr(module, "kept_particles", refused)
+    monkeypatch.setattr(load_cell("cartpole-k6-f64").variant, "kept_particles", refused)
     result, _ = run_cell("cartpole-k6-f64", 2**33 + 2, 0.5, False, t_start=0.0, device="cpu",
                          require_cuda=False, overrides=tiny)
     assert result["correct"] and "kept_share" not in result["checks"]
@@ -53,8 +50,9 @@ def test_cartpole_run_computes_no_kept_particles(tiny, monkeypatch):
 def _reference_numbers(cell, cfg, seed, **fault):
     inputs, step_seed = _inputs(cfg, seed)
     kept = kept_of(cell, cfg, inputs, step_seed)
-    truth = reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept)
-    return compare(reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept, **fault), truth)
+    truth = cell.variant.reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept)
+    return compare(cell.variant.reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept, **fault),
+                   truth)
 
 
 @pytest.mark.parametrize("seed", [1, 2, 3])
@@ -72,11 +70,11 @@ def test_gradient_only_fault_fails_grad_gap_kept_and_passes_the_forward(seed, ti
 @pytest.mark.parametrize("share", [0.4, 0.5])
 def test_kept_share_under_the_floor_reads_inf(share, tiny):
     cell, cfg = _cell(tiny)
-    inputs, step_seed, steps, program = first_steps(cfg, cell.traffic, 4, CPU)
+    inputs, step_seed, steps, program = first_steps(cell.variant, cfg, cell.traffic, 4, CPU)
     s = dims(cfg)["S"]
     kept = torch.arange(s) < int(share * s)
-    program["grad_kept"] = kept_gradient(steps, step_seed, kept)
-    numbers = compare(program, reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept))
+    program["grad_kept"] = cell.variant.kept_gradient(steps, step_seed, kept)
+    numbers = compare(program, cell.variant.reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept))
     assert numbers["kept_share"] == int(share * s) / s
     if share < KEPT_FLOOR:
         assert numbers["grad_gap_kept"] == math.inf and not verdict(numbers, cell.limits)
@@ -109,12 +107,13 @@ def test_kept_gradient_follows_the_reference_and_the_kept_set_moves_it(tiny):
     """The program's kept gradient is the reference's to rounding, and it is
     not the gradient of all the particles' mean."""
     cell, cfg = _cell(tiny)
-    inputs, step_seed, steps, program = first_steps(cfg, cell.traffic, 8, CPU)
+    variant = cell.variant
+    inputs, step_seed, steps, program = first_steps(variant, cfg, cell.traffic, 8, CPU)
     kept = torch.arange(dims(cfg)["S"]) % 4 != 0
-    program["grad_kept"] = kept_gradient(steps, step_seed, kept)
-    ref = reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept)
+    program["grad_kept"] = variant.kept_gradient(steps, step_seed, kept)
+    ref = variant.reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept)
     assert compare(program, ref)["grad_gap_kept"] < 1e-9
-    every = reference_record(cfg, cell.traffic, inputs, step_seed, kept=torch.ones_like(kept))
+    every = variant.reference_record(cfg, cell.traffic, inputs, step_seed, kept=torch.ones_like(kept))
     assert compare(dict(program, grad_kept=every["grad_kept"]), ref)["grad_gap_kept"] > 1e-3
 
 

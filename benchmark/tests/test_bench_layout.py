@@ -1,9 +1,11 @@
 """The data-driven layout: every cell, configuration, traffic mix, limit
-file and metric reader is found by name, a new one is picked up with no
-edit, and BENCHMARK.json keeps to its contract's shape."""
+file, variant and metric reader is found by name, a new one is picked up
+with no edit, and BENCHMARK.json keeps to its contract's shape."""
+import hashlib
 import json
 import re
 import shutil
+from pathlib import Path
 
 from benchmark.harness.check import NUMBERS
 from benchmark.harness.spec import BENCH_DIR, ROOT, load_benchmark, load_cell, metric_reader
@@ -90,3 +92,65 @@ def test_new_cell_config_mix_and_metric_are_picked_up(tmp_path):
     result, _ = run_cell("cartpole-wide-k6", 7, 0.5, True, t_start=0.0, device="cpu",
                          require_cuda=False, root=root, overrides=tiny)
     assert result["metrics"]["steps_in_window"]["value"] == result["attempted"] > 0
+
+
+PLAIN_VARIANT = '''"""PathwisePILCO with the fused rollout off: each particle's cost through
+the port's plain rollout, timed as a span of its own."""
+from pathlib import Path
+
+from benchmark.harness.spec import variant_module
+from gpflowpilco_torch.loops import pilco
+
+_pathwise = variant_module("pathwise", Path(__file__).resolve().parents[1])
+make_inputs, dims, step_ops = _pathwise.make_inputs, _pathwise.dims, _pathwise.step_ops
+reference_record, FAULTS = _pathwise.reference_record, _pathwise.FAULTS
+SPANS = ((pilco, "particle_rollout_costs", "plain_rollout"),)
+COSTS = TWIN = kept_particles = twin_gaps = kept_gradient = witness = None
+
+
+def build_system(cfg, traffic, inputs, step_seed, device):
+    system = _pathwise.build_system(cfg, traffic, inputs, step_seed, device)
+    system.loop.use_fused_rollout = False
+    return system
+'''
+
+
+def _hashes(tree):
+    return {p.relative_to(tree): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(tree.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_new_variant_is_new_files_only(tmp_path, tiny):
+    """A variant (its module, traffic mix, limits, a reader of its span and
+    BENCHMARK.json entries) runs a cell correct, and no file of the
+    benchmark that was there changes."""
+    root = tmp_path / "checkout"
+    shutil.copytree(BENCH_DIR, root / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    before = _hashes(root / "benchmark")
+    added = {"systems/pathwise_plain.py": PLAIN_VARIANT,
+             "workloads/cartpole-plain-f64.json": (BENCH_DIR / "workloads/cartpole-k6-f64.json").read_text(),
+             "metrics/plain_rollout_ms.py": (BENCH_DIR / "metrics/rollout_fwd_ms.py").read_text().replace(
+                 '"rollout_fwd"', '"plain_rollout"')}
+    traffic = json.loads((BENCH_DIR / "traffic/k6-f64.json").read_text())
+    traffic.update(system="pathwise_plain", route="plain", sources=[], launches_per_step={},
+                   kernel_groups={}, traced_kernels=[])
+    added["traffic/plain-f64.json"] = json.dumps(traffic)
+    for name, text in added.items():
+        (root / "benchmark" / name).write_text(text)
+    bench = load_benchmark()
+    bench["workloads"].append({"name": "cartpole-plain-f64", "config": "cartpole-swingup-pathwise",
+                               "traffic": "plain-f64", "chips": 1, "why": "the plain rollout"})
+    bench["per_layer"].append({"name": "plain_rollout_ms", "unit": "ms", "better": "lower",
+                               "source": "program_span", "layer": "particle loss",
+                               "moves": "policy_steps_per_s", "workloads": ["cartpole-plain-f64"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    from benchmark.harness.run_cell import run_cell
+
+    result, _ = run_cell("cartpole-plain-f64", 2**33 + 3, 0.5, True, t_start=0.0, device="cpu",
+                         require_cuda=False, root=root, overrides=tiny)
+    assert result["correct"] and result["attempted"] > 0
+    assert result["metrics"]["plain_rollout_ms"]["value"] > 0
+    assert not {"paths_ms", "rollout_fwd_ms", "k6_fwd_roofline"} & set(result["metrics"])
+    after = _hashes(root / "benchmark")
+    assert {k: after[k] for k in before} == before
+    assert set(after) - set(before) == {Path(name) for name in added}

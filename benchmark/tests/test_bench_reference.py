@@ -7,9 +7,8 @@ import torch
 
 from benchmark.harness.check import NUMBERS, compare, verdict
 from benchmark.harness.inputs import STEPS, derived_seed, make_inputs
-from benchmark.harness.run_cell import (DTYPES, first_steps, kept_gradient, kept_of, merged,
-                                        reference_record)
-from benchmark.harness.spec import BENCH_DIR, load_benchmark, load_cell
+from benchmark.harness.run_cell import DTYPES, first_steps, kept_of, merged
+from benchmark.harness.spec import BENCH_DIR, load_benchmark, load_cell, variant_module
 
 CELLS = [w["name"] for w in load_benchmark()["workloads"]]
 CONFIGS = sorted(p.stem for p in (BENCH_DIR / "configs").glob("*.json"))
@@ -23,11 +22,12 @@ def test_reference_follows_the_port_in_float64(config, tiny):
     one that no cell runs yet)."""
     cfg = merged(json.loads((BENCH_DIR / "configs" / f"{config}.json").read_text()), tiny)
     traffic = json.loads((BENCH_DIR / "traffic" / "k6-f64.json").read_text())
-    inputs, step_seed, steps, program = first_steps(cfg, traffic, 2**31 + 5, torch.device("cpu"))
+    variant = variant_module(traffic["system"])
+    inputs, step_seed, steps, program = first_steps(variant, cfg, traffic, 2**31 + 5, torch.device("cpu"))
     cell = load_cell(CELLS[0])
     kept = kept_of(cell, cfg, inputs, step_seed, tau=1e-8)
-    program["grad_kept"] = kept_gradient(steps, step_seed, kept)
-    numbers = compare(program, reference_record(cfg, traffic, inputs, step_seed, kept=kept))
+    program["grad_kept"] = variant.kept_gradient(steps, step_seed, kept)
+    numbers = compare(program, variant.reference_record(cfg, traffic, inputs, step_seed, kept=kept))
     assert set(numbers) == set(NUMBERS) | {"kept_share"}
     assert numbers["kept_share"] == 1.0  # nothing chaotic at this size
     assert max(numbers[k] for k in NUMBERS) < 1e-9, numbers
@@ -37,11 +37,11 @@ def test_reference_follows_the_port_in_float64(config, tiny):
 def test_port_meets_its_cell_limits_at_a_tiny_size(name, tiny):
     cell = load_cell(name)
     cfg = merged(cell.config, tiny)
-    inputs, step_seed, steps, program = first_steps(cfg, cell.traffic, 11, torch.device("cpu"))
+    inputs, step_seed, steps, program = first_steps(cell.variant, cfg, cell.traffic, 11, torch.device("cpu"))
     kept = kept_of(cell, cfg, inputs, step_seed)
     if kept is not None:
-        program["grad_kept"] = kept_gradient(steps, step_seed, kept)
-    numbers = compare(program, reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept))
+        program["grad_kept"] = cell.variant.kept_gradient(steps, step_seed, kept)
+    numbers = compare(program, cell.variant.reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept))
     assert verdict(numbers, cell.limits), numbers
 
 
@@ -51,8 +51,8 @@ def _control_fails(name, cfg, device, seeds):
         inputs = make_inputs(cfg, seed, DTYPES[cell.traffic["dtype"]], device)
         step_seed = derived_seed(seed, STEPS)
         kept = kept_of(cell, cfg, inputs, step_seed)
-        ref = reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept)
-        control = reference_record(cfg, cell.traffic, inputs, step_seed, control=True, kept=kept)
+        ref = cell.variant.reference_record(cfg, cell.traffic, inputs, step_seed, kept=kept)
+        control = cell.variant.reference_record(cfg, cell.traffic, inputs, step_seed, control=True, kept=kept)
         assert not verdict(compare(control, ref), cell.limits), seed
 
 
