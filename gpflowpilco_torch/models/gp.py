@@ -52,6 +52,7 @@ class SVGP(nn.Module):
         self.raw_noise = nn.Parameter(raw_noise)
         self.w = None if w is None else nn.Parameter(w)
         self.whiten = whiten
+        self.held_kuu = None  # frozen_chol_kuu's factor, with what it was factored from
 
     @property
     def noise_variance(self) -> torch.Tensor:
@@ -81,6 +82,28 @@ def chol_kuu(model: SVGP, on_device: bool = False) -> torch.Tensor:
     if on_device:
         return safe_cholesky_on_device(k, config.default_jitter(model.z.dtype))
     return safe_cholesky(k, config.default_jitter(model.z.dtype), site="kuu")
+
+
+def frozen_chol_kuu(model: SVGP) -> torch.Tensor:
+    """``chol_kuu(model)`` of a model no gradient reaches, factored once per
+    version: the model holds its factor while every tensor the factor reads
+    (z and the kernel's parameters and buffers) keeps its address and its
+    version counter, and factors again, escalation and host syncs as
+    ``chol_kuu``'s, once one moves (an in-place refit). The model also holds
+    those tensors, so no other tensor takes their addresses. Where a tensor
+    of the model requires grad, ``chol_kuu(model)``."""
+    if any(t.requires_grad for t in (*model.parameters(), *model.buffers())):
+        return chol_kuu(model)
+    reads = (model.z, *model.kernel.parameters(), *model.kernel.buffers())
+    key = tuple((t.data_ptr(), t._version, t.shape, t.stride(), t.dtype, t.device) for t in reads)
+    held = model.held_kuu
+    if held is not None and held[0] == key:
+        tracing.kuu_cache_event("hits")
+        return held[1]
+    tracing.kuu_cache_event("misses")
+    luu = chol_kuu(model)
+    model.held_kuu = (key, luu, tuple(t.detach() for t in reads))
+    return luu
 
 
 def svgp_predict_f(model: SVGP, x: torch.Tensor, full_output_cov: bool = False):

@@ -9,10 +9,13 @@ the training inputs in place of the inducing points, exact GPRs.
 Sampling is split in two so that tests can feed the JAX package's draws:
 ``draw_path_noise`` draws the standard normals, the phases, ``w`` and
 ``eps`` from a ``torch.Generator``; ``paths_from_noise`` turns given noise
-into a ``PathState``. ``fused_rollout_operands`` packs a policy, a drift
-and its paths into the operands of the whole-rollout kernel op
-(ops/rollout_cuda.py); ``pathwise_rollout_loss_fused`` runs the packing and
-the op as two CUDA graphs on the card (ops/graphs.py).
+into a ``PathState``: for a drift no gradient reaches, from its Kuu factor
+taken once per version (``gp.frozen_chol_kuu``) and, on the card, replayed
+from one CUDA graph (ops/graphs.py:replayed); the draws stay eager.
+``fused_rollout_operands`` packs a policy, a drift and its paths into the
+operands of the whole-rollout kernel op (ops/rollout_cuda.py);
+``pathwise_rollout_loss_fused`` runs the packing and the op as two CUDA
+graphs on the card (ops/graphs.py).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from ..ops.linalg import bsolve_triangular as solve_triangular
 from ..ops.path_eval_cuda import eval_fused_operands, fused_operands
 from ..ops.rollout_cuda import FusedRolloutLoss, RolloutMeta
 from ..utils import tracing
-from .gp import GPR, SVGP, chol_kuu, gpr_cholesky
+from .gp import GPR, SVGP, chol_kuu, frozen_chol_kuu, gpr_cholesky
 from .kernels import RBF
 
 
@@ -81,18 +84,30 @@ def draw_path_noise(
     )
 
 
-@tracing.span("paths.condition")
-def paths_from_noise(model: SVGP, noise: PathNoise) -> PathState:
-    """Decoupled posterior sample functions of ``model`` from given draws."""
+def _condition(model: SVGP, luu, omega_normal, phase, w, eps):
+    """(omega, v) of the paths from the draws, given Kuu's factor ``luu``."""
     kern = model.kernel
-    omega = noise.omega_normal / kern.lengthscales[:, None, :]
+    omega = omega_normal / kern.lengthscales[:, None, :]
     q_sqrt = torch.tril(model.q_sqrt)  # (L, M, M)
-    v_sample = model.q_mu.T + torch.einsum("lmn,sln->slm", q_sqrt, noise.eps)
-    luu = chol_kuu(model)
+    v_sample = model.q_mu.T + torch.einsum("lmn,sln->slm", q_sqrt, eps)
     u_sample = torch.einsum("lmn,sln->slm", luu, v_sample) if model.whiten else v_sample
-    resid = u_sample - _prior_at_shared(kern, omega, noise.phase, noise.w, model.z)
+    resid = u_sample - _prior_at_shared(kern, omega, phase, w, model.z)
     # one batched solve per latent with S right-hand sides
     v = torch.movedim(bcho_solve(luu, torch.movedim(resid, 0, -1)), -1, 0)
+    return omega, v
+
+
+@tracing.span("paths.condition")
+def paths_from_noise(model: SVGP, noise: PathNoise) -> PathState:
+    """Decoupled posterior sample functions of ``model`` from given draws.
+    Where no tensor of ``model`` requires grad, Kuu's factor is reused across
+    calls, and on the card the conditioning replays from a CUDA graph that
+    reads the factor and the model in place."""
+    luu = frozen_chol_kuu(model)
+    kern = model.kernel
+    consts = (model.whiten, (kern.ls_low, kern.ls_high), getattr(kern, "num_outputs", None))
+    omega, v = graphs.replayed(lambda *draws: _condition(model, luu, *draws), noise,
+                               (*model.parameters(), *model.buffers(), luu), consts)
     return PathState(omega=omega, phase=noise.phase, w=noise.w, v=v)
 
 

@@ -1,6 +1,7 @@
-"""CUDA graphs over a differentiable region of the policy step: the
-particle loss (``models/pathwise.py:pathwise_rollout_loss_fused``), from
-the policy's leaves to the per-particle costs.
+"""CUDA graphs over regions of the policy step: the particle loss
+(``models/pathwise.py:pathwise_rollout_loss_fused``), from the policy's
+leaves to the per-particle costs, and, forward only, the path conditioning
+of a frozen drift (``models/pathwise.py:paths_from_noise``).
 
 ``graphed(fn, inputs, modules, tensors, consts)`` returns ``fn(*inputs)``. On
 the card, with grad enabled and a parameter of ``modules`` that requires it
@@ -43,6 +44,16 @@ each replay instead (``held_counts``, ``add_moves``). ``tracing.graph_event``
 counts captures, forward replays and eager calls; the replays open the spans
 ``graph.fwd`` (input copies and replay) and ``graph.bwd`` (on autograd's
 device thread), and a capture ``graph.capture``.
+
+``replayed(fn, inputs, tensors, consts)`` is the forward-only sibling, for
+the path conditioning, which no gradient passes through: on the card, where
+the inputs and ``tensors`` lie on the current device and none requires grad,
+``fn(*inputs)`` is one CUDA graph, keyed as above in a cache of its own,
+eager on a key's first call, warmed up and captured on its second. Its inputs
+are copied in, ``tensors`` read in place, its outputs handed out as clones.
+It opens no span of its own (the caller's ``paths.condition`` holds it) and
+counts ``paths_captures``, ``paths_replays`` (in the step record too) and
+``paths_eager``.
 """
 from __future__ import annotations
 
@@ -60,6 +71,9 @@ from ..utils import tracing
 # starts; two keys come back where two policies take turns, as a sharded
 # step and the plain one it is checked against (chip_smoke.py, scale-out).
 MAX_ENTRIES = 2
+# Forward-only regions kept, apart from the loss's: a multistart's candidates
+# share one drift, so one entry serves them; two where two drifts take turns.
+FORWARD_ENTRIES = 2
 
 Moves = List[Tuple[Dict[str, int], Dict[str, int]]]  # (launch dict, its keys' increments)
 
@@ -150,12 +164,14 @@ class Cache:
 
 
 _cache = Cache(MAX_ENTRIES)
+_forward_cache = Cache(FORWARD_ENTRIES)
 _UNSEEN = object()
 
 
 def clear() -> None:
     """Drop every captured region and its memory pool."""
     _cache.clear()
+    _forward_cache.clear()
 
 
 # --------------------------------------------------------- the two graphs
@@ -276,3 +292,62 @@ def graphed(fn: Callable[..., torch.Tensor], inputs: Sequence[torch.Tensor],
         tracing.graph_event("captures")
         _cache.put(key, entry)
     return _Replay.apply(entry, tuple(inputs), *leaves)
+
+
+# --------------------------------------------------------- forward only
+class Forward:
+    """One captured forward-only region: static inputs, the graph and its
+    static outputs."""
+
+    def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], reads: Sequence[torch.Tensor]):
+        device = inputs[0].device
+        self.reads = tuple(reads)
+        self.inputs = [torch.empty_like(t, memory_format=torch.contiguous_format) for t in inputs]
+        for s, t in zip(self.inputs, inputs):
+            s.copy_(t)
+        stream = torch.cuda.Stream(device)
+        with torch.cuda.device(device):
+            torch.cuda.synchronize()
+            with torch.cuda.stream(stream):  # the warm-up PyTorch asks for, on the capture stream
+                fn(*self.inputs)
+            torch.cuda.synchronize()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.outputs = tuple(fn(*self.inputs))
+
+    def __call__(self, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        for s, t in zip(self.inputs, inputs):
+            s.copy_(t)
+        self.graph.replay()
+        return tuple(t.clone() for t in self.outputs)
+
+    def release(self) -> None:
+        """Free the graph and, with it, its memory pool."""
+        self.graph.reset()
+        self.graph = self.inputs = self.outputs = self.reads = None
+
+
+def replayed(fn: Callable[..., Tuple[torch.Tensor, ...]], inputs: Sequence[torch.Tensor],
+             tensors: Sequence[torch.Tensor], consts: tuple) -> Tuple[torch.Tensor, ...]:
+    """``fn(*inputs)``, a tuple of tensors, replayed from one forward-only
+    CUDA graph where the module docstring says. ``fn`` reads, beside
+    ``inputs``, only ``tensors``, and draws no random numbers."""
+    device = inputs[0].device
+    engaged = (device.type == "cuda" and device.index == torch.cuda.current_device()
+               and all(t.device == device and not t.requires_grad for t in (*inputs, *tensors)))
+    if not engaged:
+        tracing.graph_event("paths_eager")
+        return fn(*inputs)
+    key = region_key(consts, inputs, tensors)
+    entry = _forward_cache.get(key, _UNSEEN)
+    if entry is _UNSEEN:  # the first call on the key: eager
+        _forward_cache.put(key, None)
+        tracing.graph_event("paths_eager")
+        return fn(*inputs)
+    if entry is None:
+        with tracing.span("graph.capture"):
+            entry = Forward(fn, inputs, tensors)
+        tracing.graph_event("paths_captures")
+        _forward_cache.put(key, entry)
+    tracing.graph_event("paths_replays")
+    return entry(inputs)

@@ -29,9 +29,14 @@ the device: it returns ``bool(flag)``, counts the read under ``site`` and in
 the open step's record, and times the wait in a ``sync.<site>`` span. The
 kernel modules' ``launches`` dicts are registered here, so ``counters()``
 shows them beside the host syncs under their own keys. ``graph_event(kind)``
-counts the particle loss's CUDA graphs (``ops/graphs.py``): ``captures``,
-``replays`` (forward replays, also counted in the open step's record) and
-``eager`` calls, shown as ``graphs.<kind>``.
+counts the CUDA graphs of ``ops/graphs.py``, shown as ``graphs.<kind>``: the
+particle loss's ``captures``, ``replays`` (forward replays, also counted in
+the open step's record as ``graph_replays``) and ``eager`` calls, and the
+path conditioning's ``paths_captures``, ``paths_replays`` (in the record as
+``paths_graph_replays``) and ``paths_eager``. ``kuu_cache_event(kind)``
+counts the frozen drift's Kuu factor taken from its cache (``hits``) or
+factored (``misses``; ``models/gp.py:frozen_chol_kuu``), shown as
+``kuu_cache.<kind>``.
 
     from gpflowpilco_torch.utils import tracing
     tracing.steps()[-1].spans      # the newest step's span tree
@@ -51,7 +56,9 @@ from torch.autograd.profiler import record_function
 
 RING = 16384  # step records held
 SLOTS = 20  # spans a step record holds
-GRAPH_EVENTS = ("captures", "replays", "eager")  # graph_event's kinds
+# graph_event's kinds: the particle loss's, then the path conditioning's
+GRAPH_EVENTS = ("captures", "replays", "eager", "paths_captures", "paths_replays", "paths_eager")
+KUU_CACHE_EVENTS = ("hits", "misses")  # kuu_cache_event's kinds
 
 _now = time.perf_counter_ns
 _profiling = torch._C._autograd._profiler_enabled
@@ -77,6 +84,7 @@ class Step(NamedTuple):
     dropped: int  # spans beyond SLOTS, not held
     spans: Tuple[Span, ...]  # in the order they opened
     graph_replays: int  # forward replays of the particle loss's CUDA graph
+    paths_graph_replays: int = 0  # replays of the path conditioning's CUDA graph (0 if not given)
 
 
 class _Store:
@@ -94,7 +102,8 @@ class _Store:
 
     def reset(self):
         # per record, written as its step closes: (step id, candidate, profiled,
-        # aborted, host syncs, spans held, spans dropped, graph replays)
+        # aborted, host syncs, spans held, spans dropped, graph replays, path
+        # graph replays)
         self.closed: List[Optional[tuple]] = [None] * RING
         self.seq = 0  # the newest step's id
         self.cur = -1  # ring index of the open step, -1 for none
@@ -108,11 +117,12 @@ class _Store:
         self.site_syncs: Dict[str, int] = collections.defaultdict(int)
         self.synced = 0  # host syncs in all
         self.graphs = dict.fromkeys(GRAPH_EVENTS, 0)
+        self.kuu = dict.fromkeys(KUU_CACHE_EVENTS, 0)
 
     def record(self, index: int) -> Step:
         """The closed record ``index``. Spans nest (one stack), so a span's
         parent is the latest opened before it that ends no earlier."""
-        seq, candidate, profiled, aborted, syncs, n, dropped, replays = self.closed[index]
+        seq, candidate, profiled, aborted, syncs, n, dropped, replays, paths = self.closed[index]
         base = index * SLOTS
         spans: List[Span] = []
         outer: List[int] = []
@@ -122,7 +132,7 @@ class _Store:
                 outer.pop()
             spans.append(Span(self.names[start & 255], outer[-1] if outer else -1, start >> 8, end))
             outer.append(len(spans) - 1)
-        return Step(seq, candidate, profiled, aborted, syncs, dropped, tuple(spans), replays)
+        return Step(seq, candidate, profiled, aborted, syncs, dropped, tuple(spans), replays, paths)
 
 
 _store = _Store()
@@ -196,7 +206,7 @@ class step:
     """``with step(name, candidate):``: a step record, its top span ``name``.
     One object serves a loop's iterations in turn."""
 
-    __slots__ = ("top", "candidate", "saved", "seq", "synced", "replayed")
+    __slots__ = ("top", "candidate", "saved", "seq", "synced", "replayed", "paths_replayed")
 
     def __init__(self, name: str, candidate: int = -1):
         self.top = span(name)
@@ -209,7 +219,7 @@ class step:
         rec = s.cur = self.seq % RING
         s.slots, s.dropped = iter(range(rec * SLOTS, (rec + 1) * SLOTS)), 0
         s.profiled = _profiling()
-        self.synced, self.replayed = s.synced, s.graphs["replays"]
+        self.synced, self.replayed, self.paths_replayed = s.synced, s.graphs["replays"], s.graphs["paths_replays"]
         self.top.__enter__()
         return self
 
@@ -218,7 +228,7 @@ class step:
         s = _store
         s.closed[s.cur] = (self.seq, self.candidate, s.profiled or _profiling(), exc_type is not None,
                            s.synced - self.synced, SLOTS - s.slots.__length_hint__(), s.dropped,
-                           s.graphs["replays"] - self.replayed)
+                           s.graphs["replays"] - self.replayed, s.graphs["paths_replays"] - self.paths_replayed)
         s.cur, s.slots, s.dropped, s.profiled = self.saved
         return False
 
@@ -238,6 +248,12 @@ def graph_event(kind: str) -> None:
     """Count one of ``GRAPH_EVENTS``: a capture, a forward replay (counted in
     the open step's record too) or an eager call of a graphed region."""
     _store.graphs[kind] += 1
+
+
+def kuu_cache_event(kind: str) -> None:
+    """Count one of ``KUU_CACHE_EVENTS``: a frozen drift's Kuu factor reused
+    or factored."""
+    _store.kuu[kind] += 1
 
 
 def register_launches(counts: Dict[str, int]) -> Dict[str, int]:
@@ -264,17 +280,19 @@ def steps() -> List[Step]:
 
 def counters() -> Dict[str, int]:
     """``host_syncs.<site>`` for each site that has synced, ``graphs.<kind>``
-    for each of ``GRAPH_EVENTS``, and every registered launch count under its
-    own key."""
+    for each of ``GRAPH_EVENTS``, ``kuu_cache.<kind>`` for each of
+    ``KUU_CACHE_EVENTS``, and every registered launch count under its own
+    key."""
     out = {f"host_syncs.{site}": n for site, n in sorted(_store.site_syncs.items())}
     out.update({f"graphs.{kind}": n for kind, n in _store.graphs.items()})
+    out.update({f"kuu_cache.{kind}": n for kind, n in _store.kuu.items()})
     for counts in _store.launches:
         out.update(counts)
     return out
 
 
 def reset():
-    """Drop the held records, the host-sync and the graph counts, with no
+    """Drop the held records, the host-sync, graph and Kuu-cache counts, with no
     span open (launch counts are the kernel modules', reset by
     ``reset_launches``)."""
     _store.reset()

@@ -1297,3 +1297,160 @@ def test_torch_graphed_particle_loss_escalates_the_policy_kuu_as_the_host_does_o
     counts = tracing.counters()
     assert (counts["graphs.eager"], counts["graphs.captures"], counts["graphs.replays"]) == (1, 1, 4)
     graphs.clear()
+
+
+def _paths_bits(paths):
+    return [t.view(torch.int32 if t.dtype == torch.float32 else torch.int64) for t in paths]
+
+
+def _eager_paths(drift, noise):
+    """The path conditioning as the eager route computes it: the drift's Kuu
+    factored in the call, then the plain torch operations."""
+    from gpflowpilco_torch.models import gp, pathwise
+
+    with torch.no_grad():
+        omega, v = pathwise._condition(drift, gp.chol_kuu(drift), *noise)
+    return pathwise.PathState(omega, noise.phase, noise.w, v)
+
+
+def _pathwise_system(dev):
+    """The benchmark's cartpole system in float64 on K6's route."""
+    import json
+
+    from benchmark.harness.inputs import make_inputs
+    from benchmark.harness.spec import BENCH_DIR
+    from benchmark.harness.system import build_system
+
+    cfg = json.loads((BENCH_DIR / "configs" / "cartpole-swingup-pathwise.json").read_text())
+    return build_system(cfg, {"route": "fused_rollout"}, make_inputs(cfg, 2**33 + 7, torch.float64, dev), 9, dev)
+
+
+def _path_counts():
+    from gpflowpilco_torch.utils import tracing
+
+    counts = tracing.counters()
+    return tuple(counts[f"graphs.paths_{k}"] for k in ("eager", "captures", "replays"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["cartpole-f64", "cartpole-f32", "double-pendulum-ring-f64"])
+def test_torch_replayed_paths_match_eager_and_outlive_the_next_replay_on_gpu(case):
+    """Over 6 calls on fresh draws of the benchmark's frozen drift, the path
+    conditioning (the first call eager, the second warms up, captures and
+    replays) gives paths bit for bit the eager route's, with the drift's Kuu
+    factored once; the paths of one call are unchanged by the next call's
+    replay (they are clones, never the graph's buffers)."""
+    from gpflowpilco_torch.models import pathwise
+    from gpflowpilco_torch.ops import graphs
+    from gpflowpilco_torch.utils import tracing
+
+    dev = _gpu_or_skip()
+    _, drift, _, _ = _graph_case(case, dev)
+    graphs.clear()
+    tracing.reset()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    held = None
+    for step in range(6):
+        noise = pathwise.draw_path_noise(drift, 1024, 1024, gen)
+        got = pathwise.paths_from_noise(drift, noise)
+        if held is not None:
+            assert all(torch.equal(a, b) for a, b in zip(_paths_bits(held[0]), held[1])), step
+        want = _eager_paths(drift, noise)
+        assert all(torch.equal(a, b) for a, b in zip(_paths_bits(got), _paths_bits(want))), step
+        held = got, [b.clone() for b in _paths_bits(got)]
+    assert _path_counts() == (1, 1, 5)
+    counts = tracing.counters()
+    assert (counts["kuu_cache.misses"], counts["kuu_cache.hits"]) == (1, 5)
+    graphs.clear()
+
+
+@pytest.mark.gpu
+def test_torch_pathwise_adam_steps_replay_both_regions_with_one_host_sync_on_gpu():
+    """``adam_minimize`` through ``PathwisePILCO``'s particle loss on the
+    benchmark's cartpole: after the first step, each step replays the path
+    conditioning once and the particle loss once, and waits for the device
+    once (the guard); the first step factors the drift's Kuu (one more sync)
+    and runs both regions eager."""
+    from gpflowpilco_torch.ops import graphs
+    from gpflowpilco_torch.utils import tracing
+    from gpflowpilco_torch.utils.optimizers import adam_minimize
+
+    system = _pathwise_system(_gpu_or_skip())
+    graphs.clear()
+    tracing.reset()
+    adam_minimize(system.loss, system.params, num_steps=6, schedule=system.schedule, global_clipnorm=1.0)
+    records = tracing.steps()
+    assert [r.host_syncs for r in records] == [2, 1, 1, 1, 1, 1]
+    assert [r.paths_graph_replays for r in records] == [0, 1, 1, 1, 1, 1]
+    assert [r.graph_replays for r in records] == [0, 1, 1, 1, 1, 1]
+    assert _path_counts() == (1, 1, 5)
+    graphs.clear()
+
+
+@pytest.mark.gpu
+def test_torch_drift_refit_in_place_between_updates_gives_the_eager_paths_on_gpu(monkeypatch):
+    """Two ``update_policy`` calls of 4 steps, the drift refit in place
+    between them (its z and lengthscales moved under ``no_grad``): every
+    step's paths are bit for bit the eager route's at the drift as it then
+    is; the refit factors Kuu again and captures the region again."""
+    import dataclasses
+
+    from gpflowpilco_torch.loops import pilco
+    from gpflowpilco_torch.models import pathwise
+    from gpflowpilco_torch.ops import graphs
+    from gpflowpilco_torch.utils import tracing
+
+    system = _pathwise_system(_gpu_or_skip())
+    loop, drift = system.loop, system.drift
+    loop.policy_spec = dataclasses.replace(loop.policy_spec, step_limit=4, reinitialize=False)
+    matched = []
+
+    def checked(model, generator, num_samples, num_bases):
+        noise = pathwise.draw_path_noise(model, num_samples, num_bases, generator)
+        got = pathwise.paths_from_noise(model, noise)
+        want = _eager_paths(model, noise)
+        matched.append(all(torch.equal(a, b) for a, b in zip(_paths_bits(got), _paths_bits(want))))
+        return got
+
+    monkeypatch.setattr(pilco, "generate_paths_svgp", checked)
+    graphs.clear()
+    tracing.reset()
+    loop.update_policy()
+    with torch.no_grad():
+        drift.z.add_(0.01)
+        drift.kernel.raw_lengthscales.mul_(1.05)
+    loop.update_policy()
+    assert matched == [True] * 8
+    counts = tracing.counters()
+    assert (counts["kuu_cache.misses"], counts["kuu_cache.hits"]) == (2, 6)
+    assert _path_counts() == (2, 2, 6)
+    graphs.clear()
+
+
+@pytest.mark.gpu
+def test_torch_multistart_captures_the_path_region_once_on_gpu():
+    """A K=2 multistart of 3 steps per candidate on one frozen drift: the
+    candidates share the path region's entry, captured once (the first
+    candidate's first step eager, its second the capture), every later step
+    a replay; each candidate's particle loss has its own capture."""
+    import copy
+
+    from gpflowpilco_torch.loops import pilco
+    from gpflowpilco_torch.ops import graphs
+    from gpflowpilco_torch.utils import tracing
+    from gpflowpilco_torch.utils.optimizers import adam_minimize_multistart
+
+    dev = _gpu_or_skip()
+    system = _pathwise_system(dev)
+    loop, drift = system.loop, system.drift
+    candidates = [copy.deepcopy(system.policy) for _ in range(2)]
+    gens = [torch.Generator(device=dev).manual_seed(16 + k) for k in range(2)]
+    graphs.clear()
+    tracing.reset()
+    losses = [lambda c=c, g=g: loop.policy_loss_fn(c, g, drift=drift) for c, g in zip(candidates, gens)]
+    adam_minimize_multistart(losses, [pilco.policy_mask(c) for c in candidates], num_steps=3)
+    assert _path_counts() == (1, 1, 5)
+    counts = tracing.counters()
+    assert (counts["graphs.eager"], counts["graphs.captures"], counts["graphs.replays"]) == (2, 2, 4)
+    assert [r.paths_graph_replays for r in tracing.steps()] == [0, 1, 1, 1, 1, 1]
+    graphs.clear()

@@ -30,7 +30,7 @@ CELL = "cartpole-k6-f64"
 TINY = {"particles": 32, "bases": 64, "horizon": 0.5, "drift": {"num_inducing": 24},
         "policy": {"num_inducing": 8}}
 NEW_METRICS = ("host_syncs_per_step", "sync_wait_ms", "dispatch_ms", "operands_ms", "backward_ms",
-               "update_ms", "first_step_ms", "loss_graph_replays_per_step")
+               "update_ms", "first_step_ms", "loss_graph_replays_per_step", "paths_graph_replays_per_step")
 HARNESS_SPANS = {"step", "paths", "rollout_fwd", "backward_update"}  # benchmark/harness/trace.py's
 KERNEL_MODULES = ("path_eval", "enc_match", "gpr_match", "kexp", "mm_glue", "mm_match", "rollout")
 
@@ -55,36 +55,45 @@ def _tree(record):
 
 
 def test_pathwise_k6_route_step_span_tree_and_self_times():
+    """The first step factors the frozen drift's Kuu under ``paths.condition``;
+    the second reuses that factor, so only the policy's is taken."""
     records = _steps(_system(), 2)
     assert [r.step for r in records] == [1, 2]
     assert all(r.candidate == -1 and not r.profiled and not r.aborted and r.dropped == 0 for r in records)
-    rec = records[-1]
-    assert _tree(rec) == sorted([
+    later = [
         ("opt.iter", None), ("opt.loss", "opt.iter"), ("opt.backward", "opt.iter"),
         ("opt.guard", "opt.iter"), ("opt.update", "opt.iter"),
         ("paths.draw", "opt.loss"), ("paths.condition", "opt.loss"), ("rollout.operands", "opt.loss"),
-        ("kuu.factor", "paths.condition"), ("kuu.factor", "rollout.operands"),
-        ("sync.kuu", "kuu.factor"), ("sync.guard", "opt.guard"),
-    ])
+        ("kuu.factor", "rollout.operands"), ("sync.guard", "opt.guard"),
+    ]
+    first = later + [("kuu.factor", "paths.condition"), ("sync.kuu", "kuu.factor")]
+    assert [_tree(r) for r in records] == [sorted(first), sorted(later)]
     # the drift's Kuu syncs, the policy's (inside the particle loss) does not
+    rec = records[0]
     assert [rec.spans[s.parent].parent for s in rec.spans if s.name == "sync.kuu"] == [
         next(i for i, s in enumerate(rec.spans) if s.name == "paths.condition")]
-    for i, s in enumerate(rec.spans):
-        kids = [c for c in rec.spans if c.parent == i]
-        assert s.end_ns >= s.start_ns
-        assert all(s.start_ns <= c.start_ns <= c.end_ns <= s.end_ns for c in kids)
-        assert s.ns - sum(c.ns for c in kids) >= 0  # the self time
-        assert all(a.end_ns <= b.start_ns for a, b in zip(kids, kids[1:]))  # siblings in turn
+    assert tracing.counters()["kuu_cache.misses"] == 1 and tracing.counters()["kuu_cache.hits"] == 1
+    for rec in records:
+        for i, s in enumerate(rec.spans):
+            kids = [c for c in rec.spans if c.parent == i]
+            assert s.end_ns >= s.start_ns
+            assert all(s.start_ns <= c.start_ns <= c.end_ns <= s.end_ns for c in kids)
+            assert s.ns - sum(c.ns for c in kids) >= 0  # the self time
+            assert all(a.end_ns <= b.start_ns for a, b in zip(kids, kids[1:]))  # siblings in turn
 
 
 def test_host_syncs_three_a_step_and_one_more_per_escalation(monkeypatch):
-    """The drift's Kuu checks once and the guard once (the policy's Kuu
-    escalates on the device, with no sync); a drift Kuu that needs one
-    jitter escalation checks once more."""
+    """The drift's Kuu checks once where it is factored and the guard once
+    (the policy's Kuu escalates on the device, with no sync); a later step
+    reuses the drift's factor and checks the guard alone; a drift Kuu that
+    needs one jitter escalation, factored again after an in-place change,
+    checks once more."""
     system = _system()
     rec = _steps(system, 1)[-1]
     assert rec.host_syncs == 2
     assert tracing.counters()["host_syncs.kuu"] == 1 and tracing.counters()["host_syncs.guard"] == 1
+    rec = _steps(system, 1)[-1]
+    assert rec.host_syncs == 1 and "host_syncs.kuu" not in tracing.counters()
     gram = system.drift.kernel.gram
 
     def shifted(a, b=None):  # a negative eigenvalue that the first jitter does not lift, the second does
@@ -92,6 +101,8 @@ def test_host_syncs_three_a_step_and_one_more_per_escalation(monkeypatch):
         return k - 5e-5 * torch.eye(k.shape[-1], dtype=k.dtype) if b is None else k
 
     monkeypatch.setattr(system.drift.kernel, "gram", shifted)
+    with torch.no_grad():
+        system.drift.z.add_(0.0)  # a new version of z, its values unchanged
     rec = _steps(system, 1)[-1]
     assert rec.host_syncs == 3 and tracing.counters()["host_syncs.kuu"] == 2
     assert [s.name for s in rec.spans].count("sync.kuu") == 2
@@ -190,6 +201,8 @@ def test_run_cell_reads_the_new_metrics_on_the_cpu_route():
     assert result["correct"] and result["attempted"] > 0
     metrics = result["metrics"]
     assert all(math.isfinite(metrics[m]["value"]) for m in NEW_METRICS if m in metrics)
-    assert metrics["host_syncs_per_step"] == {"value": 2.0, "unit": "syncs"}
+    # the guard alone: the drift's Kuu was factored in the warm-up
+    assert metrics["host_syncs_per_step"] == {"value": 1.0, "unit": "syncs"}
     assert metrics["loss_graph_replays_per_step"] == {"value": 0.0, "unit": "replays"}  # eager here
+    assert metrics["paths_graph_replays_per_step"] == {"value": 0.0, "unit": "replays"}
     assert {"dispatch_ms", "operands_ms", "backward_ms", "update_ms", "first_step_ms"} <= set(metrics)
